@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path and training step on one
+NVIDIA card.
 
-    python3 chip_smoke.py                      # full run, Llama-2-7B width
-    python3 chip_smoke.py --layers 2 --requests 4   # short check
+    python3 chip_smoke.py                      # full run
+    python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
+        --train-steps 2                        # short check
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -19,7 +21,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tolerance, and timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function
    (``scaled_dot_product_attention`` on the pre-gathered cache) and the
-   card's bound for the work.
+   card's bound for the work. Then B1-B3 (flash attention forward and
+   its two backward passes) at the training shape (B = 4, S = 4096,
+   H = 12, D = 128, causal) and six ragged ones, each against its plain
+   version and against a planted fault the check must reject
+   (``check_flash``); the training shape is timed beside SDPA.
 3. The engine at Llama-2-7B width (random weights from a seeded
    generator): ``max_batch=8, page_size=16, max_len=2048,
    prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
@@ -31,6 +37,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.profiler`` traces a few prefill chunks and decode steps of
    the bf16 KV, fused tier and splits the card's kernel time into the
    attention kernels, matmuls and the rest, against the host's wall time.
+3b. Training: ``make_train_step`` on the JAX bench's training model
+   (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), 2
+   warm-up and 5 timed steps with the launch counters zeroed just before
+   the timed steps (B1 twice per layer and step: backward recomputes the
+   checkpointed layer; B2 and B3 once); tokens/s, MFU, peak memory and
+   the losses, which must be finite and fall; a ``torch.profiler`` split
+   of one step; and the whole-slice check (``whole_slice``) of a 2-layer
+   model in bf16 on the card against f32 on the CPU.
 4. The ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -50,12 +64,34 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
-# kernel vs plain, both bf16: |kernel - plain| <= ATOL + RTOL * |plain|
-# elementwise, i.e. about 2.5 bf16 ulps (2^-8 relative) plus an absolute
-# floor for outputs near zero; the two round p to bf16 at different
-# points (before vs after normalising) and sum in different orders
-KERNEL_RTOL, KERNEL_ATOL = 1e-2, 2e-2
+# Every attention kernel against its plain version, row by row (a row is
+# one D-vector: a query's output or dQ, a key's dK or dV):
+#     |kernel row - plain row| <= ROW_RTOL * |plain row| + ROW_FLOOR * rms
+# with rms the root mean square of the plain tensor's row norms. Rows
+# shrink with their context (an output row of a query that sees t keys
+# of N(0, 1) values has norm ~ sqrt(D / t)), so the limit follows each
+# row and not the tensor's largest values. The kernels round their
+# outputs to bf16 (2^-9 relative) and p and ds to bf16 before the
+# products, as the TPU kernels do; on an H100 the worst rows of B1-B3
+# and B9-B11 read 0.3-0.6% of their norms. The floor only admits rows
+# that cancel to zero up to f32 rounding (dQ of the first query, dK and
+# dV of keys no query sees). A flash kernel that skips its last key
+# tile moves the late rows by 50-100%: check_flash plants that fault in
+# the plain versions and fails unless the check rejects it.
+ROW_RTOL, ROW_FLOOR = 2e-2, 1e-4
+FAULT_TILE = 64                # keys dropped by the planted fault
 LOGITS_ATOL = 0.25             # bf16 through 32 layers, logits ~ N(0, 1)
+# flash B1's lse against the plain forward in f32 from the same bf16
+# inputs: both f32 (~9 at S = 4096, ulp 1e-6), summed in other orders
+LSE_ATOL = 1e-5
+# whole-slice check: a 2-layer full-width model in bf16 on the card
+# against f32 on the CPU from the same parameters, relative errors of
+# the loss, the gradient norm, and each layer's wq, wk and wv gradient
+# (the leaves that only the flash backward feeds; bf16 gradients through
+# two layers of bf16 activations). Two planted attention faults on the
+# CPU side (attention output zero; last key tile skipped) must fail it.
+SLICE_LOSS_RTOL, SLICE_GNORM_RTOL, SLICE_ATTN_RTOL = 2e-4, 5e-3, 4e-2
+ATTN_LEAVES = ("wq", "wk", "wv")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -91,16 +127,25 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def check_close(torch, got, want, what: str) -> float:
-    """Fail unless ``got`` is within the stated bf16 tolerance of
-    ``want``; returns the max abs error."""
+def row_ratio(torch, got, want) -> float:
+    """The worst row of ``got`` against ``want`` as a share of its limit
+    (ROW_RTOL, ROW_FLOOR above); the check passes at <= 1, and a NaN
+    fails it."""
     g, w = got.float(), want.float()
-    err = (g - w).abs().max().item()
-    excess = ((g - w).abs() - KERNEL_RTOL * w.abs()).max().item()
-    if not (math.isfinite(err) and excess <= KERNEL_ATOL):
-        fail(f"{what}: max abs err {err} exceeds {KERNEL_ATOL} + "
-             f"{KERNEL_RTOL} * |plain|")
-    return err
+    ref = w.norm(dim=-1)
+    lim = ROW_RTOL * ref + ROW_FLOOR * ref.square().mean().sqrt()
+    return ((g - w).norm(dim=-1) / lim).max().item()
+
+
+def check_close(torch, got, want, what: str):
+    """Fail unless every row of ``got`` is within its limit of ``want``;
+    returns (max abs error, worst row's share of its limit)."""
+    ratio = row_ratio(torch, got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    if not ratio <= 1.0:
+        fail(f"{what}: worst row at {ratio:.3g} of its limit ({ROW_RTOL} * "
+             f"|plain row| + {ROW_FLOOR} * rms); max abs err {err}")
+    return err, ratio
 
 
 # ---------------------------------------------------------------- phase 2
@@ -162,8 +207,8 @@ def check_decode(torch, F, kernels, fused: bool, kv_int8: bool):
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    err = check_close(torch, out_k, out_p,
-                      f"{'B10' if fused else 'B9'} kv_int8={kv_int8}")
+    err, ratio = check_close(torch, out_k, out_p,
+                             f"{'B10' if fused else 'B9'} kv_int8={kv_int8}")
     # library yardstick: SDPA over the cache gathered and dequantized
     # beforehand (outside the timed call)
     ck = pa.gather_pages(kp, bt)
@@ -192,8 +237,8 @@ def check_decode(torch, F, kernels, fused: bool, kv_int8: bool):
               + (2 * B * (D // 2) * 4 if fused else 0))  # cos/sin rows
     flops = 4 * n_tok * H * D
     b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
@@ -230,8 +275,8 @@ def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    err = check_close(torch, out_k, out_p,
-                      f"B11 kv_int8={kv_int8} ctx_cap={ctx_cap}")
+    err, ratio = check_close(torch, out_k, out_p,
+                             f"B11 kv_int8={kv_int8} ctx_cap={ctx_cap}")
     if kv_int8:
         ckd = (ck.float() * kr[..., None]).bfloat16()
         cvd = (cv.float() * vr[..., None]).bfloat16()
@@ -258,8 +303,132 @@ def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
               + (2 * cols * HK * 4 if kv_int8 else 0) + 4)
     flops = 4 * pairs * H * D
     b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the flash kernels compute: all, or under the
+    top-left causal mask those with key <= query."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + max(0, sq - sk) * sk
+
+
+def check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal, seed, timed):
+    """B1, B2 and B3 on one shape (bf16), each against its plain version
+    in f32 on the same bf16 inputs: B1's O and lse; dQ, dK and dV from
+    ``flash_attention(...).backward(dO)`` (the training path's autograd
+    op, GQA group sums included) against the plain backward passes on
+    B1's own lse and ``delta = rowsum(O * dO)`` of B1's own O, as the op
+    gives them to B2 and B3. Then the planted fault: the plain versions
+    without the last FAULT_TILE keys that some query sees must fail the
+    same row checks, every output of them. With ``timed``, each kernel's
+    time beside its plain version's, its bound, and SDPA's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(s, h):
+        return torch.randn((B, s, h, D), generator=g,
+                           device="cuda").bfloat16()
+
+    q, k, v, do = rand(sq, H), rand(sk, HK), rand(sk, HK), rand(sq, H)
+    rep, scale = H // HK, D ** -0.5
+    kr = torch.repeat_interleave(k, rep, dim=2)
+    vr = torch.repeat_interleave(v, rep, dim=2)
+    what = f"B{B} Sq{sq} Sk{sk} H{H} HK{HK} D{D} causal={causal}"
+    out, lse = fa.flash_fwd(q, kr, vr, causal=causal, scale=scale)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_op = fa.flash_attention(*leaves, causal=causal)
+    o_op.backward(do)
+    torch.cuda.synchronize()
+    if not torch.equal(o_op.detach(), out):
+        fail(f"B1 {what}: the autograd op's O is not flash_fwd's")
+    got = {"O": out, "dQ": leaves[0].grad, "dK": leaves[1].grad,
+           "dV": leaves[2].grad}
+    del o_op, leaves
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    qf, kf, vf, dof = (t.float() for t in (q, kr, vr, do))
+
+    def plain_over(keys: int):
+        """O, lse, dQ, dK, dV of the plain versions over the first
+        ``keys`` keys; dK and dV summed over each GQA group, zero past
+        ``keys``."""
+        kk, vk = kf[:, :keys], vf[:, :keys]
+        o, l = fa.flash_attention_plain(qf, kk, vk, causal, scale)
+        dk, dv = fa.flash_bwd_dkv_plain(qf, kk, vk, dof, lse, delta, causal,
+                                        scale)
+        dq = fa.flash_bwd_dq_plain(qf, kk, vk, dof, lse, delta, causal, scale)
+
+        def group(t):
+            t = F.pad(t, (0, 0, 0, 0, 0, sk - keys))
+            return t.reshape(B, sk, HK, rep, D).sum(3)
+
+        return {"O": o, "dQ": dq, "dK": group(dk), "dV": group(dv)}, l
+
+    want, want_lse = plain_over(sk)
+    errs, ratios = {}, {}
+    for n in got:
+        errs[n], ratios[n] = check_close(torch, got[n], want[n],
+                                         f"{n} {what}")
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        fail(f"B1 lse {what}: max abs err {lse_err} > {LSE_ATOL}")
+    del want, want_lse
+    seen = min(sq, sk) if causal else sk
+    fault, _ = plain_over(seen - FAULT_TILE)
+    fault_ratios = {n: row_ratio(torch, got[n], fault[n]) for n in got}
+    del fault, qf, kf, vf, dof
+    for n, r in fault_ratios.items():
+        if not r > 1.0:
+            fail(f"{n} {what}: the check passes the plain version without "
+                 f"its last {FAULT_TILE} seen keys (worst row at {r:.3g} of "
+                 f"its limit)")
+    by_kernel = {"B1": ("O",), "B2": ("dK", "dV"), "B3": ("dQ",)}
+    rec = {"shape": what, "max_abs_err": errs, "row_ratio": ratios,
+           "fault_row_ratio": fault_ratios, "lse_err": lse_err,
+           "kernel_err": {b: max(errs[n] for n in ns)
+                          for b, ns in by_kernel.items()},
+           "kernel_row_ratio": {b: max(ratios[n] for n in ns)
+                                for b, ns in by_kernel.items()}}
+    if not timed:
+        return rec
+    kw = dict(causal=causal, scale=scale)
+    args = (q, kr, vr, do, lse, delta)
+    ms = {"B1": time_ms(torch, lambda: fa.flash_fwd(q, kr, vr, **kw)),
+          "B2": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, **kw)),
+          "B3": time_ms(torch, lambda: fa.flash_bwd_dq(*args, **kw))}
+    plain = {
+        "B1": time_ms(torch, lambda: fa.flash_attention_plain(
+            q, kr, vr, causal, scale), reps=3, warmup=1),
+        "B2": time_ms(torch, lambda: fa.flash_bwd_dkv_plain(
+            *args, causal, scale), reps=3, warmup=1),
+        "B3": time_ms(torch, lambda: fa.flash_bwd_dq_plain(
+            *args, causal, scale), reps=3, warmup=1)}
+    Q, K, V, dO = (t.transpose(1, 2).contiguous() for t in (q, kr, vr, do))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        Q, K, V, is_causal=causal))
+    Ql, Kl, Vl = (t.requires_grad_() for t in (Q, K, V))
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(Ql, Kl, Vl, is_causal=causal)
+        return torch.autograd.grad(o, (Ql, Kl, Vl), dO)
+
+    lib_fb = time_ms(torch, lib_fwd_bwd)
+    pairs = B * H * flash_pairs(sq, sk, causal)
+    qbytes, kbytes = B * sq * H * D * 2, B * sk * H * D * 2
+    rows = B * H * sq * 4                             # one f32 per row
+    work = {  # bytes (each input read once, each output written once), flops
+        "B1": (2 * qbytes + 2 * kbytes + rows, 4 * D * pairs),
+        "B2": (2 * qbytes + 4 * kbytes + 2 * rows, 8 * D * pairs),
+        "B3": (3 * qbytes + 2 * kbytes + 2 * rows, 6 * D * pairs)}
+    for name in ("B1", "B2", "B3"):
+        b_ms, b_by = bound_ms(*work[name])
+        rec[name] = dict(ms=ms[name],
+                         plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_fwd if name == "B1" else None)
+    rec["sdpa_fwd_ms"], rec["sdpa_fwd_bwd_ms"] = lib_fwd, lib_fb
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -366,7 +535,8 @@ def run_tier(torch, kernels, gen, Engine, params, cfg, reqs, kv, fused):
                  f"{h.finish_reason} with {len(h.tokens)}/{m} tokens")
     st = eng.stats()
     L = cfg.num_layers
-    want = {"B9": 0 if fused else st["steps"] * L,
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0),
+            "B9": 0 if fused else st["steps"] * L,
             "B10": st["steps"] * L if fused else 0,
             "B11": st["prefill_chunks"] * L if fused else 0}
     if counts != want:
@@ -412,7 +582,7 @@ def device_breakdown(torch, prof, calls: int, wall_ms: float):
         us = ev.self_device_time_total
         top.append((us, ev.count, ev.key))
         key = ev.key.lower()
-        if "paged_decode" in key or "flash_chunk" in key:
+        if "paged_decode" in key or "flash_" in key:
             kinds["attention kernel"] += us
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass", "splitk")):
@@ -480,14 +650,190 @@ def profile_tier(torch, Engine, params, cfg, reqs, chunks: int = 4,
             "decode_step": decode}
 
 
+# --------------------------------------------------------------- phase 3b
+def train_config(LlamaConfig, layers: int):
+    """The JAX bench's training model (``bench.py`` ``pick_config`` for a
+    TPU): bf16, remat with policy "nothing"."""
+    return LlamaConfig(vocab_size=32000, hidden_size=1536,
+                       intermediate_size=4096, num_layers=layers,
+                       num_heads=12, num_kv_heads=12, max_seq_len=4096)
+
+
+def run_training(torch, np, kernels, tl, tt, args):
+    """2 warm-up and ``args.train_steps`` timed steps on one batch; the
+    launch counters are zeroed just before the timed steps and read just
+    after."""
+    cfg = train_config(tl.LlamaConfig, args.train_layers)
+    seq, batch = 4096, 4               # bench.py's _SWEEP_BASE_BATCH
+    t0 = time.perf_counter()
+    state = tt.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)), dtype=torch.int32, device="cuda")
+    step = tt.make_train_step(cfg, seq_chunk=512)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, tokens)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(args.train_steps):
+        ts = time.perf_counter()
+        state, m = step(state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        metrics.append(m)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"training: non-finite loss or grad norm {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall: {losses}")
+    L, n = cfg.num_layers, args.train_steps
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0),
+            "B1": 2 * L * n, "B2": L * n, "B3": L * n}
+    if counts != want:
+        fail(f"training: launches {counts} != {want} (B1 runs twice per "
+             f"layer: backward recomputes the checkpointed layer)")
+    tps = n * batch * seq / wall
+    rec = dict(layers=L, batch=batch, seq=seq, seq_chunk=512,
+               params=cfg.num_params(), init_s=init_s,
+               tokens_per_s=tps, step_ms=step_ms,
+               step_ms_mean=sum(step_ms) / n,
+               mfu=tps * cfg.flops_per_token(seq) / BF16_FLOPS_PER_S,
+               peak_mem_gb=peak, losses=losses, grad_norms=gnorms,
+               launches=counts)
+    return rec, step, state, tokens
+
+
+def attn_grads(torch, tl, params, tokens, cfg):
+    """``loss_fn`` and its gradients of the ATTN_LEAVES, as f32 on the
+    CPU (each a (layers, in, out) stack)."""
+    ws = [params["layers"][n] for n in ATTN_LEAVES]
+    for w in ws:
+        w.requires_grad_(True)
+    try:
+        loss = tl.loss_fn(params, tokens, cfg, seq_chunk=512)
+        grads = torch.autograd.grad(loss, ws, materialize_grads=True)
+    finally:
+        for w in ws:
+            w.requires_grad_(False)
+    return loss.item(), [g.float().cpu() for g in grads]
+
+
+def slice_errors(torch, card, ref):
+    """Relative errors of (loss, grads) ``card`` against ``ref``: the
+    loss, and each ATTN_LEAVES gradient per layer (Frobenius norm of the
+    difference over the larger of the two norms)."""
+    errs = {"loss": abs(card[0] - ref[0]) / abs(ref[0])}
+    for n, a, b in zip(ATTN_LEAVES, card[1], ref[1]):
+        errs[n] = [((x - y).norm() / torch.maximum(x.norm(), y.norm())).item()
+                   for x, y in zip(a, b)]
+    return errs
+
+
+def slice_failures(errs) -> list:
+    """The entries of ``errs`` over their SLICE_* limits (NaN is over)."""
+    lim = {"loss": SLICE_LOSS_RTOL, "grad_norm": SLICE_GNORM_RTOL,
+           **dict.fromkeys(ATTN_LEAVES, SLICE_ATTN_RTOL)}
+    return [k for k, e in errs.items()
+            if not max(e if isinstance(e, list) else [e]) <= lim[k]]
+
+
+def whole_slice(torch, np, tl, tt, fa, seed: int):
+    """A 2-layer model at full width, B = 1, S = 1024: bf16 with the
+    kernels on the card, and from the same parameters in f32 on the CPU
+    with the plain versions. Compares ``loss_fn``'s wq, wk, wv gradients,
+    then one ``make_train_step`` step's loss and grad norm. Controls: the
+    CPU side with two planted attention faults must fail the same
+    limits."""
+    import dataclasses
+    cfg = train_config(tl.LlamaConfig, 2)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 1024)), dtype=torch.int32)
+    card = tt.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(seed + 1), device="cuda")
+
+    def f32_cpu(tree):
+        return {k: f32_cpu(v) if isinstance(v, dict) else v.float().cpu()
+                for k, v in tree.items()}
+
+    cpu = tt.TrainState(0, *(f32_cpu(t) for t in (
+        card.params, card.master, card.m, card.v)))
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    t0 = time.perf_counter()
+    on_card = attn_grads(torch, tl, card.params, tokens.cuda(), cfg)
+    on_cpu = attn_grads(torch, tl, cpu.params, tokens, cpu_cfg)
+    cpu_s = time.perf_counter() - t0
+    errs = slice_errors(torch, on_card, on_cpu)
+
+    def skip_last_tile(q, k, v, causal=True):
+        return fa.flash_attention_plain(q, k[:, :-FAULT_TILE],
+                                        v[:, :-FAULT_TILE], causal)[0]
+
+    controls = {}
+    model_attention = tl._attention
+    for name, fault in (("attention output zero",
+                         lambda q, k, v, causal=True: q * 0.0),
+                        (f"last {FAULT_TILE} keys skipped", skip_last_tile)):
+        tl._attention = fault        # the CPU reference's einsum path
+        try:
+            faulty = attn_grads(torch, tl, cpu.params, tokens, cpu_cfg)
+        finally:
+            tl._attention = model_attention
+        controls[name] = slice_errors(torch, on_card, faulty)
+        if not slice_failures(controls[name]):
+            fail(f"whole slice: the check passes the CPU reference with its "
+                 f"{name} ({controls[name]})")
+    # the step's loss is loss_fn's above; its grad norm covers every leaf
+    _, mc = tt.make_train_step(cfg, seq_chunk=512)(card, tokens.cuda())
+    _, mh = tt.make_train_step(cpu_cfg, seq_chunk=512)(cpu, tokens)
+    rec = {k: {"card_bf16": mc[k].item(), "cpu_f32": mh[k].item()}
+           for k in ("loss", "grad_norm")}
+    a, b = rec["grad_norm"]["card_bf16"], rec["grad_norm"]["cpu_f32"]
+    errs["grad_norm"] = abs(a - b) / abs(b)
+    bad = slice_failures(errs)
+    if bad:
+        fail(f"whole slice: {bad} over their limits: {errs}")
+    rec.update(rel_err=errs, controls=controls, cpu_grads_s=cpu_s)
+    return rec
+
+
+def profile_train(torch, step, state, tokens, step_ms: float):
+    """``torch.profiler`` over one training step; the idle share is taken
+    against the unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, tokens)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rec = device_breakdown(torch, prof, 1, step_ms)
+    rec["profiled_wall_ms"] = wall
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="engine depth (Llama-2-7B has 32)")
     ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--train-layers", type=int, default=20,
+                    help="training model depth (the JAX bench's has 20)")
+    ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -497,8 +843,11 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.models import generate as gen
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.models import train as tt
     from paddle_tpu_torch.models.llama import LlamaConfig, init_params
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -519,7 +868,8 @@ def main(argv=None) -> int:
         log = _build.log_path(name)
         if log.exists():
             for line in log.read_text(errors="replace").splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     print(f"  ptxas {name}: {line.strip()}")
     record["build_s"] = build_s
 
@@ -533,18 +883,39 @@ def main(argv=None) -> int:
             results[key] = r
             print(f"kernel {key}: " + json.dumps(r))
     for kv_int8 in (False, True):
-        worst = 0.0
+        worst, worst_ratio = 0.0, 0.0
         key = f"B11-{'int8' if kv_int8 else 'bf16'}"
         for ctx_cap, ctx_len in ((0, 0), (256, 200), (1024, 1000),
                                  (2048, 1900)):
             r = check_chunk(torch, F, kernels, kv_int8, ctx_cap, ctx_len)
             torch.cuda.synchronize()
             worst = max(worst, r["max_abs_err"])
+            worst_ratio = max(worst_ratio, r["row_ratio"])
             print(f"kernel {key} ctx_cap={ctx_cap}: " + json.dumps(r))
             if ctx_cap == 1024:
                 results[key] = r
-        results[key]["max_abs_err"] = worst
+        results[key].update(max_abs_err=worst, row_ratio=worst_ratio)
+    flash = [check_flash(torch, F, fa, 4, 4096, 4096, 12, 12, 128, True,
+                         seed=21, timed=True)]
+    for B, sq, sk, H, HK, D, causal in ((2, 320, 320, 4, 4, 128, True),
+                                        (2, 320, 320, 4, 4, 128, False),
+                                        (2, 192, 320, 4, 4, 128, True),
+                                        (2, 320, 192, 4, 4, 128, True),
+                                        (2, 320, 320, 4, 2, 64, True),
+                                        (2, 192, 320, 4, 2, 64, False)):
+        flash.append(check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal,
+                                 seed=22, timed=False))
+    for rec in flash:
+        print("kernel flash " + json.dumps(rec))
+    for name in ("B1", "B2", "B3"):
+        results[name] = dict(
+            flash[0][name],
+            max_abs_err=max(r["kernel_err"][name] for r in flash),
+            row_ratio=max(r["kernel_row_ratio"][name] for r in flash))
+    gc.collect()
+    torch.cuda.empty_cache()
     record["kernels_phase"] = results
+    record["flash_phase"] = flash
 
     # ---- phase 3: the engine
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
@@ -566,15 +937,39 @@ def main(argv=None) -> int:
     prof = profile_tier(torch, ContinuousBatchingEngine, params, cfg, reqs)
     print("profile " + json.dumps(prof))
     record["profile"] = prof
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 3b: training
+    train, step, state, tokens = run_training(torch, np, kernels, tl, tt,
+                                              args)
+    print("train " + json.dumps(train))
+    tprof = profile_train(torch, step, state, tokens, train["step_ms_mean"])
+    print("train profile " + json.dumps(tprof))
+    del step, state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    train["slice_check"] = whole_slice(torch, np, tl, tt, fa, args.seed)
+    print("train slice " + json.dumps(train["slice_check"]))
+    train["profile"] = tprof
+    record["train"] = train
 
     # ---- phase 4: the kernel line
-    launches = {}
+    launches = {k: train["launches"][k] for k in ("B1", "B2", "B3")}
     for rec in tiers:
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:
                 launches[f"{k}-{kvn}"] = launches.get(f"{k}-{kvn}", 0) + n
+    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     meta = {
+        "B1": ("cuda", flash_src,
+               "paddle_tpu/ops/pallas/flash_attention.py:184"),
+        "B2": ("cuda", flash_src,
+               "paddle_tpu/ops/pallas/flash_attention.py:343"),
+        "B3": ("cuda", flash_src,
+               "paddle_tpu/ops/pallas/flash_attention.py:370"),
         "B9": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas/paged_attention.py:163"),
         "B10": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",

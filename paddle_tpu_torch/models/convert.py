@@ -1,7 +1,8 @@
-"""Weight bridge: the JAX package's parameter tree into the port's.
+"""Weight bridge: the JAX package's parameter tree and training state
+into the port's.
 
 The two packages share leaf names and layouts, so the bridge moves bytes
-and never transposes. It takes the tree as numpy arrays
+and never transposes. It takes the trees as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and imports nothing of JAX.
 """
 from __future__ import annotations
@@ -34,3 +35,15 @@ def params_from_jax(tree: Mapping, device: DeviceLike = None) -> Dict:
         else:
             out[name] = _leaf(value).to(dev)
     return out
+
+
+def train_state_from_jax(state, device: DeviceLike = None):
+    """A JAX ``TrainState`` of numpy arrays (``jax.tree.map(np.asarray,
+    state)``: step, params, master, m, v) -> the port's
+    :class:`~paddle_tpu_torch.models.train.TrainState` on ``device``,
+    every leaf bit for bit."""
+    from .train import TrainState
+    dev = resolve_device(device)
+    return TrainState(int(np.asarray(state.step)),
+                      *(params_from_jax(tree, dev) for tree in
+                        (state.params, state.master, state.m, state.v)))

@@ -20,11 +20,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import serving_fused as _sf
-from .llama import LlamaConfig, layer_params, rms_norm, rope_tables
+from .llama import (LlamaConfig, _lm_head, _mlp, layer_params, rms_norm,
+                    rope_tables)
 
 
 def _kv_zeros(cfg: LlamaConfig, shape, kv_dtype, what: str, device):
@@ -115,13 +115,6 @@ def _attn_with_cache(q, ck, cv, length: int, kstart, k_rows=None,
     return attn(q, ck, cv, length, kstart, k_rows=k_rows, v_rows=v_rows)
 
 
-def _mlp(x, lp, cfg: LlamaConfig):
-    h2 = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    g = F.silu((h2 @ lp["wg"]).float()).to(x.dtype)
-    u = h2 @ lp["wu"]
-    return x + (g * u) @ lp["wd"]
-
-
 def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                  cfg: LlamaConfig, rpos, kstart, fused=False):
     """One decoder layer over T tokens written at cache index ``pos``
@@ -148,12 +141,6 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
     return _mlp(x, lp, cfg)
 
 
-def _head(params, cfg: LlamaConfig, x):
-    if cfg.tie_embeddings:
-        return params["embed"].T.to(x.dtype)
-    return params["lm_head"]
-
-
 def _forward_cached(params, tokens, cache: Dict, pos: int,
                     cfg: LlamaConfig, max_len: int, rpos, kstart,
                     logits_at: Optional[int] = None, fused=False):
@@ -170,7 +157,7 @@ def _forward_cached(params, tokens, cache: Dict, pos: int,
     if logits_at is not None:
         idx = min(max(int(logits_at), 0), x.shape[1] - 1)
         x = x[:, idx:idx + 1]
-    return (x[:, -1] @ _head(params, cfg, x)).float()
+    return (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()
 
 
 def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
@@ -306,5 +293,5 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
         x = x + o.reshape(B, 1, nh * hd) @ lp["wo"]
         x = _mlp(x, lp, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = (x[:, -1] @ _head(params, cfg, x)).float()
+    logits = (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()
     return logits, paged

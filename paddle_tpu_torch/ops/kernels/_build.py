@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
-SOURCES = ("paged_decode", "flash_chunk")
+SOURCES = ("paged_decode", "flash_chunk", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,9 +8,16 @@ False (as on a CPU-only test machine) and runs on an H100 with
 (``--noconftest`` keeps the JAX-side test harness out of the process).
 Shapes are small but cover every template instantiation the wrappers
 dispatch to: head dim 64 and 128, float32 and bfloat16 queries, native
-and int8 KV, GQA rep 1 and 2. Tolerances: float32 1e-5 (same math,
-another summation order); bfloat16 2e-2 + 1e-2 * |plain| (p is rounded
-to bf16 before vs after normalisation).
+and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
+full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136).
+Tolerances: float32 1e-5 (same math, another summation order; 1e-4
+for the flash gradients, sums of up to 200 products, against autograd
+through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
+every row (one D-vector) within 2e-2 * |plain row| + 1e-4 * the rms of
+the plain rows (the kernels round their outputs, and p and ds, to bf16,
+2^-9 relative; the floor admits rows that cancel to zero); the flash
+gradients against the plain B2 and B3 in float32 on B1's own lse and
+delta, as the autograd op hands them over.
 """
 import numpy as np
 import pytest
@@ -19,11 +26,14 @@ import torch
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generate as gen
 from paddle_tpu_torch.models import llama as tl
+from paddle_tpu_torch.models import train as tt
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import serving_fused as sf
 
 pytestmark = pytest.mark.cuda
+NONE = dict.fromkeys(kernels.WRAPPERS, 0)   # no launches of any kernel
 
 
 @pytest.fixture
@@ -39,7 +49,9 @@ def _close(got, want, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     else:
-        assert ((g - w).abs() - 1e-2 * w.abs()).max().item() <= 2e-2
+        ref = w.norm(dim=-1)
+        lim = 2e-2 * ref + 1e-4 * ref.square().mean().sqrt()
+        assert ((g - w).norm(dim=-1) <= lim).all()
 
 
 CASES = [(d, dt, q8, rep) for d in (64, 128)
@@ -89,7 +101,7 @@ def test_paged_decode_kernels_match_plain(cuda, case):
         q, cos[pos], sin[pos], k, v, bt, lens, ks_pages=ks, vs_pages=vs),
         dtype)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"B9": 1, "B10": 1, "B11": 0}
+    assert kernels.launch_counts() == {**NONE, "B9": 1, "B10": 1}
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_ids(c) for c in CASES])
@@ -106,7 +118,7 @@ def test_flash_chunk_kernel_matches_plain(cuda, case):
     _close(out, sf.flash_chunk_attention_plain(q, k, v, W, kstart,
                                                k_rows=kr, v_rows=vr), dtype)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"B9": 0, "B10": 0, "B11": 1}
+    assert kernels.launch_counts() == {**NONE, "B11": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -146,7 +158,7 @@ def test_engine_on_the_card_matches_cpu(cuda, kv, fused):
     counts = kernels.launch_counts()
     assert all(len(o) == len(p) + 6 for o, p in zip(outs, prompts))
     L, st = cfg.num_layers, on_card.stats()
-    assert counts == {"B9": 0 if fused else st["steps"] * L,
+    assert counts == {**NONE, "B9": 0 if fused else st["steps"] * L,
                       "B10": st["steps"] * L if fused else 0,
                       "B11": st["prefill_chunks"] * L if fused else 0}
     logits = []
@@ -170,3 +182,98 @@ def _on(tree, dev):
     if isinstance(tree, dict):
         return {k: _on(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+FLASH_CASES = [(d, dt, causal, rep) for d in (64, 128)
+               for dt in (torch.float32, torch.bfloat16)
+               for causal in (False, True) for rep in (1, 2)]
+
+
+def _fids(c):
+    return (f"D{c[0]}-{str(c[1])[6:]}-{'causal' if c[2] else 'full'}-"
+            f"rep{c[3]}")
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[_fids(c) for c in FLASH_CASES])
+def test_flash_kernels_match_plain(cuda, case):
+    D, dtype, causal, rep = case
+    g = torch.Generator().manual_seed(2)
+    B, HK = 2, 2
+    H = HK * rep
+    for sq, sk in ((200, 200), (72, 136)):
+        q = torch.randn((B, sq, H, D), generator=g).to(dtype).to(cuda)
+        k = torch.randn((B, sk, HK, D), generator=g).to(dtype).to(cuda)
+        v = torch.randn((B, sk, HK, D), generator=g).to(dtype).to(cuda)
+        do = torch.randn((B, sq, H, D), generator=g).to(dtype).to(cuda)
+        kr = torch.repeat_interleave(k, rep, dim=2)
+        vr = torch.repeat_interleave(v, rep, dim=2)
+        kernels.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, kr, vr, causal=causal, scale=D ** -0.5)
+        want, want_lse = fa.flash_attention_plain(
+            q.float(), kr.float(), vr.float(), causal=causal)
+        _close(out, want, dtype)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention(*leaves, causal=causal).backward(do)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {**NONE, "B1": 2, "B2": 1,
+                                           "B3": 1}
+        if dtype == torch.float32:
+            ref = [t.float().requires_grad_() for t in (q, k, v)]
+            o, _ = fa.flash_attention_plain(
+                ref[0], torch.repeat_interleave(ref[1], rep, dim=2),
+                torch.repeat_interleave(ref[2], rep, dim=2), causal=causal)
+            o.backward(do.float())
+            for a, b in zip(leaves, ref):
+                torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
+                                           atol=1e-4)
+            continue
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+        f = [t.float() for t in (q, kr, vr, do)]
+        args = (*f, lse, delta.contiguous(), causal, D ** -0.5)
+        dk, dv = fa.flash_bwd_dkv_plain(*args)
+        want = [fa.flash_bwd_dq_plain(*args)] + [
+            t.reshape(B, sk, HK, rep, D).sum(3) for t in (dk, dv)]
+        for a, b in zip(leaves, want):
+            _close(a.grad, b, dtype)
+
+
+def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 128, 2, 96), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, q, q, causal=True, scale=0.1)
+    q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_fwd(q, q, q, causal=True, scale=0.1)
+
+
+@pytest.mark.parametrize("policy", tl.REMAT_POLICIES)
+def test_train_step_on_the_card_matches_cpu(cuda, policy):
+    """A float32 model of head dim 64 at S = 128 takes the flash kernels
+    on the card: one step's loss and grad norm agree with the same step
+    on the CPU (einsum attention) within 1e-4, and each layer launches
+    B1 twice under every policy (backward recomputes the forward; "attn"
+    keeps only the attention output, as the JAX policy does, so the
+    flash residuals are recomputed too), B2 and B3 once."""
+    cfg = tl.LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                              remat=True, remat_policy=policy)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    metrics = []
+    for dev in (cuda, torch.device("cpu")):
+        state = tt.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu")
+        state = tt.TrainState(0, *(_on(t, dev) for t in (
+            state.params, state.master, state.m, state.v)))
+        step = tt.make_train_step(cfg, seq_chunk=64)
+        kernels.reset_launch_counts()
+        _, m = step(state, toks.to(dev))
+        metrics.append({k: x.item() for k, x in m.items()})
+        if dev.type == "cuda":
+            L = cfg.num_layers
+            assert kernels.launch_counts() == {**NONE, "B1": 2 * L,
+                                               "B2": L, "B3": L}
+    for k in ("loss", "grad_norm"):
+        assert abs(metrics[0][k] - metrics[1][k]) <= 1e-4 * abs(
+            metrics[1][k]), (k, metrics)

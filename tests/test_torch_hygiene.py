@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch.entry import entry
 from paddle_tpu_torch.models import llama as tl
+from paddle_tpu_torch.models import train as tt
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"
@@ -52,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.inference, "
         "paddle_tpu_torch.models, paddle_tpu_torch.serving, "
-        "paddle_tpu_torch.ops.kernels\n"
+        "paddle_tpu_torch.ops.kernels, paddle_tpu_torch.models.train, "
+        "paddle_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
@@ -72,6 +75,10 @@ def test_default_device_is_the_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tl.rope_tables(8, 16, 10000.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tt.init_train_state(tl.LlamaConfig.tiny(), torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -87,7 +87,7 @@ def test_b9_paged_decode_matches_jax(quant):
     np.testing.assert_allclose(plain, ref, **TOL)
     np.testing.assert_allclose(plain, ker, **TOL)
     np.testing.assert_array_equal(wrapped, plain)
-    assert kernels.launch_counts() == {"B9": 0, "B10": 0, "B11": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
@@ -113,7 +113,7 @@ def test_b10_fused_paged_decode_matches_jax(quant):
     np.testing.assert_array_equal(
         tsf.rotate_q_plain(_t(x["q"]), _t(x["cos"]), _t(x["sin"])).numpy(),
         np.asarray(jsf.rotate_q_reference(*jargs[:3])))
-    assert kernels.launch_counts() == {"B9": 0, "B10": 0, "B11": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 def _chunk_case(seed, quant):
@@ -153,7 +153,7 @@ def test_b11_flash_chunk_matches_jax(quant):
     np.testing.assert_allclose(plain, ref, **TOL)
     np.testing.assert_allclose(plain, ker, **TOL)
     np.testing.assert_array_equal(wrapped, plain)
-    assert kernels.launch_counts() == {"B9": 0, "B10": 0, "B11": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
 def test_tree_mask_and_unpaired_scales_raise():
