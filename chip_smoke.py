@@ -25,7 +25,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its two backward passes) at the training shape (B = 4, S = 4096,
    H = 12, D = 128, causal) and six ragged ones, each against its plain
    version and against a planted fault the check must reject
-   (``check_flash``); the training shape is timed beside SDPA.
+   (``check_flash``); the training shape is timed beside SDPA. Then
+   B4a/B4b (fused RMSNorm forward and backward) and B5a/B5b (fused
+   SwiGLU) at the training shape (N = 16384 rows, h = 1536, i = 4096,
+   bf16), at Llama-2-7B widths (h = 4096, i = 11008) and at a ragged
+   row count in f32 (N = 1003, h = 5120, i = 13824), each row against
+   its plain version and against its planted fault (``check_fused``);
+   the training shape is timed beside ``F.rms_norm``.
 3. The engine at Llama-2-7B width (random weights from a seeded
    generator): ``max_batch=8, page_size=16, max_len=2048,
    prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
@@ -38,13 +44,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the bf16 KV, fused tier and splits the card's kernel time into the
    attention kernels, matmuls and the rest, against the host's wall time.
 3b. Training: ``make_train_step`` on the JAX bench's training model
-   (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), 2
-   warm-up and 5 timed steps with the launch counters zeroed just before
-   the timed steps (B1 twice per layer and step: backward recomputes the
-   checkpointed layer; B2 and B3 once); tokens/s, MFU, peak memory and
-   the losses, which must be finite and fall; a ``torch.profiler`` split
-   of one step; and the whole-slice check (``whole_slice``) of a 2-layer
-   model in bf16 on the card against f32 on the CPU.
+   (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
+   with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
+   through B4/B5), each 2 warm-up and 5 timed steps with the launch
+   counters zeroed just before the timed steps (per layer and step B1
+   twice, as backward recomputes the checkpointed layer, B2 and B3 once;
+   under "auto" also B4a four times, B4b twice, B5a twice and B5b once,
+   and B4a and B4b once more for the final norm); tokens/s, MFU, peak
+   memory and the losses, which must be finite and fall; a
+   ``torch.profiler`` split of one step and the card time of the
+   optimizer's part alone (``update_ms``); then, for each mode, the
+   whole-slice check (``whole_slice``) of a 2-layer model in bf16 on the
+   card against f32 on the CPU.
 4. The ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -64,6 +75,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 # Every attention kernel against its plain version, row by row (a row is
 # one D-vector: a query's output or dQ, a key's dK or dV):
 #     |kernel row - plain row| <= ROW_RTOL * |plain row| + ROW_FLOOR * rms
@@ -79,6 +91,16 @@ BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 # tile moves the late rows by 50-100%: check_flash plants that fault in
 # the plain versions and fails unless the check rejects it.
 ROW_RTOL, ROW_FLOOR = 2e-2, 1e-4
+# B4a-B5b (fused RMSNorm and SwiGLU) round one f32 result once, as their
+# plain versions do, so a bf16 row differs from its plain row by at most
+# one bf16 ulp an element (2^-7 of the element): the row check's share
+# is 2^-7 (f32: 1e-5, the same math summed in another order), with the
+# same floor; dw is held as one vector. Planted faults, each of which
+# the check must reject: B4a with eps ten times too large (the inputs'
+# row scales spread over 1e-3..7, so eps matters in the small rows), B4b
+# without the last CTA's dw partial, B5a with g and u swapped, B5b with
+# dsilu = sigmoid(g).
+FUSED_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 FAULT_TILE = 64                # keys dropped by the planted fault
 LOGITS_ATOL = 0.25             # bf16 through 32 layers, logits ~ N(0, 1)
 # flash B1's lse against the plain forward in f32 from the same bf16
@@ -90,8 +112,14 @@ LSE_ATOL = 1e-5
 # (the leaves that only the flash backward feeds; bf16 gradients through
 # two layers of bf16 activations). Two planted attention faults on the
 # CPU side (attention output zero; last key tile skipped) must fail it.
-SLICE_LOSS_RTOL, SLICE_GNORM_RTOL, SLICE_ATTN_RTOL = 2e-4, 5e-3, 4e-2
+SLICE_LOSS_RTOL, SLICE_GNORM_RTOL, SLICE_LEAF_RTOL = 2e-4, 5e-3, 4e-2
 ATTN_LEAVES = ("wq", "wk", "wv")
+# under fused_kernels="auto" the check also holds the leaves that the
+# fused RMSNorm and SwiGLU feed, which read as the attention's do (1-2%
+# per layer on an H100), to the same limit; the CPU side with a planted
+# B4 fault (eps ten times too large) and one in B5 (dsilu = sigmoid)
+# must fail it
+FUSED_LEAVES = ("attn_norm", "mlp_norm", "wg", "wu")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -103,9 +131,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S
-    t_f = flops / BF16_FLOPS_PER_S
+    t_f = flops / rate
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -127,23 +155,23 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def row_ratio(torch, got, want) -> float:
+def row_ratio(torch, got, want, rtol: float = ROW_RTOL) -> float:
     """The worst row of ``got`` against ``want`` as a share of its limit
-    (ROW_RTOL, ROW_FLOOR above); the check passes at <= 1, and a NaN
+    (``rtol`` and ROW_FLOOR above); the check passes at <= 1, and a NaN
     fails it."""
     g, w = got.float(), want.float()
     ref = w.norm(dim=-1)
-    lim = ROW_RTOL * ref + ROW_FLOOR * ref.square().mean().sqrt()
+    lim = rtol * ref + ROW_FLOOR * ref.square().mean().sqrt()
     return ((g - w).norm(dim=-1) / lim).max().item()
 
 
-def check_close(torch, got, want, what: str):
+def check_close(torch, got, want, what: str, rtol: float = ROW_RTOL):
     """Fail unless every row of ``got`` is within its limit of ``want``;
     returns (max abs error, worst row's share of its limit)."""
-    ratio = row_ratio(torch, got, want)
+    ratio = row_ratio(torch, got, want, rtol)
     err = (got.float() - want.float()).abs().max().item()
     if not ratio <= 1.0:
-        fail(f"{what}: worst row at {ratio:.3g} of its limit ({ROW_RTOL} * "
+        fail(f"{what}: worst row at {ratio:.3g} of its limit ({rtol} * "
              f"|plain row| + {ROW_FLOOR} * rms); max abs err {err}")
     return err, ratio
 
@@ -431,6 +459,123 @@ def check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal, seed, timed):
     return rec
 
 
+def check_fused(torch, F, fk, n: int, h: int, i: int, dtype, seed: int,
+                timed: bool):
+    """B4a and B4b on (n, h) rows, B5a and B5b on (n, i), each against
+    its plain version on the same inputs (FUSED_RTOL), then against its
+    planted fault, which the same check must reject. x's rows have
+    scales spread over 1e-3..7; B4b gets B4a's own rstd, as the autograd
+    op hands it over, and the autograd ops must give the wrappers'
+    results. With ``timed``, each kernel's time beside its plain
+    version's, its bound, and ``F.rms_norm``'s for B4a (forward) and
+    B4b (forward and backward)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eps, name = 1e-5, str(dtype).split(".")[-1]
+    rtol = FUSED_RTOL[name]
+    what = f"N{n} h{h} i{i} {name}"
+
+    def rand(rows_cols, scale=1.0):
+        return (torch.randn(rows_cols, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    x = rand((n, h), torch.exp(torch.empty(
+        (n, 1), device="cuda").uniform_(-7, 2, generator=g)))
+    w = (1 + 0.1 * torch.randn((h,), generator=g, device="cuda")).to(dtype)
+    ct, gate, up, d = rand((n, h)), rand((n, i), 3.0), rand((n, i)), \
+        rand((n, i))
+    out, rstd = fk.rms_fwd(x, w, eps)
+    dx, dw = fk.rms_bwd(x, w, rstd, ct)
+    act = fk.swiglu_fwd(gate, up)
+    dg, du = fk.swiglu_bwd(gate, up, d)
+    leaves = [t.clone().requires_grad_() for t in (x, w, gate, up)]
+    o_op = fk.rms_norm(leaves[0], leaves[1], eps)
+    o_op.backward(ct)
+    a_op = fk.swiglu(leaves[2], leaves[3])
+    a_op.backward(d)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_op.detach(), out) and torch.equal(a_op.detach(),
+                                                            act)
+            and all(torch.equal(t.grad, r) for t, r in
+                    zip(leaves, (dx, dw, dg, du)))):
+        fail(f"B4/B5 {what}: the autograd ops differ from the wrappers")
+    del leaves, o_op, a_op
+    got = {"B4a": {"out": out, "rstd": rstd}, "B4b": {"dx": dx,
+                                                      "dw": dw[None]},
+           "B5a": {"out": act}, "B5b": {"dg": dg, "du": du}}
+    p_out, p_rstd = fk.rms_norm_fwd_plain(x, w, eps)
+    p_dx, p_dw = fk.rms_norm_bwd_plain(x, w, rstd, ct)
+    p_dg, p_du = fk.swiglu_bwd_plain(gate, up, d)
+    want = {"B4a": {"out": p_out, "rstd": p_rstd},
+            "B4b": {"dx": p_dx, "dw": p_dw[None]},
+            "B5a": {"out": fk.swiglu_fwd_plain(gate, up)},
+            "B5b": {"dg": p_dg, "du": p_du}}
+    errs, ratios = {}, {}
+    for k, outs in got.items():
+        res = [check_close(torch, t, want[k][o], f"{k} {o} {what}", rtol)
+               for o, t in outs.items()]
+        errs[k] = max(e for e, _ in res)
+        ratios[k] = max(r for _, r in res)
+    del want
+    # the planted faults
+    f_out, f_rstd = fk.rms_norm_fwd_plain(x, w, 10 * eps)
+    last = (n - 1) // fk.RMS_BWD_ROWS * fk.RMS_BWD_ROWS
+    _, f_dw = fk.rms_norm_bwd_plain(x[:last], w, rstd[:last], ct[:last])
+    sig = torch.sigmoid(gate.float())
+    f_dg = (d.float() * up.float() * sig).to(dtype)
+    faults = {"B4a": {"out": f_out, "rstd": f_rstd},
+              "B4b": {"dw": f_dw[None]},
+              "B5a": {"out": fk.swiglu_fwd_plain(up, gate)},
+              "B5b": {"dg": f_dg}}
+    fault_ratios = {k: max(row_ratio(torch, got[k][o], t, rtol)
+                           for o, t in outs.items())
+                    for k, outs in faults.items()}
+    del faults, f_out, f_rstd, f_dw, f_dg, sig
+    for k, r in fault_ratios.items():
+        if not r > 1.0:
+            fail(f"{k} {what}: the check passes its planted fault (worst "
+                 f"row at {r:.3g} of its limit)")
+    rec = {"shape": what, "max_abs_err": errs, "row_ratio": ratios,
+           "fault_row_ratio": fault_ratios}
+    if not timed:
+        return rec
+    e = x.element_size()
+    ms = {"B4a": time_ms(torch, lambda: fk.rms_fwd(x, w, eps)),
+          "B4b": time_ms(torch, lambda: fk.rms_bwd(x, w, rstd, ct)),
+          "B5a": time_ms(torch, lambda: fk.swiglu_fwd(gate, up)),
+          "B5b": time_ms(torch, lambda: fk.swiglu_bwd(gate, up, d))}
+    plain = {
+        "B4a": time_ms(torch, lambda: fk.rms_norm_fwd_plain(x, w, eps),
+                       reps=5, warmup=1),
+        "B4b": time_ms(torch, lambda: fk.rms_norm_bwd_plain(x, w, rstd, ct),
+                       reps=5, warmup=1),
+        "B5a": time_ms(torch, lambda: fk.swiglu_fwd_plain(gate, up),
+                       reps=5, warmup=1),
+        "B5b": time_ms(torch, lambda: fk.swiglu_bwd_plain(gate, up, d),
+                       reps=5, warmup=1)}
+    lib_fwd = time_ms(torch, lambda: F.rms_norm(x, (h,), w, eps))
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def lib_fwd_bwd():
+        o = F.rms_norm(xl, (h,), wl, eps)
+        return torch.autograd.grad(o, (xl, wl), ct)
+
+    lib_fb = time_ms(torch, lib_fwd_bwd)
+    nh, ni = n * h, n * i
+    work = {  # bytes (each input read once, each output written once),
+              # f32 operations per element as the kernels do them
+        "B4a": (2 * nh * e + h * e + 4 * n, 4 * nh),
+        "B4b": (3 * nh * e + 2 * h * e + 4 * n, 8 * nh),
+        "B5a": (3 * ni * e, 5 * ni),
+        "B5b": (5 * ni * e, 11 * ni)}
+    for k in ("B4a", "B4b", "B5a", "B5b"):
+        b_ms, b_by = bound_ms(*work[k], rate=F32_FLOPS_PER_S)
+        rec[k] = dict(ms=ms[k], plain_ms=plain[k], bound_ms=b_ms,
+                      bound_by=b_by,
+                      library_ms={"B4a": lib_fwd, "B4b": lib_fb}.get(k))
+    rec["rms_norm_fwd_ms"], rec["rms_norm_fwd_bwd_ms"] = lib_fwd, lib_fb
+    return rec
+
+
 # ---------------------------------------------------------------- phase 3
 def make_requests(n: int, vocab: int, seed: int):
     """Prompts of 128..1024 tokens and 32..128 new tokens; every fourth
@@ -574,7 +719,8 @@ def device_breakdown(torch, prof, calls: int, wall_ms: float):
     a CPU operator's self device time repeats the time of the kernels it
     launched."""
     from torch.autograd import DeviceType
-    kinds = {"attention kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"attention kernel": 0.0, "B4/B5 kernel": 0.0, "gemm": 0.0,
+             "other": 0.0}
     top = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
@@ -584,6 +730,10 @@ def device_breakdown(torch, prof, calls: int, wall_ms: float):
         key = ev.key.lower()
         if "paged_decode" in key or "flash_" in key:
             kinds["attention kernel"] += us
+        elif any(w in key for w in ("rms_fwd_kernel", "rms_bwd_kernel",
+                                    "swiglu_fwd_kernel",
+                                    "swiglu_bwd_kernel")):
+            kinds["B4/B5 kernel"] += us
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass", "splitk")):
             kinds["gemm"] += us
@@ -651,19 +801,20 @@ def profile_tier(torch, Engine, params, cfg, reqs, chunks: int = 4,
 
 
 # --------------------------------------------------------------- phase 3b
-def train_config(LlamaConfig, layers: int):
+def train_config(LlamaConfig, layers: int, fused_kernels: str):
     """The JAX bench's training model (``bench.py`` ``pick_config`` for a
     TPU): bf16, remat with policy "nothing"."""
     return LlamaConfig(vocab_size=32000, hidden_size=1536,
                        intermediate_size=4096, num_layers=layers,
-                       num_heads=12, num_kv_heads=12, max_seq_len=4096)
+                       num_heads=12, num_kv_heads=12, max_seq_len=4096,
+                       fused_kernels=fused_kernels)
 
 
-def run_training(torch, np, kernels, tl, tt, args):
+def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
     """2 warm-up and ``args.train_steps`` timed steps on one batch; the
     launch counters are zeroed just before the timed steps and read just
     after."""
-    cfg = train_config(tl.LlamaConfig, args.train_layers)
+    cfg = train_config(tl.LlamaConfig, args.train_layers, fused_kernels)
     seq, batch = 4096, 4               # bench.py's _SWEEP_BASE_BATCH
     t0 = time.perf_counter()
     state = tt.init_train_state(cfg, torch.Generator(
@@ -698,13 +849,19 @@ def run_training(torch, np, kernels, tl, tt, args):
     if not losses[-1] < losses[0]:
         fail(f"training: the loss did not fall: {losses}")
     L, n = cfg.num_layers, args.train_steps
+    # per layer: B1 twice (backward recomputes the checkpointed layer),
+    # B2 and B3 once; under "auto" B4a four times (two norms, again in
+    # the recompute) and once more for the final norm, B4b twice and
+    # once, B5a twice, B5b once
+    fused = {"B4a": (4 * L + 1) * n, "B4b": (2 * L + 1) * n,
+             "B5a": 2 * L * n, "B5b": L * n} if fused_kernels != "xla" else {}
     want = {**dict.fromkeys(kernels.WRAPPERS, 0),
-            "B1": 2 * L * n, "B2": L * n, "B3": L * n}
+            "B1": 2 * L * n, "B2": L * n, "B3": L * n, **fused}
     if counts != want:
-        fail(f"training: launches {counts} != {want} (B1 runs twice per "
-             f"layer: backward recomputes the checkpointed layer)")
+        fail(f"training {fused_kernels}: launches {counts} != {want}")
     tps = n * batch * seq / wall
-    rec = dict(layers=L, batch=batch, seq=seq, seq_chunk=512,
+    rec = dict(fused_kernels=fused_kernels, layers=L, batch=batch, seq=seq,
+               seq_chunk=512,
                params=cfg.num_params(), init_s=init_s,
                tokens_per_s=tps, step_ms=step_ms,
                step_ms_mean=sum(step_ms) / n,
@@ -714,10 +871,25 @@ def run_training(torch, np, kernels, tl, tt, args):
     return rec, step, state, tokens
 
 
-def attn_grads(torch, tl, params, tokens, cfg):
-    """``loss_fn`` and its gradients of the ATTN_LEAVES, as f32 on the
-    CPU (each a (layers, in, out) stack)."""
-    ws = [params["layers"][n] for n in ATTN_LEAVES]
+def update_ms(torch, tt, state) -> float:
+    """Card time of one ``clip_and_update`` (global norm, clip, AdamW,
+    cast back) over the whole state, with zero f32 gradients: the
+    optimizer's share of a step."""
+    params = tt._leaves(state.params)
+    grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    return time_ms(torch, lambda: tt.clip_and_update(
+        state, params, grads, lr=3e-4, b1=0.9, b2=0.95, eps=1e-8,
+        weight_decay=0.1, grad_clip=1.0), reps=3, warmup=1)
+
+
+def slice_leaves(fused_kernels: str):
+    return ATTN_LEAVES + (FUSED_LEAVES if fused_kernels != "xla" else ())
+
+
+def leaf_grads(torch, tl, params, tokens, cfg):
+    """``loss_fn`` and its gradients of the checked leaves, as f32 on the
+    CPU (each a (layers, ...) stack)."""
+    ws = [params["layers"][n] for n in slice_leaves(cfg.fused_kernels)]
     for w in ws:
         w.requires_grad_(True)
     try:
@@ -729,12 +901,12 @@ def attn_grads(torch, tl, params, tokens, cfg):
     return loss.item(), [g.float().cpu() for g in grads]
 
 
-def slice_errors(torch, card, ref):
+def slice_errors(torch, card, ref, leaves):
     """Relative errors of (loss, grads) ``card`` against ``ref``: the
-    loss, and each ATTN_LEAVES gradient per layer (Frobenius norm of the
+    loss, and each leaf's gradient per layer (Frobenius norm of the
     difference over the larger of the two norms)."""
     errs = {"loss": abs(card[0] - ref[0]) / abs(ref[0])}
-    for n, a, b in zip(ATTN_LEAVES, card[1], ref[1]):
+    for n, a, b in zip(leaves, card[1], ref[1]):
         errs[n] = [((x - y).norm() / torch.maximum(x.norm(), y.norm())).item()
                    for x, y in zip(a, b)]
     return errs
@@ -743,20 +915,49 @@ def slice_errors(torch, card, ref):
 def slice_failures(errs) -> list:
     """The entries of ``errs`` over their SLICE_* limits (NaN is over)."""
     lim = {"loss": SLICE_LOSS_RTOL, "grad_norm": SLICE_GNORM_RTOL,
-           **dict.fromkeys(ATTN_LEAVES, SLICE_ATTN_RTOL)}
+           **dict.fromkeys(ATTN_LEAVES + FUSED_LEAVES, SLICE_LEAF_RTOL)}
     return [k for k, e in errs.items()
             if not max(e if isinstance(e, list) else [e]) <= lim[k]]
 
 
-def whole_slice(torch, np, tl, tt, fa, seed: int):
+def slice_faults(torch, tl, fa, fk, fused_kernels: str):
+    """(name, module, attribute, replacement): the faults planted in the
+    CPU reference. "xla": two in the attention (its einsum path);
+    "auto": one in B4 and one in B5 (their plain versions)."""
+    if fused_kernels == "xla":
+        def skip_last_tile(q, k, v, causal=True):
+            return fa.flash_attention_plain(q, k[:, :-FAULT_TILE],
+                                            v[:, :-FAULT_TILE], causal)[0]
+
+        return [("attention output zero", tl, "_attention",
+                 lambda q, k, v, causal=True: q * 0.0),
+                (f"last {FAULT_TILE} keys skipped", tl, "_attention",
+                 skip_last_tile)]
+    rms_fwd_plain = fk.rms_norm_fwd_plain
+
+    def eps_x10(x, w, eps):
+        return rms_fwd_plain(x, w, 10 * eps)
+
+    def dsilu_sigmoid(g, u, d):
+        sig = torch.sigmoid(g.float())
+        return ((d.float() * u.float() * sig).to(g.dtype),
+                (d.float() * g.float() * sig).to(u.dtype))
+
+    return [("B4a eps ten times too large", fk, "rms_norm_fwd_plain",
+             eps_x10),
+            ("B5b dsilu = sigmoid(g)", fk, "swiglu_bwd_plain",
+             dsilu_sigmoid)]
+
+
+def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
     """A 2-layer model at full width, B = 1, S = 1024: bf16 with the
     kernels on the card, and from the same parameters in f32 on the CPU
-    with the plain versions. Compares ``loss_fn``'s wq, wk, wv gradients,
-    then one ``make_train_step`` step's loss and grad norm. Controls: the
-    CPU side with two planted attention faults must fail the same
-    limits."""
+    with the plain versions. Compares ``loss_fn``'s gradients of the
+    checked leaves (``slice_leaves``), then one ``make_train_step``
+    step's loss and grad norm. Controls: the CPU side with each planted
+    fault of ``slice_faults`` must fail the same limits."""
     import dataclasses
-    cfg = train_config(tl.LlamaConfig, 2)
+    cfg = train_config(tl.LlamaConfig, 2, fused_kernels)
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, 1024)), dtype=torch.int32)
     card = tt.init_train_state(cfg, torch.Generator(
@@ -769,27 +970,22 @@ def whole_slice(torch, np, tl, tt, fa, seed: int):
     cpu = tt.TrainState(0, *(f32_cpu(t) for t in (
         card.params, card.master, card.m, card.v)))
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    leaves = slice_leaves(fused_kernels)
     t0 = time.perf_counter()
-    on_card = attn_grads(torch, tl, card.params, tokens.cuda(), cfg)
-    on_cpu = attn_grads(torch, tl, cpu.params, tokens, cpu_cfg)
+    on_card = leaf_grads(torch, tl, card.params, tokens.cuda(), cfg)
+    on_cpu = leaf_grads(torch, tl, cpu.params, tokens, cpu_cfg)
     cpu_s = time.perf_counter() - t0
-    errs = slice_errors(torch, on_card, on_cpu)
-
-    def skip_last_tile(q, k, v, causal=True):
-        return fa.flash_attention_plain(q, k[:, :-FAULT_TILE],
-                                        v[:, :-FAULT_TILE], causal)[0]
-
+    errs = slice_errors(torch, on_card, on_cpu, leaves)
     controls = {}
-    model_attention = tl._attention
-    for name, fault in (("attention output zero",
-                         lambda q, k, v, causal=True: q * 0.0),
-                        (f"last {FAULT_TILE} keys skipped", skip_last_tile)):
-        tl._attention = fault        # the CPU reference's einsum path
+    for name, module, attr, fault in slice_faults(torch, tl, fa, fk,
+                                                  fused_kernels):
+        kept = getattr(module, attr)
+        setattr(module, attr, fault)
         try:
-            faulty = attn_grads(torch, tl, cpu.params, tokens, cpu_cfg)
+            faulty = leaf_grads(torch, tl, cpu.params, tokens, cpu_cfg)
         finally:
-            tl._attention = model_attention
-        controls[name] = slice_errors(torch, on_card, faulty)
+            setattr(module, attr, kept)
+        controls[name] = slice_errors(torch, on_card, faulty, leaves)
         if not slice_failures(controls[name]):
             fail(f"whole slice: the check passes the CPU reference with its "
                  f"{name} ({controls[name]})")
@@ -803,7 +999,8 @@ def whole_slice(torch, np, tl, tt, fa, seed: int):
     bad = slice_failures(errs)
     if bad:
         fail(f"whole slice: {bad} over their limits: {errs}")
-    rec.update(rel_err=errs, controls=controls, cpu_grads_s=cpu_s)
+    rec.update(fused_kernels=fused_kernels, rel_err=errs, controls=controls,
+               cpu_grads_s=cpu_s)
     return rec
 
 
@@ -848,6 +1045,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.models.llama import LlamaConfig, init_params
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused as fk
     from paddle_tpu_torch.ops.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -912,10 +1110,24 @@ def main(argv=None) -> int:
             flash[0][name],
             max_abs_err=max(r["kernel_err"][name] for r in flash),
             row_ratio=max(r["kernel_row_ratio"][name] for r in flash))
+    fused = [check_fused(torch, F, fk, 16384, 1536, 4096, torch.bfloat16,
+                         seed=31, timed=True)]
+    for n, h, i, dt in ((4096, 4096, 11008, torch.bfloat16),
+                        (1003, 5120, 13824, torch.float32)):
+        fused.append(check_fused(torch, F, fk, n, h, i, dt, seed=32,
+                                 timed=False))
+    for rec in fused:
+        print("kernel fused " + json.dumps(rec))
+    for name in ("B4a", "B4b", "B5a", "B5b"):
+        results[name] = dict(
+            fused[0][name],
+            max_abs_err=max(r["max_abs_err"][name] for r in fused),
+            row_ratio=max(r["row_ratio"][name] for r in fused))
     gc.collect()
     torch.cuda.empty_cache()
     record["kernels_phase"] = results
     record["flash_phase"] = flash
+    record["fused_phase"] = fused
 
     # ---- phase 3: the engine
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
@@ -941,28 +1153,38 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase 3b: training
-    train, step, state, tokens = run_training(torch, np, kernels, tl, tt,
-                                              args)
-    print("train " + json.dumps(train))
-    tprof = profile_train(torch, step, state, tokens, train["step_ms_mean"])
-    print("train profile " + json.dumps(tprof))
-    del step, state, tokens
-    gc.collect()
-    torch.cuda.empty_cache()
-    train["slice_check"] = whole_slice(torch, np, tl, tt, fa, args.seed)
-    print("train slice " + json.dumps(train["slice_check"]))
-    train["profile"] = tprof
+    # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
+    train = {}
+    for mode in ("xla", "auto"):
+        rec, step, state, tokens = run_training(torch, np, kernels, tl, tt,
+                                                args, mode)
+        print(f"train {mode} " + json.dumps(rec))
+        rec["profile"] = profile_train(torch, step, state, tokens,
+                                       rec["step_ms_mean"])
+        rec["profile"]["clip_and_update_ms"] = update_ms(torch, tt, state)
+        print(f"train {mode} profile " + json.dumps(rec["profile"]))
+        del step, state, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        train[mode] = rec
+    for mode in ("xla", "auto"):
+        train[mode]["slice_check"] = whole_slice(torch, np, tl, tt, fa, fk,
+                                                 args.seed, mode)
+        print(f"train {mode} slice "
+              + json.dumps(train[mode]["slice_check"]))
     record["train"] = train
 
     # ---- phase 4: the kernel line
-    launches = {k: train["launches"][k] for k in ("B1", "B2", "B3")}
+    launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
+    launches.update({k: train["auto"]["launches"][k]
+                     for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in tiers:
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:
                 launches[f"{k}-{kvn}"] = launches.get(f"{k}-{kvn}", 0) + n
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fused_src = "paddle_tpu_torch/csrc/fused.cu"
     meta = {
         "B1": ("cuda", flash_src,
                "paddle_tpu/ops/pallas/flash_attention.py:184"),
@@ -970,6 +1192,10 @@ def main(argv=None) -> int:
                "paddle_tpu/ops/pallas/flash_attention.py:343"),
         "B3": ("cuda", flash_src,
                "paddle_tpu/ops/pallas/flash_attention.py:370"),
+        "B4a": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:53"),
+        "B4b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:99"),
+        "B5a": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:164"),
+        "B5b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:188"),
         "B9": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas/paged_attention.py:163"),
         "B10": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",

@@ -26,12 +26,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device
 from ..ops.kernels import flash_attention as _fa
+from ..ops.kernels import fused as _fk
 
 #: "nothing" recomputes the whole layer in backward (least memory);
 #: "attn" keeps the attention output (backward still recomputes the
 #: flash forward, whose own outputs are not kept);
 #: "dots" keeps every matrix product's output (most memory, least work)
 REMAT_POLICIES = ("nothing", "attn", "dots")
+FUSED_KERNELS = ("xla", "auto", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,16 +53,19 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = "nothing"
     # "xla" = RMSNorm and SwiGLU in plain torch, the JAX package's
-    # default; the other values select kernels B4/B5, not ported yet
+    # default; "auto" and "pallas" both select the fused functions of
+    # ops/kernels/fused.py (B4, B5), whose wrappers launch the kernels
+    # for CUDA tensors and run the plain versions for CPU tensors: the
+    # JAX package's "Pallas on a TPU, interpret mode elsewhere" with "on
+    # a TPU" read as "on CUDA tensors". The serving forwards ignore it,
+    # as the JAX package's do.
     fused_kernels: str = "xla"
     moe: Optional[Any] = None
 
     def __post_init__(self):
-        if self.fused_kernels != "xla":
-            raise NotImplementedError(
-                f"fused_kernels={self.fused_kernels!r} needs the fused "
-                f"RMSNorm and SwiGLU kernels (B4, B5), not ported yet — "
-                f"see ROADMAP.md, port queue B; use 'xla'")
+        if self.fused_kernels not in FUSED_KERNELS:
+            raise ValueError(f"fused_kernels={self.fused_kernels!r}: one "
+                             f"of {FUSED_KERNELS}")
         if self.moe is not None:
             raise NotImplementedError(
                 "moe: mixture-of-experts layers are not ported yet — see "
@@ -165,9 +170,18 @@ def layer_params(params: Dict, l: int) -> Dict[str, torch.Tensor]:
     return {name: w[l] for name, w in params["layers"].items()}
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _pallas_fused(cfg: LlamaConfig) -> bool:
+    """Whether the training model takes the fused RMSNorm and SwiGLU."""
+    return cfg.fused_kernels in ("auto", "pallas")
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             fused: bool = False) -> torch.Tensor:
     """Normalise in float32, cast back to ``x.dtype``, then scale by
-    ``w`` — the JAX package's cast order."""
+    ``w`` — the JAX package's cast order. ``fused`` takes the fused op
+    (kernels B4a/B4b), which scales in float32 before its one cast."""
+    if fused:
+        return _fk.rms_norm(x, w, eps)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
@@ -197,13 +211,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _mlp(x, lp, cfg: LlamaConfig):
+def _mlp(x, lp, cfg: LlamaConfig, fused: bool = False):
     """Residual SwiGLU MLP: SiLU of the gate in f32, cast back to the
-    model dtype before the product with the up projection."""
-    h2 = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    g = F.silu((h2 @ lp["wg"]).float()).to(x.dtype)
+    model dtype before the product with the up projection; ``fused``
+    takes the fused RMSNorm and SwiGLU (B4, B5) instead, one cast each.
+    The serving forwards call it unfused whatever the config says."""
+    h2 = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, fused=fused)
+    g = h2 @ lp["wg"]
     u = h2 @ lp["wu"]
-    return x + (g * u) @ lp["wd"]
+    if fused:
+        return x + _fk.swiglu(g, u) @ lp["wd"]
+    return x + (F.silu(g.float()).to(x.dtype) * u) @ lp["wd"]
 
 
 def _attention(q, k, v, causal: bool = True):
@@ -241,7 +259,7 @@ def _attn_out(x, lp, cos, sin, cfg: LlamaConfig):
     RoPE, attention."""
     B, S, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps, fused=_pallas_fused(cfg))
     q = (h1 @ lp["wq"]).reshape(B, S, nh, hd)
     k = (h1 @ lp["wk"]).reshape(B, S, nkv, hd)
     v = (h1 @ lp["wv"]).reshape(B, S, nkv, hd)
@@ -251,7 +269,7 @@ def _attn_out(x, lp, cos, sin, cfg: LlamaConfig):
 
 def _post_attention(x, o, lp, cfg: LlamaConfig):
     """The layer after attention: o-projection, residual, MLP."""
-    return _mlp(x + o @ lp["wo"], lp, cfg)
+    return _mlp(x + o @ lp["wo"], lp, cfg, fused=_pallas_fused(cfg))
 
 
 def _block(x, lp, cos, sin, cfg: LlamaConfig):
@@ -304,7 +322,8 @@ def _trunk(params, tokens, cfg: LlamaConfig):
     for l in range(cfg.num_layers):
         lp = {name: ws[l] for name, ws in stacks.items()}
         x = _layer(x, lp, cos, sin, cfg)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps,
+                    fused=_pallas_fused(cfg))
 
 
 def _lm_head(params, cfg: LlamaConfig, dtype) -> torch.Tensor:

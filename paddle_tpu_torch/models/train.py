@@ -62,16 +62,34 @@ def _adamw(g, p32, m, v, step: int, lr, b1, b2, eps, wd):
     p32.sub_(lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p32))
 
 
+def clip_and_update(state: TrainState, params: List[torch.Tensor],
+                    grads: List[torch.Tensor], *, lr: float, b1: float,
+                    b2: float, eps: float, weight_decay: float,
+                    grad_clip: float) -> torch.Tensor:
+    """The step after the f32 gradients: their global norm, a clip to
+    ``grad_clip`` (with ``+1e-6``), AdamW on the master weights and the
+    cast back into ``params`` (``_leaves(state.params)``), all in place.
+    Returns the global norm."""
+    with torch.no_grad():
+        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        scale = torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0)
+        for p, g, p32, m, v in zip(params, grads, _leaves(state.master),
+                                   _leaves(state.m), _leaves(state.v)):
+            _adamw(g * scale, p32, m, v, state.step, lr, b1, b2, eps,
+                   weight_decay)
+            p.copy_(p32)
+    return gnorm
+
+
 def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, lr: float = 3e-4,
                     b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
                     seq_chunk: Optional[int] = None):
     """Returns ``step(state, tokens) -> (state, {"loss", "grad_norm"})``:
-    gradients of ``llama.loss_fn`` cast to f32, their global norm, a clip
-    to ``grad_clip`` (with ``+1e-6``), AdamW on the master weights, and
-    the params cast back to their dtype. The step updates ``state`` in
-    place and returns it (the JAX step donates its state); the metrics
-    stay on the device, so a step never waits for the card."""
+    gradients of ``llama.loss_fn`` cast to f32, then
+    :func:`clip_and_update`. The step updates ``state`` in place and
+    returns it (the JAX step donates its state); the metrics stay on the
+    device, so a step never waits for the card."""
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step: meshes (dp x fsdp x tp) are not ported yet — "
@@ -88,15 +106,11 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, lr: float = 3e-4,
         finally:
             for p in params:
                 p.requires_grad_(False)
-        with torch.no_grad():
-            grads = [g.float() for g in grads]
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            scale = torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0)
-            for p, g, p32, m, v in zip(params, grads, _leaves(state.master),
-                                       _leaves(state.m), _leaves(state.v)):
-                _adamw(g * scale, p32, m, v, state.step, lr, b1, b2, eps,
-                       weight_decay)
-                p.copy_(p32)
+        # rebinding drops the model-dtype gradients before the update
+        grads = [g.float() for g in grads]
+        gnorm = clip_and_update(state, params, grads, lr=lr, b1=b1, b2=b2,
+                                eps=eps, weight_decay=weight_decay,
+                                grad_clip=grad_clip)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
 

@@ -9,7 +9,9 @@ False (as on a CPU-only test machine) and runs on an H100 with
 Shapes are small but cover every template instantiation the wrappers
 dispatch to: head dim 64 and 128, float32 and bfloat16 queries, native
 and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
-full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136).
+full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136);
+the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
+and two chunks a thread, ragged row counts included.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 200 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -17,7 +19,9 @@ every row (one D-vector) within 2e-2 * |plain row| + 1e-4 * the rms of
 the plain rows (the kernels round their outputs, and p and ds, to bf16,
 2^-9 relative; the floor admits rows that cancel to zero); the flash
 gradients against the plain B2 and B3 in float32 on B1's own lse and
-delta, as the autograd op hands them over.
+delta, as the autograd op hands them over. B4a-B5b round one f32 result
+once, as their plain versions do, so their bf16 rows are held within
+2^-7 * |plain row| (at most one bf16 ulp an element) + 1e-4 * rms.
 """
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models import train as tt
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import fused as fk
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import serving_fused as sf
 
@@ -44,13 +49,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, rtol=2e-2):
     g, w = got.float().cpu(), want.float().cpu()
     if dtype == torch.float32:
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     else:
         ref = w.norm(dim=-1)
-        lim = 2e-2 * ref + 1e-4 * ref.square().mean().sqrt()
+        lim = rtol * ref + 1e-4 * ref.square().mean().sqrt()
         assert ((g - w).norm(dim=-1) <= lim).all()
 
 
@@ -139,13 +144,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 def test_engine_on_the_card_matches_cpu(cuda, kv, fused):
     """A float32 engine with head dim 64 on the card and on the CPU from
     the same parameters: every request finishes, the card run goes
-    through the kernels, and the first decode logits agree within 1e-3
+    through the attention kernels and, though the config asks for the
+    fused RMSNorm and SwiGLU, launches none of B4-B5 (the serving
+    forwards stay unfused), and the first decode logits agree within 1e-3
     (the card's matmuls and kernels sum in other orders) — 1e-2 for
     int8 KV, where a value within an ulp of a rounding boundary may land
     on the neighbouring int8 step and move the logits by ~1e-3."""
     cfg = tl.LlamaConfig.tiny(hidden_size=128, num_heads=2, num_kv_heads=1,
                               intermediate_size=256, num_layers=2,
-                              max_seq_len=64)
+                              max_seq_len=64, fused_kernels="auto")
     params = tl.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     rs = np.random.RandomState(0)
@@ -248,16 +255,87 @@ def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd(q, q, q, causal=True, scale=0.1)
 
 
-@pytest.mark.parametrize("policy", tl.REMAT_POLICIES)
-def test_train_step_on_the_card_matches_cpu(cuda, policy):
+FUSED_CASES = [(dt, n, h) for dt in (torch.float32, torch.bfloat16)
+               for n, h in ((37, 40), (100, 1536), (21, 5120), (3, 8192))]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=[f"{str(c[0])[6:]}-{c[1]}x{c[2]}"
+                              for c in FUSED_CASES])
+def test_fused_kernels_match_plain(cuda, case):
+    """B4a-B5b on (N, h) rows whose scales spread over 1e-3..7 (so eps
+    matters in some rows), N not a multiple of B4b's 16 rows; the
+    autograd ops give the wrappers' results."""
+    dtype, n, h = case
+    g = torch.Generator().manual_seed(3)
+
+    def rand(scale=1.0):
+        return (torch.randn((n, h), generator=g) * scale).to(dtype).to(cuda)
+
+    x = rand(torch.exp(torch.empty((n, 1)).uniform_(-7, 2, generator=g)))
+    w = (1 + 0.1 * torch.randn((h,), generator=g)).to(dtype).to(cuda)
+    ct, gate, up = rand(), rand(3.0), rand()
+    tight = 2.0 ** -7
+    kernels.reset_launch_counts()
+    out, rstd = fk.rms_fwd(x, w, 1e-5)
+    want, want_rstd = fk.rms_norm_fwd_plain(x, w, 1e-5)
+    _close(out, want, dtype, tight)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    dx, dw = fk.rms_bwd(x, w, rstd, ct)
+    want_dx, want_dw = fk.rms_norm_bwd_plain(x, w, rstd, ct)
+    _close(dx, want_dx, dtype, tight)
+    _close(dw[None], want_dw[None], dtype, tight)
+    act = fk.swiglu_fwd(gate, up)
+    _close(act, fk.swiglu_fwd_plain(gate, up), dtype, tight)
+    dg, du = fk.swiglu_bwd(gate, up, ct)
+    for a, b in zip((dg, du), fk.swiglu_bwd_plain(gate, up, ct)):
+        _close(a, b, dtype, tight)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**NONE, "B4a": 1, "B4b": 1,
+                                       "B5a": 1, "B5b": 1}
+    leaves = [t.clone().requires_grad_() for t in (x, w, gate, up)]
+    fk.rms_norm(leaves[0][None], leaves[1], 1e-5).backward(ct[None])
+    fk.swiglu(leaves[2], leaves[3]).backward(ct)
+    for a, b in zip(leaves, (dx, dw, dg, du)):
+        assert torch.equal(a.grad, b)
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    odd = torch.zeros((4, 12), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fk.rms_fwd(odd, torch.ones(12, device=cuda), 1e-5)
+    wide = torch.zeros((2, 8200), device=cuda)
+    with pytest.raises(ValueError, match="up to 8192"):
+        fk.rms_fwd(wide, torch.ones(8200, device=cuda), 1e-5)
+    half = torch.zeros((4, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fk.swiglu_fwd(half, half)
+    x = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(ValueError, match="on cuda"):
+        fk.swiglu_bwd(x, x, torch.zeros((4, 16)))
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.swiglu_fwd(x.t(), x.t())
+
+
+TRAIN_CASES = [(p, f) for f in ("xla", "auto") for p in tl.REMAT_POLICIES]
+
+
+@pytest.mark.parametrize("policy,fused_kernels", TRAIN_CASES,
+                         ids=[p if f == "xla" else f"{p}-{f}"
+                              for p, f in TRAIN_CASES])
+def test_train_step_on_the_card_matches_cpu(cuda, policy, fused_kernels):
     """A float32 model of head dim 64 at S = 128 takes the flash kernels
     on the card: one step's loss and grad norm agree with the same step
-    on the CPU (einsum attention) within 1e-4, and each layer launches
-    B1 twice under every policy (backward recomputes the forward; "attn"
-    keeps only the attention output, as the JAX policy does, so the
-    flash residuals are recomputed too), B2 and B3 once."""
+    on the CPU (einsum attention, plain RMSNorm and SwiGLU) within 1e-4,
+    and each layer launches B1 twice under every policy (backward
+    recomputes the forward; "attn" keeps only the attention output, as
+    the JAX policy does, so the flash residuals are recomputed too), B2
+    and B3 once. Under "auto" also B4a four times a layer (two norms,
+    again in the recompute) and once for the final norm, B4b twice a
+    layer and once, B5a twice a layer, B5b once."""
     cfg = tl.LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
-                              remat=True, remat_policy=policy)
+                              remat=True, remat_policy=policy,
+                              fused_kernels=fused_kernels)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 128)))
     metrics = []
@@ -272,8 +350,10 @@ def test_train_step_on_the_card_matches_cpu(cuda, policy):
         metrics.append({k: x.item() for k, x in m.items()})
         if dev.type == "cuda":
             L = cfg.num_layers
+            fused = {"B4a": 4 * L + 1, "B4b": 2 * L + 1, "B5a": 2 * L,
+                     "B5b": L} if fused_kernels == "auto" else {}
             assert kernels.launch_counts() == {**NONE, "B1": 2 * L,
-                                               "B2": L, "B3": L}
+                                               "B2": L, "B3": L, **fused}
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - metrics[1][k]) <= 1e-4 * abs(
             metrics[1][k]), (k, metrics)

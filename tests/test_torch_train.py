@@ -5,7 +5,10 @@ Parameters and states cross over with ``params_from_jax`` /
 (head dim 16, the einsum attention on both sides) and
 ``tiny(hidden_size=256, num_heads=4, num_kv_heads=2)`` at S = 128, where
 the JAX model takes its Pallas flash kernels (interpret mode) and the
-port on the CPU its einsum path. Tolerances, float32: logits, loss and
+port on the CPU its einsum path; each with ``fused_kernels`` "xla" and
+"auto", where the JAX model takes its fused RMSNorm and SwiGLU Pallas
+kernels (interpret mode) and the port its fused ops' plain versions.
+Tolerances, float32: logits, loss and
 gradients rtol = atol = 1e-4 (XLA-CPU and PyTorch sum in other orders);
 three AdamW steps 1e-4 on params/master (an update is lr * m/sqrt(v),
 which amplifies an O(1e-7) gradient difference where a gradient is
@@ -51,6 +54,11 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+#: (config, fused_kernels); the "xla" cases keep their config's name
+CASES = [(n, f) for f in ("xla", "auto") for n in CONFIGS]
+CASE_IDS = [n if f == "xla" else f"{n}-{f}" for n, f in CASES]
+
+
 def _both(name, **kw):
     over, seq = CONFIGS[name]
     jcfg = jl.LlamaConfig.tiny(**over, **kw)
@@ -75,9 +83,9 @@ def _grads(tp, tcfg, toks, **kw):
     return loss.detach(), grads
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_forward_loss_and_grads_match_jax(name):
-    jcfg, tcfg, jp, tp, toks = _both(name)
+@pytest.mark.parametrize("name,fused_kernels", CASES, ids=CASE_IDS)
+def test_forward_loss_and_grads_match_jax(name, fused_kernels):
+    jcfg, tcfg, jp, tp, toks = _both(name, fused_kernels=fused_kernels)
     jtoks = jnp.asarray(toks)
     np.testing.assert_allclose(
         tl.forward(tp, torch.from_numpy(toks), tcfg).numpy(),
@@ -94,20 +102,24 @@ def test_forward_loss_and_grads_match_jax(name):
 
 
 def test_chunked_loss_equals_dense_and_remat_equals_no_remat():
-    _, tcfg, _, tp, toks = _both("tiny")
-    dense, gd = _grads(tp, tcfg, toks)
-    chunked, gc = _grads(tp, tcfg, toks, seq_chunk=8)
-    np.testing.assert_allclose(chunked.item(), dense.item(), rtol=1e-6)
-    for n in gd:
-        np.testing.assert_allclose(gc[n].numpy(), gd[n].numpy(), rtol=1e-4,
-                                   atol=1e-6, err_msg=n)
-    for policy in tl.REMAT_POLICIES:
-        rcfg = tl.LlamaConfig.tiny(remat=True, remat_policy=policy)
-        loss, gr = _grads(tp, rcfg, toks)
-        assert loss.item() == dense.item(), policy
+    """Under "xla" and under "auto" (the fused ops' plain versions)."""
+    for fused_kernels in ("xla", "auto"):
+        _, tcfg, _, tp, toks = _both("tiny", fused_kernels=fused_kernels)
+        dense, gd = _grads(tp, tcfg, toks)
+        chunked, gc = _grads(tp, tcfg, toks, seq_chunk=8)
+        np.testing.assert_allclose(chunked.item(), dense.item(), rtol=1e-6)
         for n in gd:
-            torch.testing.assert_close(gr[n], gd[n], rtol=0, atol=0,
-                                       msg=f"{policy} {n}")
+            np.testing.assert_allclose(gc[n].numpy(), gd[n].numpy(),
+                                       rtol=1e-4, atol=1e-6, err_msg=n)
+        for policy in tl.REMAT_POLICIES:
+            rcfg = tl.LlamaConfig.tiny(remat=True, remat_policy=policy,
+                                       fused_kernels=fused_kernels)
+            loss, gr = _grads(tp, rcfg, toks)
+            assert loss.item() == dense.item(), (fused_kernels, policy)
+            for n in gd:
+                torch.testing.assert_close(
+                    gr[n], gd[n], rtol=0, atol=0,
+                    msg=f"{fused_kernels} {policy} {n}")
 
 
 def test_causality_and_num_params():
@@ -130,8 +142,8 @@ def test_causality_and_num_params():
 
 
 def test_options_the_port_does_not_take_raise():
-    with pytest.raises(NotImplementedError, match="B4, B5"):
-        tl.LlamaConfig.tiny(fused_kernels="auto")
+    with pytest.raises(ValueError, match="fused_kernels"):
+        tl.LlamaConfig.tiny(fused_kernels="triton")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.LlamaConfig.tiny(moe=object())
     with pytest.raises(ValueError, match="remat_policy"):
@@ -143,13 +155,13 @@ def test_options_the_port_does_not_take_raise():
         tl.loss_fn(tp, torch.from_numpy(toks), tcfg, seq_chunk=5)
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_train_steps_match_jax(name):
+@pytest.mark.parametrize("name,fused_kernels", CASES, ids=CASE_IDS)
+def test_train_steps_match_jax(name, fused_kernels):
     """Three steps from the JAX state carried over bit for bit: loss,
     grad_norm and every params, master, m and v leaf."""
     over, seq = CONFIGS[name]
-    jcfg = jl.LlamaConfig.tiny(**over)
-    tcfg = tl.LlamaConfig.tiny(**over)
+    jcfg = jl.LlamaConfig.tiny(**over, fused_kernels=fused_kernels)
+    tcfg = tl.LlamaConfig.tiny(**over, fused_kernels=fused_kernels)
     kw = dict(lr=1e-3, seq_chunk=16)
     jstep = jt.make_train_step(jcfg, **kw)
     tstep = tt.make_train_step(tcfg, **kw)
