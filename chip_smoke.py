@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and training step on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path (plain and speculative)
+and training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -16,7 +16,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
    the serving shapes (H = HK = 32, D = 128, page 16, B = 8 rows of
    mixed lengths up to 2048 with one of length 1; T = 256 chunks at
-   several context caps). Each kernel's output is held against its
+   several context caps), and B11 at the speculative verify shapes
+   (B = 8 rows of ragged contexts against ctx_cap + T columns): linear
+   at T = 5 (``spec_k=4``, ctx_cap 1024 and 2048) and tree (B11-tree)
+   at T = 9 under the (2, 4) comb tree, bf16 and int8 rows, where a
+   planted fault (one ancestor bit of a depth-2 node cleared) must fail
+   the row check and a chain tree must give B11-linear's bits. Each
+   kernel's output is held against its
    plain PyTorch version on the same inputs within the stated bf16
    tolerance, and timed with CUDA events beside its plain version, one
    PyTorch library call computing the same function
@@ -43,6 +49,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.profiler`` traces a few prefill chunks and decode steps of
    the bf16 KV, fused tier and splits the card's kernel time into the
    attention kernels, matmuls and the rest, against the host's wall time.
+   Then speculation (all fused): n-gram ``spec_k=4``
+   on the same weights and requests; then, with ``wo`` and ``wd`` of the
+   layers past the draft's depth damped by 1e-3 (the JAX bench's
+   alignment, so that acceptance is real) and non-repetitive prompts, a
+   plain tier and a draft-tree tier (``draft_layers = L / 2``,
+   ``spec_tree=(2, 4)``) for KV bf16 and int8. Per tier the launch
+   counters must equal what its counted forwards imply (B11-tree only
+   in the tree tiers), every request must finish, both pools must
+   drain and a draft tier's acceptance must be over 0.3; tokens/s, ms
+   per step by kind, acceptance, tokens committed per row and verify,
+   peak memory and the share of tokens equal to the comparison tier's
+   are recorded (bf16 kernels may split near-ties, so that share is
+   reported, not gated: identity is gated on the CPU), beside the same
+   shares between the plain tiers with and without the fused kernels.
+   Last, ``torch.profiler`` traces a few draft-tree steps and splits
+   them into proposal and verify on the host clock.
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -334,6 +356,133 @@ def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
     return dict(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
+
+
+def comb_tree_mask(torch, T: int, width: int):
+    """(T, T) ancestor-or-self matrix of the engine's comb tree with
+    ``T - 1`` draft nodes: a chain of ``(T - 1) // width`` nodes off the
+    root, then ``width - 1`` siblings of each chain node (the order
+    ``build_comb_tree`` emits)."""
+    import numpy as np
+    from paddle_tpu_torch.serving import build_comb_tree, \
+        tree_ancestor_matrix
+    depth = (T - 1) // width
+    t = build_comb_tree(0, np.arange(1, depth + 1),
+                        [np.arange(width - 1) + 100 * (d + 1)
+                         for d in range(depth)])
+    return torch.from_numpy(tree_ancestor_matrix(t.parents))
+
+
+def verify_inputs(torch, kv_int8: bool, ctx_cap: int, T: int, seed: int):
+    """A verify chunk at the serving width: B = 8 rows of committed
+    lengths from ``ctx_cap`` down to 1 (kstart = ctx_cap - length),
+    T new queries, H = HK = 32, D = 128, a (B, ctx_cap + T) temp cache."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, HK, D = 8, 32, 32, 128
+    W = ctx_cap + T
+    lens = [ctx_cap, int(0.93 * ctx_cap), int(0.75 * ctx_cap),
+            ctx_cap // 2, int(0.34 * ctx_cap), int(0.16 * ctx_cap), 16, 1]
+    kstart = torch.tensor([ctx_cap - n for n in lens], dtype=torch.int32,
+                          device="cuda")
+    q = torch.randn((B, T, H, D), generator=g, device="cuda").bfloat16()
+    if kv_int8:
+        ck = torch.randint(-127, 128, (B, W, HK, D), generator=g,
+                           device="cuda", dtype=torch.int8)
+        cv = torch.randint(-127, 128, (B, W, HK, D), generator=g,
+                           device="cuda", dtype=torch.int8)
+        kr = torch.rand((B, W, HK), generator=g, device="cuda") * 0.02 + 0.005
+        vr = torch.rand((B, W, HK), generator=g, device="cuda") * 0.02 + 0.005
+    else:
+        ck = torch.randn((B, W, HK, D), generator=g, device="cuda").bfloat16()
+        cv = torch.randn((B, W, HK, D), generator=g, device="cuda").bfloat16()
+        kr = vr = None
+    return q, ck, cv, kr, vr, kstart, W
+
+
+def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
+                 tree: bool):
+    """B11 at the verify shape (``verify_inputs``): linear (B11-linear,
+    T = spec_k + 1) or, with ``tree``, B11-tree under the (2, (T-1)/2)
+    comb tree of every row. Held row by row against the plain version.
+    Tree only: the plain version with one ancestor bit of a depth-2
+    node cleared (node 2 no longer sees node 1) must fail the same
+    check, and a chain tree through the kernel must give B11-linear's
+    bits. Timed beside the plain version, SDPA under the same boolean
+    mask on the cache dequantized beforehand, and the bound."""
+    sf = kernels.serving_fused
+    q, ck, cv, kr, vr, kstart, W = verify_inputs(
+        torch, kv_int8, ctx_cap, T, seed=200 + T + ctx_cap // 64)
+    B, _, H, D = q.shape
+    HK, qoff = ck.shape[2], W - T
+    kw = dict(k_rows=kr, v_rows=vr)
+    what = (f"{'B11-tree' if tree else 'B11-linear'} kv_int8={kv_int8} "
+            f"ctx_cap={ctx_cap} T={T}")
+    anc = (comb_tree_mask(torch, T, 2).cuda() if tree else
+           torch.tril(torch.ones((T, T), dtype=torch.bool, device="cuda")))
+    tm = anc.expand(B, T, T).contiguous() if tree else None
+
+    def kern():
+        return sf.flash_chunk_attention(q, ck, cv, W, kstart, tree_mask=tm,
+                                        **kw)
+
+    def plain():
+        return sf.flash_chunk_attention_plain(q, ck, cv, W, kstart,
+                                              tree_mask=tm, **kw)
+
+    out_k = kern()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    err, ratio = check_close(torch, out_k, out_p, what)
+    rec = dict(shape=what)
+    if tree:
+        bad = tm.clone()
+        bad[:, 2, 1] = False                # node 2 (depth 2) loses node 1
+        fault = row_ratio(torch, out_k, sf.flash_chunk_attention_plain(
+            q, ck, cv, W, kstart, tree_mask=bad, **kw))
+        if not fault > 1.0:
+            fail(f"{what}: the check passes the plain version with an "
+                 f"ancestor bit cleared (worst row at {fault:.3g})")
+        chain = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                      device="cuda")).expand(B, T, T)
+        same = torch.equal(
+            sf.flash_chunk_attention(q, ck, cv, W, kstart,
+                                     tree_mask=chain, **kw),
+            sf.flash_chunk_attention(q, ck, cv, W, kstart, **kw))
+        if not same:
+            fail(f"{what}: a chain tree does not give B11-linear's bits")
+        rec.update(fault_row_ratio=fault, chain_equals_linear=same)
+    if kv_int8:
+        ckd = (ck.float() * kr[..., None]).bfloat16()
+        cvd = (cv.float() * vr[..., None]).bfloat16()
+    else:
+        ckd, cvd = ck, cv
+    K = ckd.permute(0, 2, 1, 3).contiguous()
+    V = cvd.permute(0, 2, 1, 3).contiguous()
+    Q = q.permute(0, 2, 1, 3).contiguous()
+    kpos = torch.arange(W, device="cuda")
+    chunk = torch.zeros((T, W), dtype=torch.bool, device="cuda")
+    chunk[:, qoff:] = anc
+    seen = (kpos[None, :] < qoff) | chunk                  # (T, W)
+    mask = seen[None] & (kpos[None, None, :] >= kstart[:, None, None].long())
+    mask4 = mask[:, None]                                  # (B, 1, T, W)
+
+    def lib():
+        return F.scaled_dot_product_attention(Q, K, V, attn_mask=mask4)
+
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+    lib_ms = time_ms(torch, lib)
+    esz = 1 if kv_int8 else 2
+    cols = int((W - kstart.long()).sum())          # visible columns read
+    nbytes = (2 * B * T * H * D * 2 + 2 * cols * HK * D * esz
+              + (2 * cols * HK * 4 if kv_int8 else 0) + 4 * B
+              + (4 * B * T if tree else 0))
+    flops = 4 * D * H * int(mask.sum())             # visible (query, col)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    rec.update(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return rec
 
 def flash_pairs(sq: int, sk: int, causal: bool) -> int:
     """(query, key) pairs the flash kernels compute: all, or under the
@@ -645,26 +794,85 @@ def consistency(torch, gen, eng, req):
                 argmax_is_last_token=bool(int(d.argmax()) == req.tokens[-1]))
 
 
-def run_tier(torch, kernels, gen, Engine, params, cfg, reqs, kv, fused):
-    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
-                 kv_cache_dtype=kv, prefill_chunk=256, fused=fused)
-    handles = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
-    dec_ms, pre_ms = [], []
-    orig_decode, orig_prefill = eng.decode_step, eng.prefill_step
+def make_distinct_requests(n: int, vocab: int, seed: int):
+    """Non-repetitive requests for the draft tiers: each prompt's
+    128..1024 tokens drawn without replacement (so the n-gram proposer
+    finds nothing to copy and acceptance measures the draft model), and
+    32..128 new tokens."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [(rs.choice(np.arange(3, vocab), int(rs.randint(128, 1025)),
+                       replace=False).astype(np.int32),
+             int(rs.randint(32, 129))) for _ in range(n)]
 
-    def timed(fn, sink):
+
+def damp_draft_tail(params, draft_layers: int):
+    """Scale ``wo`` and ``wd`` of layers ``[draft_layers:]`` by 1e-3 in
+    place (the JAX bench's ``_align_draft_params``): the layers past the
+    draft's depth barely move the residual stream, so the truncated
+    draft tracks the target and acceptance is real."""
+    for n in ("wo", "wd"):
+        params["layers"][n][draft_layers:] *= 1e-3
+
+
+def token_agreement(got, want):
+    """How far the tokens of ``got`` follow ``want``'s: the share of
+    generated positions that are equal, the share that lie before their
+    request's first difference, and the first difference as (request,
+    position), or None."""
+    same = prefix = total = 0
+    first = None
+    for r, (a, b) in enumerate(zip(got, want)):
+        n = max(len(a), len(b))
+        eq = [i < len(a) and i < len(b) and a[i] == b[i] for i in range(n)]
+        same += sum(eq)
+        total += n
+        k = eq.index(False) if False in eq else n
+        prefix += k
+        if k < n and first is None:
+            first = (r, k)
+    return dict(tokens_equal_share=same / max(1, total),
+                tokens_before_divergence_share=prefix / max(1, total),
+                first_divergence=first)
+
+
+def run_tier(torch, kernels, gen, Engine, params, cfg, reqs, name, kv,
+             fused=True, check_logits=False, **spec):
+    """One tier of the engine: KV bf16 or int8, ``fused`` on or off,
+    with ``spec`` speculation arguments or none (plain decode). The
+    launch counters are zeroed just before ``run()`` and read just
+    after; they must equal what the tier's counted forwards imply (per
+    layer: B10, or B9 unfused, for each decode and draft-decode step;
+    fused, B11 for each prefill chunk, linear verify and draft catch-up
+    chunk and B11-tree for each tree verify). Every request finishes
+    with its count, both pools drain, and a draft tier's acceptance is
+    over 0.3. Each prefill chunk and engine step is timed (host clock,
+    synchronised), the steps filed by the forward they ran. With
+    ``check_logits`` one request's sequence is fed back through the
+    kernel-free prefill and its logits held against the tier's decode
+    step's (``consistency``)."""
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 kv_cache_dtype=kv, prefill_chunk=256, fused=fused, **spec)
+    handles = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+    attr = "spec_step" if eng.spec is not None else "decode_step"
+    orig_step, orig_prefill = getattr(eng, attr), eng.prefill_step
+    steps = {"prefill": [], "decode": [], "verify": [], "tree": []}
+
+    def timed(fn, kinds):
         def wrapper(*a, **k):
+            before = dict(eng.forwards)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             n = fn(*a, **k)
             torch.cuda.synchronize()
             if n:
-                sink.append((time.perf_counter() - t0) * 1e3)
+                kind = next(k for k in kinds if eng.forwards[k] > before[k])
+                steps[kind].append((time.perf_counter() - t0) * 1e3)
             return n
         return wrapper
 
-    eng.decode_step = timed(orig_decode, dec_ms)
-    eng.prefill_step = timed(orig_prefill, pre_ms)
+    setattr(eng, attr, timed(orig_step, ("tree", "verify", "decode")))
+    eng.prefill_step = timed(orig_prefill, ("prefill",))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -673,45 +881,78 @@ def run_tier(torch, kernels, gen, Engine, params, cfg, reqs, kv, fused):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    del eng.decode_step, eng.prefill_step   # back to the class methods
+    delattr(eng, attr)                      # back to the class methods
+    del eng.prefill_step
     for h, (p, m) in zip(handles, reqs):
         if not h.done or len(h.tokens) != m or h.finish_reason != "max_len":
-            fail(f"tier kv={kv} fused={fused}: request {h.rid} finished "
+            fail(f"tier {name}: request {h.rid} finished "
                  f"{h.finish_reason} with {len(h.tokens)}/{m} tokens")
     st = eng.stats()
-    L = cfg.num_layers
-    want = {**dict.fromkeys(kernels.WRAPPERS, 0),
-            "B9": 0 if fused else st["steps"] * L,
-            "B10": st["steps"] * L if fused else 0,
-            "B11": st["prefill_chunks"] * L if fused else 0}
+    f, L = st["forwards"], cfg.num_layers
+    Ld = eng.draft_cfg.num_layers if eng.draft_cfg is not None else 0
+    decode = L * f["decode"] + Ld * f["draft_decode"]
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    if fused:
+        want.update(B10=decode, B11=L * (f["prefill"] + f["verify"])
+                    + Ld * f["draft_catchup"])
+        want["B11-tree"] = L * f["tree"]
+    else:
+        want["B9"] = decode
     if counts != want:
-        fail(f"tier kv={kv} fused={fused}: launches {counts} != {want}")
+        fail(f"tier {name}: launches {counts} != {want} (forwards {f})")
     eng.cache.prefix.drop_all(eng.cache.allocator)
     alloc = eng.cache.allocator
     if alloc.num_used or alloc.allocs_total != alloc.frees_total:
-        fail(f"tier kv={kv} fused={fused}: pages leaked "
-             f"({alloc.stats()})")
-    cons = consistency(torch, gen, eng, handles[0])
-    if not (cons["logits_max_abs_err"] <= LOGITS_ATOL):
-        fail(f"tier kv={kv} fused={fused}: decode logits vs kernel-free "
-             f"prefill {cons}")
-    gen_tokens = sum(len(h.tokens) for h in handles)
-    rec = dict(kv=kv or "bf16", fused=fused, requests=len(handles),
-               generated_tokens=gen_tokens, wall_s=wall,
-               tokens_per_s=gen_tokens / wall,
-               decode_steps=st["steps"], prefill_chunks=st["prefill_chunks"],
-               decode_step_ms_mean=sum(dec_ms) / max(1, len(dec_ms)),
-               decode_step_ms_median=sorted(dec_ms)[len(dec_ms) // 2]
-               if dec_ms else None,
-               prefill_chunk_ms_mean=sum(pre_ms) / max(1, len(pre_ms)),
+        fail(f"tier {name}: pages leaked ({alloc.stats()})")
+    rec = dict(tier=name, kv=kv or "bf16", fused=fused,
+               spec={k: list(v) if isinstance(v, tuple) else v
+                     for k, v in spec.items()},
+               requests=len(handles),
+               generated_tokens=sum(len(h.tokens) for h in handles),
+               wall_s=wall, forwards=f,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
                launches=counts, cow_copies=st["cow_copies"],
-               shares_total=st["shares_total"], **cons)
+               shares_total=st["shares_total"])
+    rec["tokens_per_s"] = rec["generated_tokens"] / wall
+    for k, v in steps.items():
+        if v:
+            rec[f"{k}_ms_mean"] = sum(v) / len(v)
+            rec[f"{k}_ms_median"] = sorted(v)[len(v) // 2]
+    if eng.spec is not None:
+        sp = eng.spec
+        rec.update({k: st[k] for k in ("spec_drafted_total",
+                                       "spec_accepted_total",
+                                       "spec_verify_steps")})
+        rec["acceptance"] = sp.acceptance_rate
+        # tokens a speculating row commits per verify: its accepted
+        # drafts (its accepted root path past the root) plus the bonus
+        rec["mean_committed_per_row_verify"] = (
+            (sp.accepted_total + sp.verify_steps) / max(1, sp.verify_steps))
+    if eng.draft_cache is not None:
+        dc = eng.draft_cache
+        if dc.allocator.num_used or dc.active.any():
+            fail(f"tier {name}: the draft pool did not drain "
+                 f"({dc.allocator.stats()})")
+        if not eng.spec.acceptance_rate > 0.3:
+            fail(f"tier {name}: draft acceptance "
+                 f"{eng.spec.acceptance_rate:.3f} is not over 0.3")
+        rec["draft_layers"] = eng.draft_layers
+    if check_logits:
+        cons = consistency(torch, gen, eng, handles[0])
+        if not cons["logits_max_abs_err"] <= LOGITS_ATOL:
+            fail(f"tier {name}: decode logits vs kernel-free prefill "
+                 f"{cons}")
+        rec.update(cons)
+    rec["tokens"] = [list(h.tokens) for h in handles]
     del eng, handles
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
+
+def show(rec) -> str:
+    """A tier record as one JSON line, without its token lists."""
+    return json.dumps({k: v for k, v in rec.items() if k != "tokens"})
 
 def device_breakdown(torch, prof, calls: int, wall_ms: float):
     """Split the card's kernel time in ``prof`` by kind, per call, against
@@ -799,6 +1040,52 @@ def profile_tier(torch, Engine, params, cfg, reqs, chunks: int = 4,
     return {"tier": "bf16 KV, fused", "prefill_chunk": prefill,
             "decode_step": decode}
 
+
+
+def profile_spec_tier(torch, Engine, params, cfg, reqs, draft_layers: int,
+                      steps: int = 4):
+    """Where the time of a draft-tree step goes (bf16 KV, fused): admit
+    8 requests, finish their prefills and one warm step (the draft
+    pool's cold catch-up), then trace ``steps`` steps of all 8 rows with
+    ``torch.profiler``, each split on the host clock into the proposal
+    (draft catch-up and draft decode) and the tree verify with its
+    commit. Launches made here are not counted on the main path."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 prefill_chunk=256, fused=True, draft_layers=draft_layers,
+                 spec_tree=(2, 4))
+    for p, _ in reqs[:8]:
+        eng.submit(p, max_new_tokens=128)
+    eng._admit()
+    while eng._pending:
+        eng.prefill_step()
+    mask = eng.ready_mask()
+    eng.spec_step(mask)                    # warm: cold draft catch-up
+    torch.cuda.synchronize()
+    propose, verify = [], []
+    before = dict(eng.forwards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ts = time.perf_counter()
+            drafts = eng.propose_drafts(mask)
+            torch.cuda.synchronize()
+            tv = time.perf_counter()
+            eng.spec_step(mask, drafts)
+            torch.cuda.synchronize()
+            propose.append((tv - ts) * 1e3)
+            verify.append((time.perf_counter() - tv) * 1e3)
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rec = device_breakdown(torch, prof, steps, wall)
+    rec.update(tier="draft-tree, bf16 KV, fused", rows=int(mask.sum()),
+               mean_length=float(eng.cache.lengths[mask].mean()),
+               propose_ms=propose, verify_and_commit_ms=verify,
+               forwards={k: v - before[k] for k, v in eng.forwards.items()})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 # --------------------------------------------------------------- phase 3b
 def train_config(LlamaConfig, layers: int, fused_kernels: str):
@@ -1093,6 +1380,20 @@ def main(argv=None) -> int:
             if ctx_cap == 1024:
                 results[key] = r
         results[key].update(max_abs_err=worst, row_ratio=worst_ratio)
+    # B11 at the speculative verify shapes: linear (n-gram, spec_k = 4)
+    # and tree ((2, 4) comb, 9 nodes), B = 8 rows of ragged contexts
+    verify = []
+    for kv_int8 in (False, True):
+        kvn = "int8" if kv_int8 else "bf16"
+        for ctx_cap in (1024, 2048):
+            r = check_verify(torch, F, kernels, kv_int8, ctx_cap, 5, False)
+            verify.append(r)
+            print(f"kernel B11-linear-verify-{kvn}: " + json.dumps(r))
+        r = check_verify(torch, F, kernels, kv_int8, 2048, 9, True)
+        torch.cuda.synchronize()
+        verify.append(r)
+        print(f"kernel B11-tree-{kvn}: " + json.dumps(r))
+        results[f"B11-tree-{kvn}"] = r
     flash = [check_flash(torch, F, fa, 4, 4096, 4096, 12, 12, 128, True,
                          seed=21, timed=True)]
     for B, sq, sk, H, HK, D, causal in ((2, 320, 320, 4, 4, 128, True),
@@ -1126,6 +1427,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["kernels_phase"] = results
+    record["verify_phase"] = verify
     record["flash_phase"] = flash
     record["fused_phase"] = fused
 
@@ -1142,13 +1444,49 @@ def main(argv=None) -> int:
     for kv in (None, "int8"):
         for fused in (False, True):
             rec = run_tier(torch, kernels, gen, ContinuousBatchingEngine,
-                           params, cfg, reqs, kv, fused)
+                           params, cfg, reqs,
+                           f"{'int8' if kv else 'bf16'}-"
+                           f"{'fused' if fused else 'unfused'}", kv,
+                           fused, check_logits=True)
             tiers.append(rec)
-            print("tier " + json.dumps(rec))
-    record["tiers"] = tiers
+            print("tier " + show(rec))
     prof = profile_tier(torch, ContinuousBatchingEngine, params, cfg, reqs)
     print("profile " + json.dumps(prof))
     record["profile"] = prof
+    # speculation: n-gram on the same weights and requests, compared
+    # with the bf16 fused tier; then the draft tiers on damped weights
+    # and non-repetitive prompts, compared with a plain tier on both
+    def spec_tier(name, tier_reqs, kv, ref, **spec):
+        rec = run_tier(torch, kernels, gen, ContinuousBatchingEngine,
+                       params, cfg, tier_reqs, name, kv, **spec)
+        if ref is not None:
+            rec.update(token_agreement(rec["tokens"], ref["tokens"]))
+        print("tier " + show(rec))
+        tiers.append(rec)
+        return rec
+
+    spec_tier("ngram", reqs, None, tiers[1], spec_k=4)
+    draft_layers = max(1, cfg.num_layers // 2)
+    damp_draft_tail(params, draft_layers)
+    dreqs = make_distinct_requests(args.requests, cfg.vocab_size,
+                                   args.seed + 1)
+    for kv in (None, "int8"):
+        sfx = "-int8" if kv else ""
+        plain = spec_tier("plain-damped" + sfx, dreqs, kv, None)
+        spec_tier("draft-tree" + sfx, dreqs, kv, plain,
+                  draft_layers=draft_layers, spec_tree=(2, 4))
+    # the yardstick for those shares: how far the plain tiers' tokens
+    # follow each other when only the attention kernel differs (B9
+    # against B10 + B11), i.e. how often bf16 splits a near-tie
+    record["plain_fused_vs_unfused"] = {
+        t0["kv"]: token_agreement(t1["tokens"], t0["tokens"])
+        for t0, t1 in ((tiers[0], tiers[1]), (tiers[2], tiers[3]))}
+    print("agreement " + json.dumps(record["plain_fused_vs_unfused"]))
+    sprof = profile_spec_tier(torch, ContinuousBatchingEngine, params, cfg,
+                              dreqs, draft_layers)
+    print("profile " + json.dumps(sprof))
+    record["profile_spec"] = sprof
+    record["tiers"] = tiers
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1202,10 +1540,13 @@ def main(argv=None) -> int:
                 "paddle_tpu/ops/pallas/serving_fused.py:156"),
         "B11": ("cuda", "paddle_tpu_torch/csrc/flash_chunk.cu",
                 "paddle_tpu/ops/pallas/serving_fused.py:453"),
+        "B11-tree": ("cuda", "paddle_tpu_torch/csrc/flash_chunk.cu",
+                     "paddle_tpu/ops/pallas/serving_fused.py:387"),
     }
     line = []
     for key, r in results.items():
-        kname = key.split("-")[0]
+        kname = (key.rsplit("-", 1)[0] if key.endswith(("-bf16", "-int8"))
+                 else key)
         route, src, repl = meta[kname]
         n = launches.get(key, 0)
         if n == 0:

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of paddle_tpu's serving path and training step.
+"""PyTorch/CUDA port of paddle_tpu's serving path (plain and
+speculative) and training step.
 
 The JAX package ``paddle_tpu`` stays the reference; this package holds
 its counterpart for an NVIDIA H100, module for module:
@@ -8,14 +9,19 @@ its counterpart for an NVIDIA H100, module for module:
 - ``models/train.py``: the single-device training step (AdamW on f32
   master weights, global-norm clip);
 - ``models/generate.py``: the paged prefill-chunk / ragged decode
-  forwards;
+  forwards, the speculative verify (linear and token-tree), the tree
+  commit and the truncated-layer draft model;
 - ``serving/paged_cache.py``: the refcounted page allocator, the
   prefix trie and the device page pools;
-- ``inference/predictor.py``: the continuous-batching engine;
+- ``serving/speculative.py``: n-gram drafting, the acceptance rules
+  and token trees (host numpy);
+- ``inference/predictor.py``: the continuous-batching engine, with
+  n-gram, draft-model and tree speculation;
 - ``entry.py``: the counterpart of ``__graft_entry__.entry()``;
 - ``ops/kernels/``: the wrappers of the hand-written CUDA kernels in
   ``csrc/`` (flash attention forward and backward, ragged paged decode,
-  fused RoPE paged decode, flash chunk prefill), each beside its plain
+  fused RoPE paged decode, flash chunk prefill and verify in a linear
+  and a tree form, fused RMSNorm and SwiGLU), each beside its plain
   PyTorch version.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

@@ -1,15 +1,22 @@
-// B11 flash chunk attention, linear variants: the multi-token ragged
-// attention of a prefill chunk against its dense temp cache.
+// B11 flash chunk attention: the multi-token ragged attention of a
+// prefill or verify chunk against its dense temp cache, in a linear and
+// a tree form.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/serving_fused.py
-// `_chunk_kernel` / `_chunk_kernel_rowq` (wrapper
-// `flash_chunk_attention_kernel`). The tree variants (`_chunk_kernel_tree`,
-// `_chunk_kernel_rowq_tree`) belong to speculative verify and are not
-// ported here.
+// `_chunk_kernel` / `_chunk_kernel_rowq` (B11-linear) and
+// `_chunk_kernel_tree` / `_chunk_kernel_rowq_tree` (B11-tree, tree
+// speculative verify), all reached through `flash_chunk_attention_kernel`.
 //
 // Semantics: q (B, T, H, D), cache ck/cv (B, W, HK, D) with W the static
-// length; query t of row b sees columns [kstart_b, W - T + t]. int8
-// caches carry per-row f32 scales (B, W, HK).
+// length; linear: query t of row b sees columns [kstart_b, W - T + t].
+// Tree (TREE = true): the T chunk lanes are token-tree nodes and node t
+// carries an int32 bitmask tree_bits[b, t] whose bit j is set iff chunk
+// node j lies on t's root path; node t sees column c iff c >= kstart_b
+// and either c < W - T (committed context) or bit (c - (W - T)) is set.
+// Only that predicate differs from the linear form: the online softmax,
+// the dequant and the blocking are the same code, so a chain tree
+// (bits (2 << t) - 1) gives the linear kernel's bits. int8 caches carry
+// per-row f32 scales (B, W, HK).
 //
 // What bounds it on the H100: it sits near the balance point. A chunk
 // of T queries against W >> T context columns does about 4*D*T*W flops
@@ -29,9 +36,13 @@
 //   memory as f32; each thread computes a 4 x 4 block of scores and a
 //   4 x (D/16) block of the output with plain f32 FMA, and keeps the
 //   online softmax state of its 4 rows in registers.
+// - tree mode runs the column loop to W, not to the tile's causal limit,
+//   so any ancestor matrix is honoured (the limits agree for T <= 64).
 // It does not reach the tensor-core bound: mma.sync/wgmma tiles and TMA
-// loads are later work. The page -> temp-cache gather stays in PyTorch,
-// as it stays in XLA in the JAX package.
+// loads are later work. A verify chunk (T = 5..32) fills 5..32 of the
+// 64 rows of its query tile, so most of the tile's arithmetic is wasted;
+// at that shape the K/V read sets the bound. The page -> temp-cache
+// gather stays in PyTorch, as it stays in XLA in the JAX package.
 
 #include "common.cuh"
 
@@ -48,6 +59,7 @@ struct ChunkArgs {
   const float* k_rows;    // (B, W, HK) f32, int8 caches only
   const float* v_rows;
   const int* kstart;      // (B,) int32
+  const int* tree_bits;   // (B, T) int32 ancestor bitmasks, tree only
   void* out;              // (B, T, H, D) model dtype, contiguous
   int T, H, HK, W;
   long long c_sb, c_sw, c_sh;  // element strides of ck/cv
@@ -82,7 +94,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const E* src,
   }
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool TREE>
 __global__ void __launch_bounds__(kThreads)
     flash_chunk_kernel(const ChunkArgs a) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
@@ -114,8 +126,13 @@ __global__ void __launch_bounds__(kThreads)
       nullptr, (long long)a.H * D, 0, 0, kBQ, a.T - q0);
 
   float m[4], l[4], acc[4][DPT];
+  unsigned anc[4];  // this thread's rows' ancestor bits (tree only)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty * 4 + i;
+    anc[i] = TREE && t < a.T
+                 ? static_cast<unsigned>(a.tree_bits[b * a.T + t])
+                 : 0u;
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -133,7 +150,8 @@ __global__ void __launch_bounds__(kThreads)
                                  (long long)g * a.r_sh
                            : nullptr;
   const int c_begin = (max(kst, 0) / kBK) * kBK;
-  const int c_end = min(a.W, qoff + qend);  // exclusive causal limit
+  // exclusive limit: the tile's causal limit, or W for a tree
+  const int c_end = TREE ? a.W : min(a.W, qoff + qend);
 
   for (int c0 = c_begin; c0 < c_end; c0 += kBK) {
     load_rows<KV, T, D, QUANT>(sK, LDQ, kb, ksb, a.c_sw, a.r_sw, c0, kBK,
@@ -169,7 +187,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 16 * j;
-        ok[j] = t < a.T && col < a.W && col >= kst && col <= qpos;
+        bool seen;
+        if (TREE) {
+          const int rel = col - qoff;  // chunk node of this column
+          seen = rel < 0 || (rel < a.T && ((anc[i] >> rel) & 1u));
+        } else {
+          seen = col <= qpos;
+        }
+        ok[j] = t < a.T && col < a.W && col >= kst && seen;
         s[i][j] = ok[j] ? s[i][j] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -234,28 +259,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool TREE>
 cudaError_t launch_typed(const ChunkArgs& a, int B, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((kBQ + kBK) * (D + 1) + kBK * D + kBQ * (kBK + 1));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_chunk_kernel<T, KV, D>,
+      flash_chunk_kernel<T, KV, D, TREE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((a.T + kBQ - 1) / kBQ, a.H, B);
-  flash_chunk_kernel<T, KV, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_chunk_kernel<T, KV, D, TREE><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_kv(const ChunkArgs& a, int B, int D, bool kv_int8,
+template <typename T, int D, bool TREE>
+cudaError_t launch_kv(const ChunkArgs& a, int B, bool kv_int8,
                       cudaStream_t stream) {
+  return kv_int8 ? launch_typed<T, int8_t, D, TREE>(a, B, stream)
+                 : launch_typed<T, T, D, TREE>(a, B, stream);
+}
+
+template <typename T>
+cudaError_t launch_d(const ChunkArgs& a, int B, int D, bool kv_int8,
+                     cudaStream_t stream) {
+  const bool tree = a.tree_bits != nullptr;
   if (D == 128)
-    return kv_int8 ? launch_typed<T, int8_t, 128>(a, B, stream)
-                   : launch_typed<T, T, 128>(a, B, stream);
+    return tree ? launch_kv<T, 128, true>(a, B, kv_int8, stream)
+                : launch_kv<T, 128, false>(a, B, kv_int8, stream);
   if (D == 64)
-    return kv_int8 ? launch_typed<T, int8_t, 64>(a, B, stream)
-                   : launch_typed<T, T, 64>(a, B, stream);
+    return tree ? launch_kv<T, 64, true>(a, B, kv_int8, stream)
+                : launch_kv<T, 64, false>(a, B, kv_int8, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -264,14 +297,18 @@ cudaError_t launch_kv(const ChunkArgs& a, int B, int D, bool kv_int8,
 PTT_EXPORT_ERROR_STRING
 
 // q_dtype: 0 = float32, 1 = bfloat16; k_rows/v_rows are read only when
-// kv_int8 != 0.
+// kv_int8 != 0. tree_bits NULL runs the linear form (B11-linear); else it
+// is the (B, T) int32 ancestor bitmasks of the tree form (B11-tree),
+// which takes T <= 32.
 extern "C" int ptt_flash_chunk(
     const void* q, const void* ck, const void* cv, const void* k_rows,
-    const void* v_rows, const void* kstart, void* out, int B, int T, int H,
+    const void* v_rows, const void* kstart, const void* tree_bits,
+    void* out, int B, int T, int H,
     int HK, int D, int W, long long c_sb, long long c_sw, long long c_sh,
     long long r_sb, long long r_sw, long long r_sh, float scale,
     int q_dtype, int kv_int8, void* stream) {
-  if (B <= 0 || T <= 0 || HK <= 0 || H % HK != 0 || W < T)
+  if (B <= 0 || T <= 0 || HK <= 0 || H % HK != 0 || W < T ||
+      (tree_bits != nullptr && T > 32))
     return cudaErrorInvalidValue;
   ChunkArgs a;
   a.q = q;
@@ -280,6 +317,7 @@ extern "C" int ptt_flash_chunk(
   a.k_rows = static_cast<const float*>(k_rows);
   a.v_rows = static_cast<const float*>(v_rows);
   a.kstart = static_cast<const int*>(kstart);
+  a.tree_bits = static_cast<const int*>(tree_bits);
   a.out = out;
   a.T = T;
   a.H = H;
@@ -295,9 +333,9 @@ extern "C" int ptt_flash_chunk(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q_dtype == 1)
-    e = launch_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
+    e = launch_d<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
   else if (q_dtype == 0)
-    e = launch_kv<float>(a, B, D, kv_int8 != 0, s);
+    e = launch_d<float>(a, B, D, kv_int8 != 0, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

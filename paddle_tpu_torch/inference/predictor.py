@@ -1,23 +1,38 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Counterpart of the plain configuration of
-``paddle_tpu/inference/predictor.py``'s ``ContinuousBatchingEngine``: one
-device, no mesh, speculation, adapters, constraints, host tier or
-weight quantization, and the synchronous path only. Each :meth:`step`
-admits queued requests FIFO into free slots (prefix-cache sharing and
-copy-on-write included), advances one pending admission by one prefill
-chunk, then advances every fully prefilled slot by one decode token.
+Counterpart of ``paddle_tpu/inference/predictor.py``'s
+``ContinuousBatchingEngine`` on one device and synchronous: no mesh,
+adapters, constraints, host tier or weight quantization (ROADMAP.md,
+queue A step 1). Each :meth:`step` admits queued requests FIFO into free
+slots (prefix-cache sharing and copy-on-write included), advances one
+pending admission by one prefill chunk, then advances every fully
+prefilled slot by one decode token — or, with speculation on, by a
+verified run of drafted tokens:
+
+- ``spec_k``: n-gram drafts (:mod:`..serving.speculative`), all rows
+  verified in one batched forward, each committing its longest accepted
+  prefix plus the bonus token;
+- ``draft_layers``: a truncated-layer draft model over the target's own
+  weights with a second paged pool proposes the drafts (lazy admission,
+  catch-up chunks, ``spec_k`` draft decode steps);
+- ``spec_tree=(width, depth)``: the draft model's top-``width``
+  candidates per depth form a comb token tree, verified in ONE forward
+  under its ancestor mask (kernel B11-tree when ``fused``); the longest
+  accepted root path commits.
+
+Greedy speculation is token-identical to plain greedy decode.
 
 Greedy decoding is token-identical to the JAX engine's on the same
 parameters; temperature sampling draws from a ``torch.Generator`` (the
 JAX engine's ``jax.random`` key), so sampled tokens differ from JAX's.
-The chunk widths (page-rounded) and gathered-context widths
-(power-of-two page buckets) are the JAX engine's, so the attention
-reductions run over the same widths.
+Sampled speculation accepts with ``numpy.random.default_rng`` seeded
+from the generator's ``initial_seed()``. The chunk widths (page-rounded)
+and gathered-context widths (power-of-two page buckets) are the JAX
+engine's, so the attention reductions run over the same widths.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +40,16 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import generate as _gen
 from ..serving.paged_cache import PagedKVCache, PoolExhausted
+from ..serving.speculative import (Speculator, TreeDraft, build_comb_tree,
+                                   longest_accepted_path,
+                                   longest_accepted_prefix,
+                                   rejection_sample_tokens,
+                                   tree_ancestor_matrix, tree_depths,
+                                   tree_rejection_sample)
+
+#: the kinds of forward the engine counts in ``stats()["forwards"]``
+FORWARDS = ("prefill", "decode", "verify", "tree", "draft_catchup",
+            "draft_decode")
 
 
 class GenerationRequest:
@@ -50,6 +75,31 @@ class GenerationRequest:
             [self.prompt[0], np.asarray(self.tokens, np.int32)])
 
 
+class InFlightStep:
+    """One dispatched decode or verify forward awaiting its commit: the
+    kind (``"decode"``, ``"spec"`` or ``"tree"``), the mask it ran, its
+    device output (sampled tokens, greedy targets or f32 logits) and
+    what the commit needs besides. The engine is synchronous, so a
+    commit always follows its dispatch with nothing in between."""
+    __slots__ = ("kind", "mask", "out", "drafts", "dlen", "qs", "rows")
+
+    def __init__(self, kind, mask, out, drafts=None, dlen=None, qs=None,
+                 rows=None):
+        self.kind = kind
+        self.mask = mask
+        self.out = out
+        self.drafts = drafts            # slot -> drafts / TreeDraft
+        self.dlen = dlen                # (B,) linear draft counts
+        self.qs = qs                    # slot -> (j, V) draft-model q
+        self.rows = rows                # tree verify's un-placed KV rows
+
+
+def _not_ported(what: str, where: str):
+    raise NotImplementedError(
+        f"ContinuousBatchingEngine: {what} is not ported yet — see "
+        f"ROADMAP.md, queue A step {where}")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -70,9 +120,18 @@ class ContinuousBatchingEngine:
 
     ``kv_cache_dtype``: None (model dtype) or ``"int8"`` (per-row
     scales). ``fused``: decode attention through the fused RoPE kernel
-    (B10) and prefill attention through the flash chunk kernel (B11)
-    instead of B9 and the plain chunk composition. ``device`` defaults
-    to the card; ``device="cpu"`` runs every kernel's plain version.
+    (B10) and prefill and verify attention through the flash chunk
+    kernel (B11, B11-tree) instead of B9 and the plain chunk
+    composition. ``device`` defaults to the card; ``device="cpu"`` runs
+    every kernel's plain version.
+
+    Speculation (module docstring): ``spec_k`` drafts per row and step
+    (0 = off), ``spec_ngram`` the n-gram proposer's longest n,
+    ``speculator`` a ready :class:`~..serving.speculative.Speculator`,
+    ``draft_layers`` the draft model's depth, ``draft_pages`` its pool's
+    page count (default: every slot at full length), ``spec_tree``
+    ``(width, depth)`` of the comb tree (needs ``draft_layers``; its
+    depth is ``spec_k``, at most 32 nodes).
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -81,7 +140,18 @@ class ContinuousBatchingEngine:
                  temperature: float = 0.0, eos_token_id=None,
                  generator: Optional[torch.Generator] = None,
                  prefill_chunk: Optional[int] = None, fused: bool = False,
+                 spec_k: int = 0, spec_ngram: int = 3, speculator=None,
+                 draft_layers: Optional[int] = None,
+                 draft_pages: Optional[int] = None,
+                 spec_tree: Optional[Tuple[int, int]] = None,
+                 mesh=None, adapters=None, constraints: bool = False,
                  device: DeviceLike = None):
+        if mesh is not None:
+            _not_ported("mesh (tp / tp x dp serving)", "1.9")
+        if adapters is not None:
+            _not_ported("adapters (the multi-LoRA pool)", "1.6")
+        if constraints:
+            _not_ported("constraints (grammar-constrained decoding)", "1.4")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
@@ -108,7 +178,77 @@ class ContinuousBatchingEngine:
         self._pending: Dict[int, list] = {}
         self._next_rid = 0
         self._steps = 0
-        self.prefill_chunks = 0
+        self.forwards = dict.fromkeys(FORWARDS, 0)
+        self._inflight: Optional[InFlightStep] = None
+        self._init_spec(spec_k, spec_ngram, speculator, draft_layers,
+                        draft_pages, spec_tree, max_len or cfg.max_seq_len,
+                        page_size, kv_cache_dtype)
+
+    def _init_spec(self, spec_k, spec_ngram, speculator, draft_layers,
+                   draft_pages, spec_tree, max_len, page_size, kv):
+        """Validate the speculation arguments (the JAX engine's rules and
+        errors) and build the speculator, the draft model over the
+        target's own weights and its second paged pool."""
+        if spec_tree is not None:
+            w, d = int(spec_tree[0]), int(spec_tree[1])
+            if draft_layers is None:
+                raise ValueError(
+                    "spec_tree requires draft_layers: the tree's "
+                    "candidates come from the draft model's per-step "
+                    "top-width distributions")
+            if w < 1 or d < 1:
+                raise ValueError(
+                    f"spec_tree=(width, depth) must both be >= 1, got "
+                    f"{spec_tree}")
+            if spec_k and int(spec_k) != d:
+                raise ValueError(
+                    f"spec_tree depth {d} conflicts with spec_k="
+                    f"{spec_k}: the tree's chain IS the linear draft "
+                    f"(leave spec_k at 0 or pass spec_k={d})")
+            spec_k = d
+            if 1 + w * d > 32:
+                raise ValueError(
+                    f"spec_tree=({w}, {d}) needs {1 + w * d} tree "
+                    f"nodes; the fused kernel's per-query ancestor "
+                    f"bitmask holds at most 32")
+            self.spec_tree: Optional[Tuple[int, int]] = (w, d)
+            self._tree_T: Optional[int] = 1 + w * d
+        else:
+            self.spec_tree = None
+            self._tree_T = None
+        if draft_layers is not None and int(spec_k) < 1:
+            raise ValueError(
+                "draft_layers requires spec_k >= 1: the draft model "
+                "proposes spec_k tokens per step")
+        self.spec_k = int(spec_k)
+        self.spec = None
+        if self.spec_k:
+            self.spec = (speculator if speculator is not None
+                         else Speculator(self.spec_k, ngram_max=spec_ngram))
+        # host-side acceptance RNG of sampled speculation, seeded from
+        # the engine's generator: two engines built alike draw alike
+        self._accept_rng = np.random.default_rng(
+            int(self.generator.initial_seed()) & 0x7FFFFFFF)
+        self.draft_layers = (int(draft_layers)
+                             if draft_layers is not None else None)
+        self.draft_params = self.draft_cfg = self.draft_cache = None
+        if self.draft_layers is not None:
+            self.draft_params, self.draft_cfg = _gen.make_draft_params(
+                self.params, self.cfg, self.draft_layers)
+            # + spec_k + 1 past max_len: the draft loop feeds up to
+            # spec_k positions beyond the committed context
+            self.draft_cache = PagedKVCache(
+                self.draft_cfg, self.max_batch, max_len + self.spec_k + 1,
+                page_size=page_size, num_pages=draft_pages, kv_dtype=kv,
+                device=self.device)
+        # per-slot draft bookkeeping: _draft_base[slot] is the main
+        # context length at the last propose (the draft pool's valid
+        # prefix is base + the accepted tokens that MATCH the fed chain);
+        # _draft_chain holds the chain tokens fed through the draft
+        # model, _draft_q the q distributions of sampled linear drafts
+        self._draft_base = np.zeros((self.max_batch,), np.int64)
+        self._draft_chain: Dict[int, np.ndarray] = {}
+        self._draft_q: Dict[int, np.ndarray] = {}
 
     # ---- request intake ----
     def create_request(self, prompt, max_new_tokens: int = 16,
@@ -209,7 +349,7 @@ class ContinuousBatchingEngine:
             self.params, torch.from_numpy(chunk).to(self.device),
             cache.pool, cache.block_table_tensor(slot), self.cfg,
             ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=self.fused)
-        self.prefill_chunks += 1
+        self.forwards["prefill"] += 1
         done += take
         if done < S:
             self._pending[slot][2] = done
@@ -233,7 +373,18 @@ class ContinuousBatchingEngine:
         req.done = True
         req.finish_reason = reason
         self.cache.release(req.slot)
-        self._slots[req.slot] = None
+        self._clear_slot(req.slot)
+
+    def _clear_slot(self, slot: int):
+        self._slots[slot] = None
+        if self.draft_cache is not None:
+            # the draft pool's state is disposable: a retired slot just
+            # drops its draft pages (a new tenant catches up cold)
+            if self.draft_cache.active[slot]:
+                self.draft_cache.release(slot)
+            self._draft_chain.pop(slot, None)
+            self._draft_q.pop(slot, None)
+            self._draft_base[slot] = 0
 
     def ready_mask(self) -> np.ndarray:
         """(max_batch,) bool — slots whose sequence is fully in the pool
@@ -243,22 +394,35 @@ class ContinuousBatchingEngine:
             ready[list(self._pending)] = False
         return ready
 
-    def decode_step(self, mask) -> int:
-        """Advance every ``mask`` slot by one token in one ragged decode
-        step over all ``max_batch`` rows (inactive rows write to the
-        trash page); returns the number of slots advanced."""
+    def decode_dispatch(self, mask) -> Optional[InFlightStep]:
+        """Run the ragged decode forward for the ``mask`` slots over all
+        ``max_batch`` rows (inactive rows write to the trash page) and
+        sample, leaving the tokens on the device; None when no slot is
+        masked. :meth:`commit_inflight` commits it."""
         cache = self.cache
         mask = np.asarray(mask, bool)
         if not mask.any():
-            return 0
+            return None
+        self._check_idle()
         dev = self.device
         logits, _ = _gen.paged_decode_forward(
             self.params, torch.from_numpy(self._last.copy()).to(dev),
             cache.pool, cache.block_table_tensor(),
             torch.from_numpy(cache.lengths.copy()).to(dev), self.cfg,
             active=torch.from_numpy(mask).to(dev), fused=self.fused)
-        nxt = self._sample(logits).cpu().numpy()    # the one fetch
-        slots = np.flatnonzero(mask)
+        self.forwards["decode"] += 1
+        self._inflight = InFlightStep("decode", mask, self._sample(logits))
+        return self._inflight
+
+    def _check_idle(self):
+        if self._inflight is not None:
+            raise RuntimeError("a decode/verify forward is already in "
+                               "flight: commit_inflight() first")
+
+    def _decode_commit(self, h: InFlightStep) -> int:
+        cache = self.cache
+        nxt = h.out.cpu().numpy()                   # the one fetch
+        slots = np.flatnonzero(h.mask)
         toks = nxt[slots].astype(np.int32)
         cache.lengths[slots] += 1
         self._last[slots] = toks
@@ -267,13 +431,421 @@ class ContinuousBatchingEngine:
         self._steps += 1
         return int(slots.size)
 
+    def commit_inflight(self) -> int:
+        """Commit the dispatched forward: decode slots advanced, or the
+        tokens a verify committed."""
+        h, self._inflight = self._inflight, None
+        if h is None:
+            return 0
+        if h.kind == "decode":
+            return self._decode_commit(h)
+        if h.kind == "tree":
+            return self._tree_commit(h)
+        return self._spec_commit(h)
+
+    def decode_step(self, mask) -> int:
+        """Advance every ``mask`` slot by one token in one ragged decode
+        step over all ``max_batch`` rows (inactive rows write to the
+        trash page); returns the number of slots advanced."""
+        if self.decode_dispatch(mask) is None:
+            return 0
+        return self.commit_inflight()
+
+    # ---- speculative decoding ----
+    def propose_drafts(self, mask) -> Dict:
+        """Drafts for every masked ready slot: ``slot -> up to spec_k
+        tokens`` (n-gram), or from the draft model
+        (:meth:`_propose_model_drafts`), :class:`TreeDraft` trees under
+        ``spec_tree``. Rows with no match, a poor acceptance EMA or no
+        token room left are absent and decode plainly."""
+        if self.spec is None:
+            return {}
+        if self.draft_params is not None:
+            return self._propose_model_drafts(mask)
+        mask = np.asarray(mask, bool)
+        drafts: Dict[int, np.ndarray] = {}
+        for slot, req in enumerate(self._slots):
+            if req is None or not mask[slot]:
+                continue
+            # a verify commits accepted + 1 tokens: cap the drafts so the
+            # commit never overshoots max_new_tokens
+            room = req.max_new_tokens - len(req.tokens) - 1
+            if room <= 0:
+                continue
+            d = self.spec.propose(
+                slot, req.rid,
+                np.concatenate([req.prompt[0],
+                                np.asarray(req.tokens, np.int32)]),
+                cap=min(self.spec_k, room))
+            if d.size:
+                drafts[slot] = d
+        return drafts
+
+    def _tensor(self, a) -> torch.Tensor:
+        """A host numpy array as a tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _propose_model_drafts(self, mask) -> Dict:
+        """The draft-model proposer: ``spec_k`` autoregressive steps of
+        the truncated-layer draft model against each row's pages in the
+        draft pool.
+
+        Per masked row: (1) admit a draft-pool slot lazily
+        (:class:`PoolExhausted` skips drafting: the row decodes
+        plainly); (2) catch up — feed the committed context the draft
+        pool lacks (all but the last token) through the draft verify
+        forward in page-bucketed chunks; steady state needs none, a cold
+        slot replays its prompt; (3) ``spec_k`` one-token draft decode
+        steps from the last token, each giving the full distribution q:
+        the chain token is its argmax (a q-sample when sampling), tree
+        mode keeps the top-``width`` candidates of each depth.
+
+        The draft pool's ``lengths`` stay at its valid prefix; the
+        speculative feeds advance a local run length only, and the
+        commit moves the valid prefix past exactly the accepted tokens
+        that match the fed chain."""
+        mask = np.asarray(mask, bool)
+        dc = self.draft_cache
+        rows: Dict[int, np.ndarray] = {}
+        rooms: Dict[int, int] = {}
+        for slot, req in enumerate(self._slots):
+            if req is None or not mask[slot]:
+                continue
+            room = req.max_new_tokens - len(req.tokens) - 1
+            if room <= 0:
+                continue
+            if not dc.active[slot]:
+                total = (req.prompt.shape[1] + req.max_new_tokens
+                         + self.spec_k + 1)
+                try:
+                    dc.admit(slot, total)
+                except PoolExhausted:
+                    continue        # back-pressure: decode plainly
+                dc.lengths[slot] = 0
+            rows[slot] = np.concatenate(
+                [req.prompt[0], np.asarray(req.tokens, np.int32)])
+            rooms[slot] = room
+        if not rows:
+            return {}
+        B, k, temp = self.max_batch, self.spec_k, self.temperature
+        # catch-up: page-bucketed verify chunks over the draft model
+        # until every row's pool covers its context but the last token
+        while True:
+            need = {s: rows[s].size - 1 - int(dc.lengths[s]) for s in rows}
+            cmax = max(need.values())
+            if cmax <= 0:
+                break
+            W = 1
+            while W < min(cmax, 128):
+                W *= 2
+            chunk = np.zeros((B, W), np.int32)
+            cmask = np.zeros((B,), bool)
+            adv = np.zeros((B,), np.int32)
+            for s, c in need.items():
+                if c <= 0:
+                    continue
+                c = min(c, W)
+                st = int(dc.lengths[s])
+                chunk[s, :c] = rows[s][st:st + c]
+                cmask[s] = True
+                adv[s] = c
+            ctx_cap = dc.ctx_cap_pages(dc.pages_for(
+                int(dc.lengths[cmask].max()))) * dc.page_size
+            _gen.paged_verify_forward(
+                self.draft_params, self._tensor(chunk), dc.pool,
+                dc.block_table_tensor(), self._tensor(dc.lengths),
+                self.draft_cfg, ctx_cap=ctx_cap,
+                active=self._tensor(cmask), fused=self.fused)
+            self.forwards["draft_catchup"] += 1
+            dc.lengths[cmask] += adv[cmask]
+        # the autoregressive draft loop
+        amask = np.zeros((B,), bool)
+        for s in rows:
+            amask[s] = True
+            self._draft_base[s] = rows[s].size
+        run_len = dc.lengths.copy()
+        x = self._last.copy()
+        tree_w = self.spec_tree[0] if self.spec_tree is not None else 0
+        chains: Dict[int, list] = {s: [] for s in rows}
+        fed: Dict[int, list] = {s: [] for s in rows}
+        qs = ({s: [] for s in rows}
+              if temp != 0.0 and not tree_w else None)
+        cands = {s: [] for s in rows} if tree_w else None
+        for i in range(k):
+            logits, _ = _gen.paged_decode_forward(
+                self.draft_params, self._tensor(x), dc.pool,
+                dc.block_table_tensor(), self._tensor(run_len),
+                self.draft_cfg, active=self._tensor(amask),
+                fused=self.fused)
+            self.forwards["draft_decode"] += 1
+            logits = logits.float().cpu().numpy()
+            run_len[amask] += 1
+            for s in rows:
+                z = logits[s].astype(np.float64)
+                if tree_w:
+                    top = np.argsort(z)[::-1][:tree_w]
+                    cands[s].append(top.astype(np.int32))
+                    nxt = int(top[0])
+                elif temp != 0.0:
+                    z = z / temp
+                    z -= z.max()
+                    q = np.exp(z)
+                    q /= q.sum()
+                    nxt = int(self._accept_rng.choice(q.size, p=q))
+                    qs[s].append(q)
+                else:
+                    nxt = int(np.argmax(z))
+                if len(chains[s]) < min(k, rooms[s]):
+                    chains[s].append(nxt)
+                if i < k - 1:
+                    fed[s].append(nxt)
+                x[s] = nxt
+        out: Dict = {}
+        for s in rows:
+            self._draft_chain[s] = np.asarray(fed[s], np.int32)
+            if tree_w:
+                t = build_comb_tree(int(self._last[s]),
+                                    np.asarray(chains[s], np.int32),
+                                    [c[1:] for c in cands[s]])
+                t = t[:min(t.size, rooms[s])]
+                if t.size:
+                    out[s] = t
+            else:
+                d = np.asarray(chains[s], np.int32)
+                if qs is not None:
+                    self._draft_q[s] = np.stack(qs[s])[:d.size]
+                if d.size:
+                    out[s] = d
+        return out
+
+    def spec_step(self, mask, drafts: Optional[Dict] = None) -> int:
+        """The speculative sibling of :meth:`decode_step`: draft, verify
+        every masked row's drafts in ONE batched forward, commit each
+        row's longest accepted prefix (or root path) plus the bonus
+        token. Rows without drafts ride the same forward and commit
+        their plain token; when no masked row drafted this is a plain
+        decode step. Rejected drafts need no rollback: ``lengths``
+        advances past the accepted tokens only. Returns the number of
+        tokens committed."""
+        if self.spec_dispatch(mask, drafts) is None:
+            return 0
+        return self.commit_inflight()
+
+    def spec_plan_widths(self, mask):
+        """The overlapped scheduler's budget planning: not ported."""
+        _not_ported("spec_plan_widths (the overlapped scheduler's "
+                    "verify-width planning)", "1.2")
+
+    def _ctx_cap(self, mask) -> int:
+        """Power-of-two page bucket of the longest masked context (the
+        chunk program's rule; ready rows hold >= 1 token)."""
+        cache = self.cache
+        return cache.ctx_cap_pages(cache.pages_for(
+            int(cache.lengths[mask].max()))) * cache.page_size
+
+    def _targets(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy verify targets at every position, or the f32 logits
+        the rejection sampler needs when sampling."""
+        if self.temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits.float()
+
+    def spec_dispatch(self, mask,
+                      drafts: Optional[Dict] = None
+                      ) -> Optional[InFlightStep]:
+        """Dispatch half of :meth:`spec_step`: propose (unless given
+        ``drafts``), build the (B, spec_k + 1) chunk and run the verify
+        forward. Falls back to :meth:`decode_dispatch` when no masked
+        row drafted."""
+        if self.spec is None:
+            return self.decode_dispatch(mask)
+        cache = self.cache
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            return None
+        self._check_idle()
+        if drafts is None:
+            drafts = self.propose_drafts(mask)
+        if self.spec_tree is not None:
+            return self._tree_dispatch(mask, drafts)
+        drafts = {s: np.asarray(d, np.int32) for s, d in drafts.items()
+                  if len(d) and mask[s]}
+        if not drafts:
+            return self.decode_dispatch(mask)
+        qs = None
+        if self.draft_params is not None and self.temperature != 0.0:
+            qs = {s: self._draft_q[s][:d.size]
+                  for s, d in drafts.items() if s in self._draft_q}
+        B, T = self.max_batch, self.spec_k + 1
+        chunk = np.zeros((B, T), np.int32)
+        chunk[:, 0] = self._last
+        dlen = np.zeros((B,), np.int32)
+        for s, d in drafts.items():
+            chunk[s, 1:1 + d.size] = d
+            dlen[s] = d.size
+        logits, _ = _gen.paged_verify_forward(
+            self.params, self._tensor(chunk), cache.pool,
+            cache.block_table_tensor(), self._tensor(cache.lengths),
+            self.cfg, ctx_cap=self._ctx_cap(mask),
+            active=self._tensor(mask), fused=self.fused)
+        self.forwards["verify"] += 1
+        self._inflight = InFlightStep("spec", mask, self._targets(logits),
+                                      drafts=drafts, dlen=dlen, qs=qs)
+        return self._inflight
+
+    def _advance_draft(self, slot: int, toks, a: int):
+        """Move the draft pool's valid prefix past the accepted tokens
+        that match the chain fed through the draft model; a mismatched
+        tail is fed again by the next catch-up."""
+        if self.draft_cache is None or slot not in self._draft_chain:
+            return
+        ch = self._draft_chain.pop(slot)
+        m = 0
+        while m < min(a, ch.size) and int(toks[m]) == int(ch[m]):
+            m += 1
+        self.draft_cache.lengths[slot] = int(self._draft_base[slot]) + m
+
+    def _commit_tokens(self, slot: int, req: GenerationRequest, toks,
+                       a: int) -> int:
+        """The last token's KV and ``a`` accepted drafts become context;
+        the bonus token becomes the new last. Returns tokens recorded."""
+        self.cache.lengths[slot] += a + 1
+        self._last[slot] = np.int32(toks[-1])
+        n = 0
+        for tok in toks:
+            self._record_token(req, int(tok))
+            n += 1
+            if req.done:
+                break                  # eos/max_len: drop the tail
+        return n
+
+    def _spec_commit(self, h: InFlightStep) -> int:
+        """Commit half of :meth:`spec_step`: each row's longest accepted
+        prefix plus the bonus token (rejection sampling at temperature
+        > 0, against the draft model's q when it has one)."""
+        out = h.out.cpu().numpy()   # (B, T) targets, or (B, T, V) logits
+        sampled = self.temperature != 0.0
+        committed = 0
+        for slot, req in enumerate(self._slots):
+            if req is None or not h.mask[slot]:
+                continue
+            j = int(h.dlen[slot])
+            d = h.drafts.get(slot)
+            if sampled:
+                q = h.qs.get(slot) if h.qs is not None else None
+                toks, a = rejection_sample_tokens(
+                    out[slot, :j + 1], d if j else None,
+                    self.temperature, self._accept_rng,
+                    q=(q[:j] if q is not None and j else None))
+            else:
+                a = longest_accepted_prefix(d, out[slot]) if j else 0
+                toks = ((list(d[:a]) if j else [])
+                        + [int(out[slot, a])])
+            self._advance_draft(slot, toks, a)
+            committed += self._commit_tokens(slot, req, toks, a)
+            if j:
+                self.spec.observe(slot, req.rid, j, a)
+        self._steps += 1
+        return committed
+
+    def _tree_dispatch(self, mask, trees) -> Optional[InFlightStep]:
+        """Dispatch half of the tree step: pack every masked row's tree
+        into one (B, T) chunk (node 0 the last token), with per-node
+        depths and ancestor matrices, and run the ONE tree-mode verify
+        forward. Rows without a tree ride along as a root-only tree; pad
+        nodes hang off the root. No tree at all: plain decode."""
+        cache = self.cache
+        trees = {s: t for s, t in trees.items()
+                 if mask[s] and isinstance(t, TreeDraft) and t.size}
+        if not trees:
+            return self.decode_dispatch(mask)
+        B, T = self.max_batch, self._tree_T
+        chunk = np.zeros((B, T), np.int32)
+        chunk[:, 0] = self._last
+        depths = np.ones((B, T), np.int32)
+        depths[:, 0] = 0
+        anc = np.zeros((B, T, T), bool)
+        anc[:, np.arange(T), np.arange(T)] = True
+        anc[:, :, 0] = True             # pad nodes hang off the root
+        for s, t in trees.items():
+            n = t.tokens.size
+            chunk[s, :n] = t.tokens
+            depths[s, :n] = tree_depths(t.parents)
+            anc[s, :n, :n] = tree_ancestor_matrix(t.parents)
+        logits, rows = _gen.paged_verify_forward(
+            self.params, self._tensor(chunk), cache.pool,
+            cache.block_table_tensor(), self._tensor(cache.lengths),
+            self.cfg, ctx_cap=self._ctx_cap(mask),
+            active=self._tensor(mask), fused=self.fused,
+            tree_depth=self._tensor(depths), tree_mask=self._tensor(anc))
+        self.forwards["tree"] += 1
+        self._inflight = InFlightStep("tree", mask, self._targets(logits),
+                                      drafts=trees, rows=rows)
+        return self._inflight
+
+    def _tree_commit(self, h: InFlightStep) -> int:
+        """Commit half of the tree step: each row's longest accepted
+        root path (greedy walk, or sequential point-mass rejection down
+        the tree when sampling), its nodes' KV placed at the PRE-commit
+        lengths (bit-identical to a linear verify of the path), then the
+        bookkeeping. Rejected nodes were never placed."""
+        cache = self.cache
+        out = h.out.cpu().numpy()   # (B, T) targets, or (B, T, V) logits
+        sampled = self.temperature != 0.0
+        B, T = self.max_batch, self._tree_T
+        path_nodes = np.zeros((B, T), np.int32)
+        path_len = np.zeros((B,), np.int32)
+        base_len = cache.lengths.copy()
+        plans = []
+        for slot, req in enumerate(self._slots):
+            if req is None or not h.mask[slot]:
+                continue
+            t = h.drafts.get(slot)
+            if t is None:
+                # un-drafted row: exactly the plain token at the root
+                if sampled:
+                    z = out[slot, 0].astype(np.float64) / self.temperature
+                    z -= z.max()
+                    p = np.exp(z)
+                    p /= p.sum()
+                    toks = [int(self._accept_rng.choice(p.size, p=p))]
+                else:
+                    toks = [int(out[slot, 0])]
+                path, a = [0], 0
+            elif sampled:
+                path, toks, a = tree_rejection_sample(
+                    t.tokens, t.parents, out[slot], self.temperature,
+                    self._accept_rng)
+            else:
+                path, toks, a = longest_accepted_path(
+                    t.tokens, t.parents, out[slot])
+            path_nodes[slot, :len(path)] = path
+            path_len[slot] = len(path)
+            plans.append((slot, req, t, toks, a))
+        # placement first, against the pre-commit tables and lengths
+        # (retirement below resets them for finished rows)
+        _gen.paged_tree_commit(
+            cache.pool, h.rows, cache.block_table_tensor(),
+            self._tensor(base_len), self._tensor(path_nodes),
+            self._tensor(path_len))
+        committed = 0
+        for slot, req, t, toks, a in plans:
+            self._advance_draft(slot, toks, a)
+            committed += self._commit_tokens(slot, req, toks, a)
+            if t is not None:
+                self.spec.observe(slot, req.rid, t.size, a)
+        self._steps += 1
+        return committed
+
     def step(self) -> bool:
         """Admit (FIFO), advance chunked prefill by one chunk, then
         advance every fully prefilled slot by one token. Returns False
         when no work remains."""
         self._admit()
         self.prefill_step()
-        if self.decode_step(self.ready_mask()) == 0:
+        advance = (self.spec_step if self.spec is not None
+                   else self.decode_step)
+        if advance(self.ready_mask()) == 0:
             return bool(self._queue or self._pending
                         or self.cache.active.any())
         return bool(self._queue) or bool(self.cache.active.any())
@@ -299,7 +871,7 @@ class ContinuousBatchingEngine:
     def stats(self) -> Dict:
         s = self.cache.allocator.stats()
         s["steps"] = self._steps
-        s["prefill_chunks"] = self.prefill_chunks
+        s["prefill_chunks"] = self.forwards["prefill"]
         s["queued"] = len(self._queue)
         s["active_slots"] = int(self.cache.active.sum())
         s["pending_prefills"] = len(self._pending)
@@ -307,4 +879,15 @@ class ContinuousBatchingEngine:
             s["fused_kernels"] = True
         s["cow_copies"] = self.cache.cow_copies
         s["prefix_evictions_total"] = self.cache.prefix.evictions_total
+        s["forwards"] = dict(self.forwards)
+        if self.spec is not None:
+            s.update(self.spec.stats())
+        if self.draft_cache is not None:
+            s["draft_layers"] = self.draft_layers
+            da = self.draft_cache.allocator
+            s["draft_pool_pages_used"] = da.num_used
+            s["draft_pool_pages_usable"] = da.num_usable
+        if self.spec_tree is not None:
+            s["tree_width"], s["tree_depth"] = self.spec_tree
+            s["tree_nodes"] = self._tree_T - 1
         return s

@@ -17,6 +17,7 @@ WRAPPERS = {
     "B9": paged_attention.paged_attention,
     "B10": serving_fused.fused_paged_decode_attention,
     "B11": serving_fused.flash_chunk_attention,
+    "B11-tree": serving_fused.flash_chunk_tree_attention,
 }
 
 

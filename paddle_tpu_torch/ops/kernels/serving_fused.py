@@ -9,10 +9,13 @@ Counterpart of ``paddle_tpu/ops/pallas/serving_fused.py``:
   kernels ``_fused_paged_kernel`` / ``_fused_paged_kernel_rowq``); the
   contract with the unfused path is token identity per KV tier.
 - :func:`flash_chunk_attention`: multi-token ragged flash attention of
-  a prefill chunk against its dense temp cache. CUDA tensors launch
-  ``csrc/flash_chunk.cu`` (it replaces ``_chunk_kernel`` /
-  ``_chunk_kernel_rowq``). The tree-mask variants of speculative verify
-  are not ported: ``tree_mask`` raises.
+  a prefill or verify chunk against its dense temp cache. CUDA tensors
+  launch ``csrc/flash_chunk.cu`` (it replaces ``_chunk_kernel`` /
+  ``_chunk_kernel_rowq``, kernel B11-linear). With ``tree_mask`` (tree
+  speculative verify) the call goes to
+  :func:`flash_chunk_tree_attention`, the same kernel in its tree form
+  (``_chunk_kernel_tree`` / ``_chunk_kernel_rowq_tree``, B11-tree),
+  which counts its launches apart.
 
 Each wrapper takes its plain PyTorch version for CPU tensors, never for
 CUDA ones, and counts its kernel launches in ``.launches``.
@@ -31,9 +34,12 @@ from .paged_attention import (_Q_DTYPES, _aligned, _check_pair,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+#: the tree form packs each node's ancestor row into one int32
+TREE_MAX_NODES = 32
 FLASH_CHUNK_SIGNATURES = {
     "ptt_flash_chunk": (
-        _P, _P, _P, _P, _P, _P, _P,     # q, ck, cv, k/v rows, kstart, out
+        _P, _P, _P, _P, _P, _P, _P,     # q, ck, cv, k/v rows, kstart,
+        _P,                             # tree bits (or NULL), out
         _I, _I, _I, _I, _I, _I,         # B, T, H, HK, D, W
         _L, _L, _L, _L, _L, _L,         # cache strides, row-scale strides
         ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
@@ -88,20 +94,15 @@ def fused_paged_decode_attention(q, cos_row, sin_row, k_pages, v_pages,
 fused_paged_decode_attention.launches = 0
 
 
-def _no_tree(tree_mask):
-    if tree_mask is not None:
-        raise NotImplementedError(
-            "flash_chunk_attention: tree_mask (tree speculative verify) "
-            "is not ported yet — see ROADMAP.md, port queue B "
-            "(B11-tree)")
-
-
 def flash_chunk_attention_plain(q, ck, cv, length, kstart, *, scale=None,
                                 k_rows=None, v_rows=None, tree_mask=None):
     """Plain PyTorch chunk attention, op for op the JAX package's
-    ``flash_chunk_attention_reference`` (linear masks): query t of row b
-    sees columns ``[kstart_b, length - T + t]``."""
-    _no_tree(tree_mask)
+    ``flash_chunk_attention_reference``. Linear: query t of row b sees
+    columns ``[kstart_b, length - T + t]``. With ``tree_mask`` (B, T, T)
+    bool, the ancestor-or-self matrix of a token tree in the chunk's T
+    lanes: every committed column below the chunk stays visible, chunk
+    column ``W - T + j`` only where ``tree_mask[b, t, j]``, and the
+    ``kstart`` mask still applies."""
     B, T, H, D = q.shape
     _check_pair(k_rows, v_rows, "flash_chunk_attention")
     if k_rows is not None:
@@ -115,8 +116,16 @@ def flash_chunk_attention_plain(q, ck, cv, length, kstart, *, scale=None,
     s = s * scale if scale is not None else s / math.sqrt(D)
     dev = q.device
     kpos = torch.arange(s.shape[3], device=dev)[None, None, None, :]
-    qpos = (length - T) + torch.arange(T, device=dev)[None, None, :, None]
-    s = torch.where(kpos <= qpos, s, -1e30)
+    if tree_mask is None:
+        qpos = (length - T) + torch.arange(T, device=dev)[None, None, :,
+                                                          None]
+        s = torch.where(kpos <= qpos, s, -1e30)
+    else:
+        smax = ck.shape[1]
+        allow = torch.cat(
+            [torch.ones((B, T, smax - T), dtype=torch.bool, device=dev),
+             torch.as_tensor(tree_mask, device=dev).bool()], dim=2)
+        s = torch.where(allow[:, None], s, -1e30)
     ks = torch.as_tensor(kstart, dtype=torch.int32, device=dev)
     ks = ks.broadcast_to((B,))[:, None, None, None]
     s = torch.where(kpos >= ks, s, -1e30)
@@ -124,10 +133,34 @@ def flash_chunk_attention_plain(q, ck, cv, length, kstart, *, scale=None,
     return torch.einsum("bhqk,bkhd->bqhd", p.to(cv.dtype), cv)
 
 
+def _check_tree(tree_mask, B: int, T: int):
+    if T > TREE_MAX_NODES:
+        raise ValueError(
+            f"flash_chunk_attention: tree mode packs ancestor rows into "
+            f"int32 bitmasks, so the tree is capped at {TREE_MAX_NODES} "
+            f"nodes (got T={T})")
+    if tuple(tree_mask.shape) != (B, T, T):
+        raise ValueError(f"flash_chunk_attention: tree_mask must be "
+                         f"({B}, {T}, {T}), got {tuple(tree_mask.shape)}")
+
+
+def tree_bits(tree_mask) -> torch.Tensor:
+    """(B, T, T) ancestor-or-self matrix -> (B, T) int32 bitmasks, bit
+    j of node t set iff chunk node j is on t's root path (the Pallas
+    wrapper's packing; node 31 lands in the sign bit)."""
+    m = torch.as_tensor(tree_mask).bool()
+    w = torch.arange(m.shape[2], device=m.device, dtype=torch.int64)
+    bits = (m.long() << w).sum(dim=2)                   # < 2**32
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32)
+
+
 def launch_flash_chunk(q, ck, cv, length, kstart, *, scale=None,
-                       k_rows=None, v_rows=None) -> torch.Tensor:
-    """Launch ``ptt_flash_chunk`` (B11, linear) on CUDA tensors;
-    validates every input and raises on what the kernel does not take."""
+                       k_rows=None, v_rows=None,
+                       tree_mask=None) -> torch.Tensor:
+    """Launch ``ptt_flash_chunk`` on CUDA tensors: B11-linear, or with
+    ``tree_mask`` B11-tree; validates every input and raises on what the
+    kernel does not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash chunk kernel needs CUDA tensors, got {dev}")
@@ -175,6 +208,10 @@ def launch_flash_chunk(q, ck, cv, length, kstart, *, scale=None,
         raise ValueError("flash_chunk: q must be 16-byte aligned")
     kst = torch.as_tensor(kstart, device=dev).to(
         torch.int32).broadcast_to((B,)).contiguous()
+    bits = None
+    if tree_mask is not None:
+        _check_tree(tree_mask, B, T)
+        bits = tree_bits(torch.as_tensor(tree_mask, device=dev))
     out = torch.empty_like(q)
     s = scale if scale is not None else 1.0 / math.sqrt(D)
     lib = _build.load("flash_chunk", FLASH_CHUNK_SIGNATURES)
@@ -182,7 +219,8 @@ def launch_flash_chunk(q, ck, cv, length, kstart, *, scale=None,
         q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         k_rows.data_ptr() if quant else None,
         v_rows.data_ptr() if quant else None,
-        kst.data_ptr(), out.data_ptr(), B, T, H, HK, D, W,
+        kst.data_ptr(), bits.data_ptr() if bits is not None else None,
+        out.data_ptr(), B, T, H, HK, D, W,
         *ck.stride()[:3], *r_strides, float(s), _Q_DTYPES[q.dtype],
         int(quant), _build.stream_handle(dev))
     _build.check(lib, rc, "flash_chunk")
@@ -191,7 +229,7 @@ def launch_flash_chunk(q, ck, cv, length, kstart, *, scale=None,
 
 def flash_chunk_attention(q, ck, cv, length, kstart, *, scale=None,
                           k_rows=None, v_rows=None, tree_mask=None):
-    """Multi-token serving attention (B11, linear): the plain version for
+    """Multi-token serving attention (B11-linear): the plain version for
     CPU tensors, the flash chunk kernel for CUDA tensors (or an error).
 
     q:       (B, T, H, D) rotated chunk queries
@@ -199,8 +237,13 @@ def flash_chunk_attention(q, ck, cv, length, kstart, *, scale=None,
              ``k_rows``/``v_rows`` (B, W, HK) per-row dequant scales)
     length:  static total width, ``== W``
     kstart:  (B,) first valid cache column per row
+    tree_mask: optional (B, T, T) bool ancestor-or-self matrix; the call
+             then goes to :func:`flash_chunk_tree_attention` (B11-tree)
     """
-    _no_tree(tree_mask)
+    if tree_mask is not None:
+        return flash_chunk_tree_attention(
+            q, ck, cv, length, kstart, tree_mask, scale=scale,
+            k_rows=k_rows, v_rows=v_rows)
     if q.device.type == "cpu":
         return flash_chunk_attention_plain(
             q, ck, cv, length, kstart, scale=scale, k_rows=k_rows,
@@ -212,3 +255,25 @@ def flash_chunk_attention(q, ck, cv, length, kstart, *, scale=None,
 
 
 flash_chunk_attention.launches = 0
+
+
+def flash_chunk_tree_attention(q, ck, cv, length, kstart, tree_mask, *,
+                               scale=None, k_rows=None, v_rows=None):
+    """Tree speculative verify attention (B11-tree): the chunk's T lanes
+    are token-tree nodes and ``tree_mask`` (B, T, T) bool replaces the
+    in-chunk causal triangle. The plain version for CPU tensors, the
+    flash chunk kernel in its tree form for CUDA tensors (or an error).
+    Either way T is capped at 32 nodes, the kernel's bitmask width."""
+    _check_tree(tree_mask, q.shape[0], q.shape[1])
+    if q.device.type == "cpu":
+        return flash_chunk_attention_plain(
+            q, ck, cv, length, kstart, scale=scale, k_rows=k_rows,
+            v_rows=v_rows, tree_mask=tree_mask)
+    out = launch_flash_chunk(q, ck, cv, length, kstart, scale=scale,
+                             k_rows=k_rows, v_rows=v_rows,
+                             tree_mask=tree_mask)
+    flash_chunk_tree_attention.launches += 1
+    return out
+
+
+flash_chunk_tree_attention.launches = 0

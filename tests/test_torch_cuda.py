@@ -11,7 +11,8 @@ dispatch to: head dim 64 and 128, float32 and bfloat16 queries, native
 and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
 full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136);
 the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
-and two chunks a thread, ragged row counts included.
+and two chunks a thread, ragged row counts included; B11-tree at verify
+shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart).
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 200 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -126,6 +127,55 @@ def test_flash_chunk_kernel_matches_plain(cuda, case):
     assert kernels.launch_counts() == {**NONE, "B11": 1}
 
 
+def _random_trees(g, B, T):
+    """(B, T, T) ancestor-or-self matrices of random topological trees
+    (node i hangs off a node before it), one per row."""
+    from paddle_tpu_torch.serving import tree_ancestor_matrix
+    anc = []
+    for _ in range(B):
+        par = [-1] + [int(torch.randint(0, i, (1,), generator=g))
+                      for i in range(1, T)]
+        anc.append(torch.from_numpy(tree_ancestor_matrix(np.asarray(par))))
+    return torch.stack(anc)
+
+
+TREE_CASES = [(d, dt, q8, t) for d in (64, 128)
+              for dt in (torch.float32, torch.bfloat16)
+              for q8 in (False, True) for t in (5, 9, 32)]
+
+
+@pytest.mark.parametrize("case", TREE_CASES,
+                         ids=[f"D{c[0]}-{str(c[1])[6:]}-"
+                              f"{'int8' if c[2] else 'fp'}-T{c[3]}"
+                              for c in TREE_CASES])
+def test_flash_chunk_tree_kernel_matches_plain(cuda, case):
+    """B11-tree at verify shapes: B = 8 rows with ragged kstart, T
+    tree nodes of random topology at the end of a W = 256 + T temp
+    cache, GQA rep 2; then a chain tree, which must give the linear
+    kernel's bits."""
+    D, dtype, q8, T = case
+    g = torch.Generator().manual_seed(T)
+    B, HK, W = 8, 2, 256 + T
+    H = 2 * HK
+    q = torch.randn((B, T, H, D), generator=g).to(dtype).to(cuda)
+    k, v, kr, vr = _pools(g, cuda, B, W, HK, D, dtype, q8)
+    kstart = torch.tensor([0, 7, 64, 100, 255, 3, 128, 200],
+                          dtype=torch.int32, device=cuda)
+    tm = _random_trees(g, B, T).to(cuda)
+    kw = dict(k_rows=kr, v_rows=vr)
+    kernels.reset_launch_counts()
+    out = sf.flash_chunk_attention(q, k, v, W, kstart, tree_mask=tm, **kw)
+    _close(out, sf.flash_chunk_attention_plain(q, k, v, W, kstart,
+                                               tree_mask=tm, **kw), dtype)
+    chain = torch.tril(torch.ones((T, T), dtype=torch.bool, device=cuda))
+    tree = sf.flash_chunk_attention(q, k, v, W, kstart,
+                                    tree_mask=chain.expand(B, T, T), **kw)
+    linear = sf.flash_chunk_attention(q, k, v, W, kstart, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tree, linear)
+    assert kernels.launch_counts() == {**NONE, "B11": 1, "B11-tree": 2}
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((2, 4, 16), device=cuda)            # head dim 16
     k = torch.zeros((4, 8, 2, 16), device=cuda)
@@ -137,6 +187,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     c = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="length"):
         sf.flash_chunk_attention(q, c, c, 12, torch.zeros(1, device=cuda))
+    q = torch.zeros((1, 33, 2, 64), device=cuda)
+    c = torch.zeros((1, 64, 2, 64), device=cuda)
+    tm = torch.ones((1, 33, 33), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="32"):
+        sf.flash_chunk_attention(q, c, c, 64, torch.zeros(1, device=cuda),
+                                 tree_mask=tm)
 
 
 @pytest.mark.parametrize("kv", [None, "int8"])
@@ -183,6 +239,47 @@ def test_engine_on_the_card_matches_cpu(cuda, kv, fused):
         logits.append(lg.cpu())
     tol = 1e-2 if kv else 1e-3
     torch.testing.assert_close(logits[0], logits[1], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_tree_spec_engine_on_the_card_matches_cpu(cuda, kv):
+    """The tree-speculating engine (draft_layers=1, spec_tree=(2, 3),
+    fused) in float32 on the card and on the CPU from the same
+    parameters, the post-draft layers damped by 1e-3 so that the draft
+    tracks the target: the same greedy tokens, acceptance over 0.3,
+    the draft pool drained, and on the card every forward through its
+    kernels — per layer, B10 for each decode and draft decode step,
+    B11 for each prefill chunk and draft catch-up chunk, B11-tree for
+    each tree verify."""
+    cfg = tl.LlamaConfig.tiny(hidden_size=128, num_heads=2, num_kv_heads=1,
+                              intermediate_size=256, num_layers=2,
+                              max_seq_len=64)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    for n in ("wo", "wd"):
+        params["layers"][n][1:] *= 1e-3
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(3, 256, (n,)).astype(np.int32) for n in (5, 19, 9)]
+    kw = dict(max_batch=2, page_size=8, max_len=48, kv_cache_dtype=kv,
+              prefill_chunk=8, fused=True, draft_layers=1, spec_tree=(2, 3))
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        eng = ContinuousBatchingEngine(params, cfg, device=dev, **kw)
+        outs[dev.type] = eng.generate(prompts, max_new_tokens=8)
+        counts = kernels.launch_counts()
+        assert eng.spec.acceptance_rate > 0.3
+        assert eng.draft_cache.allocator.num_used == 0
+        if dev.type == "cuda":
+            f, L = eng.stats()["forwards"], cfg.num_layers
+            assert f["tree"] > 0
+            assert counts == {
+                **NONE, "B10": L * f["decode"] + f["draft_decode"],
+                "B11": L * (f["prefill"] + f["verify"])
+                + f["draft_catchup"],
+                "B11-tree": L * f["tree"]}
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def _on(tree, dev):

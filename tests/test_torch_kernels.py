@@ -1,7 +1,8 @@
 """The port's kernel functions against the JAX package's, on the CPU.
 
 For B9 (ragged paged decode), B10 (fused RoPE paged decode) and B11
-(flash chunk attention, linear), the same seeded numpy inputs go through
+(flash chunk attention, linear; the tree form is in
+``tests/test_torch_spec.py``), the same seeded numpy inputs go through
 the JAX reference, the JAX Pallas kernel in interpret mode and the
 port's plain PyTorch version: fp32 and int8 tiers, GQA rep = 2, mixed
 lengths and -1 block-table entries. Tolerance rtol = atol = 2e-5: the
@@ -159,9 +160,9 @@ def test_b11_flash_chunk_matches_jax(quant):
 def test_tree_mask_and_unpaired_scales_raise():
     x = _chunk_case(3, False)
     args = (_t(x["q"]), _t(x["ck"]), _t(x["cv"]), x["W"], _t(x["kstart"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tree_mask must be"):
         tsf.flash_chunk_attention(*args,
-                                  tree_mask=torch.ones(2, 8, 8, dtype=bool))
+                                  tree_mask=torch.ones(2, 8, 7, dtype=bool))
     d = _decode_case(4, True)
     with pytest.raises(ValueError, match="together"):
         tpa.paged_attention(_t(d["q"]), _t(d["k"]), _t(d["v"]), _t(d["bt"]),
