@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path (plain and speculative)
-and training step on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path (plain and speculative),
+dense decoding and training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -37,7 +37,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16), at Llama-2-7B widths (h = 4096, i = 11008) and at a ragged
    row count in f32 (N = 1003, h = 5120, i = 13824), each row against
    its plain version and against its planted fault (``check_fused``);
-   the training shape is timed beside ``F.rms_norm``.
+   the training shape is timed beside ``F.rms_norm``. Then B7 (decode
+   attention against a contiguous cache) in bf16 and int8 at the
+   Llama-2-7B dense decode shape (B = 8, H = HK = 32, D = 128, S = 2048,
+   mixed lengths with one of 1) and at the JAX bench model's (H = HK =
+   12, S = 192), on a layer view of a two-layer cache whose columns past
+   each row's length are NaN, row by row against the plain version on a
+   clean copy, with a planted fault (the longest row's last 64 live keys
+   dropped) that must fail, timed beside SDPA under a boolean length
+   mask and the bound (``check_dense_decode``).
 3. The engine at Llama-2-7B width (random weights from a seeded
    generator): ``max_batch=8, page_size=16, max_len=2048,
    prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
@@ -65,6 +73,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shares between the plain tiers with and without the fused kernels.
    Last, ``torch.profiler`` traces a few draft-tree steps and splits
    them into proposal and verify on the host clock.
+3c. Dense decoding (``generate``, ``beam_search``,
+   ``precompute_prompt_cache``) at the same width and depth, fresh
+   seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
+   new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
+   long tier (prompt 1920, 128 new); beam search (B = 2, 4 beams, 32
+   new); a shared 200-token prompt cache; a left-padded batch. Per tier
+   decode tokens/s net of the prefill (``bench.py``'s ``decode_rate``),
+   ms per decode step, peak memory, and the launch counters, zeroed
+   just before the timed calls and read just after: B7 L * (new - 1)
+   per call, none in the left-padded tier. Each bench tier's decode
+   logits through B7 are held within 0.25 of the plain composition's
+   (``use_kernel=False``), and ``torch.profiler`` splits the bf16 and
+   int8-weight decode steps into B7, matmuls, dequantization and the
+   rest (``run_dense``).
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -483,6 +505,91 @@ def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
     rec.update(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     return rec
+
+def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
+                       lens, seed: int):
+    """B7 on layer 1 of a (2, B, S, H, D) dense cache (H = HK, D = 128,
+    B = len(lens)), every column at or past a row's length NaN (int8: its
+    scale NaN), held row by row against the plain version on the same
+    cache with a clean tail; the plain version without the last
+    FAULT_TILE live keys of the longest row must fail the same check.
+    Timed beside the plain version, SDPA under a boolean length mask on
+    the cache dequantized and transposed beforehand, and the bound (the
+    live K and V rows and their scales, q and the output)."""
+    fz = kernels.fused
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, D = len(lens), 128
+    shape = (2, B, S, H, D)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+    if kv_int8:
+        k = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:4], generator=g, device="cuda") * 0.02 + 0.005
+        vs = torch.rand(shape[:4], generator=g, device="cuda") * 0.02 + 0.005
+    else:
+        k = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        v = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        ks = vs = None
+    clean = [t if t is None else t[1] for t in (k, v, ks, vs)]
+    dirty = [t if t is None else t.clone() for t in (k, v, ks, vs)]
+    tail = (torch.arange(S, device="cuda")[None, :]
+            >= lens[:, None].long())                          # (B, S)
+    for i in ((2, 3) if kv_int8 else (0, 1)):
+        dirty[i][1][tail] = float("nan")
+    ck, cv, kr, vr = (t if t is None else t[1] for t in dirty)
+    kw = dict(k_rows=kr, v_rows=vr)
+    pkw = dict(k_rows=clean[2], v_rows=clean[3])
+    what = f"B7 kv_int8={kv_int8} H{H} S{S}"
+
+    def kern():
+        return fz.decode_attention(q, ck, cv, lens, **kw)
+
+    def plain():
+        return fz.decode_attention_plain(q, clean[0], clean[1], lens, **pkw)
+
+    out_k = kern()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    err, ratio = check_close(torch, out_k, out_p, what)
+    bad = lens.clone()
+    longest = int(torch.argmax(lens))
+    bad[longest] -= FAULT_TILE
+    fault = row_ratio(torch, out_k, fz.decode_attention_plain(
+        q, clean[0], clean[1], bad, **pkw))
+    if not fault > 1.0:
+        fail(f"{what}: the check passes the plain version without the "
+             f"last {FAULT_TILE} live keys of row {longest} (worst row at "
+             f"{fault:.3g})")
+    if kv_int8:
+        ckd = (clean[0].float() * clean[2][..., None]).bfloat16()
+        cvd = (clean[1].float() * clean[3][..., None]).bfloat16()
+    else:
+        ckd, cvd = clean[0], clean[1]
+    K = ckd.permute(0, 2, 1, 3).contiguous()
+    V = cvd.permute(0, 2, 1, 3).contiguous()
+    mask = (~tail)[:, None, None, :]
+    ql = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(ql, K, V, attn_mask=mask)
+
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+    lib_ms = time_ms(torch, lib)
+    n_tok = int(lens.sum().item())
+    esz = 1 if kv_int8 else 2
+    nbytes = (2 * B * H * D * 2 + 2 * n_tok * H * D * esz
+              + (2 * n_tok * H * 4 if kv_int8 else 0) + 4 * B)
+    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
+    return dict(shape=what, lengths=lens.tolist(), max_abs_err=err,
+                row_ratio=ratio, fault_row_ratio=fault, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
 
 def flash_pairs(sq: int, sk: int, causal: bool) -> int:
     """(query, key) pairs the flash kernels compute: all, or under the
@@ -954,22 +1061,25 @@ def show(rec) -> str:
     """A tier record as one JSON line, without its token lists."""
     return json.dumps({k: v for k, v in rec.items() if k != "tokens"})
 
-def device_breakdown(torch, prof, calls: int, wall_ms: float):
+def device_breakdown(torch, prof, calls: int, wall_ms: float, skip=()):
     """Split the card's kernel time in ``prof`` by kind, per call, against
     the host's wall time per call. Only the card's own events are summed:
     a CPU operator's self device time repeats the time of the kernels it
-    launched."""
+    launched. ``skip``: keys of ``record_function`` spans, whose device
+    side is a span over kernels counted already."""
     from torch.autograd import DeviceType
     kinds = {"attention kernel": 0.0, "B4/B5 kernel": 0.0, "gemm": 0.0,
              "other": 0.0}
     top = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
+        if (ev.device_type != DeviceType.CUDA or ev.key in skip
+                or not ev.self_device_time_total):
             continue
         us = ev.self_device_time_total
         top.append((us, ev.count, ev.key))
         key = ev.key.lower()
-        if "paged_decode" in key or "flash_" in key:
+        if ("paged_decode" in key or "flash_" in key
+                or "decode_attention" in key):
             kinds["attention kernel"] += us
         elif any(w in key for w in ("rms_fwd_kernel", "rms_bwd_kernel",
                                     "swiglu_fwd_kernel",
@@ -1086,6 +1196,211 @@ def profile_spec_tier(torch, Engine, params, cfg, reqs, draft_layers: int,
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+# --------------------------------------------------------------- phase 3c
+def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
+               new: int, fn: str = "generate", b7: bool = True,
+               reps: int = 2, **kw):
+    """One tier of dense decoding: ``gen.<fn>(params, prompt, cfg,
+    max_new_tokens=new, **kw)`` timed ``reps`` times, and as many times
+    with one new token (prefill and first token only); decode tokens/s
+    is rows * (new - 1) over the difference of the best times, as the
+    JAX bench computes it (``bench.py`` ``decode_rate``). The launch
+    counters are zeroed just before the timed calls and read just
+    after: B7 once per layer and decode step of each full call (none
+    for a tier without ``b7``), no other kernel. The output must hold
+    the prompt and ``new`` tokens in the vocabulary."""
+    rows = prompt.shape[0]
+
+    def run(n):
+        return getattr(gen, fn)(params, prompt, cfg, max_new_tokens=n, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    full, one = [], []
+    for times, n in ((full, new), (one, 1)):
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = run(n)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if n == new:
+                last = out
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0),
+            "B7": cfg.num_layers * (new - 1) * reps if b7 else 0}
+    if counts != want:
+        fail(f"dense tier {name}: launches {counts} != {want}")
+    if (tuple(last.shape) != (rows, prompt.shape[1] + new)
+            or not bool(((last >= 0) & (last < cfg.vocab_size)).all())):
+        fail(f"dense tier {name}: output {tuple(last.shape)} out of range")
+    dt = min(full) - min(one)
+    return dict(tier=name, fn=fn, rows=rows, prompt_len=prompt.shape[1],
+                new_tokens=new, reps=reps,
+                kv="int8" if kw.get("kv_cache_dtype") else "bf16",
+                full_s=full, one_s=one,
+                decode_tokens_per_s=rows * (new - 1) / dt,
+                decode_step_ms=dt / (new - 1) * 1e3, peak_mem_gb=peak,
+                launches=counts)
+
+
+def decode_logits_check(torch, gen, params, cfg, prompt, kv):
+    """One dense decode step after the prompt's prefill, through B7 and
+    through the plain composition (``use_kernel=False``) from copies of
+    the same cache: max |logits difference| (LOGITS_ATOL)."""
+    B, S = prompt.shape
+    cache = gen.init_cache(cfg, B, S + 1, kv_dtype=kv, device="cuda")
+    logits = gen._forward_cached(params, prompt, cache, 0, cfg, S + 1)
+    tok = logits.argmax(-1).to(torch.int32)[:, None]
+    other = {n: c.clone() for n, c in cache.items()}
+    a = gen._forward_cached(params, tok, cache, S, cfg, S + 1)
+    b = gen._forward_cached(params, tok, other, S, cfg, S + 1,
+                            use_kernel=False)
+    return dict(logits_max_abs_err=(a - b).abs().max().item(),
+                logits_max_abs=b.abs().max().item(),
+                argmax_equal_share=(a.argmax(-1) == b.argmax(-1)).float()
+                .mean().item())
+
+
+def profile_dense(torch, tl, gen, params, cfg, prompt, steps: int = 8):
+    """``torch.profiler`` over ``steps`` dense decode steps after the
+    prompt's prefill and one warm step: the card's time split into the
+    attention kernel (B7), matmuls, the weights' dequantization (the
+    device time of the kernels launched inside ``_w``, which runs under a
+    ``record_function`` span here) and the rest, beside the host's wall
+    time per step. Launches made here are not counted on the main
+    path."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    B, S = prompt.shape
+    max_len = S + steps + 2
+    cache = gen.init_cache(cfg, B, max_len, device="cuda")
+    tok = gen._forward_cached(params, prompt, cache, 0, cfg, max_len)
+    tok = tok.argmax(-1).to(torch.int32)
+    gen._forward_cached(params, tok[:, None], cache, S, cfg, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        gen._forward_cached(params, tok[:, None], cache, S + 1 + i, cfg,
+                            max_len)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / steps
+    w = tl._w
+
+    def spanned(lp, name, dtype):
+        with record_function("dequant"):
+            return w(lp, name, dtype)
+
+    tl._w = gen._w = spanned
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                gen._forward_cached(params, tok[:, None], cache, S + 1 + i,
+                                    cfg, max_len)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        tl._w = gen._w = w
+    # the idle share against the unprofiled step: the profiler's own
+    # host overhead would inflate it
+    rec = device_breakdown(torch, prof, steps, plain_wall,
+                           skip=("dequant",))
+    rec["profiled_wall_ms_per_call"] = wall
+    from torch.autograd import DeviceType
+    dq = sum(ev.device_time_total for ev in prof.key_averages()
+             if ev.key == "dequant" and ev.device_type == DeviceType.CPU)
+    kinds = rec.get("device_ms_per_call_by_kind")
+    quantized = "wq_scale" in params["layers"]
+    if kinds is not None:
+        # unquantized weights launch nothing in _w; quantized ones whose
+        # span shows no device time were not measured
+        kinds["dequant"] = (dq / 1e3 / steps if dq or not quantized
+                            else "not measured")
+        if dq:
+            kinds["other"] -= kinds["dequant"]
+    return rec
+
+
+def run_dense(torch, np, kernels, tl, gen, cfg, seed: int):
+    """Phase 3c: dense decoding at the engine's width and depth from
+    seeded random weights. The JAX bench's decode tier (B = 8, prompt
+    128, 64 new, greedy) for weights {bf16, int8, int4} x KV {bf16,
+    int8}, each with its decode-step logits check; a long tier (prompt
+    1920, 128 new); ``beam_search`` (B = 2, 4 beams, 32 new); a shared
+    200-token prompt cache; a left-padded batch, whose decode steps take
+    the plain composition and so launch no B7; then the profiles of the
+    bf16 and int8-weight bench tiers."""
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    params = tl.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+
+    def tokens(shape):
+        return torch.as_tensor(rng.integers(3, V, shape), dtype=torch.int32,
+                               device="cuda")
+
+    prompt = tokens((8, 128))
+    gen.generate(params, prompt, cfg, max_new_tokens=2)          # warm
+    tiers, checks, profiles = [], {}, {}
+    for bits in (None, 8, 4):
+        wn = f"w{bits}" if bits else "wbf16"
+        t0 = time.perf_counter()
+        pp = params if bits is None else gen.quantize_weights(params, cfg,
+                                                              bits=bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        for kv in (None, "int8"):
+            name = f"{wn}-kv{'8' if kv else 'bf16'}"
+            rec = dense_tier(torch, kernels, gen, pp, cfg, name, prompt, 64,
+                             kv_cache_dtype=kv)
+            rec["quantize_s"] = quant_s if bits else 0.0
+            checks[name] = decode_logits_check(torch, gen, pp, cfg, prompt,
+                                               kv)
+            if not checks[name]["logits_max_abs_err"] <= LOGITS_ATOL:
+                fail(f"dense tier {name}: B7 decode logits vs the plain "
+                     f"composition {checks[name]}")
+            rec.update(checks[name])
+            print("dense " + json.dumps(rec))
+            tiers.append(rec)
+        if bits in (None, 8):
+            profiles[wn] = profile_dense(torch, tl, gen, pp, cfg, prompt)
+            print(f"dense profile {wn} " + json.dumps(profiles[wn]))
+        del pp
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = dense_tier(torch, kernels, gen, params, cfg, "long",
+                     tokens((8, 1920)), 128, reps=1)
+    print("dense " + json.dumps(rec))
+    tiers.append(rec)
+    rec = dense_tier(torch, kernels, gen, params, cfg, "beam",
+                     tokens((2, 128)), 32, fn="beam_search", num_beams=4)
+    print("dense " + json.dumps(rec))
+    tiers.append(rec)
+    pc = gen.precompute_prompt_cache(params, tokens((200,)), cfg)
+    rec = dense_tier(torch, kernels, gen, params, cfg, "prompt-cache",
+                     prompt, 64, prompt_cache=pc)
+    print("dense " + json.dumps(rec))
+    tiers.append(rec)
+    del pc
+    padded = prompt.clone()
+    for r, n in enumerate((0, 5, 17, 40, 64, 90, 100, 127)):
+        padded[r, :n] = 0
+    rec = dense_tier(torch, kernels, gen, params, cfg, "left-padded",
+                     padded, 64, b7=False, pad_token_id=0)
+    print("dense " + json.dumps(rec))
+    tiers.append(rec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, init_s=init_s, tiers=tiers,
+                profiles=profiles)
+
 
 # --------------------------------------------------------------- phase 3b
 def train_config(LlamaConfig, layers: int, fused_kernels: str):
@@ -1394,6 +1709,23 @@ def main(argv=None) -> int:
         verify.append(r)
         print(f"kernel B11-tree-{kvn}: " + json.dumps(r))
         results[f"B11-tree-{kvn}"] = r
+    # B7 at the Llama-2-7B dense decode shape (its row in the kernel
+    # line) and at the JAX bench model's (H = 12, prompt 128 + 64 new)
+    dense_kernel = []
+    for kv_int8 in (False, True):
+        kvn = "int8" if kv_int8 else "bf16"
+        for H, S, lens in ((32, 2048, (1, 2048, 1537, 700, 1024, 333, 2000,
+                                       64)),
+                           (12, 192, (1, 192, 150, 129, 64, 100, 191, 17))):
+            r = check_dense_decode(torch, F, kernels, kv_int8, H, S, lens,
+                                   seed=300 + H)
+            torch.cuda.synchronize()
+            dense_kernel.append(r)
+            print(f"kernel B7-{kvn}: " + json.dumps(r))
+            if H == 32:
+                results[f"B7-{kvn}"] = r
+        gc.collect()
+        torch.cuda.empty_cache()
     flash = [check_flash(torch, F, fa, 4, 4096, 4096, 12, 12, 128, True,
                          seed=21, timed=True)]
     for B, sq, sk, H, HK, D, causal in ((2, 320, 320, 4, 4, 128, True),
@@ -1427,6 +1759,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["kernels_phase"] = results
+    record["dense_kernel_phase"] = dense_kernel
     record["verify_phase"] = verify
     record["flash_phase"] = flash
     record["fused_phase"] = fused
@@ -1491,6 +1824,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 3c: dense generate / beam_search at the engine's width
+    dense = run_dense(torch, np, kernels, tl, gen, cfg, args.seed)
+    record["dense"] = dense
+
     # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
     train = {}
     for mode in ("xla", "auto"):
@@ -1516,7 +1853,7 @@ def main(argv=None) -> int:
     launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
-    for rec in tiers:
+    for rec in tiers + dense["tiers"]:
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:
@@ -1534,14 +1871,16 @@ def main(argv=None) -> int:
         "B4b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:99"),
         "B5a": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:164"),
         "B5b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:188"),
+        "B7": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+               "paddle_tpu/ops/pallas/fused.py:444"),
         "B9": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
-               "paddle_tpu/ops/pallas/paged_attention.py:163"),
+               "paddle_tpu/ops/pallas/paged_attention.py:250"),
         "B10": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
-                "paddle_tpu/ops/pallas/serving_fused.py:156"),
+                "paddle_tpu/ops/pallas/serving_fused.py:257"),
         "B11": ("cuda", "paddle_tpu_torch/csrc/flash_chunk.cu",
-                "paddle_tpu/ops/pallas/serving_fused.py:453"),
+                "paddle_tpu/ops/pallas/serving_fused.py:548"),
         "B11-tree": ("cuda", "paddle_tpu_torch/csrc/flash_chunk.cu",
-                     "paddle_tpu/ops/pallas/serving_fused.py:387"),
+                     "paddle_tpu/ops/pallas/serving_fused.py:548"),
     }
     line = []
     for key, r in results.items():

@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of paddle_tpu's serving path (plain and
-speculative) and training step.
+speculative), dense decoding and training step.
 
 The JAX package ``paddle_tpu`` stays the reference; this package holds
 its counterpart for an NVIDIA H100, module for module:
@@ -8,21 +8,25 @@ its counterpart for an NVIDIA H100, module for module:
   remat, the chunked next-token loss);
 - ``models/train.py``: the single-device training step (AdamW on f32
   master weights, global-norm clip);
-- ``models/generate.py``: the paged prefill-chunk / ragged decode
-  forwards, the speculative verify (linear and token-tree), the tree
-  commit and the truncated-layer draft model;
+- ``models/generate.py``: dense ``generate`` (greedy and sampled,
+  EOS, left-padded batches, int8 KV, a shared prompt cache),
+  ``beam_search``, ``precompute_prompt_cache``, weight-only
+  ``quantize_weights`` (int8, int4), the paged prefill-chunk / ragged
+  decode forwards, the speculative verify (linear and token-tree), the
+  tree commit and the truncated-layer draft model;
 - ``serving/paged_cache.py``: the refcounted page allocator, the
   prefix trie and the device page pools;
 - ``serving/speculative.py``: n-gram drafting, the acceptance rules
   and token trees (host numpy);
 - ``inference/predictor.py``: the continuous-batching engine, with
-  n-gram, draft-model and tree speculation;
+  n-gram, draft-model and tree speculation and weight-only int8/int4
+  (``weight_bits``);
 - ``entry.py``: the counterpart of ``__graft_entry__.entry()``;
 - ``ops/kernels/``: the wrappers of the hand-written CUDA kernels in
-  ``csrc/`` (flash attention forward and backward, ragged paged decode,
-  fused RoPE paged decode, flash chunk prefill and verify in a linear
-  and a tree form, fused RMSNorm and SwiGLU), each beside its plain
-  PyTorch version.
+  ``csrc/`` (flash attention forward and backward, decode attention
+  against a contiguous cache, ragged paged decode, fused RoPE paged
+  decode, flash chunk prefill and verify in a linear and a tree form,
+  fused RMSNorm and SwiGLU), each beside its plain PyTorch version.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``); on the CPU every kernel wrapper takes

@@ -1,0 +1,168 @@
+// B7 one-token decode attention against a contiguous, padded KV cache:
+// dense `generate` and `beam_search` decode steps.
+//
+// Replaces the TPU kernels paddle_tpu/ops/pallas/fused.py
+// `_decode_kernel` / `_decode_kernel_qrow` (shared step
+// `_decode_softmax_step`, wrapper `decode_attention`): each query row of
+// q (B, H, D) attends to the first cache_len[b] rows of its batch row of
+// a (B, S, HK, D) cache, with optional int8 rows and per-row f32 dequant
+// scales (B, S, HK).
+//
+// What bounds it on the H100: bytes. Each live K and V row is read once
+// and feeds 4*D flops per query head: about 1 flop per byte in bf16 with
+// no GQA, against the ~295 flops/byte at which the tensor cores would
+// become the limit.
+//
+// What the design does about it:
+// - one CTA per (batch row, kv head) serves the whole GQA group of
+//   rep = H/HK query heads, so each K/V row is read from HBM once for all
+//   of them, with no repeated copy of the cache (the TPU kernel's one
+//   grid row per kv-head group);
+// - the CTA walks only the row's live columns [0, cache_len[b]) and
+//   reads nothing at or past cache_len[b], where the TPU kernel fetched
+//   every block of the padded cache and masked (and zeroed V past the
+//   length so NaNs there could not leak): here a NaN tail is never read;
+// - the cache is read in place through its strides (a layer slice of the
+//   dense (L, B, S, HK, D) cache is a strided view), where the TPU
+//   wrapper transposed the whole cache to (B*HK, S, D) on every call;
+// - int8 rows dequantize in registers, so HBM traffic stays 1 byte an
+//   element; 8 warps keep 4 tokens' K and V loads each in flight, and
+//   the online softmax lives in registers (decode_step.cuh, the core
+//   shared with B9/B10).
+// One CTA per (row, kv head) gives B*HK CTAs: 256 at the Llama-2-7B
+// decode shape (B = 8, HK = 32), 96 on 132 SMs at the JAX bench model's
+// (HK = 12); a split of the sequence over more CTAs is later work.
+//
+// A row with cache_len 0 outputs zeros (the TPU kernel divides by 1 when
+// l == 0); the plain composition softmaxes a row of -1e30 scores into
+// the mean of V instead. No path of the port decodes with length 0.
+// cache_len larger than S clamps to S, which is what the plain
+// composition's mask does.
+
+#include "decode_step.cuh"
+
+namespace {
+
+using ptt::decode::kMaxRep;
+using ptt::decode::kWarps;
+
+struct Args {
+  const void* q;          // (B, H, D) model dtype, contiguous
+  const void* k;          // (B, S, HK, D) model dtype or int8, strided
+  const void* v;
+  const float* k_scales;  // (B, S, HK) f32, int8 caches only, strided
+  const float* v_scales;
+  const int* lengths;     // (B,) int32, or NULL: every row has len_all
+  int len_all;
+  void* out;              // (B, H, D) model dtype, contiguous
+  int H, HK, S;
+  long long kv_sb, kv_ss, kv_sh;  // element strides of the caches
+  long long sc_sb, sc_ss, sc_sh;  // element strides of the scales
+  float scale;
+};
+
+// Token j of one (batch row, kv head): row j of the row's cache slice.
+struct DenseAddr {
+  long long kv_ss, kv_off, sc_ss, sc_off;
+  __device__ __forceinline__ void at(int j, long long& kv,
+                                     long long& sc) const {
+    kv = (long long)j * kv_ss + kv_off;
+    sc = (long long)j * sc_ss + sc_off;
+  }
+};
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    decode_attention_kernel(const Args a) {
+  constexpr int DPL = D / 32;  // dims per lane
+  const int g = blockIdx.x;  // kv head
+  const int b = blockIdx.y;  // batch row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rep = a.H / a.HK;
+  const int d0 = lane * DPL;
+  int len = a.lengths != nullptr ? a.lengths[b] : a.len_all;
+  len = len < 0 ? 0 : (len > a.S ? a.S : len);
+
+  const T* qb = static_cast<const T*>(a.q) +
+                ((long long)b * a.H + (long long)g * rep) * D;
+  float q[kMaxRep][DPL];
+  ptt::decode::load_q<T, D>(qb, rep, d0, q);
+  const DenseAddr addr{
+      a.kv_ss, (long long)b * a.kv_sb + (long long)g * a.kv_sh + d0,
+      a.sc_ss, (long long)b * a.sc_sb + (long long)g * a.sc_sh};
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
+  ptt::decode::attend<T, KV, D>(
+      q, rep, len, a.scale, static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.k_scales, a.v_scales, addr, warp, m,
+      l, acc);
+  T* ob = static_cast<T*>(a.out) +
+          ((long long)b * a.H + (long long)g * rep) * D;
+  ptt::decode::merge_store<T, D>(m, l, acc, rep, warp, lane, ob);
+}
+
+template <typename T, typename KV, int D>
+cudaError_t launch_typed(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid(a.HK, B);
+  decode_attention_kernel<T, KV, D>
+      <<<grid, kWarps * 32, ptt::decode::merge_smem_bytes<D>(a.H / a.HK),
+         stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_kv(const Args& a, int B, int D, bool kv_int8,
+                      cudaStream_t stream) {
+  if (D == 128)
+    return kv_int8 ? launch_typed<T, int8_t, 128>(a, B, stream)
+                   : launch_typed<T, T, 128>(a, B, stream);
+  if (D == 64)
+    return kv_int8 ? launch_typed<T, int8_t, 64>(a, B, stream)
+                   : launch_typed<T, T, 64>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+PTT_EXPORT_ERROR_STRING
+
+// q_dtype: 0 = float32, 1 = bfloat16. lengths == NULL gives every row
+// len_all live columns. k_scales/v_scales are read only when
+// kv_int8 != 0.
+extern "C" int ptt_decode_attention(
+    const void* q, const void* k, const void* v, const void* k_scales,
+    const void* v_scales, const void* lengths, int len_all, void* out,
+    int B, int H, int HK, int D, int S, long long kv_sb, long long kv_ss,
+    long long kv_sh, long long sc_sb, long long sc_ss, long long sc_sh,
+    float scale, int q_dtype, int kv_int8, void* stream) {
+  if (B <= 0 || HK <= 0 || H % HK != 0 || H / HK > kMaxRep || S <= 0)
+    return cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.k_scales = static_cast<const float*>(k_scales);
+  a.v_scales = static_cast<const float*>(v_scales);
+  a.lengths = static_cast<const int*>(lengths);
+  a.len_all = len_all;
+  a.out = out;
+  a.H = H;
+  a.HK = HK;
+  a.S = S;
+  a.kv_sb = kv_sb;
+  a.kv_ss = kv_ss;
+  a.kv_sh = kv_sh;
+  a.sc_sb = sc_sb;
+  a.sc_ss = sc_ss;
+  a.sc_sh = sc_sh;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (q_dtype == 1)
+    e = launch_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
+  else if (q_dtype == 0)
+    e = launch_kv<float>(a, B, D, kv_int8 != 0, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}

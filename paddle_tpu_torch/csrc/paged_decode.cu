@@ -30,20 +30,20 @@
 // - the online softmax (max, sum, f32 accumulator) lives in registers
 //   in place of the TPU's scratch carried across the sequential grid
 //   axis, and the warps' partial states merge once through shared
-//   memory at the end.
+//   memory at the end. That core is decode_step.cuh, shared with B7
+//   (decode_attention.cu); this file adds the block-table addressing.
 //
 // B10 rotates q in f32 with round-to-nearest products and sums (no fma
 // contraction), so the rotated q equals the plain PyTorch rotation bit
 // for bit; the TPU kernel needed rotate_half(q) as a second input
 // (a Mosaic workaround), here the partner half is loaded from q itself.
 
-#include "common.cuh"
+#include "decode_step.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kMaxRep = 8;
-constexpr int kUnroll = 4;
+using ptt::decode::kMaxRep;
+using ptt::decode::kWarps;
 
 struct DecodeArgs {
   const void* q;           // (B, H, D) model dtype, contiguous
@@ -62,11 +62,26 @@ struct DecodeArgs {
   float scale;
 };
 
+// Token j of one (batch row, kv head): its page from the block table
+// (-1 entries clamp to page 0), then the row inside the page.
+struct PagedAddr {
+  const int* bt;
+  int page;
+  long long kv_sp, kv_st, kv_off, sc_sp, sc_st, sc_off;
+  __device__ __forceinline__ void at(int j, long long& kv,
+                                     long long& sc) const {
+    int pg = bt[j / page];
+    pg = pg < 0 ? 0 : pg;
+    const int row = j % page;
+    kv = (long long)pg * kv_sp + (long long)row * kv_st + kv_off;
+    sc = (long long)pg * sc_sp + (long long)row * sc_st + sc_off;
+  }
+};
+
 template <typename T, typename KV, int D, bool ROPE>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const DecodeArgs a) {
   constexpr int DPL = D / 32;  // dims per lane
-  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   const int g = blockIdx.x;  // kv head
   const int b = blockIdx.y;  // batch row
   const int warp = threadIdx.x / 32;
@@ -79,162 +94,47 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* qb = static_cast<const T*>(a.q) +
                 ((long long)b * a.H + (long long)g * rep) * D;
   float q[kMaxRep][DPL];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r < rep) {
-      ptt::load_vec<T, DPL>(qb + r * D + d0, q[r]);
-      if (ROPE) {
-        constexpr int half = D / 2;
-        const bool lo = d0 < half;
-        float y[DPL];
-        ptt::load_vec<T, DPL>(qb + r * D + (lo ? d0 + half : d0 - half), y);
-        const int j0 = lo ? d0 : d0 - half;
-        const float* c = a.cos_row + (long long)b * half + j0;
-        const float* s = a.sin_row + (long long)b * half + j0;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          // first half: x1*c - x2*s; second half: x2*c + x1*s
-          const float xc = __fmul_rn(q[r][i], c[i]);
-          const float ys = __fmul_rn(y[i], s[i]);
-          q[r][i] = ptt::round_to<T>(lo ? __fsub_rn(xc, ys)
-                                        : __fadd_rn(xc, ys));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) q[r][i] = 0.f;
-    }
-  }
-
-  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-
-  const int* bt = a.block_tables + (long long)b * a.ppseq;
-  const KV* kp = static_cast<const KV*>(a.k_pages);
-  const KV* vp = static_cast<const KV*>(a.v_pages);
-  const long long head_off = (long long)g * a.kv_sh + d0;
-
-  // the loop bounds are uniform across a warp, so every lane joins the
-  // shuffles of warp_sum
-  for (int j0 = warp * kUnroll; j0 < len; j0 += kWarps * kUnroll) {
-    float kk[kUnroll][DPL], vv[kUnroll][DPL], ksc[kUnroll], vsc[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-      ksc[u] = vsc[u] = 0.f;
-      if (j < len) {
-        int pg = bt[j / a.page];
-        pg = pg < 0 ? 0 : pg;  // -1 table entries clamp to page 0
-        const int row = j % a.page;
-        const long long off =
-            (long long)pg * a.kv_sp + (long long)row * a.kv_st + head_off;
-        ptt::load_vec<KV, DPL>(kp + off, kk[u]);
-        ptt::load_vec<KV, DPL>(vp + off, vv[u]);
-        if (QUANT) {
-          const long long so = (long long)pg * a.sc_sp +
-                               (long long)row * a.sc_st +
-                               (long long)g * a.sc_sh;
-          ksc[u] = a.k_scales[so];
-          vsc[u] = a.v_scales[so];
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) kk[u][i] = vv[u][i] = 0.f;
-      }
-    }
-    if (QUANT) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          kk[u][i] = ptt::round_to<T>(kk[u][i] * ksc[u]);
-          vv[u][i] = ptt::round_to<T>(vv[u][i] * vsc[u]);
-        }
-      }
-    }
+  ptt::decode::load_q<T, D>(qb, rep, d0, q);
+  if (ROPE) {
+    constexpr int half = D / 2;
+    const bool lo = d0 < half;
+    const int j0 = lo ? d0 : d0 - half;
+    const float* c = a.cos_row + (long long)b * half + j0;
+    const float* s = a.sin_row + (long long)b * half + j0;
 #pragma unroll
     for (int r = 0; r < kMaxRep; ++r) {
       if (r >= rep) break;
-      float s[kUnroll];
-      float mg = m[r];
+      float y[DPL];
+      ptt::load_vec<T, DPL>(qb + r * D + (lo ? d0 + half : d0 - half), y);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) part += q[r][i] * kk[u][i];
-        s[u] = ptt::warp_sum(part) * a.scale;
-        if (j0 + u < len) mg = fmaxf(mg, s[u]);
+      for (int i = 0; i < DPL; ++i) {
+        // first half: x1*c - x2*s; second half: x2*c + x1*s
+        const float xc = __fmul_rn(q[r][i], c[i]);
+        const float ys = __fmul_rn(y[i], s[i]);
+        q[r][i] = ptt::round_to<T>(lo ? __fsub_rn(xc, ys)
+                                      : __fadd_rn(xc, ys));
       }
-      // token j0 < len is live, so mg is finite here
-      const float alpha = expf(m[r] - mg);
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (j0 + u < len) {
-          const float p = expf(s[u] - mg);
-          psum += p;
-          // p is cast to V's working dtype before the product, as in
-          // the TPU kernel
-          const float pv = ptt::round_to<T>(p);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[r][i] += pv * vv[u][i];
-        }
-      }
-      l[r] = l[r] * alpha + psum;
-      m[r] = mg;
     }
   }
 
-  // merge the warps' partial softmax states
-  extern __shared__ float smem[];
-  float* sm_m = smem;                       // [kWarps][rep]
-  float* sm_l = sm_m + kWarps * rep;        // [kWarps][rep]
-  float* sm_acc = sm_l + kWarps * rep;      // [kWarps][rep][D]
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r >= rep) break;
-    if (lane == 0) {
-      sm_m[warp * rep + r] = m[r];
-      sm_l[warp * rep + r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      sm_acc[(warp * rep + r) * D + d0 + i] = acc[r][i];
-  }
-  __syncthreads();
+  const PagedAddr addr{a.block_tables + (long long)b * a.ppseq, a.page,
+                       a.kv_sp, a.kv_st, (long long)g * a.kv_sh + d0,
+                       a.sc_sp, a.sc_st, (long long)g * a.sc_sh};
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
+  ptt::decode::attend<T, KV, D>(
+      q, rep, len, a.scale, static_cast<const KV*>(a.k_pages),
+      static_cast<const KV*>(a.v_pages), a.k_scales, a.v_scales, addr, warp,
+      m, l, acc);
   T* ob = static_cast<T*>(a.out) +
           ((long long)b * a.H + (long long)g * rep) * D;
-  for (int idx = threadIdx.x; idx < rep * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx % D;
-    float M = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * rep + r]);
-    float L = 0.f, o = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = sm_m[w * rep + r];
-      if (mw == -INFINITY) continue;  // a warp that saw no token
-      const float f = expf(mw - M);
-      L += sm_l[w * rep + r] * f;
-      o += sm_acc[(w * rep + r) * D + d] * f;
-    }
-    ob[r * D + d] = ptt::from_f<T>(L > 0.f ? o / L : 0.f);
-  }
+  ptt::decode::merge_store<T, D>(m, l, acc, rep, warp, lane, ob);
 }
 
 template <typename T, typename KV, int D>
 cudaError_t launch_typed(const DecodeArgs& a, int B, bool rope,
                          cudaStream_t stream) {
   const dim3 grid(a.HK, B);
-  const int rep = a.H / a.HK;
-  const size_t smem = sizeof(float) * kWarps * rep * (2 + D);
+  const size_t smem = ptt::decode::merge_smem_bytes<D>(a.H / a.HK);
   if (rope)
     paged_decode_kernel<T, KV, D, true>
         <<<grid, kWarps * 32, smem, stream>>>(a);

@@ -2,12 +2,14 @@
 
 Counterpart of ``paddle_tpu/inference/predictor.py``'s
 ``ContinuousBatchingEngine`` on one device and synchronous: no mesh,
-adapters, constraints, host tier or weight quantization (ROADMAP.md,
-queue A step 1). Each :meth:`step` admits queued requests FIFO into free
-slots (prefix-cache sharing and copy-on-write included), advances one
-pending admission by one prefill chunk, then advances every fully
-prefilled slot by one decode token — or, with speculation on, by a
-verified run of drafted tokens:
+adapters, constraints or host tier (ROADMAP.md, queue A step 1).
+``weight_bits`` quantizes the weights once at construction (int8 per
+channel or int4 per group, ``generate.quantize_weights``), and every
+forward dequantizes them at each use. Each :meth:`step` admits queued
+requests FIFO into free slots (prefix-cache sharing and copy-on-write
+included), advances one pending admission by one prefill chunk, then
+advances every fully prefilled slot by one decode token — or, with
+speculation on, by a verified run of drafted tokens:
 
 - ``spec_k``: n-gram drafts (:mod:`..serving.speculative`), all rows
   verified in one batched forward, each committing its longest accepted
@@ -132,6 +134,11 @@ class ContinuousBatchingEngine:
     page count (default: every slot at full length), ``spec_tree``
     ``(width, depth)`` of the comb tree (needs ``draft_layers``; its
     depth is ``spec_k``, at most 32 nodes).
+
+    ``weight_bits``: None (weights as given), 8 (int8 per output
+    channel) or 4 (int4 per group of 128 input rows, held in int8):
+    ``generate.quantize_weights`` at construction; the draft model
+    shares the quantized stacks.
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -144,6 +151,7 @@ class ContinuousBatchingEngine:
                  draft_layers: Optional[int] = None,
                  draft_pages: Optional[int] = None,
                  spec_tree: Optional[Tuple[int, int]] = None,
+                 weight_bits: Optional[int] = None,
                  mesh=None, adapters=None, constraints: bool = False,
                  device: DeviceLike = None):
         if mesh is not None:
@@ -155,6 +163,10 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
+        self.weight_bits = weight_bits
+        if weight_bits is not None:
+            self.params = _gen.quantize_weights(self.params, cfg,
+                                                bits=weight_bits)
         self.temperature = float(temperature)
         self.eos_token_id = eos_token_id
         self.fused = bool(fused)
@@ -875,6 +887,8 @@ class ContinuousBatchingEngine:
         s["queued"] = len(self._queue)
         s["active_slots"] = int(self.cache.active.sum())
         s["pending_prefills"] = len(self._pending)
+        if self.weight_bits is not None:
+            s["weight_bits"] = self.weight_bits
         if self.fused:
             s["fused_kernels"] = True
         s["cow_copies"] = self.cache.cow_copies

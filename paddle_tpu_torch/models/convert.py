@@ -21,6 +21,10 @@ def _leaf(a) -> torch.Tensor:
         # numpy has no native bf16: np.asarray of a bf16 jax.Array is an
         # ml_dtypes.bfloat16 array. Move its bits, never through float32.
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "int4":
+        # an int4 weight of quantize_weights (an ml_dtypes.int4 array):
+        # torch has no 4-bit dtype, so the port holds its values in int8
+        return torch.from_numpy(a.astype(np.int8))
     return torch.from_numpy(a)
 
 

@@ -1,22 +1,29 @@
-"""The serving forwards: paged prefill chunk, ragged paged decode and
-the speculative verify.
+"""The serving forwards: dense ``generate``, ``beam_search`` and
+``precompute_prompt_cache``, weight-only quantization, the paged prefill
+chunk, ragged paged decode and the speculative verify.
 
 Counterpart of ``paddle_tpu/models/generate.py``, ported as far as the
-continuous-batching engine runs it: the dense and paged cache makers,
-the layer body with its attention, the chunked-prefill program, the
-one-token decode step, the batched speculative verify (linear and
-token-tree), the tree commit and the truncated-layer draft model. The
-JAX package's ``lax.scan`` over the stacked layer axis is a Python loop
-over layer slices here.
+dense decoding path and the continuous-batching engine run it: the dense
+and paged cache makers, ``quantize_weights`` / ``_w`` (int8 per output
+channel, int4 per group of input rows), the layer body with its
+attention (one-token decode steps through kernel B7), the cached
+forward, dense ``generate`` (greedy, temperature, top-k, top-p, EOS,
+left-padded ragged prompts, int8 KV, a shared prompt cache) and
+``beam_search``, the chunked-prefill program, the one-token paged decode
+step, the batched speculative verify (linear and token-tree), the tree
+commit and the truncated-layer draft model. The JAX package's
+``lax.scan`` over the stacked layer axis, and over the decode steps, is
+a Python loop here.
 
-JAX donates the page pools and gets them back updated; the port writes
-the pools IN PLACE (index assignment into the ``(L, P, page, ...)``
-tensors) and returns the same dict, so a GB-scale pool is never copied.
-The dense temp cache of a prefill chunk is likewise filled in place.
+JAX donates the caches and page pools and gets them back updated; the
+port writes them IN PLACE (index assignment into the ``(L, B, S, ...)``
+cache and the ``(L, P, page, ...)`` pools) and returns the same dict, so
+a GB-scale cache is never copied. ``beam_search`` gathers the winning
+beams' cache rows into a new cache each step, as the JAX package does.
 
 Options of the JAX signatures that the port leaves out (tensor and
-data parallelism, MoE, adapters, quantized weights) are not taken;
-ROADMAP.md lists them in porting order.
+data parallelism, MoE, adapters, the observability hooks) are not
+taken; ROADMAP.md lists them in porting order.
 """
 from __future__ import annotations
 
@@ -25,10 +32,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..ops.kernels import fused as _fz
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import serving_fused as _sf
-from .llama import (LlamaConfig, _lm_head, _mlp, layer_params, rms_norm,
-                    rope_tables)
+from .llama import (LlamaConfig, _lm_head, _mlp, _w, apply_rope,
+                    layer_params, rms_norm, rope_tables)
 
 
 def _kv_zeros(cfg: LlamaConfig, shape, kv_dtype, what: str, device):
@@ -106,43 +114,129 @@ def _kv_rows(k, v, quant: bool) -> Dict[str, torch.Tensor]:
     return {"k": kq, "v": vq, "ks": ksc, "vs": vsc}
 
 
-def _attn_with_cache(q, ck, cv, length: int, kstart, k_rows=None,
-                     v_rows=None, fused=False, tree_mask=None):
+def quantize_weights(params, cfg: LlamaConfig, bits: int = 8,
+                     group_size: int = 128) -> Dict:
+    """Weight-only quantization for serving, the JAX package's
+    ``quantize_weights``: each projection of every layer (``wq`` ...
+    ``wd``), and ``lm_head`` when the embeddings are untied, becomes
+    quantized values beside a ``name + "_scale"`` f32 leaf, which
+    :func:`~.llama._w` dequantizes at every use; the embedding and the
+    norms stay as they are.
+
+    ``bits=8``: per-output-channel symmetric int8, ``w ~= q *
+    scale[None, :]``, scale ``(L, out)``. ``bits=4``: per-group
+    symmetric int4 over ``group_size`` input rows (one group over the
+    whole input dim where it does not divide), scale ``(L, G, out)``.
+    The int4 values in [-7, 7] are held in int8 tensors, as torch has
+    no 4-bit dtype with arithmetic: twice the JAX package's ``jnp.int4``
+    weight bytes. Layers are quantized one at a time, so the f32
+    temporaries never hold a whole stack."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+
+    def q8(w):
+        wf = w.float()
+        scale = torch.clamp_min(torch.amax(torch.abs(wf), dim=0) / 127.0,
+                                1e-8)
+        qw = torch.clamp(torch.round(wf / scale[None, :]), -127, 127)
+        return qw.to(torch.int8), scale
+
+    def q4(w):
+        din, dout = w.shape
+        g = min(group_size, din)
+        if din % g:
+            g = din                 # serving widths are multiples of 128
+        wf = w.float().reshape(din // g, g, dout)
+        scale = torch.clamp_min(torch.amax(torch.abs(wf), dim=1) / 7.0,
+                                1e-8)                       # (G, out)
+        qw = torch.clamp(torch.round(wf / scale[:, None, :]), -7, 7)
+        return qw.reshape(din, dout).to(torch.int8), scale
+
+    q = q4 if bits == 4 else q8
+
+    def stack(w):
+        """``q`` over the stacked layer axis (the JAX ``vmap``)."""
+        qs, scales = zip(*(q(w[l]) for l in range(w.shape[0])))
+        return torch.stack(qs), torch.stack(scales)
+
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+        layers[name], layers[name + "_scale"] = stack(layers[name])
+    out["layers"] = layers
+    if not cfg.tie_embeddings and "lm_head" in params:
+        out["lm_head"], out["lm_head_scale"] = q(params["lm_head"])
+    return out
+
+
+def _use_decode_kernel(x: torch.Tensor, override=None) -> bool:
+    """Whether a one-token, ``kstart``-free attention goes to
+    :func:`~..ops.kernels.fused.decode_attention` (B7) — the JAX gate
+    ``_use_decode_kernel`` with "on a TPU" read as "on CUDA tensors":
+    ``None`` takes it (the kernel for CUDA tensors, its plain version,
+    the same composition op for op, for CPU ones), ``False`` the plain
+    composition, and ``True`` raises for CPU tensors, as the kernel has
+    no interpret mode."""
+    if override is None:
+        return True
+    if override and x.device.type != "cuda":
+        raise ValueError(
+            f"use_kernel=True: decode kernel B7 runs on CUDA tensors only "
+            f"(got {x.device}); pass use_kernel=None or False")
+    return bool(override)
+
+
+def _attn_with_cache(q, ck, cv, length: int, kstart=None, k_rows=None,
+                     v_rows=None, fused=False, tree_mask=None,
+                     use_kernel=None):
     """q (B,T,nh,hd) vs cache (B,Smax,nkv,hd); positions >= length
-    masked, and below ``kstart`` (B,). ``fused`` runs the flash chunk
-    kernel (B11); the plain branch is the JAX composition, op for op,
-    which is B11's plain version. ``tree_mask`` (B, T, T) bool: the T
-    chunk lanes are token-tree nodes and the ancestor-or-self matrix
-    replaces the in-chunk causal triangle (B11-tree when fused); it
-    needs the verify layout, the chunk being the cache's last T rows.
-    The JAX branch for ``kstart=None`` decode (kernel B7) serves dense
-    ``generate`` only and is not ported."""
+    masked, and below ``kstart`` (B,) when given (left-padded rows, the
+    prefill and verify temp caches). A one-token step without ``kstart``
+    (dense decode) runs decode kernel B7 unless ``use_kernel`` is False
+    (:func:`_use_decode_kernel`). ``fused`` runs the flash chunk kernel
+    (B11) for chunks with ``kstart``; the plain branch is the JAX
+    composition, op for op, which is B11's plain version.
+    ``tree_mask`` (B, T, T) bool: the T chunk lanes are token-tree nodes
+    and the ancestor-or-self matrix replaces the in-chunk causal
+    triangle (B11-tree when fused); it needs the verify layout, the
+    chunk being the cache's last T rows."""
+    T = q.shape[1]
+    if T == 1 and kstart is None and _use_decode_kernel(q, use_kernel):
+        return _fz.decode_attention(q[:, 0], ck, cv, length, k_rows=k_rows,
+                                    v_rows=v_rows)[:, None]
     if tree_mask is not None and int(length) != ck.shape[1]:
         raise ValueError(
             "_attn_with_cache: tree_mask requires the verify layout — "
             f"static length ({length}) == Smax ({ck.shape[1]})")
-    attn = (_sf.flash_chunk_attention if fused
+    attn = (_sf.flash_chunk_attention if fused and kstart is not None
             else _sf.flash_chunk_attention_plain)
     return attn(q, ck, cv, length, kstart, k_rows=k_rows, v_rows=v_rows,
                 tree_mask=tree_mask)
 
 
 def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
-                 cfg: LlamaConfig, rpos, kstart, fused=False,
-                 tree_mask=None):
+                 cfg: LlamaConfig, rpos=None, kstart=None, fused=False,
+                 tree_mask=None, use_kernel=None):
     """One decoder layer over T tokens written at cache index ``pos``
-    (layer ``l`` of the dense ``cache``, updated in place); ``rpos``
-    (B, T) are their rope positions, ``kstart`` (B,) the first valid
-    cache column, ``tree_mask`` an optional (B, T, T) ancestor matrix
-    (:func:`_attn_with_cache`)."""
+    (layer ``l`` of the dense ``cache``, updated in place). ``rpos``
+    (B, T) are their rope positions where they differ from the cache
+    index (left-padded rows, the temp caches; None rotates at ``pos +
+    t``), ``kstart`` (B,) the first valid cache column, ``tree_mask`` an
+    optional (B, T, T) ancestor matrix and ``use_kernel`` the decode
+    kernel's switch (:func:`_attn_with_cache`). Every weight goes
+    through :func:`~.llama._w`, so quantized weights dequantize here."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = (h1 @ lp["wq"]).reshape(B, T, nh, hd)
-    k = (h1 @ lp["wk"]).reshape(B, T, nkv, hd)
-    v = (h1 @ lp["wv"]).reshape(B, T, nkv, hd)
-    q = _rope_rows(q, cos, sin, rpos)
-    k = _rope_rows(k, cos, sin, rpos)
+    q = (h1 @ _w(lp, "wq", x.dtype)).reshape(B, T, nh, hd)
+    k = (h1 @ _w(lp, "wk", x.dtype)).reshape(B, T, nkv, hd)
+    v = (h1 @ _w(lp, "wv", x.dtype)).reshape(B, T, nkv, hd)
+    if rpos is None:
+        c, s = cos[pos:pos + T], sin[pos:pos + T]
+        q, k = apply_rope(q, c, s), apply_rope(k, c, s)
+    else:
+        q = _rope_rows(q, cos, sin, rpos)
+        k = _rope_rows(k, cos, sin, rpos)
     quant = "ks" in cache
     for name, rows in _kv_rows(k, v, quant).items():
         cache[name][l, :, pos:pos + T] = rows.to(cache[name].dtype)
@@ -150,26 +244,29 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                          kstart=kstart,
                          k_rows=cache["ks"][l] if quant else None,
                          v_rows=cache["vs"][l] if quant else None,
-                         fused=fused, tree_mask=tree_mask)
-    x = x + o.reshape(B, T, nh * hd) @ lp["wo"]
+                         fused=fused, tree_mask=tree_mask,
+                         use_kernel=use_kernel)
+    x = x + o.reshape(B, T, nh * hd) @ _w(lp, "wo", x.dtype)
     return _mlp(x, lp, cfg)
 
 
 def _forward_cached(params, tokens, cache: Dict, pos: int,
-                    cfg: LlamaConfig, max_len: int, rpos, kstart,
+                    cfg: LlamaConfig, max_len: int, rpos=None, kstart=None,
                     logits_at: Optional[int] = None, fused=False,
-                    logits_all: bool = False, tree_mask=None):
+                    logits_all: bool = False, tree_mask=None,
+                    use_kernel=None):
     """tokens (B, T) at cache positions [pos, pos+T) -> logits (B, V)
     f32 at row ``logits_at`` (default the last row), or (B, T, V) at
     every row with ``logits_all`` (the verify's targets); ``cache`` is
-    updated in place. ``tree_mask``: see :func:`_attn_with_cache`."""
+    updated in place. ``rpos``, ``kstart``, ``tree_mask``,
+    ``use_kernel``: see :func:`_block_infer`."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = rope_tables(max_len, cfg.hd, cfg.rope_theta,
                            device=x.device)
     for l in range(cfg.num_layers):
         x = _block_infer(x, layer_params(params, l), cache, l, pos, cos,
                          sin, cfg, rpos=rpos, kstart=kstart, fused=fused,
-                         tree_mask=tree_mask)
+                         tree_mask=tree_mask, use_kernel=use_kernel)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if logits_all:
         return (x @ _lm_head(params, cfg, x.dtype)).float()
@@ -177,6 +274,256 @@ def _forward_cached(params, tokens, cache: Dict, pos: int,
         idx = min(max(int(logits_at), 0), x.shape[1] - 1)
         x = x[:, idx:idx + 1]
     return (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()
+
+
+def precompute_prompt_cache(params, prefix, cfg: LlamaConfig, *,
+                            kv_cache_dtype=None) -> Dict:
+    """Prefill a SHARED prompt prefix once and return its KV state for
+    ``generate(prompt_cache=...)``, which then skips re-prefilling the
+    prefix for every request.
+
+    ``prefix``: (P,) or (1, P) int token ids (tensor or array). The
+    prefix KV is stored at exactly P positions — the consumer's own cache
+    provides the capacity for its prompt and new tokens.
+    ``kv_cache_dtype`` must match the consumer's (int8 prefixes feed
+    int8 decode caches). Runs on the params' device."""
+    dev = params["embed"].device
+    prefix = torch.as_tensor(prefix).to(device=dev, dtype=torch.int32)
+    if prefix.dim() == 1:
+        prefix = prefix[None, :]
+    if prefix.shape[0] != 1:
+        raise ValueError(
+            "precompute_prompt_cache: the shared prefix is one sequence "
+            f"(got batch {prefix.shape[0]}); it is broadcast across the "
+            "request batch at generate() time")
+    P = prefix.shape[1]
+    cache = init_cache(cfg, 1, P, kv_dtype=kv_cache_dtype, device=dev)
+    _forward_cached(params, prefix, cache, 0, cfg, P)
+    return {"cache": cache, "len": P}
+
+
+def _pad_starts(prompt: torch.Tensor, pad_token_id, prompt_lengths):
+    """(B,) first real column of each LEFT-padded row, or None: from
+    ``prompt_lengths`` (clipped to [0, S-1]), else the length of the
+    leading run of ``pad_token_id`` (an all-pad row keeps its last
+    slot)."""
+    S = prompt.shape[1]
+    if prompt_lengths is not None:
+        lens = torch.as_tensor(prompt_lengths).to(device=prompt.device,
+                                                  dtype=torch.int32)
+        return torch.clamp(S - lens, 0, S - 1)
+    if pad_token_id is None:
+        return None
+    real = prompt != pad_token_id
+    kstart = torch.argmax(real.int(), dim=1).to(torch.int32)
+    return torch.where(real.any(dim=1), kstart,
+                       torch.full_like(kstart, S - 1))
+
+
+def _sample(logits, temperature: float, top_k: int, top_p: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """The JAX ``generate``'s ``sample``: greedy ``argmax`` at
+    temperature 0 (the first index on ties, as ``jnp.argmax``); else
+    logits / temperature, filtered by top-k and the nucleus rule in one
+    descending stable sort (``jnp.argsort`` is stable) when ``top_p`` is
+    set, or by the k-th largest value for top-k alone, then one draw
+    from ``generator``. The draws differ from ``jax.random``'s."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    lg = logits / temperature
+    if top_p > 0.0:
+        order = torch.argsort(-lg, dim=-1, stable=True)
+        ls = torch.gather(lg, -1, order)
+        keep_sorted = torch.ones_like(ls, dtype=torch.bool)
+        if top_k > 0:
+            keep_sorted &= (torch.arange(ls.shape[-1], device=ls.device)
+                            < top_k)
+        p = torch.softmax(torch.where(keep_sorted, ls, -1e30), dim=-1)
+        keep_sorted &= (torch.cumsum(p, dim=-1) - p) < top_p
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        lg = torch.where(keep, lg, -1e30)
+    elif top_k > 0:
+        kth = torch.sort(lg, dim=-1).values[:, -top_k][:, None]
+        lg = torch.where(lg < kth, -1e30, lg)
+    probs = torch.softmax(lg.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def generate(params, prompt, cfg: LlamaConfig, *,
+             max_new_tokens: int = 32, max_len: Optional[int] = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             eos_token_id: Optional[int] = None,
+             pad_token_id: Optional[int] = None, prompt_lengths=None,
+             use_kernel: Optional[bool] = None, kv_cache_dtype=None,
+             prompt_cache: Optional[Dict] = None) -> torch.Tensor:
+    """prompt (B, S) int -> (B, S + max_new_tokens) int32 on the params'
+    device: one prefill forward of the prompt into a dense ``(L, B,
+    max_len, nkv, hd)`` cache, then a decode step per new token, the
+    cache updated in place. Decode steps attend through kernel B7
+    (``use_kernel``: see :func:`_use_decode_kernel`).
+
+    Greedy at ``temperature`` 0, else temperature sampling with optional
+    ``top_k`` and ``top_p`` (:func:`_sample`) from ``generator`` (a
+    ``torch.Generator`` on the params' device; default seeded with 0,
+    the JAX package's ``key(0)``). ``eos_token_id``: a row that emits it
+    is pinned to it for the rest of the run (fixed-shape output).
+    ``kv_cache_dtype="int8"``: int8 cache rows with per-row scales.
+
+    ``pad_token_id`` / ``prompt_lengths``: ragged batches LEFT-padded —
+    each row's rope positions start at its first real token and pad
+    slots are masked (``kstart``), so every row decodes as it would
+    unpadded; those decode steps take the plain composition, as in the
+    JAX package (B7 has no pad mask).
+
+    ``prompt_cache``: a :func:`precompute_prompt_cache` result; its P
+    prefix rows are copied into every row's cache and ``prompt``
+    continues at position P. The result holds ``prompt`` and the new
+    tokens (prefix excluded), equal to a run on ``concat(prefix,
+    prompt)``."""
+    dev = params["embed"].device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
+    B, S = prompt.shape
+    P = 0
+    if prompt_cache is not None:
+        if pad_token_id is not None or prompt_lengths is not None:
+            raise ValueError(
+                "generate: prompt_cache cannot be combined with left-"
+                "padded ragged prompts (pad_token_id/prompt_lengths) — "
+                "the shared prefix assumes aligned positions")
+        P = int(prompt_cache["len"])
+        if ("ks" in prompt_cache["cache"]) != (kv_cache_dtype is not None):
+            raise ValueError(
+                "generate: prompt_cache kv dtype does not match "
+                "kv_cache_dtype — an int8 prefix must feed an int8 cache")
+    total = P + S + max_new_tokens
+    max_len = max_len or total
+    if max_len < total:
+        raise AssertionError(f"generate: max_len={max_len} < {total} "
+                             f"(prefix + prompt + new tokens)")
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    cache = init_cache(cfg, B, max_len, kv_dtype=kv_cache_dtype, device=dev)
+    if prompt_cache is not None:
+        for name, arr in cache.items():
+            arr[:, :, :P] = prompt_cache["cache"][name][:, :, :P].to(
+                arr.dtype)
+    kstart = _pad_starts(prompt, pad_token_id, prompt_lengths)
+    rpos = None
+    if kstart is not None:
+        rpos = torch.clamp(torch.arange(S, device=dev)[None, :]
+                           - kstart[:, None].long(), min=0)
+    logits = _forward_cached(params, prompt, cache, P, cfg, max_len,
+                             rpos=rpos, kstart=kstart)
+    tok = _sample(logits, temperature, top_k, top_p, generator)
+    eos = eos_token_id
+    done = (tok == eos) if eos is not None else None
+    out = [tok]
+    for i in range(max_new_tokens - 1):
+        drpos = (None if kstart is None
+                 else (S + i - kstart.long())[:, None])
+        logits = _forward_cached(params, tok[:, None], cache, P + S + i,
+                                 cfg, max_len, rpos=drpos, kstart=kstart,
+                                 use_kernel=use_kernel)
+        tok = _sample(logits, temperature, top_k, top_p, generator)
+        if eos is not None:
+            tok = torch.where(done, torch.full_like(tok, eos), tok)
+            done |= tok == eos
+        out.append(tok)
+    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def beam_search(params, prompt, cfg: LlamaConfig, *, num_beams: int = 4,
+                max_new_tokens: int = 32, max_len: Optional[int] = None,
+                eos_token_id: Optional[int] = None,
+                length_penalty: float = 1.0,
+                pad_token_id: Optional[int] = None, prompt_lengths=None,
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Beam-search decoding, the JAX package's ``beam_search``: prompt
+    (B, S) -> (B, S + max_new_tokens) int32, the best beam per row. The
+    K = ``num_beams`` beams of a row live as K rows of the cache, and
+    every step gathers the winning beams' rows (no backpointer walk);
+    finished beams emit EOS forever at zero cost, so their scores freeze.
+
+    Scores are sums of token log-probs, finalized GNMT-style as ``score /
+    len ** length_penalty`` with the length counted up to and including
+    the first EOS. The top K of each step come from a descending stable
+    sort, so ties keep the lower index first, as ``lax.top_k`` does.
+    Ragged LEFT-padded batches via ``pad_token_id`` / ``prompt_lengths``,
+    as in :func:`generate`. Decode steps attend through B7 where no row
+    is padded (``use_kernel``: :func:`_use_decode_kernel`)."""
+    dev = params["embed"].device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
+    B, S = prompt.shape
+    K = num_beams
+    total = S + max_new_tokens
+    max_len = max_len or total
+    if max_len < total:
+        raise AssertionError(f"beam_search: max_len={max_len} < {total} "
+                             f"(prompt + new tokens)")
+    eos = eos_token_id
+    kstart = _pad_starts(prompt, pad_token_id, prompt_lengths)
+    ktile = rpos = None
+    if kstart is not None:
+        ktile = torch.repeat_interleave(kstart, K, dim=0)       # (B*K,)
+        rpos = torch.clamp(torch.arange(S, device=dev)[None, :]
+                           - ktile[:, None].long(), min=0)
+    cache = init_cache(cfg, B * K, max_len, device=dev)
+    ptile = torch.repeat_interleave(prompt, K, dim=0)           # (B*K, S)
+    logits = _forward_cached(params, ptile, cache, 0, cfg, max_len,
+                             rpos=rpos, kstart=ktile, use_kernel=use_kernel)
+    V = logits.shape[-1]
+
+    def top(x):
+        v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+        return v[:, :K], i[:, :K]
+
+    logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+    # all K beams are identical after prefill: expand from beam 0 only
+    scores, first = top(logp[:, 0])                             # (B, K)
+    first = first.to(torch.int32)
+    done = ((first == eos) if eos is not None
+            else torch.zeros((B, K), dtype=torch.bool, device=dev))
+    gen = torch.zeros((B, K, max_new_tokens), dtype=torch.int32, device=dev)
+    gen[:, :, 0] = first
+    frozen = None
+    if eos is not None:
+        frozen = torch.full((V,), -1e30, device=dev)
+        frozen[eos] = 0.0
+    last = first
+    brow = torch.arange(B, device=dev)[:, None] * K
+    for i in range(1, max_new_tokens):
+        # last holds the tokens of step i-1, at cache position S+i-1
+        drpos = (None if ktile is None
+                 else (S + i - 1 - ktile.long())[:, None])
+        logits = _forward_cached(params, last.reshape(B * K, 1), cache,
+                                 S + i - 1, cfg, max_len, rpos=drpos,
+                                 kstart=ktile, use_kernel=use_kernel)
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, K, V)
+        if frozen is not None:
+            logp = torch.where(done[:, :, None], frozen, logp)
+        scores, idx = top((scores[:, :, None] + logp).reshape(B, K * V))
+        beam = idx // V
+        tok = (idx % V).to(torch.int32)
+        gen = torch.gather(gen, 1, beam[:, :, None].expand_as(gen))
+        gen[:, :, i] = tok
+        if eos is not None:
+            done = torch.gather(done, 1, beam) | (tok == eos)
+        rows = (brow + beam).reshape(-1)                        # (B*K,)
+        cache = {n: c.index_select(1, rows) for n, c in cache.items()}
+        last = tok
+    if eos is not None:
+        hit = gen == eos
+        first_eos = torch.argmax(hit.int(), dim=-1)
+        lengths = torch.where(hit.any(dim=-1), first_eos + 1,
+                              max_new_tokens)
+    else:
+        lengths = torch.full((B, K), max_new_tokens, device=dev)
+    final = scores / (lengths.float() ** length_penalty)
+    best = torch.argmax(final, dim=1)                           # (B,)
+    seq = gen[torch.arange(B, device=dev), best]
+    return torch.cat([prompt, seq], dim=1)
 
 
 def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
@@ -455,9 +802,9 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
     for l in range(cfg.num_layers):
         lp = layer_params(params, l)
         h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q = (h1 @ lp["wq"]).reshape(B, 1, nh, hd)
-        k = (h1 @ lp["wk"]).reshape(B, 1, nkv, hd)
-        v = (h1 @ lp["wv"]).reshape(B, 1, nkv, hd)
+        q = (h1 @ _w(lp, "wq", x.dtype)).reshape(B, 1, nh, hd)
+        k = (h1 @ _w(lp, "wk", x.dtype)).reshape(B, 1, nkv, hd)
+        v = (h1 @ _w(lp, "wv", x.dtype)).reshape(B, 1, nkv, hd)
         if not fused:
             q = _rope_rows(q, cos, sin, rpos)
         k = _rope_rows(k, cos, sin, rpos)
@@ -474,7 +821,7 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
             o = _pa.paged_attention(
                 q[:, 0], kp, vp, block_tables, lengths + 1,
                 ks_pages=ksp, vs_pages=vsp)
-        x = x + o.reshape(B, 1, nh * hd) @ lp["wo"]
+        x = x + o.reshape(B, 1, nh * hd) @ _w(lp, "wo", x.dtype)
         x = _mlp(x, lp, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()

@@ -211,17 +211,37 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _w(lp: Dict, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Weight fetch, dequantized on the fly where ``quantize_weights``
+    (``generate.py``) left a ``name + "_scale"`` leaf beside it:
+    per-channel int8 (scale ``(out,)``) or per-group int4 (scale ``(G,
+    out)``, int4 values held in int8). The JAX package's ``_w`` op for
+    op: cast to ``dtype``, then multiply by the scale cast to ``dtype``.
+    An unquantized weight comes back as it is."""
+    w = lp[name]
+    s = lp.get(name + "_scale")
+    if s is None:
+        return w
+    if s.dim() == w.dim():                # per-group: (G, out) vs (in, out)
+        gct = s.shape[-2]
+        wf = w.to(dtype).reshape(w.shape[:-2] + (gct, w.shape[-2] // gct,
+                                                 w.shape[-1]))
+        return (wf * s[..., :, None, :].to(dtype)).reshape(w.shape)
+    return w.to(dtype) * s[None, :].to(dtype)
+
+
 def _mlp(x, lp, cfg: LlamaConfig, fused: bool = False):
     """Residual SwiGLU MLP: SiLU of the gate in f32, cast back to the
     model dtype before the product with the up projection; ``fused``
     takes the fused RMSNorm and SwiGLU (B4, B5) instead, one cast each.
-    The serving forwards call it unfused whatever the config says."""
+    The serving forwards call it unfused whatever the config says, on
+    weights that may be quantized (:func:`_w`)."""
     h2 = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, fused=fused)
-    g = h2 @ lp["wg"]
-    u = h2 @ lp["wu"]
+    g = h2 @ _w(lp, "wg", x.dtype)
+    u = h2 @ _w(lp, "wu", x.dtype)
     if fused:
-        return x + _fk.swiglu(g, u) @ lp["wd"]
-    return x + (F.silu(g.float()).to(x.dtype) * u) @ lp["wd"]
+        return x + _fk.swiglu(g, u) @ _w(lp, "wd", x.dtype)
+    return x + (F.silu(g.float()).to(x.dtype) * u) @ _w(lp, "wd", x.dtype)
 
 
 def _attention(q, k, v, causal: bool = True):
@@ -327,7 +347,10 @@ def _trunk(params, tokens, cfg: LlamaConfig):
 
 
 def _lm_head(params, cfg: LlamaConfig, dtype) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The output projection in ``dtype``: the tied embedding's
+    transpose, or ``lm_head`` (dequantized when quantized)."""
+    head = (params["embed"].T if cfg.tie_embeddings
+            else _w(params, "lm_head", dtype))
     return head.to(dtype)
 
 

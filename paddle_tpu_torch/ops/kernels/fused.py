@@ -1,6 +1,7 @@
-"""B4-B5 fused RMSNorm and SwiGLU for the training model.
+"""B4-B5 fused RMSNorm and SwiGLU for the training model, and B7 decode
+attention against a contiguous KV cache for dense ``generate``.
 
-Counterpart of the RMSNorm and SwiGLU half of
+Counterpart of the RMSNorm, SwiGLU and decode-attention parts of
 ``paddle_tpu/ops/pallas/fused.py``:
 
 - :func:`rms_fwd` (B4a): the normalised rows and the per-row f32
@@ -13,6 +14,11 @@ Counterpart of the RMSNorm and SwiGLU half of
 - :func:`swiglu_fwd` (B5a) and :func:`swiglu_bwd` (B5b): ``silu(g) * u``
   and its two cotangents. They replace ``_swiglu_fwd_kernel`` and
   ``_swiglu_bwd_kernel``.
+- :func:`decode_attention` (B7): one-token attention of q (B, H, D)
+  against the first ``cache_len[b]`` rows of a padded (B, S, HK, D)
+  cache, GQA by head group, optional int8 rows with per-row f32 scales.
+  CUDA tensors launch ``csrc/decode_attention.cu`` (it replaces
+  ``_decode_kernel`` / ``_decode_kernel_qrow``).
 - :class:`_RMSNorm` and :class:`_SwiGLU` tie them into
   ``autograd.Function``\\ s (the JAX package's ``custom_vjp``\\ s
   ``_rms_norm_2d`` and ``_swiglu``), and :func:`rms_norm` and
@@ -24,15 +30,19 @@ CUDA ones, and counts its kernel launches in ``.launches``. The TPU's
 B4a runs one CTA per row, B4b one per ``RMS_BWD_ROWS`` rows, B5a and
 B5b one 8-element chunk per thread. The kernels take float32 and
 bfloat16, every tensor of one call in one dtype, and last dims that are
-multiples of 8 (16-byte loads); RMSNorm rows up to ``MAX_WIDTH``.
+multiples of 8 (16-byte loads); RMSNorm rows up to ``MAX_WIDTH``. B7
+takes float32 and bfloat16 queries, caches of q's dtype or int8, head
+dims 64 and 128 and at most 8 query heads per kv head.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
+from .paged_attention import _aligned, _check_pair
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 8192
@@ -48,6 +58,17 @@ SIGNATURES = {
     "ptt_swiglu_fwd": (_P, _P, _P, _L, _I, _P),
     "ptt_swiglu_bwd": (_P,) * 5 + (_L, _I, _P),
 }
+DECODE_SIGNATURES = {
+    "ptt_decode_attention": (
+        _P, _P, _P, _P, _P,             # q, k/v caches, k/v row scales
+        _P, _I, _P,                     # lengths (or NULL), len_all, out
+        _I, _I, _I, _I, _I,             # B, H, HK, D, S
+        _L, _L, _L, _L, _L, _L,         # cache strides, scale strides
+        ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+}
+#: head dims and query heads per kv head that B7 takes
+DECODE_HEAD_DIMS = (64, 128)
+DECODE_MAX_REP = 8
 
 
 # ---------------- plain versions ----------------
@@ -266,3 +287,135 @@ def swiglu(g, u):
     shape = g.shape
     out = _SwiGLU.apply(g.reshape(-1, shape[-1]), u.reshape(-1, shape[-1]))
     return out.reshape(shape)
+
+
+# ---------------- B7: decode attention against a contiguous cache ----------
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *, scale=None,
+                           k_rows=None, v_rows=None):
+    """Plain B7, op for op the JAX package's composition in
+    ``_attn_with_cache`` at T = 1 without ``kstart``: dequantize int8
+    rows as ``(c.float() * rows[..., None]).to(q.dtype)``, repeat the kv
+    heads, f32 scores divided by ``sqrt(D)`` (or times ``scale``), the
+    ``-1e30`` mask on columns at or past ``cache_len``, softmax, then
+    ``p.to(cv.dtype)`` against V.
+
+    q:          (B, H, D) the current position's queries
+    k/v_cache:  (B, S, HK, D) padded caches, model dtype or int8
+    cache_len:  int or (B,) valid lengths, the current token included
+    k/v_rows:   (B, S, HK) f32 per-row dequant scales of int8 caches
+    returns (B, H, D) in q's dtype. A row of length 0 gives the mean of
+    V here and zeros from the kernel (no path decodes at length 0)."""
+    B, H, D = q.shape
+    _check_pair(k_rows, v_rows, "decode_attention")
+    ck, cv = k_cache, v_cache
+    if k_rows is not None:
+        ck = (ck.float() * k_rows[..., None]).to(q.dtype)
+        cv = (cv.float() * v_rows[..., None]).to(q.dtype)
+    nkv = ck.shape[2]
+    if nkv != H:
+        ck = torch.repeat_interleave(ck, H // nkv, dim=2)
+        cv = torch.repeat_interleave(cv, H // nkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, None].float(), ck.float())
+    s = s * scale if scale is not None else s / math.sqrt(D)
+    lens = torch.as_tensor(cache_len, dtype=torch.int32,
+                           device=q.device).broadcast_to((B,))
+    kpos = torch.arange(s.shape[3], device=q.device)[None, None, None, :]
+    s = torch.where(kpos < lens[:, None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(cv.dtype), cv)[:, 0]
+
+
+def launch_decode(q, k_cache, v_cache, cache_len, *, scale=None,
+                  k_rows=None, v_rows=None) -> torch.Tensor:
+    """Launch ``ptt_decode_attention`` (B7) on CUDA tensors. The caches
+    may be strided views (a layer of the dense ``(L, B, S, HK, D)``
+    cache) whose rows are contiguous and 16-byte aligned. ``cache_len``
+    as an int reaches the kernel as an argument; as a tensor it is used
+    on the device, with no host sync. Validates every input and raises
+    on what the kernel does not take; never falls back."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention: the kernel needs CUDA tensors, "
+                         f"got {dev}")
+    _check_pair(k_rows, v_rows, "decode_attention")
+    if q.dim() != 3 or q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attention: q must be (B, H, D) float32 or "
+                         f"bfloat16, got {tuple(q.shape)} {q.dtype}")
+    B, H, D = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError("decode_attention: k/v caches must share one "
+                         "(B, S, HK, D) shape")
+    Bc, S, HK, Dk = k_cache.shape
+    if Bc != B or S == 0:
+        raise ValueError(f"decode_attention: cache {tuple(k_cache.shape)} "
+                         f"does not serve q {tuple(q.shape)}")
+    if Dk != D or D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {D} (cache {Dk}); the "
+                         f"kernel takes {DECODE_HEAD_DIMS}")
+    if H % HK or H // HK > DECODE_MAX_REP:
+        raise ValueError(f"decode_attention: H={H} must be a multiple of "
+                         f"HK={HK} with at most {DECODE_MAX_REP} query heads "
+                         f"per kv head")
+    quant = k_rows is not None
+    kv_dtype = torch.int8 if quant else q.dtype
+    for t, nm in ((k_cache, "k_cache"), (v_cache, "v_cache")):
+        if t.dtype != kv_dtype or t.device != dev:
+            raise ValueError(f"decode_attention: {nm} must be {kv_dtype} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+        if t.stride(3) != 1 or not _aligned(t, (0, 1, 2)):
+            raise ValueError(f"decode_attention: {nm} rows must be "
+                             f"contiguous and 16-byte aligned")
+    if k_cache.stride() != v_cache.stride():
+        raise ValueError("decode_attention: k/v caches must share strides")
+    sc_strides = (0, 0, 0)
+    if quant:
+        for t, nm in ((k_rows, "k_rows"), (v_rows, "v_rows")):
+            if (t.shape != (B, S, HK) or t.dtype != torch.float32
+                    or t.device != dev):
+                raise ValueError(f"decode_attention: {nm} must be float32 "
+                                 f"(B, S, HK) on {dev}")
+        if k_rows.stride() != v_rows.stride():
+            raise ValueError("decode_attention: k/v row scales must share "
+                             "strides")
+        sc_strides = k_rows.stride()
+    q = q.contiguous()
+    if not _aligned(q):
+        raise ValueError("decode_attention: q must be 16-byte aligned")
+    lens, len_all = None, 0
+    if isinstance(cache_len, int):
+        len_all = cache_len
+    else:
+        lens = torch.as_tensor(cache_len, device=dev).to(
+            torch.int32).broadcast_to((B,)).contiguous()
+    out = torch.empty_like(q)
+    s = scale if scale is not None else 1.0 / math.sqrt(D)
+    lib = _build.load("decode_attention", DECODE_SIGNATURES)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.ptt_decode_attention(
+        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_rows), ptr(v_rows),
+        ptr(lens), int(len_all), ptr(out), B, H, HK, D, S,
+        *k_cache.stride()[:3], *sc_strides, float(s), _DTYPES[q.dtype],
+        int(quant), _build.stream_handle(dev))
+    _build.check(lib, rc, "decode_attention")
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
+                     k_rows=None, v_rows=None):
+    """B7 decode attention (shapes: :func:`decode_attention_plain`): the
+    plain version for CPU tensors, the kernel for CUDA tensors (or an
+    error)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      scale=scale, k_rows=k_rows,
+                                      v_rows=v_rows)
+    out = launch_decode(q, k_cache, v_cache, cache_len, scale=scale,
+                        k_rows=k_rows, v_rows=v_rows)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

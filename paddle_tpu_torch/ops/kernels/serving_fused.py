@@ -98,8 +98,9 @@ def flash_chunk_attention_plain(q, ck, cv, length, kstart, *, scale=None,
                                 k_rows=None, v_rows=None, tree_mask=None):
     """Plain PyTorch chunk attention, op for op the JAX package's
     ``flash_chunk_attention_reference``. Linear: query t of row b sees
-    columns ``[kstart_b, length - T + t]``. With ``tree_mask`` (B, T, T)
-    bool, the ancestor-or-self matrix of a token tree in the chunk's T
+    columns ``[kstart_b, length - T + t]`` (from column 0 when
+    ``kstart`` is None: the dense prefill of ``generate``). With
+    ``tree_mask`` (B, T, T) bool, the ancestor-or-self matrix of a token tree in the chunk's T
     lanes: every committed column below the chunk stays visible, chunk
     column ``W - T + j`` only where ``tree_mask[b, t, j]``, and the
     ``kstart`` mask still applies."""
@@ -126,9 +127,10 @@ def flash_chunk_attention_plain(q, ck, cv, length, kstart, *, scale=None,
             [torch.ones((B, T, smax - T), dtype=torch.bool, device=dev),
              torch.as_tensor(tree_mask, device=dev).bool()], dim=2)
         s = torch.where(allow[:, None], s, -1e30)
-    ks = torch.as_tensor(kstart, dtype=torch.int32, device=dev)
-    ks = ks.broadcast_to((B,))[:, None, None, None]
-    s = torch.where(kpos >= ks, s, -1e30)
+    if kstart is not None:
+        ks = torch.as_tensor(kstart, dtype=torch.int32, device=dev)
+        ks = ks.broadcast_to((B,))[:, None, None, None]
+        s = torch.where(kpos >= ks, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(cv.dtype), cv)
 

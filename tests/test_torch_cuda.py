@@ -12,7 +12,12 @@ and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
 full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136);
 the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
 and two chunks a thread, ragged row counts included; B11-tree at verify
-shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart).
+shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B7
+(decode attention against a contiguous cache) at GQA rep 1, 2, 4 and 8
+on strided layer views of a padded cache whose tail past each row's
+length is NaN, beside a planted fault (the last live key tile of one
+row dropped from the plain version) that the row check must reject;
+dense ``generate`` and ``beam_search`` with their B7 launch counts.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 200 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -454,3 +459,131 @@ def test_train_step_on_the_card_matches_cpu(cuda, policy, fused_kernels):
     for k in ("loss", "grad_norm"):
         assert abs(metrics[0][k] - metrics[1][k]) <= 1e-4 * abs(
             metrics[1][k]), (k, metrics)
+
+
+B7_CASES = [(d, dt, q8, rep) for d in (64, 128)
+            for dt in (torch.float32, torch.bfloat16)
+            for q8 in (False, True) for rep in (1, 2, 4, 8)]
+
+
+def _rows_ratio(got, want, rtol):
+    """Each row's error as a share of its limit (the ``_close`` rule)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    ref = w.norm(dim=-1)
+    lim = rtol * ref + 1e-4 * ref.square().mean().sqrt()
+    return (g - w).norm(dim=-1) / lim
+
+
+@pytest.mark.parametrize("case", B7_CASES, ids=[_ids(c) for c in B7_CASES])
+def test_decode_attention_kernel_matches_plain(cuda, case):
+    """B7 on layer 1 of a (B, L, Smax, HK, D) cache viewed as (B, S, HK,
+    D) — strides that are not a contiguous tensor's — at row lengths
+    1, S, and between, with every column at or past a row's length NaN
+    (int8: its scale NaN). The kernel must equal the plain version on
+    the same cache with a clean tail (so it read no tail column), per
+    row, for a (B,) length tensor (and, on the clean views, for one int
+    length); the plain version without row 1's last 16 live keys must
+    fail that check."""
+    D, dtype, q8, rep = case
+    g = torch.Generator().manual_seed(4)
+    B, L, Smax, S, HK = 4, 2, 160, 150, 2
+    H = HK * rep
+    lens = torch.tensor([1, S, 77, 16], dtype=torch.int32)
+    big = (B, L, Smax, HK, D)
+    if q8:
+        k = torch.randint(-127, 128, big, generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, big, generator=g, dtype=torch.int8)
+        ks = torch.rand(big[:4], generator=g) * 0.05 + 0.01
+        vs = torch.rand(big[:4], generator=g) * 0.05 + 0.01
+    else:
+        k = torch.randn(big, generator=g).to(dtype)
+        v = torch.randn(big, generator=g).to(dtype)
+        ks = vs = None
+    q = torch.randn((B, H, D), generator=g).to(dtype).to(cuda)
+    dirty = [t if t is None else t.clone() for t in (k, v, ks, vs)]
+    tail = torch.arange(Smax)[None, :] >= lens[:, None].long()   # (B, Smax)
+    nan_target = (2, 3) if q8 else (0, 1)   # int8 rows: NaN their scales
+    for i in nan_target:
+        dirty[i][tail[:, None, :].expand(B, L, Smax)] = float("nan")
+
+    def view(ts):
+        return [t if t is None else t.to(cuda)[:, 1, :S] for t in ts]
+
+    ck, cv, kr, vr = view(dirty)
+    pk, pv, pkr, pvr = view((k, v, ks, vs))
+    assert not ck.is_contiguous()
+    lens = lens.to(cuda)
+    kw = dict(k_rows=kr, v_rows=vr)
+    pkw = dict(k_rows=pkr, v_rows=pvr)
+    kernels.reset_launch_counts()
+    out = fk.decode_attention(q, ck, cv, lens, **kw)
+    want = fk.decode_attention_plain(q, pk, pv, lens, **pkw)
+    _close(out, want, dtype)
+    assert torch.isfinite(out).all()
+    bad_lens = lens.clone()
+    bad_lens[1] -= 16                     # row 1 loses its last live tile
+    fault = _rows_ratio(out, fk.decode_attention_plain(q, pk, pv, bad_lens,
+                                                       **pkw),
+                        1e-5 if dtype == torch.float32 else 2e-2)
+    assert fault.max() > 1.0
+    same = fk.decode_attention(q, pk, pv, 77, **pkw)      # clean views
+    _close(same, fk.decode_attention_plain(q, pk, pv, 77, **pkw), dtype)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**NONE, "B7": 2}
+
+
+def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda):
+    q = torch.zeros((2, 4, 16), device=cuda)            # head dim 16
+    c = torch.zeros((2, 8, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.decode_attention(q, c, c, 4)
+    q = torch.zeros((2, 16, 64), device=cuda)           # rep 16
+    c = torch.zeros((2, 8, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        fk.decode_attention(q, c, c, 4)
+    c = torch.zeros((2, 8, 2, 64), device=cuda)
+    q = torch.zeros((2, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="together"):
+        fk.decode_attention(q, c, c, 4, k_rows=torch.ones((2, 8, 2),
+                                                          device=cuda))
+    with pytest.raises(ValueError, match="float32 or"):
+        fk.decode_attention(q.half(), c.half(), c.half(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = c.transpose(1, 3).contiguous().transpose(1, 3)
+        fk.decode_attention(q, t, t, 4)
+    with pytest.raises(ValueError, match="int8"):
+        fk.decode_attention(q, c, c, 4, k_rows=torch.ones((2, 8, 2),
+                                                          device=cuda),
+                            v_rows=torch.ones((2, 8, 2), device=cuda))
+
+
+def test_generate_and_beam_search_on_the_card_match_cpu(cuda):
+    """Dense decoding of a float32 model of head dim 64 on the card and
+    on the CPU from the same parameters: greedy ``generate`` (KV fp and
+    int8) and ``beam_search`` give the same tokens, and on the card each
+    call launches B7 once per layer and decode step, L * (new - 1);
+    ``use_kernel=False`` and left-padded rows launch it never."""
+    cfg = tl.LlamaConfig.tiny(hidden_size=128, num_heads=2, num_kv_heads=1,
+                              intermediate_size=256, num_layers=2,
+                              max_seq_len=64)
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    card = _on(params, cuda)
+    prompt = np.random.RandomState(0).randint(3, 256, (3, 9)).astype(
+        np.int32)
+    new, L = 8, cfg.num_layers
+    runs = [("generate", dict(kv_cache_dtype=None), L * (new - 1)),
+            ("generate", dict(kv_cache_dtype="int8"), L * (new - 1)),
+            ("generate", dict(use_kernel=False), 0),
+            ("generate", dict(pad_token_id=int(prompt[0, 0])), 0),
+            ("beam_search", dict(num_beams=3), L * (new - 1))]
+    for fn, kw, launches in runs:
+        kernels.reset_launch_counts()
+        got = getattr(gen, fn)(card, prompt, cfg, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {**NONE, "B7": launches}, (fn, kw)
+        want = getattr(gen, fn)(params, prompt, cfg, max_new_tokens=new,
+                                **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=f"{fn} {kw}")
