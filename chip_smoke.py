@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (plain and speculative),
-dense decoding and training step on one NVIDIA card.
+dense decoding, Paddle fused-op decoder and training step on one NVIDIA
+card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -45,7 +46,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each row's length are NaN, row by row against the plain version on a
    clean copy, with a planted fault (the longest row's last 64 live keys
    dropped) that must fail, timed beside SDPA under a boolean length
-   mask and the bound (``check_dense_decode``).
+   mask and the bound (``check_dense_decode``). Then B6 (fused RoPE)
+   on q and k cut as strided views from one qkv tensor, at the
+   Llama-2-7B prefill shape (B = 8, S = 1024, H = HK = 32, D = 128,
+   bf16) and a ragged GQA one in f32 (S = 1003, H = 32, HK = 8, D = 64),
+   forward and backward (sign -1), row by row against the plain version
+   (FUSED_RTOL) with a planted fault (the sign of sin flipped), the
+   forward timed beside the plain version and the bound
+   (``check_rope``); and B8 (decode attention over a head-major page
+   pool) at the Llama-2-7B decode shape with page 64, in bf16 and int8
+   with (B, HK) and (HK,) scales, NaN past every row's length, -1 past
+   its pages, row by row against the plain version with a planted fault
+   (the longest row's last 64 keys dropped), timed beside the plain
+   version, SDPA and the bound (``check_paged_hm``).
 3. The engine at Llama-2-7B width (random weights from a seeded
    generator): ``max_batch=8, page_size=16, max_len=2048,
    prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
@@ -87,6 +100,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``use_kernel=False``), and ``torch.profiler`` splits the bf16 and
    int8-weight decode steps into B7, matmuls, dequantization and the
    rest (``run_dense``).
+3d. The Paddle fused-op decoder (``paddle_decoder``): a Llama-2-7B
+   decoder written against ``paddle_tpu_torch.incubate.nn.functional``
+   (``fused_rms_norm``, ``fused_rotary_position_embedding``,
+   ``block_multihead_attention``, ``swiglu``) around ``torch.matmul``
+   projections, fresh seeded weights, B = 8 prompts of 1024 tokens, one
+   batched prefill, 64 greedy new tokens, pages of 64, KV bf16 and int8
+   (dynamic (B, HK) scales from the prefill's amax). Per tier the launch
+   counters are zeroed after the prefill and read after the decode:
+   per layer and step B6 twice, B8 once, B4a twice (and once for the
+   final norm), B5a once; each step's logits within 0.25 of
+   ``generate``'s cached forward on the same tokens; decode tokens/s,
+   ms a step, peak memory, the share of greedy tokens that forward
+   picks; then a ``torch.profiler`` split of a few decode steps into
+   B6, B8, B4a/B5a, matmuls and the rest (``run_paddle_decoder``).
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -832,6 +859,172 @@ def check_fused(torch, F, fk, n: int, h: int, i: int, dtype, seed: int,
     return rec
 
 
+def check_rope(torch, tl, fk, B: int, S: int, H: int, HK: int, D: int,
+               dtype, seed: int, timed: bool):
+    """B6 on q (B, S, H, D) and k (B, S, HK, D), strided views of one
+    fused qkv tensor as the incubate decoder makes them, with (S, D/2)
+    f32 tables: forward (sign +1) and backward (sign -1), each output row
+    against the plain version on the same inputs (FUSED_RTOL: both round
+    one f32 result once); the autograd op ``rope_qk`` must give the
+    wrappers' results. Planted fault: the plain version with the sign of
+    sin flipped, which the same check must reject. With ``timed``, the
+    forward of q and k (two launches) beside its plain version and the
+    bound (q and k read and written once, the tables read once). No
+    single PyTorch call computes RoPE, so there is no library time."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    name = str(dtype).split(".")[-1]
+    rtol = FUSED_RTOL[name]
+    what = f"B{B} S{S} H{H} HK{HK} D{D} {name}"
+    qkv = torch.randn((B, S, (H + 2 * HK) * D), generator=g,
+                      device="cuda").to(dtype)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k = qkv[..., H * D:(H + HK) * D].unflatten(-1, (HK, D))
+    ct = torch.randn_like(q)
+    cos, sin = tl.rope_tables(S, D, 10000.0, device="cuda")
+    got = {(nm, sign): fk.rope_apply(x, cos, sin, sign)
+           for nm, x in (("q", q), ("k", k)) for sign in (1.0, -1.0)}
+    leaves = [t.clone().requires_grad_() for t in (q, k)]
+    rq, rk = fk.rope_qk(*leaves, cos, sin)
+    torch.autograd.backward((rq, rk), (ct, torch.ones_like(rk)))
+    torch.cuda.synchronize()
+    if not (torch.equal(rq.detach(), got["q", 1.0])
+            and torch.equal(rk.detach(), got["k", 1.0])
+            and torch.equal(leaves[0].grad, fk.rope_apply(ct, cos, sin,
+                                                          -1.0))):
+        fail(f"B6 {what}: the autograd op differs from the wrappers")
+    del leaves, rq, rk
+    errs, ratios, faults = [], [], []
+    for (nm, sign), out in got.items():
+        x = q if nm == "q" else k
+        e, r = check_close(torch, out, fk.rope_plain(x, cos, sin, sign),
+                           f"B6 {nm} sign {sign:+.0f} {what}", rtol)
+        errs.append(e)
+        ratios.append(r)
+        faults.append(row_ratio(torch, out, fk.rope_plain(x, cos, sin,
+                                                          -sign), rtol))
+    if not min(faults) > 1.0:
+        fail(f"B6 {what}: the check passes the plain version with the "
+             f"sign of sin flipped (worst row at {min(faults):.3g})")
+    rec = {"shape": what, "max_abs_err": max(errs), "row_ratio": max(ratios),
+           "fault_row_ratio": min(faults)}
+    if not timed:
+        return rec
+    rec["ms"] = time_ms(torch, lambda: (fk.rope_apply(q, cos, sin),
+                                        fk.rope_apply(k, cos, sin)))
+    rec["plain_ms"] = time_ms(torch, lambda: (fk.rope_plain(q, cos, sin),
+                                              fk.rope_plain(k, cos, sin)),
+                              reps=5, warmup=1)
+    n = q.numel() + k.numel()
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        2 * n * q.element_size() + 2 * cos.numel() * 4, 6 * n,
+        rate=F32_FLOPS_PER_S)
+    rec["library_ms"] = None
+    rec["library"] = "none: no single PyTorch call computes RoPE"
+    return rec
+
+
+def check_paged_hm(torch, F, fk, scales: str, seed: int):
+    """B8 over a head-major (P, HK, page, D) pool at the Llama-2-7B
+    decode shape (B = 8, H = HK = 32, D = 128, page 64, Paddle's
+    ``block_size`` default, lengths 1 ... 2048): pages scattered through
+    a shuffled block table with -1 past each row's pages; in bf16 every
+    slot past a row's length and the whole of page 0 (where -1 entries
+    point) NaN. ``scales``: "bf16", or int8 pages with "(HK,)" or
+    "(B, HK)" dequant scales. Held row by row against the plain version
+    on the same pool (which masks what lies past the lengths); NaN must
+    not reach the output; the plain version without the longest row's
+    last FAULT_TILE keys must fail the check. Timed beside the plain
+    version, SDPA under a boolean length mask on the cache gathered and
+    dequantized beforehand (NaN cleared), and the bound (the live K and
+    V rows, their table entries and scales, q and the output)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, HK, D, page, pps = 8, 32, 32, 128, 64, 32
+    P = 1 + B * pps
+    lens = torch.tensor([1, 2048, 1537, 700, 1024, 333, 2000, 64],
+                        dtype=torch.int32, device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1).reshape(
+        B, pps).to(torch.int32)
+    live_pages = (lens.long() + page - 1) // page
+    bt[torch.arange(pps, device="cuda")[None, :] >= live_pages[:, None]] = -1
+    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+    shape = (P, HK, page, D)
+    quant = scales != "bf16"
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                           dtype=torch.int8)
+        sshape = (HK,) if scales == "(HK,)" else (B, HK)
+        ks = torch.rand(sshape, generator=g, device="cuda") * 0.02 + 0.005
+        vs = torch.rand(sshape, generator=g, device="cuda") * 0.02 + 0.005
+    else:
+        kp = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        vp = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        ks = vs = None
+        # NaN in every slot past each row's length, and in page 0
+        pos = torch.arange(pps * page, device="cuda")
+        for b in range(B):
+            tail = pos[None, :] >= lens[b].long()
+            pages = bt[b].clamp(min=0).long().repeat_interleave(page)
+            for t in (kp, vp):
+                t[pages[tail[0]], :, pos[tail[0]] % page] = float("nan")
+        kp[0] = vp[0] = float("nan")
+    kw = dict(k_dequant_scale=ks, v_dequant_scale=vs)
+    what = f"B8 {scales}"
+
+    def kern():
+        return fk.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+
+    def plain():
+        return fk.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+
+    out_k = kern()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out_k).all()):
+        fail(f"{what}: NaN past the lengths reached the output")
+    out_p = plain()
+    err, ratio = check_close(torch, out_k, out_p, what)
+    bad = lens.clone()
+    longest = int(torch.argmax(lens))
+    bad[longest] -= FAULT_TILE
+    fault = row_ratio(torch, out_k, fk.paged_decode_attention_plain(
+        q, kp, vp, bt, bad, **kw))
+    if not fault > 1.0:
+        fail(f"{what}: the check passes the plain version without the "
+             f"last {FAULT_TILE} keys of row {longest} (worst row at "
+             f"{fault:.3g})")
+    # library yardstick: SDPA on the gathered, dequantized, NaN-free cache
+    idx = bt.clamp(min=0).long()
+
+    def gathered(pool, sc):
+        c = pool[idx].permute(0, 2, 1, 3, 4).reshape(B, HK, pps * page, D)
+        if sc is not None:
+            c = (c.float() * sc.expand(B, HK)[:, :, None, None]).bfloat16()
+        return torch.nan_to_num(c)
+
+    K, V = gathered(kp, ks), gathered(vp, vs)
+    mask = (torch.arange(pps * page, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    ql = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(ql, K, V, attn_mask=mask)
+
+    ms = time_ms(torch, kern)
+    plain_ms = time_ms(torch, plain, reps=5, warmup=1)
+    lib_ms = time_ms(torch, lib)
+    n_tok = int(lens.sum().item())
+    esz = 1 if quant else 2
+    nbytes = (2 * B * H * D * 2 + 2 * n_tok * HK * D * esz
+              + (2 * ks.numel() * 4 if quant else 0)
+              + int(live_pages.sum().item()) * 4 + B * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
+    return dict(shape=what, lengths=lens.tolist(), max_abs_err=err,
+                row_ratio=ratio, fault_row_ratio=fault, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
 # ---------------------------------------------------------------- phase 3
 def make_requests(n: int, vocab: int, seed: int):
     """Prompts of 128..1024 tokens and 32..128 new tokens; every fourth
@@ -1068,8 +1261,8 @@ def device_breakdown(torch, prof, calls: int, wall_ms: float, skip=()):
     launched. ``skip``: keys of ``record_function`` spans, whose device
     side is a span over kernels counted already."""
     from torch.autograd import DeviceType
-    kinds = {"attention kernel": 0.0, "B4/B5 kernel": 0.0, "gemm": 0.0,
-             "other": 0.0}
+    kinds = {"attention kernel": 0.0, "B4/B5 kernel": 0.0,
+             "B6 kernel": 0.0, "gemm": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
         if (ev.device_type != DeviceType.CUDA or ev.key in skip
@@ -1085,6 +1278,8 @@ def device_breakdown(torch, prof, calls: int, wall_ms: float, skip=()):
                                     "swiglu_fwd_kernel",
                                     "swiglu_bwd_kernel")):
             kinds["B4/B5 kernel"] += us
+        elif "rope_kernel" in key:
+            kinds["B6 kernel"] += us
         elif any(w in key for w in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass", "splitk")):
             kinds["gemm"] += us
@@ -1402,6 +1597,241 @@ def run_dense(torch, np, kernels, tl, gen, cfg, seed: int):
                 profiles=profiles)
 
 
+# --------------------------------------------------------------- phase 3d
+def paddle_decoder(torch, np, IF, params, cfg, prompt, new: int, cos, sin,
+                   *, block_size: int = 64, kv_int8: bool = False,
+                   seed: int = 0):
+    """A Llama decoder written against the port's Paddle API, the way a
+    Paddle serving program calls ``incubate.nn.functional``'s fused ops
+    around its projections (``torch.matmul`` here): per layer
+    ``fused_rms_norm`` (the residual form after the first), the fused
+    qkv projection, ``fused_rotary_position_embedding`` (neox, shared
+    tables, q and k: B6), ``block_multihead_attention`` over a paged
+    cache (prefill rows through its per-row loop, decode rows through
+    B8), the output projection, ``fused_rms_norm(residual=...)``, the
+    gate and up projections, ``swiglu`` (B5a) and the down projection;
+    then the final norm and the LM head.
+
+    prompt: (B, S) equal-length prompts; ``new`` greedy tokens. One
+    batched prefill of the B * S prompt tokens, then ``new - 1`` decode
+    steps, every row at one position, so each step passes that
+    position's (1, D/2) rows of ``cos``/``sin`` (tables of at least S +
+    new rows) with no ``position_ids``. Pages of ``block_size`` tokens,
+    each row's scattered through a permutation seeded with ``seed``.
+    ``kv_int8``: int8 caches with dynamic (B, HK) quant scales, 127 over
+    each row's and head's K and V amax in the prefill. Needs as many kv
+    heads as query heads (the op's qkv layout).
+
+    A generator: yields ``(logits, tokens)`` after the prefill and after
+    each decode step, logits (B, V) float32 and the greedy tokens (B,)."""
+    B, S = prompt.shape
+    L, nh, hd, eps = cfg.num_layers, cfg.num_heads, cfg.hd, cfg.rms_eps
+    if cfg.num_kv_heads != nh:
+        raise ValueError("paddle_decoder: block_multihead_attention's qkv "
+                         "layout needs num_kv_heads == num_heads")
+    lay = params["layers"]
+    dev = params["embed"].device
+    wqkv = [torch.cat([lay[n][l] for n in ("wq", "wk", "wv")], dim=-1)
+            for l in range(L)]
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cfg.dtype)
+    pps = -(-(S + new) // block_size)
+    bt = np.random.default_rng(seed).permutation(B * pps).reshape(
+        B, pps).astype(np.int32)
+    shape = (L, B * pps, nh, block_size, hd)
+    kv_dtype = torch.int8 if kv_int8 else cfg.dtype
+    kc = torch.zeros(shape, dtype=kv_dtype, device=dev)
+    vc = torch.zeros(shape, dtype=kv_dtype, device=dev)
+    quant = [dict() for _ in range(L)]
+
+    def amax_scales(t):             # (B, T, nh, hd) -> (B, nh) f32
+        a = t.float().abs().amax(dim=(1, 3))
+        return 127.0 / torch.clamp(a, min=1e-6)
+
+    def forward(x, T, enc, dec, c, s):
+        """x: (B * T, hidden) token batch -> (B, V) logits of each row's
+        last token."""
+        this = np.full((B,), T, np.int32)
+        mlp = None
+        for l in range(L):
+            if mlp is None:
+                h1 = IF.fused_rms_norm(x, norm_weight=lay["attn_norm"][l],
+                                       epsilon=eps)._value
+            else:
+                h1, x = (t._value for t in IF.fused_rms_norm(
+                    mlp, norm_weight=lay["attn_norm"][l], epsilon=eps,
+                    residual=x))
+            qkv = (h1 @ wqkv[l]).unflatten(-1, (3, nh, hd)).unflatten(
+                0, (B, T))
+            rq, rk, _ = IF.fused_rotary_position_embedding(
+                qkv[:, :, 0], qkv[:, :, 1], sin=s, cos=c)
+            rq, rk = rq._value, rk._value
+            if kv_int8 and T > 1:       # the prefill calibrates the scales
+                quant[l] = dict(cache_k_quant_scales=amax_scales(rk),
+                                cache_v_quant_scales=amax_scales(
+                                    qkv[:, :, 2]),
+                                use_dynamic_cachekv_quant=True)
+            qkv = torch.stack([rq, rk, qkv[:, :, 2]], dim=2).reshape(
+                B * T, 3 * nh * hd)
+            o = IF.block_multihead_attention(
+                qkv, kc[l], vc[l], enc, dec, this, block_tables=bt,
+                block_size=block_size, **quant[l])[0]._value
+            h2, x = (t._value for t in IF.fused_rms_norm(
+                o @ lay["wo"][l], norm_weight=lay["mlp_norm"][l],
+                epsilon=eps, residual=x))
+            act = IF.swiglu(h2 @ lay["wg"][l], h2 @ lay["wu"][l])._value
+            mlp = act @ lay["wd"][l]
+        h = IF.fused_rms_norm(mlp, norm_weight=params["final_norm"],
+                              epsilon=eps, residual=x)[0]._value
+        return (h.unflatten(0, (B, T))[:, -1] @ head).float()
+
+    zeros = np.zeros((B,), np.int32)
+    x = params["embed"][prompt.long()].to(cfg.dtype).flatten(0, 1)
+    logits = forward(x, S, np.full((B,), S, np.int32), zeros, cos[:S],
+                     sin[:S])
+    tok = logits.argmax(-1)
+    yield logits, tok
+    for i in range(new - 1):
+        p = S + i
+        x = params["embed"][tok].to(cfg.dtype)
+        logits = forward(x, 1, zeros, np.full((B,), p, np.int32),
+                         cos[p:p + 1], sin[p:p + 1])
+        tok = logits.argmax(-1)
+        yield logits, tok
+
+
+def decoder_reference(torch, gen, params, cfg, prompt, tokens, kv):
+    """The port's own dense cached forward (``generate``'s) on the same
+    prompts, fed the decoder's tokens: the logits of the prefill and of
+    each following step, (new, B, V)."""
+    B, S = prompt.shape
+    new = tokens.shape[1]
+    max_len = S + new
+    cache = gen.init_cache(cfg, B, max_len, kv_dtype=kv, device="cuda")
+    out = [gen._forward_cached(params, prompt, cache, 0, cfg, max_len)]
+    for i in range(new - 1):
+        out.append(gen._forward_cached(params, tokens[:, i:i + 1], cache,
+                                       S + i, cfg, max_len))
+    return torch.stack(out)
+
+
+def run_paddle_decoder(torch, np, kernels, IF, tl, gen, cfg, seed: int,
+                       batch: int = 8, prompt_len: int = 1024,
+                       new: int = 64, block_size: int = 64):
+    """Phase 3d: the Paddle fused-op decoder (``paddle_decoder``) at
+    the engine's width and depth from fresh seeded weights, KV bf16 and
+    int8. Per tier: the launch counters zeroed just before the decode
+    steps (after the prefill) and read just after, which must equal what
+    the path implies per layer and step (B6 twice, B8 once, B4a twice
+    and once more for the final norm, B5a once, nothing else); decode
+    tokens/s and ms a step on the host clock; peak memory; each step's
+    logits within LOGITS_ATOL of ``generate``'s cached forward on the
+    same tokens (same KV dtype), and the share of greedy tokens that
+    forward would pick (reported, not gated). Then ``torch.profiler``
+    over a few bf16 decode steps."""
+    t0 = time.perf_counter()
+    params = tl.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed + 3), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+        3, cfg.vocab_size, (batch, prompt_len)), dtype=torch.int32,
+        device="cuda")
+    cos, sin = tl.rope_tables(prompt_len + new, cfg.hd, cfg.rope_theta,
+                              device="cuda")
+    L, steps = cfg.num_layers, new - 1
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0), "B6": 2 * L * steps,
+            "B8": L * steps, "B4a": (2 * L + 1) * steps, "B5a": L * steps}
+    tiers = []
+    for kv in (None, "int8"):
+        kvn = "int8" if kv else "bf16"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        it = paddle_decoder(torch, np, IF, params, cfg, prompt, new, cos,
+                            sin, block_size=block_size,
+                            kv_int8=kv is not None, seed=seed)
+        t0 = time.perf_counter()
+        logits, toks = next(it)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        out_logits, out_toks = [logits], [toks]
+        t0 = time.perf_counter()
+        for logits, toks in it:
+            out_logits.append(logits)
+            out_toks.append(toks)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if counts != want:
+            fail(f"paddle decoder {kvn}: launches {counts} != {want}")
+        got = torch.stack(out_logits)
+        tokens = torch.stack(out_toks, dim=1).to(torch.int32)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"paddle decoder {kvn}: non-finite logits")
+        ref = decoder_reference(torch, gen, params, cfg, prompt, tokens, kv)
+        err = (got - ref).abs().amax(dim=(1, 2))
+        if not float(err.max()) <= LOGITS_ATOL:
+            fail(f"paddle decoder {kvn}: logits against generate's cached "
+                 f"forward off by {float(err.max())} (> {LOGITS_ATOL})")
+        agree = (ref.argmax(-1).T == tokens).float().mean().item()
+        rec = dict(tier=kvn, kv=kvn, rows=batch, prompt_len=prompt_len,
+                   new_tokens=new, block_size=block_size,
+                   prefill_s=prefill_s, decode_s=decode_s,
+                   decode_tokens_per_s=batch * steps / decode_s,
+                   decode_step_ms=decode_s / steps * 1e3,
+                   peak_mem_gb=peak, launches=counts,
+                   logits_max_abs_err=float(err.max()),
+                   logits_max_abs_err_by_step=err.tolist(),
+                   logits_max_abs=float(ref.abs().max()),
+                   greedy_agreement_with_generate=agree)
+        print("paddle decoder " + json.dumps(
+            {k: v for k, v in rec.items()
+             if k != "logits_max_abs_err_by_step"}))
+        tiers.append(rec)
+        del it, got, ref, out_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    prof = profile_paddle_decoder(torch, np, IF, params, cfg, prompt, cos,
+                                  sin, block_size, seed)
+    print("paddle decoder profile " + json.dumps(prof))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=L, init_s=init_s, tiers=tiers, profile=prof)
+
+
+def profile_paddle_decoder(torch, np, IF, params, cfg, prompt, cos, sin,
+                           block_size: int, seed: int, steps: int = 4):
+    """``torch.profiler`` over ``steps`` bf16 decode steps of the Paddle
+    decoder after its prefill and one warm step: the card's time split
+    into B6, B8 (the attention kernel), B4a/B5a, matmuls and the rest,
+    against the host's wall time of the same steps unprofiled (the idle
+    share). Launches made here are not counted on the main path."""
+    from torch.profiler import ProfilerActivity, profile
+    it = paddle_decoder(torch, np, IF, params, cfg, prompt, 2 * steps + 2,
+                        cos, sin, block_size=block_size, seed=seed)
+    next(it)
+    next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        next(it)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            next(it)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rec = device_breakdown(torch, prof, steps, plain_wall)
+    rec["profiled_wall_ms_per_call"] = wall
+    return rec
+
+
 # --------------------------------------------------------------- phase 3b
 def train_config(LlamaConfig, layers: int, fused_kernels: str):
     """The JAX bench's training model (``bench.py`` ``pick_config`` for a
@@ -1571,7 +2001,11 @@ def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
 
     cpu = tt.TrainState(0, *(f32_cpu(t) for t in (
         card.params, card.master, card.m, card.v)))
-    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    # "auto" is fused only on the card: the CPU reference of the fused
+    # mode asks for the fused ops' plain versions with "pallas"
+    cpu_cfg = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        fused_kernels="xla" if fused_kernels == "xla" else "pallas")
     leaves = slice_leaves(fused_kernels)
     t0 = time.perf_counter()
     on_card = leaf_grads(torch, tl, card.params, tokens.cuda(), cfg)
@@ -1640,6 +2074,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.nn import functional as IF
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.models import generate as gen
     from paddle_tpu_torch.models import llama as tl
@@ -1758,11 +2193,36 @@ def main(argv=None) -> int:
             row_ratio=max(r["row_ratio"][name] for r in fused))
     gc.collect()
     torch.cuda.empty_cache()
+    # B6 at the Llama-2-7B prefill shape (its row in the kernel line) and
+    # at a ragged GQA shape in f32
+    rope = [check_rope(torch, tl, fk, 8, 1024, 32, 32, 128, torch.bfloat16,
+                       seed=41, timed=True),
+            check_rope(torch, tl, fk, 2, 1003, 32, 8, 64, torch.float32,
+                       seed=42, timed=False)]
+    for rec in rope:
+        print("kernel B6 " + json.dumps(rec))
+    results["B6"] = dict(rope[0], max_abs_err=max(r["max_abs_err"]
+                                                  for r in rope),
+                         row_ratio=max(r["row_ratio"] for r in rope))
+    # B8 at the Llama-2-7B decode shape: bf16, int8 with the (B, HK)
+    # scales of the decoder's dynamic quantization (its int8 row) and
+    # with (HK,) scales
+    paged_hm = []
+    for scales in ("bf16", "(B, HK)", "(HK,)"):
+        r = check_paged_hm(torch, F, fk, scales, seed=51)
+        torch.cuda.synchronize()
+        paged_hm.append(r)
+        print("kernel B8 " + json.dumps(r))
+    results["B8-bf16"], results["B8-int8"] = paged_hm[0], paged_hm[1]
+    gc.collect()
+    torch.cuda.empty_cache()
     record["kernels_phase"] = results
     record["dense_kernel_phase"] = dense_kernel
     record["verify_phase"] = verify
     record["flash_phase"] = flash
     record["fused_phase"] = fused
+    record["rope_phase"] = rope
+    record["paged_hm_phase"] = paged_hm
 
     # ---- phase 3: the engine
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
@@ -1828,6 +2288,11 @@ def main(argv=None) -> int:
     dense = run_dense(torch, np, kernels, tl, gen, cfg, args.seed)
     record["dense"] = dense
 
+    # ---- phase 3d: the Paddle fused-op decoder at the engine's width
+    decoder = run_paddle_decoder(torch, np, kernels, IF, tl, gen, cfg,
+                                 args.seed)
+    record["paddle_decoder"] = decoder
+
     # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
     train = {}
     for mode in ("xla", "auto"):
@@ -1853,11 +2318,12 @@ def main(argv=None) -> int:
     launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
-    for rec in tiers + dense["tiers"]:
+    for rec in tiers + dense["tiers"] + decoder["tiers"]:
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:
                 launches[f"{k}-{kvn}"] = launches.get(f"{k}-{kvn}", 0) + n
+    launches["B6"] = sum(r["launches"]["B6"] for r in decoder["tiers"])
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fused_src = "paddle_tpu_torch/csrc/fused.cu"
     meta = {
@@ -1871,8 +2337,12 @@ def main(argv=None) -> int:
         "B4b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:99"),
         "B5a": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:164"),
         "B5b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:188"),
+        "B6": ("cuda", "paddle_tpu_torch/csrc/rope.cu",
+               "paddle_tpu/ops/pallas/fused.py:237"),
         "B7": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
                "paddle_tpu/ops/pallas/fused.py:444"),
+        "B8": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+               "paddle_tpu/ops/pallas/fused.py:564"),
         "B9": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
                "paddle_tpu/ops/pallas/paged_attention.py:250"),
         "B10": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",

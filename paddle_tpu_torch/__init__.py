@@ -21,17 +21,30 @@ its counterpart for an NVIDIA H100, module for module:
 - ``inference/predictor.py``: the continuous-batching engine, with
   n-gram, draft-model and tree speculation and weight-only int8/int4
   (``weight_bits``);
+- ``_core/``: the Paddle tensor core (``Tensor`` over a
+  ``torch.Tensor``, ``to_tensor``, the dtype names, the autograd surface
+  on torch autograd) and ``ops/_registry.py`` (``as_tensor``, ``raw``
+  and the few ``Tensor`` methods built on it);
+- ``incubate/nn/functional``: the fused serving ops of
+  ``paddle.incubate`` (``fused_rms_norm``, ``fused_layer_norm``,
+  ``swiglu``, ``fused_rotary_position_embedding``,
+  ``blha_get_max_len``, ``block_multihead_attention``);
 - ``entry.py``: the counterpart of ``__graft_entry__.entry()``;
 - ``ops/kernels/``: the wrappers of the hand-written CUDA kernels in
   ``csrc/`` (flash attention forward and backward, decode attention
   against a contiguous cache, ragged paged decode, fused RoPE paged
   decode, flash chunk prefill and verify in a linear and a tree form,
-  fused RMSNorm and SwiGLU), each beside its plain PyTorch version.
+  fused RMSNorm and SwiGLU, fused RoPE, decode attention over a
+  head-major page pool), each beside its plain PyTorch version.
 
-Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU (``device="cpu"``); on the CPU every kernel wrapper takes
-its plain version. The package imports neither JAX nor ``paddle_tpu``.
+Entry points run on the card (``device="cuda"``, ``place=None``) unless
+the caller asks for the CPU (``device="cpu"``, ``place="cpu"``); on the
+CPU every kernel wrapper takes its plain version. The package imports
+neither JAX nor ``paddle_tpu``.
 """
+from ._core.autograd import no_grad  # noqa: F401
+from ._core.tensor import Tensor, to_tensor  # noqa: F401
 from .device import resolve_device  # noqa: F401
+from .ops import _registry  # noqa: F401  (attaches the Tensor methods)
 
-__all__ = ["resolve_device"]
+__all__ = ["Tensor", "no_grad", "resolve_device", "to_tensor"]

@@ -67,6 +67,19 @@ __device__ __forceinline__ void load_vec(const E* __restrict__ p,
   for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
 }
 
+// N floats to N consecutive elements of type E at p (aligned to
+// N * sizeof(E)), each rounded to E, in one store instruction.
+template <typename E, int N>
+__device__ __forceinline__ void store_vec(E* __restrict__ p,
+                                          const float (&in)[N]) {
+  using V = typename VecType<N * sizeof(E)>::type;
+  V v;
+  E* e = reinterpret_cast<E*>(&v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) e[i] = from_f<E>(in[i]);
+  *reinterpret_cast<V*>(p) = v;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

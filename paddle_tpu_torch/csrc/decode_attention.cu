@@ -1,5 +1,6 @@
 // B7 one-token decode attention against a contiguous, padded KV cache:
-// dense `generate` and `beam_search` decode steps.
+// dense `generate` and `beam_search` decode steps. B8, below, the same
+// over a head-major page pool: `incubate`'s `block_multihead_attention`.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/fused.py
 // `_decode_kernel` / `_decode_kernel_qrow` (shared step
@@ -38,6 +39,24 @@
 // the mean of V instead. No path of the port decodes with length 0.
 // cache_len larger than S clamps to S, which is what the plain
 // composition's mask does.
+
+// B8 replaces paddle_tpu/ops/pallas/fused.py `_paged_decode_kernel` /
+// `_paged_decode_kernel_q` (op `paged_decode_attention`, shared step
+// `_decode_softmax_step`): q (B, H, D) against a head-major (P, HK,
+// page, D) pool through (B, ppseq) block tables, the Paddle
+// block-attention cache layout. Token j of batch row b and kv head h
+// sits at ((bt[b, j / page] * HK + h) * page + j % page) * D; a -1 table
+// entry reads page 0, as the TPU kernel clamps it. int8 pages carry one
+// f32 dequant scale per (row, kv head): (HK,) or (B, HK) scales, read
+// with stride 0 over the tokens, where B7 and B9 have one per token
+// row. The same bound (bytes) and the same design as B7: one CTA per
+// (row, kv head) over its GQA group, only the live tokens [0,
+// cache_len[b]) read (the TPU kernel fetched every page of the table
+// and masked, zeroing V past the length), the pool read in place
+// through its strides (the TPU wrapper transposed the whole pool to
+// (HK, P, page, D) on every call), int8 dequantized in registers as
+// `round_to<T>(float(k) * s)`, and each CTA reading its own block-table
+// row where the TPU prefetched it as scalars.
 
 #include "decode_step.cuh"
 
@@ -122,6 +141,91 @@ cudaError_t launch_kv(const Args& a, int B, int D, bool kv_int8,
   return cudaErrorInvalidValue;
 }
 
+struct HeadMajorArgs {
+  const void* q;           // (B, H, D) model dtype, contiguous
+  const void* k;           // (P, HK, page, D) model dtype or int8
+  const void* v;
+  const float* k_scales;   // (HK,) or (B, HK) f32, int8 pools only
+  const float* v_scales;
+  const int* block_tables; // (B, ppseq) int32, contiguous
+  const int* lengths;      // (B,) int32, current token included
+  void* out;               // (B, H, D) model dtype, contiguous
+  int H, HK, page, ppseq;
+  long long kv_sp, kv_sh, kv_st;  // element strides of the pools
+  long long sc_sb, sc_sh;         // element strides of the scales
+  float scale;
+};
+
+// Token j of one (batch row, kv head) of a head-major pool: its page
+// from the block table (-1 entries clamp to page 0), then the row inside
+// the page; the scale is the (row, kv head)'s for every token.
+struct HeadMajorPagedAddr {
+  const int* bt;
+  int page;
+  long long kv_sp, kv_st, kv_off, sc_off;
+  __device__ __forceinline__ void at(int j, long long& kv,
+                                     long long& sc) const {
+    int pg = bt[j / page];
+    pg = pg < 0 ? 0 : pg;
+    kv = (long long)pg * kv_sp + (long long)(j % page) * kv_st + kv_off;
+    sc = sc_off;
+  }
+};
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    paged_decode_hm_kernel(const HeadMajorArgs a) {
+  constexpr int DPL = D / 32;  // dims per lane
+  const int g = blockIdx.x;  // kv head
+  const int b = blockIdx.y;  // batch row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rep = a.H / a.HK;
+  const int d0 = lane * DPL;
+  const int cap = a.ppseq * a.page;
+  int len = a.lengths[b];
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+
+  const T* qb = static_cast<const T*>(a.q) +
+                ((long long)b * a.H + (long long)g * rep) * D;
+  float q[kMaxRep][DPL];
+  ptt::decode::load_q<T, D>(qb, rep, d0, q);
+  const HeadMajorPagedAddr addr{
+      a.block_tables + (long long)b * a.ppseq, a.page, a.kv_sp, a.kv_st,
+      (long long)g * a.kv_sh + d0,
+      (long long)b * a.sc_sb + (long long)g * a.sc_sh};
+  float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
+  ptt::decode::attend<T, KV, D>(
+      q, rep, len, a.scale, static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.k_scales, a.v_scales, addr, warp, m,
+      l, acc);
+  T* ob = static_cast<T*>(a.out) +
+          ((long long)b * a.H + (long long)g * rep) * D;
+  ptt::decode::merge_store<T, D>(m, l, acc, rep, warp, lane, ob);
+}
+
+template <typename T, typename KV, int D>
+cudaError_t launch_hm_typed(const HeadMajorArgs& a, int B,
+                            cudaStream_t stream) {
+  const dim3 grid(a.HK, B);
+  paged_decode_hm_kernel<T, KV, D>
+      <<<grid, kWarps * 32, ptt::decode::merge_smem_bytes<D>(a.H / a.HK),
+         stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hm_kv(const HeadMajorArgs& a, int B, int D,
+                         bool kv_int8, cudaStream_t stream) {
+  if (D == 128)
+    return kv_int8 ? launch_hm_typed<T, int8_t, 128>(a, B, stream)
+                   : launch_hm_typed<T, T, 128>(a, B, stream);
+  if (D == 64)
+    return kv_int8 ? launch_hm_typed<T, int8_t, 64>(a, B, stream)
+                   : launch_hm_typed<T, T, 64>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 PTT_EXPORT_ERROR_STRING
@@ -162,6 +266,48 @@ extern "C" int ptt_decode_attention(
     e = launch_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
   else if (q_dtype == 0)
     e = launch_kv<float>(a, B, D, kv_int8 != 0, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// B8. q_dtype: 0 = float32, 1 = bfloat16. k_scales/v_scales are read
+// only when kv_int8 != 0: element (b * sc_sb + h * sc_sh) is row b's
+// scale for kv head h (sc_sb = 0 for (HK,) scales).
+extern "C" int ptt_paged_decode_hm(
+    const void* q, const void* k, const void* v, const void* k_scales,
+    const void* v_scales, const void* block_tables, const void* lengths,
+    void* out, int B, int H, int HK, int D, int page, int ppseq,
+    long long kv_sp, long long kv_sh, long long kv_st, long long sc_sb,
+    long long sc_sh, float scale, int q_dtype, int kv_int8, void* stream) {
+  if (B <= 0 || HK <= 0 || H % HK != 0 || H / HK > kMaxRep || page <= 0 ||
+      ppseq <= 0)
+    return cudaErrorInvalidValue;
+  HeadMajorArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.k_scales = static_cast<const float*>(k_scales);
+  a.v_scales = static_cast<const float*>(v_scales);
+  a.block_tables = static_cast<const int*>(block_tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = out;
+  a.H = H;
+  a.HK = HK;
+  a.page = page;
+  a.ppseq = ppseq;
+  a.kv_sp = kv_sp;
+  a.kv_sh = kv_sh;
+  a.kv_st = kv_st;
+  a.sc_sb = sc_sb;
+  a.sc_sh = sc_sh;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (q_dtype == 1)
+    e = launch_hm_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
+  else if (q_dtype == 0)
+    e = launch_hm_kv<float>(a, B, D, kv_int8 != 0, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -170,9 +170,15 @@ def layer_params(params: Dict, l: int) -> Dict[str, torch.Tensor]:
     return {name: w[l] for name, w in params["layers"].items()}
 
 
-def _pallas_fused(cfg: LlamaConfig) -> bool:
-    """Whether the training model takes the fused RMSNorm and SwiGLU."""
-    return cfg.fused_kernels in ("auto", "pallas")
+def _pallas_fused(cfg: LlamaConfig, x: torch.Tensor) -> bool:
+    """Whether the training model takes the fused RMSNorm and SwiGLU on
+    ``x``: always under "pallas", under "auto" only for CUDA tensors —
+    the JAX package's rule (``_fa.available()``) with "where the kernels
+    run" read as "on the card". On the CPU "auto" is the "xla"
+    composition, bit for bit."""
+    if cfg.fused_kernels == "pallas":
+        return True
+    return cfg.fused_kernels == "auto" and x.device.type == "cuda"
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
@@ -279,7 +285,8 @@ def _attn_out(x, lp, cos, sin, cfg: LlamaConfig):
     RoPE, attention."""
     B, S, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps, fused=_pallas_fused(cfg))
+    h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps,
+                  fused=_pallas_fused(cfg, x))
     q = (h1 @ lp["wq"]).reshape(B, S, nh, hd)
     k = (h1 @ lp["wk"]).reshape(B, S, nkv, hd)
     v = (h1 @ lp["wv"]).reshape(B, S, nkv, hd)
@@ -289,7 +296,7 @@ def _attn_out(x, lp, cos, sin, cfg: LlamaConfig):
 
 def _post_attention(x, o, lp, cfg: LlamaConfig):
     """The layer after attention: o-projection, residual, MLP."""
-    return _mlp(x + o @ lp["wo"], lp, cfg, fused=_pallas_fused(cfg))
+    return _mlp(x + o @ lp["wo"], lp, cfg, fused=_pallas_fused(cfg, x))
 
 
 def _block(x, lp, cos, sin, cfg: LlamaConfig):
@@ -343,7 +350,7 @@ def _trunk(params, tokens, cfg: LlamaConfig):
         lp = {name: ws[l] for name, ws in stacks.items()}
         x = _layer(x, lp, cos, sin, cfg)
     return rms_norm(x, params["final_norm"], cfg.rms_eps,
-                    fused=_pallas_fused(cfg))
+                    fused=_pallas_fused(cfg, x))
 
 
 def _lm_head(params, cfg: LlamaConfig, dtype) -> torch.Tensor:

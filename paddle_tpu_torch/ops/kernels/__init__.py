@@ -14,7 +14,9 @@ WRAPPERS = {
     "B4b": fused.rms_bwd,
     "B5a": fused.swiglu_fwd,
     "B5b": fused.swiglu_bwd,
+    "B6": fused.rope_apply,
     "B7": fused.decode_attention,
+    "B8": fused.paged_decode_attention,
     "B9": paged_attention.paged_attention,
     "B10": serving_fused.fused_paged_decode_attention,
     "B11": serving_fused.flash_chunk_attention,

@@ -27,7 +27,7 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
 SOURCES = ("paged_decode", "flash_chunk", "flash_attention", "fused",
-           "decode_attention")
+           "decode_attention", "rope")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,9 @@
-"""B4-B5 fused RMSNorm and SwiGLU for the training model, and B7 decode
-attention against a contiguous KV cache for dense ``generate``.
+"""B4-B5 fused RMSNorm and SwiGLU for the training model, B6 fused RoPE
+and B8 head-major paged decode attention for ``incubate``'s serving ops,
+and B7 decode attention against a contiguous KV cache for dense
+``generate``.
 
-Counterpart of the RMSNorm, SwiGLU and decode-attention parts of
-``paddle_tpu/ops/pallas/fused.py``:
+Counterpart of ``paddle_tpu/ops/pallas/fused.py``:
 
 - :func:`rms_fwd` (B4a): the normalised rows and the per-row f32
   ``rstd``. CUDA tensors launch ``csrc/fused.cu``'s forward (it replaces
@@ -19,6 +20,16 @@ Counterpart of the RMSNorm, SwiGLU and decode-attention parts of
   cache, GQA by head group, optional int8 rows with per-row f32 scales.
   CUDA tensors launch ``csrc/decode_attention.cu`` (it replaces
   ``_decode_kernel`` / ``_decode_kernel_qrow``).
+- :func:`rope_apply` (B6): neox rotate-half RoPE of x (B, S, H, D) by
+  (S, D/2) f32 tables, ``sign`` -1 for the VJP. CUDA tensors launch
+  ``csrc/rope.cu`` (it replaces ``_rope_kernel``); :class:`_RopeQK` and
+  :func:`rope_qk` are the JAX package's ``_rope_qk`` custom VJP and
+  ``rope_qk`` op.
+- :func:`paged_decode_attention` (B8): one-token attention of q (B, H,
+  D) over a head-major (P, HK, page, D) page pool through block
+  tables, optional int8 pages with one f32 scale per (row, kv head).
+  CUDA tensors launch ``csrc/decode_attention.cu``'s second entry (it
+  replaces ``_paged_decode_kernel`` / ``_paged_decode_kernel_q``).
 - :class:`_RMSNorm` and :class:`_SwiGLU` tie them into
   ``autograd.Function``\\ s (the JAX package's ``custom_vjp``\\ s
   ``_rms_norm_2d`` and ``_swiglu``), and :func:`rms_norm` and
@@ -30,9 +41,10 @@ CUDA ones, and counts its kernel launches in ``.launches``. The TPU's
 B4a runs one CTA per row, B4b one per ``RMS_BWD_ROWS`` rows, B5a and
 B5b one 8-element chunk per thread. The kernels take float32 and
 bfloat16, every tensor of one call in one dtype, and last dims that are
-multiples of 8 (16-byte loads); RMSNorm rows up to ``MAX_WIDTH``. B7
-takes float32 and bfloat16 queries, caches of q's dtype or int8, head
-dims 64 and 128 and at most 8 query heads per kv head.
+multiples of 8 (16-byte loads); RMSNorm rows up to ``MAX_WIDTH``. B6
+takes float32 and bfloat16 and any even head dim. B7 and B8 take
+float32 and bfloat16 queries, caches of q's dtype or int8, head dims 64
+and 128 and at most 8 query heads per kv head.
 """
 from __future__ import annotations
 
@@ -65,6 +77,18 @@ DECODE_SIGNATURES = {
         _I, _I, _I, _I, _I,             # B, H, HK, D, S
         _L, _L, _L, _L, _L, _L,         # cache strides, scale strides
         ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+    "ptt_paged_decode_hm": (
+        _P, _P, _P, _P, _P,             # q, k/v pages, k/v scales
+        _P, _P, _P,                     # block tables, lengths, out
+        _I, _I, _I, _I, _I, _I,         # B, H, HK, D, page, ppseq
+        _L, _L, _L, _L, _L,             # pool strides, scale strides
+        ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+}
+ROPE_SIGNATURES = {
+    "ptt_rope": (_P, _P, _P, _P,              # x, cos, sin, out
+                 _I, _I, _I, _I,              # B, S, H, D/2
+                 _L, _L, _L,                  # x strides (b, s, h)
+                 ctypes.c_float, _I, _I, _P),  # sign, dtype, vec, stream
 }
 #: head dims and query heads per kv head that B7 takes
 DECODE_HEAD_DIMS = (64, 128)
@@ -277,15 +301,17 @@ def rms_norm(x, w, eps: float = 1e-6, residual=None):
         x = x + residual
         return rms_norm(x, w, eps), x
     shape = x.shape
-    out = _RMSNorm.apply(x.reshape(-1, shape[-1]), w, float(eps))
+    out = _RMSNorm.apply(x.reshape(-1, shape[-1]).contiguous(), w,
+                         float(eps))
     return out.reshape(shape)
 
 
 def swiglu(g, u):
     """Fused ``silu(g) * u`` (B5a forward, B5b backward) on any leading
-    shape."""
+    shape (a strided view, such as half of a split, is copied first)."""
     shape = g.shape
-    out = _SwiGLU.apply(g.reshape(-1, shape[-1]), u.reshape(-1, shape[-1]))
+    out = _SwiGLU.apply(g.reshape(-1, shape[-1]).contiguous(),
+                        u.reshape(-1, shape[-1]).contiguous())
     return out.reshape(shape)
 
 
@@ -419,3 +445,258 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
 
 
 decode_attention.launches = 0
+
+
+# ---------------- B6: fused RoPE ----------------
+def rope_plain(x, cos, sin, sign: float = 1.0):
+    """Plain B6, op for op ``_rope_kernel``: in f32, ``o1 = x1 * c - x2 *
+    s`` and ``o2 = x2 * c + x1 * s`` with ``s = sin * sign``, cast once
+    to x's dtype. x: (B, S, H, D); cos/sin: (S, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = _f32(x[..., :half]), _f32(x[..., half:])
+    c = _f32(cos)[None, :, None, :]
+    s = _f32(sin)[None, :, None, :] * sign
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def launch_rope(x, cos, sin, sign: float = 1.0) -> torch.Tensor:
+    """Launch ``ptt_rope`` (B6) on a CUDA x (B, S, H, D), read through
+    its strides (a view of a fused qkv tensor needs no copy; only a last
+    dim that is not contiguous is copied), into a new contiguous tensor.
+    Validates every input and raises on what the kernel does not take;
+    never falls back."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rope: the kernel needs CUDA tensors, got {dev}")
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        raise ValueError(f"rope: x must be (B, S, H, D) float32 or bfloat16, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    B, S, H, D = x.shape
+    half = D // 2
+    if D % 2 or x.numel() == 0:
+        raise ValueError(f"rope: needs a non-empty x with an even head dim, "
+                         f"got {tuple(x.shape)}")
+    tables = []
+    for t, nm in ((cos, "cos"), (sin, "sin")):
+        if tuple(t.shape) != (S, half) or t.device != dev:
+            raise ValueError(f"rope: {nm} must be ({S}, {half}) on {dev}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+        t = t.to(torch.float32).contiguous()
+        tables.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    if x.stride(3) != 1:
+        x = x.contiguous()
+    strides = x.stride()[:3]
+    esz = x.element_size()
+    vec = 16 // esz
+    while vec > 1 and (half % vec or any(st % vec for st in strides)
+                       or x.data_ptr() % (vec * esz)):
+        vec //= 2
+    out = torch.empty((B, S, H, D), dtype=x.dtype, device=dev)
+    lib = _build.load("rope", ROPE_SIGNATURES)
+    rc = lib.ptt_rope(x.data_ptr(), tables[0].data_ptr(),
+                      tables[1].data_ptr(), out.data_ptr(), B, S, H, half,
+                      *strides, float(sign), _DTYPES[x.dtype], vec,
+                      _build.stream_handle(dev))
+    _build.check(lib, rc, "rope")
+    return out
+
+
+def rope_apply(x, cos, sin, sign: float = 1.0):
+    """B6 (shapes: :func:`rope_plain`): the plain version for CPU
+    tensors, the kernel for CUDA tensors (or an error)."""
+    if x.device.type == "cpu":
+        return rope_plain(x, cos, sin, sign)
+    out = launch_rope(x, cos, sin, sign)
+    rope_apply.launches += 1
+    return out
+
+
+rope_apply.launches = 0
+
+
+class _RopeQK(torch.autograd.Function):
+    """B6 on q and on k, one launch each; the VJP is the rotation by
+    -theta (``sign`` -1), as ``_rope_qk_bwd``, and the tables get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return rope_apply(q, cos, sin, 1.0), rope_apply(k, cos, sin, 1.0)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        cos, sin = ctx.saved_tensors
+        return (rope_apply(dq, cos, sin, -1.0), rope_apply(dk, cos, sin, -1.0),
+                None, None)
+
+
+def rope_qk(q, k, cos, sin):
+    """Fused neox RoPE on q (B, S, H, D) and k (B, S, HK, D), the JAX
+    package's ``rope_qk``: cos/sin are (S, D/2) half tables or (S, D)
+    repeated-half ones (cut to their first half), used in float32."""
+    half = q.shape[-1] // 2
+    if cos.shape[-1] == 2 * half:    # repeated-half layout: halves equal
+        cos, sin = cos[:, :half], sin[:, :half]
+    return _RopeQK.apply(q, k, cos.float().contiguous(),
+                         sin.float().contiguous())
+
+
+# ---------------- B8: decode attention over a head-major page pool --------
+def _dequant_rows(sc, B: int):
+    """(HK,) or (B, HK) dequant scales as (B, HK) f32, the TPU wrapper's
+    per-grid-row scalars (``_rows``)."""
+    sc = sc.float()
+    return sc.expand(B, -1) if sc.dim() == 1 else sc
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                 cache_len, *, scale=None,
+                                 k_dequant_scale=None,
+                                 v_dequant_scale=None):
+    """Plain B8, op for op the JAX package's ``paged_decode_attention``
+    with ``_decode_softmax_step``: page by page of the block table (-1
+    entries clamped to page 0), int8 pages dequantized as ``(k.float() *
+    s).to(q.dtype)``, V rows at or past ``cache_len`` zeroed, f32 scores
+    times ``scale`` (default ``1/sqrt(D)``) masked with the TPU mask
+    value, an online softmax with p cast to V's dtype before the
+    product, and ``acc / l`` (a row of length 0 gives zeros).
+
+    q:            (B, H, D) current queries
+    k/v_pages:    (P, HK, page, D) head-major page pool
+    block_tables: (B, ppseq) int page ids
+    cache_len:    int or (B,) valid lengths, current token included
+    k/v_dequant_scale: (HK,) or (B, HK) f32 scales of int8 pages
+    returns (B, H, D) in q's dtype."""
+    _check_pair(k_dequant_scale, v_dequant_scale, "paged_decode_attention")
+    B, H, D = q.shape
+    HK, page = k_pages.shape[1], k_pages.shape[2]
+    rep = H // HK
+    s = scale if scale is not None else 1.0 / math.sqrt(D)
+    dev = q.device
+    bt = torch.clamp(torch.as_tensor(block_tables, device=dev).long(), min=0)
+    lens = torch.as_tensor(cache_len, dtype=torch.int32,
+                           device=dev).broadcast_to((B,))[:, None, None, None]
+    quant = k_dequant_scale is not None
+    if quant:
+        ks = _dequant_rows(k_dequant_scale, B)[:, :, None, None]
+        vs = _dequant_rows(v_dequant_scale, B)[:, :, None, None]
+    qt = _f32(q.reshape(B, HK, rep, D))
+    acc = torch.zeros((B, HK, rep, D), dtype=qt.dtype, device=dev)
+    m = torch.full((B, HK, rep, 1), -math.inf, dtype=qt.dtype, device=dev)
+    l = torch.zeros_like(m)
+    mask_value = -0.7 * torch.finfo(torch.float32).max
+    for j in range(bt.shape[1]):
+        kk, vv = k_pages[bt[:, j]], v_pages[bt[:, j]]      # (B, HK, page, D)
+        if quant:
+            kk = (kk.float() * ks).to(q.dtype)
+            vv = (vv.float() * vs).to(q.dtype)
+        pos = j * page + torch.arange(page, device=dev)
+        live = pos[None, None, None, :] < lens               # (B, 1, 1, page)
+        vv = torch.where(live.transpose(-1, -2), vv, torch.zeros_like(vv))
+        sc = torch.matmul(qt, _f32(kk).transpose(-1, -2)) * s
+        sc = torch.where(live, sc, mask_value)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live, torch.exp(sc - m_new), 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_f32(p.to(vv.dtype)), _f32(vv))
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    return out.to(q.dtype).reshape(B, H, D)
+
+
+def launch_paged_decode_hm(q, k_pages, v_pages, block_tables, cache_len, *,
+                           scale=None, k_dequant_scale=None,
+                           v_dequant_scale=None) -> torch.Tensor:
+    """Launch ``ptt_paged_decode_hm`` (B8) on CUDA tensors. The pools may
+    be strided views whose rows are contiguous and 16-byte aligned.
+    Validates every input and raises on what the kernel does not take;
+    never falls back."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention: the kernel needs CUDA "
+                         f"tensors, got {dev}")
+    _check_pair(k_dequant_scale, v_dequant_scale, "paged_decode_attention")
+    if q.dim() != 3 or q.dtype not in _DTYPES:
+        raise ValueError(f"paged_decode_attention: q must be (B, H, D) "
+                         f"float32 or bfloat16, got {tuple(q.shape)} "
+                         f"{q.dtype}")
+    B, H, D = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("paged_decode_attention: k/v pools must share one "
+                         "(P, HK, page, D) shape")
+    P, HK, page, Dk = k_pages.shape
+    if Dk != D or D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head dim {D} (pool {Dk}); "
+                         f"the kernel takes {DECODE_HEAD_DIMS}")
+    if H % HK or H // HK > DECODE_MAX_REP:
+        raise ValueError(f"paged_decode_attention: H={H} must be a multiple "
+                         f"of HK={HK} with at most {DECODE_MAX_REP} query "
+                         f"heads per kv head")
+    quant = k_dequant_scale is not None
+    kv_dtype = torch.int8 if quant else q.dtype
+    for t, nm in ((k_pages, "k_pages"), (v_pages, "v_pages")):
+        if t.dtype != kv_dtype or t.device != dev:
+            raise ValueError(f"paged_decode_attention: {nm} must be "
+                             f"{kv_dtype} on {dev}, got {t.dtype} on "
+                             f"{t.device}")
+        if t.stride(3) != 1 or not _aligned(t, (0, 1, 2)):
+            raise ValueError(f"paged_decode_attention: {nm} rows must be "
+                             f"contiguous and 16-byte aligned")
+    if k_pages.stride() != v_pages.stride():
+        raise ValueError("paged_decode_attention: k/v pools must share "
+                         "strides")
+    ks = vs = None
+    sc_strides = (0, 0)
+    if quant:
+        ks, vs = (_dequant_rows(t.to(dev), B).contiguous()
+                  for t in (k_dequant_scale, v_dequant_scale))
+        if ks.shape != (B, HK) or vs.shape != (B, HK):
+            raise ValueError(f"paged_decode_attention: dequant scales must "
+                             f"be ({HK},) or ({B}, {HK})")
+        sc_strides = ks.stride()
+    q = q.contiguous()
+    if not _aligned(q):
+        raise ValueError("paged_decode_attention: q must be 16-byte aligned")
+    bt = torch.as_tensor(block_tables, device=dev).to(torch.int32)
+    if bt.dim() != 2 or bt.shape[0] != B or bt.shape[1] == 0:
+        raise ValueError("paged_decode_attention: block_tables must be "
+                         "(B, ppseq)")
+    lens = torch.as_tensor(cache_len, device=dev).to(
+        torch.int32).broadcast_to((B,)).contiguous()
+    out = torch.empty_like(q)
+    s = scale if scale is not None else 1.0 / math.sqrt(D)
+    lib = _build.load("decode_attention", DECODE_SIGNATURES)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = lib.ptt_paged_decode_hm(
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks), ptr(vs),
+        ptr(bt.contiguous()),
+        ptr(lens), ptr(out), B, H, HK, D, page, bt.shape[1],
+        *k_pages.stride()[:3], *sc_strides, float(s), _DTYPES[q.dtype],
+        int(quant), _build.stream_handle(dev))
+    _build.check(lib, rc, "paged_decode_attention")
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,
+                           scale=None, k_dequant_scale=None,
+                           v_dequant_scale=None):
+    """B8 decode attention over a head-major page pool (shapes:
+    :func:`paged_decode_attention_plain`): the plain version for CPU
+    tensors, the kernel for CUDA tensors (or an error)."""
+    kw = dict(scale=scale, k_dequant_scale=k_dequant_scale,
+              v_dequant_scale=v_dequant_scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages,
+                                            block_tables, cache_len, **kw)
+    out = launch_paged_decode_hm(q, k_pages, v_pages, block_tables,
+                                 cache_len, **kw)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

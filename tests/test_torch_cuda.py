@@ -17,7 +17,14 @@ shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B7
 on strided layer views of a padded cache whose tail past each row's
 length is NaN, beside a planted fault (the last live key tile of one
 row dropped from the plain version) that the row check must reject;
-dense ``generate`` and ``beam_search`` with their B7 launch counts.
+dense ``generate`` and ``beam_search`` with their B7 launch counts; B6
+(fused RoPE) on strided q/k views of a fused qkv tensor at ragged
+shapes, head dims 6, 64 and 128 (every vector width), forward and VJP,
+beside a planted fault (the sign of sin flipped); B8 (decode attention
+over a head-major page pool) at GQA rep 1, 2 and 8 with NaN past each
+row's length and in page 0, beside a planted fault (one row's last 16
+live keys dropped); and ``block_multihead_attention``'s B8 branch
+against its per-row branch on the same CUDA inputs.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 200 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -33,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generate as gen
 from paddle_tpu_torch.models import llama as tl
@@ -587,3 +595,149 @@ def test_generate_and_beam_search_on_the_card_match_cpu(cuda):
                                 **kw)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
                                       err_msg=f"{fn} {kw}")
+
+
+ROPE_CASES = [(d, dt) for d in (6, 64, 128)
+              for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", ROPE_CASES,
+                         ids=[f"D{d}-{str(dt)[6:]}" for d, dt in ROPE_CASES])
+def test_rope_kernel_matches_plain(cuda, case):
+    """B6 on q (B, S, H, D) and k (B, S, HK, D) cut from one (B, S, (H +
+    2 HK) D) tensor, S = 37: forward and the autograd op's VJP (sign
+    -1) equal the plain version bit for bit in f32 (the kernel rounds
+    each product and sum as PyTorch's separate kernels do) and within
+    one bf16 ulp in bf16; the plain version with the sign of sin
+    flipped must fail the row check."""
+    D, dtype = case
+    g = torch.Generator().manual_seed(5)
+    B, S, H, HK = 2, 37, 4, 2
+    qkv = torch.randn((B, S, (H + 2 * HK) * D), generator=g).to(dtype)
+    qkv = qkv.to(cuda)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k = qkv[..., H * D:(H + HK) * D].unflatten(-1, (HK, D))
+    assert not q.is_contiguous()
+    cos, sin = tl.rope_tables(S, D, 10000.0, device=cuda)
+    kernels.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k)]
+    rq, rk = fk.rope_qk(*leaves, torch.cat([cos, cos], -1),
+                        torch.cat([sin, sin], -1))
+    ct = torch.randn(rq.shape, generator=g).to(dtype).to(cuda)
+    torch.autograd.backward((rq, rk), (ct, torch.zeros_like(rk)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**NONE, "B6": 4}
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    for got, want in ((rq, fk.rope_plain(q, cos, sin)),
+                      (rk, fk.rope_plain(k, cos, sin)),
+                      (leaves[0].grad, fk.rope_plain(ct, cos, sin, -1.0))):
+        torch.testing.assert_close(got.detach().float(), want.float(),
+                                   rtol=rtol, atol=0)
+    fault = _rows_ratio(rq.detach(), fk.rope_plain(q, cos, sin, -1.0),
+                        2.0 ** -7)
+    assert fault.max() > 1.0
+
+
+def _head_major_case(g, cuda, D, dtype, q8, rep):
+    """B = 4 rows of lengths 1, 150, 77 and 0 over pages of 16 in a
+    head-major pool, -1 past each row's pages; float pools NaN past the
+    lengths and in page 0."""
+    B, HK, page, pps = 4, 2, 16, 10
+    P = 1 + B * pps
+    H = HK * rep
+    lens = torch.tensor([1, 150, 77, 0], dtype=torch.int32)
+    bt = (torch.randperm(P - 1, generator=g) + 1).reshape(B, pps).int()
+    for b in range(B):
+        bt[b, -(-int(lens[b]) // page):] = -1
+    shape = (P, HK, page, D)
+    kw = {}
+    if q8:
+        kp = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+        kw = dict(k_dequant_scale=torch.rand((B, HK), generator=g) * 0.05
+                  + 0.01, v_dequant_scale=torch.rand((HK,), generator=g)
+                  * 0.05 + 0.01)
+    else:
+        kp = torch.randn(shape, generator=g).to(dtype)
+        vp = torch.randn(shape, generator=g).to(dtype)
+        for b in range(B):
+            for j in range(int(lens[b]), pps * page):
+                if bt[b, j // page] >= 0:
+                    kp[bt[b, j // page], :, j % page] = float("nan")
+                    vp[bt[b, j // page], :, j % page] = float("nan")
+        kp[0] = vp[0] = float("nan")
+    q = torch.randn((B, H, D), generator=g).to(dtype)
+    return ([t.to(cuda) for t in (q, kp, vp, bt, lens)],
+            {k: v.to(cuda) for k, v in kw.items()})
+
+
+B8_CASES = [(d, dt, q8, rep) for d in (64, 128)
+            for dt in (torch.float32, torch.bfloat16)
+            for q8 in (False, True) for rep in (1, 2, 8)]
+
+
+@pytest.mark.parametrize("case", B8_CASES, ids=[_ids(c) for c in B8_CASES])
+def test_paged_decode_hm_kernel_matches_plain(cuda, case):
+    """B8 against its plain version on the same pool (which masks what
+    lies past the lengths), per row; no NaN in the output and zeros for
+    the row of length 0; the plain version without row 1's last 16 live
+    keys must fail the check."""
+    D, dtype, q8, rep = case
+    (q, kp, vp, bt, lens), kw = _head_major_case(
+        torch.Generator().manual_seed(6), cuda, D, dtype, q8, rep)
+    kernels.reset_launch_counts()
+    out = fk.paged_decode_attention(q, kp, vp, bt, lens, **kw)
+    want = fk.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {**NONE, "B8": 1}
+    assert torch.isfinite(out).all() and not out[3].any()
+    _close(out, want, dtype)
+    bad = lens.clone()
+    bad[1] -= 16
+    fault = _rows_ratio(out, fk.paged_decode_attention_plain(
+        q, kp, vp, bt, bad, **kw), 1e-5 if dtype == torch.float32 else 2e-2)
+    assert fault.max() > 1.0
+
+
+@pytest.mark.parametrize("kv", [None, "static", "dynamic"])
+def test_block_attention_kernel_branch_matches_the_loop(cuda, kv):
+    """``block_multihead_attention`` on a pure-decode batch of CUDA
+    tensors takes B8 (one launch); the same inputs with a zero additive
+    mask take the per-row loop, which launches nothing: the outputs
+    agree (f32, 1e-5) and the caches are written to the same bits."""
+    g = torch.Generator().manual_seed(7)
+    nh, hd, bs, B = 2, 64, 16, 3
+    dec = torch.tensor([5, 40, 17], dtype=torch.int32)
+    bt = (torch.randperm(12, generator=g)).reshape(B, 4).int()
+    qkv = torch.randn((B, 3 * nh * hd), generator=g) * 0.4
+    kw = dict(block_tables=bt, block_size=bs)
+    if kv is None:
+        kc = torch.randn((12, nh, bs, hd), generator=g) * 0.4
+        vc = torch.randn((12, nh, bs, hd), generator=g) * 0.4
+    else:
+        kc = torch.randint(-90, 90, (12, nh, bs, hd), generator=g,
+                           dtype=torch.int8)
+        vc = torch.randint(-90, 90, (12, nh, bs, hd), generator=g,
+                           dtype=torch.int8)
+        shape = (B, nh) if kv == "dynamic" else (nh,)
+        kw.update(cache_k_quant_scales=(torch.rand(shape, generator=g) * 80
+                                        + 60).to(cuda),
+                  cache_v_quant_scales=(torch.rand(shape, generator=g) * 80
+                                        + 60).to(cuda),
+                  use_dynamic_cachekv_quant=kv == "dynamic")
+    args = [qkv, kc, vc, torch.zeros(B, dtype=torch.int32), dec,
+            torch.ones(B, dtype=torch.int32)]
+    runs = []
+    for mask in (None, torch.zeros((1, 1, 64, 64))):
+        kernels.reset_launch_counts()
+        extra = {} if mask is None else dict(mask=mask.to(cuda))
+        out, _, k2, v2 = IF.block_multihead_attention(
+            *(a.clone().to(cuda) for a in args), **kw, **extra)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {
+            **NONE, "B8": 1 if mask is None else 0}
+        runs.append((out._value, k2._value, v2._value))
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(a, b)

@@ -10,9 +10,10 @@ the same seeded numpy inputs. Tolerances: float32 rtol = atol = 1e-5
 atol = 1e-6, one bf16 ulp of the value, as both sides round the same
 f32 result once and may land on neighbouring steps. ``gradcheck`` runs
 in float64, where the plain versions keep float64. The serving forwards
-ignore ``fused_kernels`` (as the JAX package's do), and "auto" routes
+ignore ``fused_kernels`` (as the JAX package's do), and "pallas" routes
 every RMSNorm and SwiGLU of the training model through the fused ops,
-with the per-layer counts the card's launch check expects.
+with the per-layer counts the card's launch check expects under "auto";
+on the CPU "auto" is the "xla" composition bit for bit.
 """
 import numpy as np
 import jax
@@ -157,9 +158,11 @@ def test_training_model_routes_through_the_fused_ops(tiny_params,
                                                      monkeypatch,
                                                      fused_kernels):
     """One loss and backward of the 2-layer model under remat "nothing"
-    calls the fused ops' plain versions as often as the card launches
-    the kernels: B4a 4L + 1 (two norms a layer, again in the recompute,
-    and the final norm), B4b 2L + 1, B5a 2L, B5b L; "xla" never."""
+    calls the fused ops' plain versions under "pallas" as often as the
+    card launches the kernels under "auto": B4a 4L + 1 (two norms a
+    layer, again in the recompute, and the final norm), B4b 2L + 1, B5a
+    2L, B5b L; "xla" never, and "auto" on these CPU tensors never either
+    (fused only on the card)."""
     calls = dict.fromkeys(("rms_norm_fwd_plain", "rms_norm_bwd_plain",
                            "swiglu_fwd_plain", "swiglu_bwd_plain"), 0)
 
@@ -183,4 +186,19 @@ def test_training_model_routes_through_the_fused_ops(tiny_params,
     L = cfg.num_layers
     want = [4 * L + 1, 2 * L + 1, 2 * L, L]
     assert list(calls.values()) == (
-        [0, 0, 0, 0] if fused_kernels == "xla" else want), calls
+        want if fused_kernels == "pallas" else [0, 0, 0, 0]), calls
+
+
+def test_auto_is_xla_on_the_cpu():
+    """``fused_kernels="auto"`` on CPU tensors is the "xla" composition
+    bit for bit in bfloat16 (where the fused ops' cast order would show),
+    as the JAX package's "auto" is wherever its kernels do not run."""
+    logits = []
+    for mode in ("xla", "auto", "pallas"):
+        cfg = tl.LlamaConfig.tiny(dtype=torch.bfloat16, fused_kernels=mode)
+        params = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(np.random.RandomState(4).randint(
+            0, cfg.vocab_size, (2, 128)).astype(np.int32))
+        logits.append(tl.forward(params, toks, cfg))
+    assert torch.equal(logits[0], logits[1])
+    assert not torch.equal(logits[0], logits[2])

@@ -5,7 +5,8 @@
 - A fresh interpreter whose ``PYTHONPATH`` is the repo root only (so no
   site hook can preload anything) imports the whole package and finds
   neither ``jax`` nor ``paddle_tpu`` in ``sys.modules``.
-- Entry points default to the card and raise where there is none;
+- Entry points (``to_tensor`` and the ``incubate`` ops among them)
+  default to the card and raise where there is none;
   ``chip_smoke.py`` exits non-zero and prints no result without one.
 """
 import ast
@@ -14,11 +15,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch import resolve_device, to_tensor
 from paddle_tpu_torch.entry import entry
+from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models import train as tt
 
@@ -55,7 +58,8 @@ def test_importing_the_port_loads_no_jax():
         "import paddle_tpu_torch, paddle_tpu_torch.inference, "
         "paddle_tpu_torch.models, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.ops.kernels, paddle_tpu_torch.models.train, "
-        "paddle_tpu_torch.entry\n"
+        "paddle_tpu_torch.entry, paddle_tpu_torch.incubate.nn.functional"
+        "\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print(bad)\n"
@@ -79,7 +83,15 @@ def test_default_device_is_the_card():
         tt.init_train_state(tl.LlamaConfig.tiny(), torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_tensor([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IF.block_multihead_attention(
+            np.zeros((1, 48), np.float32), np.zeros((1, 2, 4, 8), np.float32),
+            np.zeros((1, 2, 4, 8), np.float32), [0], [0], [1],
+            block_tables=[[0]], block_size=4)
     assert resolve_device("cpu") == torch.device("cpu")
+    assert to_tensor([1.0], place="cpu").place == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

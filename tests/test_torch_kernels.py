@@ -8,6 +8,15 @@ port's plain PyTorch version: fp32 and int8 tiers, GQA rep = 2, mixed
 lengths and -1 block-table entries. Tolerance rtol = atol = 2e-5: the
 math is the same f32 composition, summed in another order. The port's
 wrappers, given CPU tensors, take the plain versions and launch nothing.
+
+B6 (fused RoPE, ``rope_qk`` with its VJP) and B8 (decode attention over
+a head-major page pool) go against the JAX package's Pallas kernels in
+interpret mode: RoPE with (S, D) and (S, D/2) tables and GQA, atol 1e-5
+forward (the same f32 products, rounded once) and 2e-4 for the
+gradients; B8 with GQA, -1 table entries, NaN in every slot past a
+row's length and in page 0, a row of length 0, f32 and bfloat16 queries
+and int8 pages with (HK,) and (B, HK) scales, atol 2e-5 in f32 and one
+bfloat16 ulp (rtol 2^-7) where the output is bfloat16.
 """
 import numpy as np
 import jax
@@ -16,9 +25,11 @@ import pytest
 import torch
 
 from paddle_tpu.ops.pallas import flash_attention as fa
+from paddle_tpu.ops.pallas import fused as jfz
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu.ops.pallas import serving_fused as jsf
 from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import fused as tfz
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
 from paddle_tpu_torch.ops.kernels import serving_fused as tsf
 
@@ -175,3 +186,115 @@ def test_gather_pages_matches_jax():
     want = np.asarray(jpa.gather_pages(jnp.asarray(x["k"]),
                                        jnp.asarray(x["bt"])))
     np.testing.assert_array_equal(got, want)
+
+
+def _rope_tables(S, D):
+    inv = 1.0 / 10000.0 ** (np.arange(0, D, 2) / D)
+    fr = np.outer(np.arange(S), inv)
+    return np.cos(fr).astype(np.float32), np.sin(fr).astype(np.float32)
+
+
+@pytest.mark.parametrize("table", ["half", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b6_rope_qk_matches_jax(dtype, table):
+    """``rope_qk`` on q (B, S, H, D) and k (B, S, HK, D), GQA, and its
+    VJP (the rotation by -theta), against the Pallas kernel's custom VJP
+    in interpret mode; the tables given as (S, D/2) or as repeated-half
+    (S, D). bfloat16: the same f32 result rounded once on both sides, so
+    within one ulp (rtol 2^-7, atol 1e-6)."""
+    B, S, H, HK, D = 2, 48, 4, 2, 32
+    rs = np.random.RandomState(6)
+    q, k, gq, gk = (rs.randn(B, S, h, D).astype(np.float32)
+                    for h in (H, HK, H, HK))
+    cos, sin = _rope_tables(S, D)
+    if table == "full":
+        cos, sin = np.tile(cos, (1, 2)), np.tile(sin, (1, 2))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    tol = (dict(atol=1e-5, rtol=0) if dtype == "float32"
+           else dict(atol=1e-6, rtol=2.0 ** -7))
+    fa.set_interpret(True)
+    try:
+        (jq, jk), vjp = jax.vjp(
+            lambda a, b: jfz.rope_qk(a, b, jnp.asarray(cos),
+                                     jnp.asarray(sin), block_seq=16),
+            jnp.asarray(q).astype(jd), jnp.asarray(k).astype(jd))
+        jgq, jgk = vjp(tuple(jnp.asarray(g).astype(jd) for g in (gq, gk)))
+    finally:
+        fa.set_interpret(False)
+    tq, tk = (_t(a).to(td).requires_grad_() for a in (q, k))
+    kernels.reset_launch_counts()
+    oq, ok = tfz.rope_qk(tq, tk, _t(cos), _t(sin))
+    torch.autograd.backward((oq, ok), (_t(gq).to(td), _t(gk).to(td)))
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
+    for got, want in ((oq, jq), (ok, jk)):
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    gtol = tol if dtype == "bfloat16" else dict(atol=2e-4, rtol=0)
+    for got, want in ((tq.grad, jgq), (tk.grad, jgk)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **gtol)
+
+
+B8_CASES = {"f32-mha": ("float32", 2, None), "f32-gqa": ("float32", 4, None),
+            "bf16-gqa": ("bfloat16", 4, None),
+            "int8-hk-scales": ("float32", 4, "hk"),
+            "int8-bhk-scales": ("float32", 2, "bhk")}
+
+
+@pytest.mark.parametrize("case", list(B8_CASES))
+def test_b8_paged_decode_matches_jax(case):
+    """``paged_decode_attention`` over a head-major (P, HK, page, D) pool
+    against the Pallas kernel in interpret mode: rows of lengths 6, 21,
+    0 and 1 (the empty row gives zeros on both sides), block-table
+    entries past each row's pages -1 (read as page 0), and in float pools
+    NaN in page 0 and in every slot past a row's length, which neither
+    side may let reach the output."""
+    dtype, H, scales = B8_CASES[case]
+    rs = np.random.RandomState(7)
+    B, HK, D, page, pps = 4, 2, 16, 8, 3
+    P = 1 + B * pps
+    lens = np.asarray([6, 21, 0, 1], np.int32)
+    bt = (rs.permutation(P - 1) + 1).reshape(B, pps).astype(np.int32)
+    for b, n in enumerate(lens):
+        bt[b, -(-n // page):] = -1
+    q = rs.randn(B, H, D).astype(np.float32)
+    kw = {}
+    if scales is None:
+        kp, vp = (rs.randn(P, HK, page, D).astype(np.float32)
+                  for _ in range(2))
+        for b, n in enumerate(lens):
+            for j in range(n, pps * page):
+                if bt[b, j // page] >= 0:
+                    kp[bt[b, j // page], :, j % page] = np.nan
+                    vp[bt[b, j // page], :, j % page] = np.nan
+        kp[0] = vp[0] = np.nan
+    else:
+        kp, vp = (rs.randint(-127, 128, (P, HK, page, D)).astype(np.int8)
+                  for _ in range(2))
+        shape = (HK,) if scales == "hk" else (B, HK)
+        kw = dict(k_dequant_scale=(rs.rand(*shape) * 0.05 + 0.01).astype(
+            np.float32), v_dequant_scale=(rs.rand(*shape) * 0.05
+                                          + 0.01).astype(np.float32))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jkv = [jnp.asarray(a) if scales else jnp.asarray(a).astype(jd)
+           for a in (kp, vp)]
+    tkv = [_t(a) if scales else _t(a).to(td) for a in (kp, vp)]
+    fa.set_interpret(True)
+    try:
+        want = np.asarray(jfz.paged_decode_attention(
+            jnp.asarray(q).astype(jd), *jkv, jnp.asarray(bt),
+            jnp.asarray(lens), **{k: jnp.asarray(v) for k, v in kw.items()}
+        ).astype(jnp.float32))
+    finally:
+        fa.set_interpret(False)
+    kernels.reset_launch_counts()
+    got = tfz.paged_decode_attention(
+        _t(q).to(td), *tkv, _t(bt), _t(lens),
+        **{k: _t(v) for k, v in kw.items()}).float().numpy()
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
+    assert np.isfinite(got).all() and not got[2].any()
+    tol = (dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "bfloat16"
+           else dict(rtol=0, atol=2e-5))
+    np.testing.assert_allclose(got, want, **tol)

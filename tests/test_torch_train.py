@@ -6,8 +6,12 @@ Parameters and states cross over with ``params_from_jax`` /
 ``tiny(hidden_size=256, num_heads=4, num_kv_heads=2)`` at S = 128, where
 the JAX model takes its Pallas flash kernels (interpret mode) and the
 port on the CPU its einsum path; each with ``fused_kernels`` "xla" and
-"auto", where the JAX model takes its fused RMSNorm and SwiGLU Pallas
-kernels (interpret mode) and the port its fused ops' plain versions.
+"auto" and "pallas". Under "pallas" the JAX model takes its fused
+RMSNorm and SwiGLU Pallas kernels (interpret mode) and the port its
+fused ops' plain versions; under "auto" the JAX model takes the same
+kernels (interpret mode makes them available) and the port on the CPU
+its "xla" composition, the reference's rule that "auto" is fused only
+where the kernels run (in f32 the two agree to the last bits).
 Tolerances, float32: logits, loss and
 gradients rtol = atol = 1e-4 (XLA-CPU and PyTorch sum in other orders);
 three AdamW steps 1e-4 on params/master (an update is lr * m/sqrt(v),
@@ -55,7 +59,7 @@ def _leaves(tree, prefix=""):
 
 
 #: (config, fused_kernels); the "xla" cases keep their config's name
-CASES = [(n, f) for f in ("xla", "auto") for n in CONFIGS]
+CASES = [(n, f) for f in ("xla", "auto", "pallas") for n in CONFIGS]
 CASE_IDS = [n if f == "xla" else f"{n}-{f}" for n, f in CASES]
 
 
@@ -102,8 +106,8 @@ def test_forward_loss_and_grads_match_jax(name, fused_kernels):
 
 
 def test_chunked_loss_equals_dense_and_remat_equals_no_remat():
-    """Under "xla" and under "auto" (the fused ops' plain versions)."""
-    for fused_kernels in ("xla", "auto"):
+    """Under "xla" and under "pallas" (the fused ops' plain versions)."""
+    for fused_kernels in ("xla", "pallas"):
         _, tcfg, _, tp, toks = _both("tiny", fused_kernels=fused_kernels)
         dense, gd = _grads(tp, tcfg, toks)
         chunked, gc = _grads(tp, tcfg, toks, seq_chunk=8)
