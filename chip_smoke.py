@@ -12,7 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Card and build: prints the card's name and power limit
    (``nvidia-smi``), then builds every CUDA kernel of ``paddle_tpu_torch``
    from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all started
-   together) and prints the build time and ptxas's register report.
+   together) and prints the build time and ptxas's register report; the
+   warp-specialised Hopper kernels (B1 and B3 in bf16) must enter with
+   the launch bound's 168 registers, or nothing is launched
+   (``hopper_ptxas``).
 2. Kernel vs plain: B9 (ragged paged decode), B10 (fused RoPE paged
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
    the serving shapes (H = HK = 32, D = 128, page 16, B = 8 rows of
@@ -30,9 +33,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``scaled_dot_product_attention`` on the pre-gathered cache) and the
    card's bound for the work. Then B1-B3 (flash attention forward and
    its two backward passes) at the training shape (B = 4, S = 4096,
-   H = 12, D = 128, causal) and six ragged ones, each against its plain
-   version and against a planted fault the check must reject
-   (``check_flash``); the training shape is timed beside SDPA. Then
+   H = 12, D = 128, causal), at the same length with D = 64 (H = 24)
+   and at ten ragged ones (Sq != Sk both ways, lengths that are not
+   multiples of 64), each against its plain version and against a
+   planted fault the check must reject (``check_flash``); the two long
+   shapes are timed beside SDPA's forward (B1) and backward (B2, B3:
+   fwd + bwd - fwd, one call for all three gradients), with TFLOP/s and
+   the share of the bound. Then
    B4a/B4b (fused RMSNorm forward and backward) and B5a/B5b (fused
    SwiGLU) at the training shape (N = 16384 rows, h = 1536, i = 4096,
    bf16), at Llama-2-7B widths (h = 4096, i = 11008) and at a ragged
@@ -140,6 +147,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,6 +208,44 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def hopper_ptxas(log_text: str) -> list:
+    """ptxas's report (``-Xptxas -v``) of the warp-specialised Hopper
+    kernels (``*_wgmma_kernel``) in a build log: registers at entry,
+    spills, and whether ptxas serialized their wgmma instructions. The
+    entry count must be the launch bound's 168 (384 threads, one CTA an
+    SM): the consumers' ``setmaxnreg.inc`` to 240 takes the registers
+    the producer's ``setmaxnreg.dec`` to 24 gives up, and no more."""
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1) if "_wgmma_kernel" in m.group(1) else None
+            if cur:
+                out.setdefault(cur, {"serialized": False})
+            continue
+        m = re.search(r"serialized .*function '(\S+)'", line)
+        if m and "_wgmma_kernel" in m.group(1):
+            out.setdefault(m.group(1), {"serialized": False})
+            out[m.group(1)]["serialized"] = line.split("due to")[-1].split(
+                " for the function")[0].strip()
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    recs = []
+    for mangled, r in out.items():
+        m = re.search(r"(flash_[a-z_]+_wgmma_kernel)ILi(\d+)E", mangled)
+        recs.append(dict(r, kernel=f"{m.group(1)}<{m.group(2)}>"
+                         if m else mangled))
+    return recs
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
@@ -726,6 +772,9 @@ def check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal, seed, timed):
         return torch.autograd.grad(o, (Ql, Kl, Vl), dO)
 
     lib_fb = time_ms(torch, lib_fwd_bwd)
+    # SDPA's backward alone, which computes dQ, dK and dV in one call: the
+    # yardstick of B2 and B3 together (not one PyTorch call of B3's own)
+    lib_bwd = lib_fb - lib_fwd
     pairs = B * H * flash_pairs(sq, sk, causal)
     qbytes, kbytes = B * sq * H * D * 2, B * sk * H * D * 2
     rows = B * H * sq * 4                             # one f32 per row
@@ -735,10 +784,15 @@ def check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal, seed, timed):
         "B3": (3 * qbytes + 2 * kbytes + 2 * rows, 6 * D * pairs)}
     for name in ("B1", "B2", "B3"):
         b_ms, b_by = bound_ms(*work[name])
+        sdpa = lib_fwd if name == "B1" else lib_bwd
         rec[name] = dict(ms=ms[name],
                          plain_ms=plain[name], bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_fwd if name == "B1" else None)
+                         library_ms=lib_fwd if name == "B1" else None,
+                         tflops=work[name][1] / ms[name] / 1e9,
+                         bound_share=b_ms / ms[name],
+                         vs_sdpa=ms[name] / sdpa)
     rec["sdpa_fwd_ms"], rec["sdpa_fwd_bwd_ms"] = lib_fwd, lib_fb
+    rec["sdpa_bwd_ms"] = lib_bwd
     return rec
 
 
@@ -2107,6 +2161,14 @@ def main(argv=None) -> int:
                         or "entry function" in line):
                     print(f"  ptxas {name}: {line.strip()}")
     record["build_s"] = build_s
+    hop = hopper_ptxas(_build.log_path("flash_attention").read_text(
+        errors="replace"))
+    for r in hop:
+        print("ptxas hopper " + json.dumps(r))
+    if len(hop) != 4 or any(r.get("registers") != 168 for r in hop):
+        fail(f"the Hopper flash kernels must enter with 168 registers "
+             f"(setmaxnreg moves them between warpgroups): {hop}")
+    record["hopper_ptxas"] = hop
 
     # ---- phase 2: kernels vs plain
     results = {}
@@ -2161,18 +2223,38 @@ def main(argv=None) -> int:
                 results[f"B7-{kvn}"] = r
         gc.collect()
         torch.cuda.empty_cache()
+    # the training shape (its row in the kernel line), the same length at
+    # D = 64 (the other template), timed; then ragged shapes, lengths
+    # that are not multiples of 64 among them
     flash = [check_flash(torch, F, fa, 4, 4096, 4096, 12, 12, 128, True,
                          seed=21, timed=True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash.append(check_flash(torch, F, fa, 4, 4096, 4096, 24, 24, 64, True,
+                             seed=23, timed=True))
+    gc.collect()
+    torch.cuda.empty_cache()
     for B, sq, sk, H, HK, D, causal in ((2, 320, 320, 4, 4, 128, True),
                                         (2, 320, 320, 4, 4, 128, False),
                                         (2, 192, 320, 4, 4, 128, True),
                                         (2, 320, 192, 4, 4, 128, True),
                                         (2, 320, 320, 4, 2, 64, True),
-                                        (2, 192, 320, 4, 2, 64, False)):
+                                        (2, 192, 320, 4, 2, 64, False),
+                                        (2, 200, 200, 4, 4, 128, True),
+                                        (2, 200, 200, 4, 4, 128, False),
+                                        (2, 72, 136, 4, 2, 64, True),
+                                        (2, 72, 136, 4, 2, 64, False)):
         flash.append(check_flash(torch, F, fa, B, sq, sk, H, HK, D, causal,
                                  seed=22, timed=False))
     for rec in flash:
         print("kernel flash " + json.dumps(rec))
+    for rec in flash[:2]:
+        print(f"flash {rec['shape']}: " + "; ".join(
+            f"{n} {rec[n]['ms']:.4f} ms, {rec[n]['tflops']:.1f} TFLOP/s, "
+            f"{rec[n]['bound_share']:.1%} of its bound, "
+            f"{rec[n]['vs_sdpa']:.2f}x SDPA's "
+            f"{'forward' if n == 'B1' else 'backward (dQ, dK, dV)'}"
+            for n in ("B1", "B2", "B3")))
     for name in ("B1", "B2", "B3"):
         results[name] = dict(
             flash[0][name],

@@ -18,47 +18,71 @@
 // its products and ds likewise, as the TPU kernels cast them; l and the
 // scores stay f32.
 //
-// What bounds them on the H100: operations. A causal forward at the
-// training shape (S = 4096, D = 128) does 2*D*S^2 flops per head on
-// 8*S*D bytes of q, k, v and O, about S/4 = 1024 flops per byte against
-// the card's ~295 (989 TFLOP/s over 3.35 TB/s); the backward passes do
-// 1.5x (B3) and 2x (B2) the forward's flops on a few more bytes. So the
-// products belong on the tensor cores.
+// What bounds them on the H100, bf16 at the training shape (B = 4,
+// S = 4096, H = 12, D = 128, causal): operations. B1 does 4 D flops a
+// visible (query, key) pair (q.k and p.v), B3 6 D (q.k, dO.v and ds.k),
+// B2 8 D, on 8 S D bytes a head (q, k, v and O in bf16) or a little more:
+// B1 about S / 4 = 1024 flops a byte against the card's 295 (989 TFLOP/s
+// over 3.35 TB/s), so the products belong on the tensor cores at their
+// full rate.
 //
-// What the design does about it (a first version: right before fast):
+// What the design does about it:
 // - the TPU's sequential grid axis, which carries the softmax state (B1)
 //   or the dK/dV (B2) and dQ (B3) sums in VMEM from one grid step to the
 //   next, becomes a loop inside one CTA, so no sum crosses CTAs and no
-//   atomics are needed: B1 and B3 run one CTA per (64-row query tile,
-//   head, batch row) and loop over 64-row key tiles up to the tile's
-//   causal limit; B2 runs one CTA per (64-row key tile, head, batch row)
-//   and loops over the query tiles from the diagonal on. Tiles past the
+//   atomics are needed: B1 and B3 run one CTA per (128-row query tile,
+//   head, batch row) and loop over key tiles up to the tile's causal
+//   limit; B2 runs one CTA per (64-row key tile, head, batch row) and
+//   loops over the query tiles from the diagonal on. Tiles past the
 //   causal limit cost nothing;
 // - the causal grid is uneven (a tile's work grows with its distance
 //   from the first row), so the longest CTAs are launched first: B1 and
-//   B3 take their query tiles from the last, B2's key tile 0 is its
-//   longest;
-// - bf16, the training dtype: every product runs on the tensor cores
-//   with mma.sync.m16n8k16 (bf16 in, f32 sums; mma.cuh). Four warps
-//   each own 16 rows of the CTA's 64 (queries in B1 and B3, keys in
-//   B2); the score tile and the online softmax state stay in registers,
-//   and the score fragments become the A operand of the next product
-//   without a trip through shared memory (p, or ds, rounded to bf16 as
-//   the TPU kernels cast them). Tiles sit in shared memory as bf16 with
-//   rows padded by 16 bytes, so every fragment load hits 32 distinct
-//   banks; an operand that a product needs with its rows as the
-//   contraction axis (V in B1, K in B3, Q and dO in B2) is also stored
-//   transposed as it is loaded;
+//   B3 put the query tile on the grid's slowest axis and take it from
+//   the last (every head's longest tile before any shorter one), B2's
+//   key tile 0 is its longest;
+// - B1 and B3 in bf16 are Hopper kernels (hopper.cuh): 384 threads, a
+//   producer warpgroup whose one thread keeps TMA loads in flight (it
+//   gives its registers up with setmaxnreg, down to 24) and two consumer
+//   warpgroups (240 registers) that each own 64 of the 128 query rows.
+//   The row tiles (B1: Q; B3: Q and dO) are loaded once; K and V tiles
+//   stream through a ring of 2 stages under full / empty mbarriers, 128
+//   keys a tile in B1 and 64 in B3 (three f32 sums, S, dP and dQ, with
+//   ds beside them fit 240 registers at 64 keys; 128 would need 224 for
+//   them alone). Q, K, V and dO are read as 4-D TMA tensors (D, H, S, B),
+//   boxes of 64 columns with the 128-byte swizzle, so D = 128 is two
+//   boxes a tile, and rows past S arrive as zeros (the TPU kernels'
+//   _zero_pad_rows) without reading the next batch row;
+// - every product is a wgmma (m64nNk16, bf16 in, f32 sums): q.k^T and
+//   dO.v^T with K and V as K-major B operands; p.v (B1) and ds.k (B3)
+//   with p or ds taken from the score accumulator's registers as the A
+//   operand, rounded to bf16 (the accumulator layout of m64nN is the A
+//   layout of its k16 slices), and V or K as MN-major B operands of the
+//   same shared tile, in their natural (keys x D) layout: no transposed
+//   copy anywhere;
+// - the online softmax stays in registers: exp2 with scale * log2(e)
+//   folded into one FMA, the row max and sum over the 4 threads of a
+//   row by two quad shuffles (the sum only at the end), the causal mask
+//   and the columns past Sk applied only on tiles that cross them. p is
+//   rounded to bf16 for p.v while l sums it unrounded; O = acc / l is
+//   rounded once; the max is kept in raw q.k units so lse = m * scale +
+//   log(l) comes out in natural-log units without the log2 folding's
+//   rounding. B3 reads lse (times log2(e)) and delta into registers;
 // - float32 (the tests' dtype) keeps plain f32 FMA: each of 256 threads
 //   computes a 4 x 4 block of a 64 x 64 score tile and a 4 x (D/16)
 //   block of its output from f32 tiles in shared memory;
-// - rows past the end are loaded as zeros and masked, as the TPU
-//   kernels' _zero_pad_rows does, so no unwritten memory reaches a sum.
-// Left for later: wgmma (the only path to the full tensor-core rate),
-// TMA and cp.async loads that overlap the products, and warp
-// specialisation.
+// - B2 in bf16 runs mma.sync.m16n8k16 (mma.cuh): four warps each own 16
+//   of the CTA's 64 keys, tiles in shared memory as bf16 rows padded by
+//   16 bytes, Q and dO also stored transposed; rows past the end are
+//   loaded as zeros and masked.
+// Left for later: overlap of the softmax with the next tile's wgmma
+// inside a warpgroup (two score buffers, or the two warpgroups taking
+// turns), a persistent tile scheduler, GQA through kv_rep without the
+// caller's head repeat (ROADMAP.md), and B2 on the same Hopper design.
+
+#include <cudaTypedefs.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -551,103 +575,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
   }
 }
 
-// --------------------------------------------------------- B1, bf16
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const FlashArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ float smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [kB][LD]
-  bf16* sK = sQ + kB * LD;                   // [kB][LD]
-  bf16* sVt = sK + kB * LD;                  // [D][kLdT]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16;  // the warp's first row
-  const int g = (threadIdx.x % 32) / 4;
-  const int t = threadIdx.x % 4;
-  const long long rs = (long long)a.H * D;
-  const bf16* qb = static_cast<const bf16*>(a.q) +
-                   ((long long)b * a.Sq * a.H + h) * D;
-  const bf16* kb = static_cast<const bf16*>(a.k) +
-                   ((long long)b * a.Sk * a.H + h) * D;
-  const bf16* vb = static_cast<const bf16*>(a.v) +
-                   ((long long)b * a.Sk * a.H + h) * D;
-
-  load_bf16<D>(sQ, nullptr, qb, rs, q0, a.Sq);
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  const int c_end = a.causal ? min(a.Sk, q0 + kB) : a.Sk;
-  for (int c0 = 0; c0 < c_end; c0 += kB) {
-    load_bf16<D>(sK, nullptr, kb, rs, c0, a.Sk);
-    load_bf16<D>(nullptr, sVt, vb, rs, c0, a.Sk);
-    __syncthreads();
-
-    float s[8][4];
-    warp_dot<D>(s, sQ, sK, wr, g, t);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // rows g and g + 8
-      const int row = q0 + wr + g + 8 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * i + e];
-          x = visible(a, row, c0 + nt * 8 + 2 * t + e) ? x * a.scale
-                                                       : -INFINITY;
-          mx = fmaxf(mx, x);
-        }
-      // the 4 threads of a row are 4 consecutive lanes
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[i], mx);
-      float alpha = 1.f, rsum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * i + e];
-          x = mn == -INFINITY ? 0.f : expf(x - mn);  // masked: exp(-inf) = 0
-          rsum += x;
-        }
-      if (mn != -INFINITY) alpha = expf(m[i] - mn);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = mn;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        o[dt][2 * i] *= alpha;
-        o[dt][2 * i + 1] *= alpha;
-      }
-    }
-    // p is cast to V's dtype before the product, l sums it unrounded
-    warp_pv<D>(o, s, sVt, g, t);
-    __syncthreads();
-  }
-
-  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
-                        l[1] > 0.f ? 1.f / l[1] : 0.f};
-  store_rows<D>(static_cast<bf16*>(a.out) +
-                    ((long long)b * a.Sq * a.H + h) * D,
-                rs, q0 + wr, a.Sq, o, inv, g, t);
-  if (t == 0) {
-    float* lse = static_cast<float*>(a.out2) + ((long long)b * a.H + h) * a.Sq;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + wr + g + 8 * i;
-      if (row < a.Sq) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
-    }
-  }
-}
-
 // p = exp(s * scale - lse) where visible, else 0, and ds = p * (dp -
 // delta) * scale, in place of the score fragments: s -> p, dp -> ds.
 // `qrow`/`kcol` give a fragment element's query and key; lse/delta come
@@ -676,63 +603,339 @@ __device__ __forceinline__ void warp_probs(const FlashArgs& a,
     }
 }
 
-// --------------------------------------------------------- B3, bf16
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const FlashArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ float smem[];
-  float* sL = smem;                              // [kB] lse
-  float* sD = sL + kB;                           // [kB] delta
-  bf16* sQ = reinterpret_cast<bf16*>(sD + kB);   // [kB][LD]
-  bf16* sO = sQ + kB * LD;                       // [kB][LD] dO
-  bf16* sK = sO + kB * LD;                       // [kB][LD]
-  bf16* sV = sK + kB * LD;                       // [kB][LD]
-  bf16* sKt = sV + kB * LD;                      // [D][kLdT]
+// ------------------------------------------- bf16 on Hopper: B1 and B3
+constexpr int kHopRows = 128;       // query rows of a CTA (two warpgroups)
+constexpr int kHopConsumers = 256;  // threads of the consumer warpgroups
+constexpr int kHopThreads = 384;    // and one producer warpgroup
+constexpr int kHopStages = 2;       // ring depth of the (K, V) tiles
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // longest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16;
+// Shared memory of a Hopper flash CTA, byte offsets from a 1024-aligned
+// base: NQ row tiles of kHopRows x D loaded once (B1: Q; B3: Q and dO),
+// the ring of kHopStages (K, V) pairs of BN x D, then the barriers
+// full[kHopStages], empty[kHopStages] and the row tiles'. A tile of D
+// columns is D / 64 TMA boxes of 64 (hopper.cuh's layout law).
+template <int D, int BN, int NQ>
+struct HopSmem {
+  static constexpr int kRowTile = kHopRows * D * 2;
+  static constexpr int kTile = BN * D * 2;
+  static constexpr int kRing = NQ * kRowTile;
+  static constexpr int kBars = kRing + kHopStages * 2 * kTile;
+  static constexpr int kRowBar = kBars + 16 * kHopStages;
+  static constexpr int kBytes = kRowBar + 8;
+};
+
+// The ring's barriers (full: one arrival and the TMA bytes; empty: every
+// consumer thread) and the row tiles', before the roles split.
+template <typename L>
+__device__ __forceinline__ void hop_init(uint32_t base) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHopStages; ++s) {
+      hop::mbar_init(base + L::kBars + 8 * s, 1);
+      hop::mbar_init(base + L::kBars + 8 * (kHopStages + s), kHopConsumers);
+    }
+    hop::mbar_init(base + L::kRowBar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The producer: the NQ row tiles of rows [q0, q0 + kHopRows) once (maps
+// rm[0 .. NQ)), then keys [0, n_tiles * BN) of K and V through the ring:
+// a stage is refilled once all consumer threads released it. Rows past
+// the end of a tensor arrive as zeros (TMA's out-of-bounds fill).
+template <int D, int BN, int NQ>
+__device__ __forceinline__ void hop_produce(uint32_t base,
+                                            const CUtensorMap* const* rm,
+                                            const CUtensorMap* tk,
+                                            const CUtensorMap* tv, int h,
+                                            int b, int q0, int n_tiles) {
+  using L = HopSmem<D, BN, NQ>;
+  hop::mbar_arrive_expect_tx(base + L::kRowBar, NQ * L::kRowTile);
+  for (int n = 0; n < NQ; ++n)
+    for (int j = 0; j < D / 64; ++j)
+      hop::tma_load_4d(base + n * L::kRowTile + j * kHopRows * 128, rm[n],
+                       base + L::kRowBar, 64 * j, h, q0, b);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kHopStages;
+    const uint32_t full = base + L::kBars + 8 * s;
+    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    hop::mbar_wait(full + 8 * kHopStages, ((it / kHopStages) & 1) ^ 1);
+    hop::mbar_arrive_expect_tx(full, 2 * L::kTile);
+    for (int j = 0; j < D / 64; ++j) {
+      hop::tma_load_4d(sk + j * BN * 128, tk, full, 64 * j, h, it * BN, b);
+      hop::tma_load_4d(sk + L::kTile + j * BN * 128, tv, full, 64 * j, h,
+                       it * BN, b);
+    }
+  }
+}
+
+// acc (64 x N) = X Y^T over D for the warpgroup's 64 rows of the row tile
+// at `x` (K-major A) and the N rows of the ring tile at `y` (K-major B).
+template <int D, int N, int ROWS_Y>
+__device__ __forceinline__ void hop_dot(float (&acc)[N / 2], uint32_t x,
+                                        uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_ss<0>(
+        acc,
+        hop::desc_sw128(x + (kk / 4) * kHopRows * 128 + (kk % 4) * 32, 16,
+                        1024),
+        hop::desc_sw128(y + (kk / 4) * ROWS_Y * 128 + (kk % 4) * 32, 16,
+                        1024),
+        kk > 0);
+}
+
+// acc (64 x D) += P Z: P (64 x BN) from registers, rounded to bf16 from
+// the score accumulator `p`; Z the BN x D ring tile at `z` as the
+// MN-major B operand (its D / 64 boxes BN * 128 bytes apart). Issues the
+// products and waits for them.
+template <int D, int BN>
+__device__ __forceinline__ void hop_pv(float (&acc)[D / 2],
+                                       const float (&p)[BN / 2], uint32_t z) {
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = ptt::pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    hop::wgmma_rs<1>(acc, pa[kk],
+                     hop::desc_sw128(z + kk * 16 * 128, BN * 128, 1024), 1);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_regs(acc);
+  hop::fence_regs(pa);
+}
+
+// The warpgroup's 64 x D block of acc, scaled per row by inv[i] (rows
+// row[0] and row[1] of this thread), into one head of (B, S, H, D) bf16;
+// rows past `limit` skip.
+template <int D>
+__device__ __forceinline__ void hop_store(bf16* dst, long long row_stride,
+                                          const int (&row)[2], int limit,
+                                          const float (&acc)[D / 2],
+                                          const float (&inv)[2], int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= limit) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + row[i] * row_stride + 8 * j +
+                                   2 * t) =
+          ptt::pack_bf16(acc[4 * j + 2 * i] * inv[i],
+                         acc[4 * j + 2 * i + 1] * inv[i]);
+  }
+}
+
+// --------------------------------------------------------- B1, bf16
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const FlashArgs a) {
+  constexpr int BN = 128;  // keys of a ring tile
+  using L = HopSmem<D, BN, 1>;
+  extern __shared__ __align__(128) unsigned char hop_smem[];
+  const uint32_t base = (hop::smem_u32(hop_smem) + 1023u) & ~1023u;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kHopRows;  // longest first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // under the causal mask no row of this tile sees a key past its last
+  const int c_end = a.causal ? min(a.Sk, q0 + kHopRows) : a.Sk;
+  const int n_tiles = (c_end + BN - 1) / BN;
+  hop_init<L>(base);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hop::setmaxnreg_dec<24>();
+    const CUtensorMap* rm[1] = {&tq};
+    if (threadIdx.x == 2 * 128)
+      hop_produce<D, BN, 1>(base, rm, &tk, &tv, h, b, q0, n_tiles);
+    return;
+  }
+  hop::setmaxnreg_inc<240>();
+  const int w = (threadIdx.x / 32) % 4;
   const int g = (threadIdx.x % 32) / 4;
   const int t = threadIdx.x % 4;
-  const long long rs = (long long)a.H * D;
-  const long long qoff = ((long long)b * a.Sq * a.H + h) * D;
-  const long long koff = ((long long)b * a.Sk * a.H + h) * D;
-  const long long loff = ((long long)b * a.H + h) * a.Sq;
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+  const int row[2] = {r0 + 16 * w + g, r0 + 16 * w + g + 8};
+  const float c = a.scale * kLog2e;  // exp(x * scale) = 2^(x * c)
+  const uint32_t qa = base + wg * 64 * 128;  // its rows of each Q box
 
-  load_bf16<D>(sQ, nullptr, static_cast<const bf16*>(a.q) + qoff, rs, q0,
-               a.Sq);
-  load_bf16<D>(sO, nullptr, static_cast<const bf16*>(a.dout) + qoff, rs, q0,
-               a.Sq);
-  for (int r = threadIdx.x; r < kB; r += kMmaThreads) {
-    sL[r] = q0 + r < a.Sq ? a.lse[loff + q0 + r] : 0.f;
-    sD[r] = q0 + r < a.Sq ? a.delta[loff + q0 + r] : 0.f;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // m: the row's running max of the raw scores q.k; l: this thread's
+  // share of its running sum of p (the quad's four shares add up last)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  hop::mbar_wait(base + L::kRowBar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kHopStages;
+    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    hop::mbar_wait(base + L::kBars + 8 * s, (it / kHopStages) & 1);
+    float sc[BN / 2];
+    hop::wgmma_fence();
+    hop_dot<D, BN, BN>(sc, qa, sk);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+
+    // only a tile that crosses the diagonal or the end of the keys masks
+    const int c0 = it * BN;
+    if (c0 + BN > a.Sk || (a.causal && c0 + BN - 1 > r0)) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          if (col >= a.Sk || (a.causal && col > row[e >> 1]))
+            sc[4 * j + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // rows g and g + 8
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      // the 4 threads of a row are 4 consecutive lanes
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[i], mx);
+      const float mc = mn == -INFINITY ? 0.f : mn * c;
+      const float alpha = hop::exp2_approx(m[i] * c - mc);  // 0 from -inf
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * i + e];
+          x = hop::exp2_approx(fmaf(x, c, -mc));  // masked: 2^-inf = 0
+          rsum += x;
+        }
+      l[i] = l[i] * alpha + rsum;
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+    // p is cast to V's dtype before the product, l sums it unrounded
+    hop_pv<D, BN>(o, sc, sk + L::kTile);
+    hop::mbar_arrive(base + L::kBars + 8 * (kHopStages + s));
   }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
 
-  const int c_end = a.causal ? min(a.Sk, q0 + kB) : a.Sk;
-  for (int c0 = 0; c0 < c_end; c0 += kB) {
-    load_bf16<D>(sK, sKt, static_cast<const bf16*>(a.k) + koff, rs, c0,
-                 a.Sk);
-    load_bf16<D>(sV, nullptr, static_cast<const bf16*>(a.v) + koff, rs, c0,
-                 a.Sk);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    warp_dot<D>(s, sQ, sK, wr, g, t);
-    warp_dot<D>(dp, sO, sV, wr, g, t);
-    warp_probs<false>(a, s, dp, sL, sD, q0 + wr, c0, g, t);
-    // ds is cast to k's dtype before the product
-    warp_pv<D>(dq, dp, sKt, g, t);
-    __syncthreads();
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  const long long rs = (long long)a.H * D;
+  hop_store<D>(static_cast<bf16*>(a.out) +
+                   ((long long)b * a.Sq * a.H + h) * D,
+               rs, row, a.Sq, o, inv, t);
+  if (t == 0) {
+    float* lse = static_cast<float*>(a.out2) + ((long long)b * a.H + h) * a.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      // natural-log units: the max in the plain version's own rounding
+      if (row[i] < a.Sq)
+        lse[row[i]] = l[i] > 0.f ? m[i] * a.scale + logf(l[i]) : -INFINITY;
+  }
+}
+
+// --------------------------------------------------------- B3, bf16
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const FlashArgs a) {
+  // keys of a ring tile: 64, as S, dP (32 registers each) and dQ (D / 2)
+  // then fit in a consumer's 240 registers with room to spare; 128-key
+  // tiles would need 192 for the three sums and 32 more for ds
+  constexpr int BN = 64;
+  using L = HopSmem<D, BN, 2>;
+  extern __shared__ __align__(128) unsigned char hop_smem[];
+  const uint32_t base = (hop::smem_u32(hop_smem) + 1023u) & ~1023u;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kHopRows;  // longest first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int c_end = a.causal ? min(a.Sk, q0 + kHopRows) : a.Sk;
+  const int n_tiles = (c_end + BN - 1) / BN;
+  hop_init<L>(base);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hop::setmaxnreg_dec<24>();
+    const CUtensorMap* rm[2] = {&tq, &tdo};
+    if (threadIdx.x == 2 * 128)
+      hop_produce<D, BN, 2>(base, rm, &tk, &tv, h, b, q0, n_tiles);
+    return;
+  }
+  hop::setmaxnreg_inc<240>();
+  const int w = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = q0 + 64 * wg;
+  const int row[2] = {r0 + 16 * w + g, r0 + 16 * w + g + 8};
+  const float c = a.scale * kLog2e;
+  const uint32_t qa = base + wg * 64 * 128;               // Q rows
+  const uint32_t oa = base + L::kRowTile + wg * 64 * 128;  // dO rows
+  const long long loff = ((long long)b * a.H + h) * a.Sq;
+  // p = exp(s * scale - lse) = 2^(s * c - lse * log2e)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = row[i] < a.Sq ? a.lse[loff + row[i]] * kLog2e : 0.f;
+    dl[i] = row[i] < a.Sq ? a.delta[loff + row[i]] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  hop::mbar_wait(base + L::kRowBar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kHopStages;
+    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    hop::mbar_wait(base + L::kBars + 8 * s, (it / kHopStages) & 1);
+    float sc[BN / 2], dp[BN / 2];
+    hop::wgmma_fence();
+    hop_dot<D, BN, BN>(sc, qa, sk);            // q . k
+    hop_dot<D, BN, BN>(dp, oa, sk + L::kTile);  // dO . v
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    hop::fence_regs(dp);
+
+    const int c0 = it * BN;
+    const bool edge = c0 + BN > a.Sk || (a.causal && c0 + BN - 1 > r0);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = hop::exp2_approx(fmaf(sc[4 * j + e], c, -lse2[i]));
+        if (edge) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          if (col >= a.Sk || (a.causal && col > row[i])) p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - dl[i]) * a.scale;  // ds
+      }
+    // ds is cast to k's dtype before the product; K is the same ring
+    // tile, read as the MN-major operand
+    hop_pv<D, BN>(dq, dp, sk);
+    hop::mbar_arrive(base + L::kBars + 8 * (kHopStages + s));
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(a.out) + qoff, rs, q0 + wr, a.Sq, dq, one,
-                g, t);
+  hop_store<D>(static_cast<bf16*>(a.out) +
+                   ((long long)b * a.Sq * a.H + h) * D,
+               (long long)a.H * D, row, a.Sq, dq, one, t);
 }
 
 // --------------------------------------------------------- B2, bf16
@@ -809,26 +1012,25 @@ constexpr size_t smem_bytes() {
             : KIND == kDkv ? 4 * kB * (D + 1) + 2 * kB * kLDP + 2 * kB
                            : 4 * kB * (D + 1) + kB * kLDP + 2 * kB);
   else
-    // bf16 row-major tiles of kB x (D + 8), transposed of D x kLdT, and
-    // two f32 rows of kB (lse, delta) in the backward kernels
-    return sizeof(bf16) *
-               (KIND == kFwd ? 2 * kB * (D + 8) + D * kLdT
-                : KIND == kDkv ? 4 * kB * (D + 8) + 2 * D * kLdT
-                               : 4 * kB * (D + 8) + D * kLdT) +
-           (KIND == kFwd ? 0 : 2 * kB * sizeof(float));
+    // B2: bf16 row-major tiles of kB x (D + 8), transposed of D x kLdT,
+    // and two f32 rows of kB (lse, delta)
+    return sizeof(bf16) * (4 * kB * (D + 8) + 2 * D * kLdT) +
+           2 * kB * sizeof(float);
 }
 
+// The plain FMA kernels (f32) and B2's mma.sync body (bf16).
 template <int KIND, typename T, int D>
 cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, bf16>::value;
+  static_assert(!kMma || KIND == kDkv, "bf16 B1 and B3 run on Hopper");
   void (*kern)(const FlashArgs);
   if constexpr (KIND == kFwd)
-    kern = kMma ? flash_fwd_mma_kernel<D> : flash_fwd_kernel<D>;
+    kern = flash_fwd_kernel<D>;
   else if constexpr (KIND == kDkv)
     kern = kMma ? flash_bwd_dkv_mma_kernel<D>
                 : flash_bwd_dkv_kernel<D>;
   else
-    kern = kMma ? flash_bwd_dq_mma_kernel<D> : flash_bwd_dq_kernel<D>;
+    kern = flash_bwd_dq_kernel<D>;
   const size_t nbytes = smem_bytes<KIND, T, D>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -840,6 +1042,77 @@ cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The TMA map of one (B, S, H, D) bf16 tensor as the 4-D tensor (D, H,
+// S, B), innermost first, with byte strides (2 D, 2 H D, 2 S H D); a box
+// is 64 columns x 1 head x `rows` rows x 1 batch row, 128-byte swizzled.
+// Rows past S read as zeros and never as the next batch row's.
+bool tma_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
+             int rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess ||
+        fn == nullptr)
+      return false;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 B1 (KIND kFwd) or B3 (kDq) on Hopper: grid (H, B, query tiles),
+// the maps built here on the host and passed by value.
+template <int KIND, int D>
+cudaError_t launch_hopper(const FlashArgs& a, int B, cudaStream_t stream) {
+  constexpr bool kDQ = KIND == kDq;
+  constexpr int BN = kDQ ? 64 : 128;
+  const int tiles = (a.Sq + kHopRows - 1) / kHopRows;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!tma_map(&tq, a.q, D, a.H, a.Sq, B, kHopRows) ||
+      !tma_map(&tk, a.k, D, a.H, a.Sk, B, BN) ||
+      !tma_map(&tv, a.v, D, a.H, a.Sk, B, BN) ||
+      (kDQ && !tma_map(&tdo, a.dout, D, a.H, a.Sq, B, kHopRows)))
+    return cudaErrorInvalidValue;
+  const size_t nbytes = HopSmem<D, BN, kDQ ? 2 : 1>::kBytes + 1024;
+  const dim3 grid(a.H, B, tiles);
+  cudaError_t e;
+  if constexpr (kDQ) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(nbytes));
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_wgmma_kernel<D>
+        <<<grid, kHopThreads, nbytes, stream>>>(tq, tdo, tk, tv, a);
+  } else {
+    e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(nbytes));
+    if (e != cudaSuccess) return e;
+    flash_fwd_wgmma_kernel<D>
+        <<<grid, kHopThreads, nbytes, stream>>>(tq, tk, tv, a);
+  }
+  return cudaGetLastError();
+}
+
 // dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.
 template <int KIND>
 cudaError_t dispatch(const FlashArgs& a, int B, int D, int dtype,
@@ -848,8 +1121,13 @@ cudaError_t dispatch(const FlashArgs& a, int B, int D, int dtype,
       a.Sk <= 0)
     return cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (D == 128) return launch<KIND, bf16, 128>(a, B, stream);
-    if (D == 64) return launch<KIND, bf16, 64>(a, B, stream);
+    if constexpr (KIND == kDkv) {
+      if (D == 128) return launch<KIND, bf16, 128>(a, B, stream);
+      if (D == 64) return launch<KIND, bf16, 64>(a, B, stream);
+    } else {
+      if (D == 128) return launch_hopper<KIND, 128>(a, B, stream);
+      if (D == 64) return launch_hopper<KIND, 64>(a, B, stream);
+    }
   } else if (dtype == 0) {
     if (D == 128) return launch<KIND, float, 128>(a, B, stream);
     if (D == 64) return launch<KIND, float, 64>(a, B, stream);

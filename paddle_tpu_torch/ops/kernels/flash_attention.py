@@ -19,7 +19,8 @@ CUDA ones, and counts its kernel launches in ``.launches``. The kernels
 read ``(B, S, H, D)`` in place, so no transpose to the TPU's
 ``(B*H, S, D)`` happens; the TPU's block sizes and its
 ``FLASH_WINNER.json`` tuning are not carried over (the CUDA kernels use
-their own 64-row tiles), nor are ``_fwd``'s ``kv_rep`` and ``out_dtype``
+their own tiles: 128 query rows in B1 and B3 in bf16, 64 rows
+otherwise), nor are ``_fwd``'s ``kv_rep`` and ``out_dtype``
 options, which only the context-parallel ring attention uses.
 """
 from __future__ import annotations

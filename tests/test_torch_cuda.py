@@ -9,8 +9,10 @@ False (as on a CPU-only test machine) and runs on an H100 with
 Shapes are small but cover every template instantiation the wrappers
 dispatch to: head dim 64 and 128, float32 and bfloat16 queries, native
 and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
-full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136);
-the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
+full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136) and,
+at GQA rep 2, Sq = 320 against Sk = 192 (uneven across B1's and B3's
+128-row query tiles) and lengths that are not multiples of 8 (77; 45
+against 83: the TMA zero fill past S); the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
 and two chunks a thread, ragged row counts included; B11-tree at verify
 shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B7
 (decode attention against a contiguous cache) at GQA rep 1, 2, 4 and 8
@@ -26,7 +28,7 @@ row's length and in page 0, beside a planted fault (one row's last 16
 live keys dropped); and ``block_multihead_attention``'s B8 branch
 against its per-row branch on the same CUDA inputs.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
-for the flash gradients, sums of up to 200 products, against autograd
+for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
 every row (one D-vector) within 2e-2 * |plain row| + 1e-4 * the rms of
 the plain rows (the kernels round their outputs, and p and ds, to bf16,
@@ -301,24 +303,33 @@ def _on(tree, dev):
     return tree.to(dev)
 
 
-FLASH_CASES = [(d, dt, causal, rep) for d in (64, 128)
+# (D, dtype, causal, GQA group, (Sq, Sk) pairs): lengths that leave
+# ragged 64- and 128-row tiles; then 320 / 192, which crosses the
+# 128-row query tiles unevenly, and lengths that are not multiples of 8
+# (the Hopper kernels' TMA zero fill past S)
+FLASH_CASES = [(d, dt, causal, rep, ((200, 200), (72, 136)))
+               for d in (64, 128)
                for dt in (torch.float32, torch.bfloat16)
-               for causal in (False, True) for rep in (1, 2)]
+               for causal in (False, True) for rep in (1, 2)] + [
+    (d, dt, causal, 2, ((320, 192), (77, 77), (45, 83)))
+    for d in (64, 128) for dt in (torch.float32, torch.bfloat16)
+    for causal in (False, True)]
 
 
 def _fids(c):
+    odd = "" if c[4][0] == (200, 200) else "-odd"
     return (f"D{c[0]}-{str(c[1])[6:]}-{'causal' if c[2] else 'full'}-"
-            f"rep{c[3]}")
+            f"rep{c[3]}{odd}")
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=[_fids(c) for c in FLASH_CASES])
 def test_flash_kernels_match_plain(cuda, case):
-    D, dtype, causal, rep = case
+    D, dtype, causal, rep, lengths = case
     g = torch.Generator().manual_seed(2)
     B, HK = 2, 2
     H = HK * rep
-    for sq, sk in ((200, 200), (72, 136)):
+    for sq, sk in lengths:
         q = torch.randn((B, sq, H, D), generator=g).to(dtype).to(cuda)
         k = torch.randn((B, sk, HK, D), generator=g).to(dtype).to(cuda)
         v = torch.randn((B, sk, HK, D), generator=g).to(dtype).to(cuda)
