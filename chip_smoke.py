@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    together) and prints the build time and ptxas's register report; the
    warp-specialised Hopper kernels (B1 and B3 in bf16) must enter with
    the launch bound's 168 registers, or nothing is launched
-   (``hopper_ptxas``).
+   (``hopper_ptxas``), and every bf16 B11 instantiation (the prefill
+   wgmma and the verify key-split kernels) is listed with its registers
+   and spills (``ptxas B11``).
 2. Kernel vs plain: B9 (ragged paged decode), B10 (fused RoPE paged
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
    the serving shapes (H = HK = 32, D = 128, page 16, B = 8 rows of
@@ -25,7 +27,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at T = 5 (``spec_k=4``, ctx_cap 1024 and 2048) and tree (B11-tree)
    at T = 9 under the (2, 4) comb tree, bf16 and int8 rows, where a
    planted fault (one ancestor bit of a depth-2 node cleared) must fail
-   the row check and a chain tree must give B11-linear's bits. Each
+   the row check and a chain tree must give B11-linear's bits; and B11
+   under GQA (H = 32, HK = 8, ctx_cap 2048) at T = 256 and at the linear
+   verify's T = 5, bf16 and int8 rows. Each
    kernel's output is held against its
    plain PyTorch version on the same inputs within the stated bf16
    tolerance, and timed with CUDA events beside its plain version, one
@@ -155,6 +159,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
+SLEEP_CYCLES = 20_000_000      # ~10 ms of the card's clock (time_ms)
 # Every attention kernel against its plain version, row by row (a row is
 # one D-vector: a query's output or dQ, a key's dK or dV):
 #     |kernel row - plain row| <= ROW_RTOL * |plain row| + ROW_FLOOR * rms
@@ -210,23 +215,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hopper_ptxas(log_text: str) -> list:
-    """ptxas's report (``-Xptxas -v``) of the warp-specialised Hopper
-    kernels (``*_wgmma_kernel``) in a build log: registers at entry,
-    spills, and whether ptxas serialized their wgmma instructions. The
-    entry count must be the launch bound's 168 (384 threads, one CTA an
-    SM): the consumers' ``setmaxnreg.inc`` to 240 takes the registers
-    the producer's ``setmaxnreg.dec`` to 24 gives up, and no more."""
+def _template_args(mangled: str) -> str:
+    """The template arguments of a mangled kernel name, readable:
+    ``13__nv_bfloat16Li128ELb0ELi1E`` -> ``bf16, 128, false, 1``."""
+    out = []
+    while mangled:
+        if mangled.startswith("13__nv_bfloat16"):
+            out.append("bf16")
+            mangled = mangled[15:]
+        elif mangled[0] in "af":
+            out.append("int8" if mangled[0] == "a" else "float")
+            mangled = mangled[1:]
+        else:
+            m = re.match(r"L([ib])(\d+)E", mangled)
+            if not m:
+                break
+            v = m.group(2)
+            out.append(v if m.group(1) == "i" else
+                       ("true" if v == "1" else "false"))
+            mangled = mangled[m.end():]
+    return ", ".join(out)
+
+
+def ptxas_report(log_text: str, kernels: str) -> list:
+    """ptxas's report (``-Xptxas -v``) of the kernels in a build log whose
+    names match the regex ``kernels``: registers, spills, and whether
+    ptxas serialized their wgmma instructions."""
     out, cur = {}, None
     for line in log_text.splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            cur = m.group(1) if "_wgmma_kernel" in m.group(1) else None
+            cur = m.group(1) if re.search(kernels, m.group(1)) else None
             if cur:
                 out.setdefault(cur, {"serialized": False})
             continue
         m = re.search(r"serialized .*function '(\S+)'", line)
-        if m and "_wgmma_kernel" in m.group(1):
+        if m and re.search(kernels, m.group(1)):
             out.setdefault(m.group(1), {"serialized": False})
             out[m.group(1)]["serialized"] = line.split("due to")[-1].split(
                 " for the function")[0].strip()
@@ -242,10 +266,20 @@ def hopper_ptxas(log_text: str) -> list:
             out[cur]["registers"] = int(m.group(1))
     recs = []
     for mangled, r in out.items():
-        m = re.search(r"(flash_[a-z_]+_wgmma_kernel)ILi(\d+)E", mangled)
-        recs.append(dict(r, kernel=f"{m.group(1)}<{m.group(2)}>"
-                         if m else mangled))
+        m = re.search(r"([a-z][a-z0-9_]*_kernel)I(.*?)EEv", mangled)
+        name = (f"{m.group(1)}<{_template_args(m.group(2))}>" if m
+                else mangled)
+        recs.append(dict(r, kernel=name))
     return recs
+
+
+def hopper_ptxas(log_text: str) -> list:
+    """ptxas's report of the warp-specialised Hopper flash kernels
+    (``*_wgmma_kernel``). The entry count must be the launch bound's 168
+    (384 threads, one CTA an SM): the consumers' ``setmaxnreg.inc`` to
+    240 takes the registers the producer's ``setmaxnreg.dec`` to 24 gives
+    up, and no more."""
+    return ptxas_report(log_text, r"_wgmma_kernel")
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
@@ -255,11 +289,16 @@ def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOPS_PER_S):
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Card ms of one ``fn()``: CUDA events around ``reps`` calls, queued
+    behind a sleep kernel of ~10 ms, so that the host has queued every
+    call before the first starts and the events time the card, not the
+    host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -387,12 +426,12 @@ def check_decode(torch, F, kernels, fused: bool, kv_int8: bool):
 
 
 def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
-                ctx_len: int):
-    """B11 at T = 256 against a (1, ctx_cap + 256) temp cache whose valid
-    columns start at ctx_cap - ctx_len."""
+                ctx_len: int, HK: int = 32):
+    """B11 at T = 256, H = 32 (HK kv heads) against a (1, ctx_cap + 256)
+    temp cache whose valid columns start at ctx_cap - ctx_len."""
     sf = kernels.serving_fused
-    g = torch.Generator(device="cuda").manual_seed(100 + ctx_cap)
-    B, T, H, HK, D = 1, 256, 32, 32, 128
+    g = torch.Generator(device="cuda").manual_seed(100 + ctx_cap + 32 - HK)
+    B, T, H, D = 1, 256, 32, 128
     W = ctx_cap + T
     kstart = torch.tensor([ctx_cap - ctx_len], dtype=torch.int32,
                           device="cuda")
@@ -421,15 +460,9 @@ def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
     out_p = plain()
     torch.cuda.synchronize()
     err, ratio = check_close(torch, out_k, out_p,
-                             f"B11 kv_int8={kv_int8} ctx_cap={ctx_cap}")
-    if kv_int8:
-        ckd = (ck.float() * kr[..., None]).bfloat16()
-        cvd = (cv.float() * vr[..., None]).bfloat16()
-    else:
-        ckd, cvd = ck, cv
-    K = ckd.permute(0, 2, 1, 3).contiguous()
-    V = cvd.permute(0, 2, 1, 3).contiguous()
-    Q = q.permute(0, 2, 1, 3).contiguous()
+                             f"B11 kv_int8={kv_int8} ctx_cap={ctx_cap} "
+                             f"HK={HK}")
+    K, V, Q = sdpa_operands(torch, q, ck, cv, kr, vr)
     kpos = torch.arange(W, device="cuda")[None, :]
     qpos = (W - T) + torch.arange(T, device="cuda")[:, None]
     mask = (kpos <= qpos) & (kpos >= int(kstart[0]))
@@ -448,9 +481,21 @@ def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
               + (2 * cols * HK * 4 if kv_int8 else 0) + 4)
     flops = 4 * pairs * H * D
     b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
+    return dict(shape=f"T={T} ctx_cap={ctx_cap} H={H} HK={HK}",
+                max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
+
+def sdpa_operands(torch, q, ck, cv, kr, vr):
+    """SDPA's (B, H, S, D) operands for a chunk: the cache dequantized
+    (int8) and its kv heads repeated to q's, beforehand."""
+    if kr is not None:
+        ck = (ck.float() * kr[..., None]).bfloat16()
+        cv = (cv.float() * vr[..., None]).bfloat16()
+    rep = q.shape[2] // ck.shape[2]
+    K, V = (t.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3).contiguous()
+            for t in (ck, cv))
+    return K, V, q.permute(0, 2, 1, 3).contiguous()
 
 
 def comb_tree_mask(torch, T: int, width: int):
@@ -468,12 +513,14 @@ def comb_tree_mask(torch, T: int, width: int):
     return torch.from_numpy(tree_ancestor_matrix(t.parents))
 
 
-def verify_inputs(torch, kv_int8: bool, ctx_cap: int, T: int, seed: int):
+def verify_inputs(torch, kv_int8: bool, ctx_cap: int, T: int, seed: int,
+                  HK: int = 32):
     """A verify chunk at the serving width: B = 8 rows of committed
     lengths from ``ctx_cap`` down to 1 (kstart = ctx_cap - length),
-    T new queries, H = HK = 32, D = 128, a (B, ctx_cap + T) temp cache."""
+    T new queries, H = 32, HK kv heads, D = 128, a (B, ctx_cap + T) temp
+    cache."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, HK, D = 8, 32, 32, 128
+    B, H, D = 8, 32, 128
     W = ctx_cap + T
     lens = [ctx_cap, int(0.93 * ctx_cap), int(0.75 * ctx_cap),
             ctx_cap // 2, int(0.34 * ctx_cap), int(0.16 * ctx_cap), 16, 1]
@@ -495,7 +542,7 @@ def verify_inputs(torch, kv_int8: bool, ctx_cap: int, T: int, seed: int):
 
 
 def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
-                 tree: bool):
+                 tree: bool, HK: int = 32):
     """B11 at the verify shape (``verify_inputs``): linear (B11-linear,
     T = spec_k + 1) or, with ``tree``, B11-tree under the (2, (T-1)/2)
     comb tree of every row. Held row by row against the plain version.
@@ -506,12 +553,13 @@ def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
     mask on the cache dequantized beforehand, and the bound."""
     sf = kernels.serving_fused
     q, ck, cv, kr, vr, kstart, W = verify_inputs(
-        torch, kv_int8, ctx_cap, T, seed=200 + T + ctx_cap // 64)
+        torch, kv_int8, ctx_cap, T, seed=232 + T + ctx_cap // 64 - HK,
+        HK=HK)
     B, _, H, D = q.shape
-    HK, qoff = ck.shape[2], W - T
+    qoff = W - T
     kw = dict(k_rows=kr, v_rows=vr)
     what = (f"{'B11-tree' if tree else 'B11-linear'} kv_int8={kv_int8} "
-            f"ctx_cap={ctx_cap} T={T}")
+            f"ctx_cap={ctx_cap} T={T} H={H} HK={HK}")
     anc = (comb_tree_mask(torch, T, 2).cuda() if tree else
            torch.tril(torch.ones((T, T), dtype=torch.bool, device="cuda")))
     tm = anc.expand(B, T, T).contiguous() if tree else None
@@ -547,14 +595,7 @@ def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
         if not same:
             fail(f"{what}: a chain tree does not give B11-linear's bits")
         rec.update(fault_row_ratio=fault, chain_equals_linear=same)
-    if kv_int8:
-        ckd = (ck.float() * kr[..., None]).bfloat16()
-        cvd = (cv.float() * vr[..., None]).bfloat16()
-    else:
-        ckd, cvd = ck, cv
-    K = ckd.permute(0, 2, 1, 3).contiguous()
-    V = cvd.permute(0, 2, 1, 3).contiguous()
-    Q = q.permute(0, 2, 1, 3).contiguous()
+    K, V, Q = sdpa_operands(torch, q, ck, cv, kr, vr)
     kpos = torch.arange(W, device="cuda")
     chunk = torch.zeros((T, W), dtype=torch.bool, device="cuda")
     chunk[:, qoff:] = anc
@@ -2169,6 +2210,15 @@ def main(argv=None) -> int:
         fail(f"the Hopper flash kernels must enter with 168 registers "
              f"(setmaxnreg moves them between warpgroups): {hop}")
     record["hopper_ptxas"] = hop
+    # every bf16 B11 instantiation: the prefill (wgmma) and verify
+    # (mma.sync, key split) kernels of csrc/flash_chunk.cu
+    b11 = ptxas_report(_build.log_path("flash_chunk").read_text(
+        errors="replace"), r"chunk_(prefill|verify)_kernel")
+    for r in b11:
+        print("ptxas B11 " + json.dumps(r))
+    if len(b11) != 32 or any("registers" not in r for r in b11):
+        fail(f"expected ptxas's report of 32 B11 kernels, got {b11}")
+    record["b11_ptxas"] = b11
 
     # ---- phase 2: kernels vs plain
     results = {}
@@ -2206,6 +2256,17 @@ def main(argv=None) -> int:
         verify.append(r)
         print(f"kernel B11-tree-{kvn}: " + json.dumps(r))
         results[f"B11-tree-{kvn}"] = r
+    # GQA (H = 32, HK = 8, ctx_cap 2048): the kernels pack the 4 query
+    # heads of a kv head into one tile, the prefill chunk and the verify
+    gqa = []
+    for kv_int8 in (False, True):
+        kvn = "int8" if kv_int8 else "bf16"
+        for r in (check_chunk(torch, F, kernels, kv_int8, 2048, 1900, HK=8),
+                  check_verify(torch, F, kernels, kv_int8, 2048, 5, False,
+                               HK=8)):
+            torch.cuda.synchronize()
+            gqa.append(r)
+            print(f"kernel B11-gqa-{kvn}: " + json.dumps(r))
     # B7 at the Llama-2-7B dense decode shape (its row in the kernel
     # line) and at the JAX bench model's (H = 12, prompt 128 + 64 new)
     dense_kernel = []
@@ -2301,6 +2362,7 @@ def main(argv=None) -> int:
     record["kernels_phase"] = results
     record["dense_kernel_phase"] = dense_kernel
     record["verify_phase"] = verify
+    record["gqa_phase"] = gqa
     record["flash_phase"] = flash
     record["fused_phase"] = fused
     record["rope_phase"] = rope

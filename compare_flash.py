@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernels B1, B2 and B3 of the port in a given
-checkout, beside SDPA's forward, on one CUDA card.
+"""Time the flash-attention kernels B1, B2 and B3 and the flash chunk
+kernel B11 of the port in a given checkout, on one CUDA card.
 
     python3 compare_flash.py PATH [PATH ...]
 
@@ -8,10 +8,15 @@ Each PATH is the root of a checkout of this repository (``.`` for this
 one; an older commit unpacked with ``git archive`` for a comparison).
 Every checkout runs in its own process, in the order given, so a
 comparison should list them in turns (old, new, new, old) to show the
-card's drift. Shapes: the training step's (B = 4, S = 4096, H = 12,
-D = 128, causal, bf16) and its D = 64 twin (H = 24). Times are CUDA
-events over 20 launches after 3 warm-up launches; one JSON line per
-checkout, ``compare {...}``.
+card's drift. Shapes: B1-B3 at the training step's (B = 4, S = 4096,
+H = 12, D = 128, causal, bf16) and its D = 64 twin (H = 24), beside
+SDPA's forward; B11 at ``chip_smoke.py`` phase 2's shapes (D = 128,
+H = 32, bf16 and int8 KV): the prefill chunk T = 256 at ctx_cap 0, 256,
+1024 and 2048 (B = 1), the linear verify T = 5 at ctx_cap 1024 and 2048
+and the (2, 4) comb tree T = 9 at 2048 (B = 8 ragged rows), and under
+GQA (HK = 8) T = 256 and T = 5 at 2048. Times are CUDA events over 20
+launches after 3 warm-up launches; one JSON line per checkout,
+``compare {...}``.
 """
 from __future__ import annotations
 
@@ -20,15 +25,31 @@ import os
 import subprocess
 import sys
 
+SLEEP_CYCLES = 20_000_000      # ~10 ms of the card's clock (time_ms)
 SHAPES = ((4, 4096, 12, 128), (4, 4096, 24, 64))
+# B11: (name, B, T, HK, ctx_cap, context length of row 0, tree)
+B11_SHAPES = tuple(
+    (f"T{T}-ctx{cap}{'-tree' if tree else ''}{'-gqa' if hk == 8 else ''}",
+     b, T, hk, cap, n, tree)
+    for b, T, hk, cap, n, tree in (
+        (1, 256, 32, 0, 0, False), (1, 256, 32, 256, 200, False),
+        (1, 256, 32, 1024, 1000, False), (1, 256, 32, 2048, 1900, False),
+        (8, 5, 32, 1024, 1024, False), (8, 5, 32, 2048, 2048, False),
+        (8, 9, 32, 2048, 2048, True), (1, 256, 8, 2048, 1900, False),
+        (8, 5, 8, 2048, 2048, False)))
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Card ms of one ``fn()``: CUDA events around ``reps`` calls, queued
+    behind a sleep kernel of ~10 ms, so that the host has queued every
+    call before the first starts and the events time the card, not the
+    host's launch rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -37,17 +58,63 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def chunk_inputs(torch, B, T, HK, ctx_cap, n0, tree, kv_int8, seed):
+    """A B11 call's arguments as ``chip_smoke.py`` phase 2 builds them: q
+    (B, T, 32, 128) bf16, a (B, ctx_cap + T, HK, 128) cache (int8 with
+    row scales), rows' context lengths n0 (B = 1) or chip_smoke's eight
+    ragged ones down to 1, and for a tree the (2, 4) comb's ancestor
+    matrix."""
+    import numpy as np
+    from paddle_tpu_torch.serving import build_comb_tree, \
+        tree_ancestor_matrix
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, D, W = 32, 128, ctx_cap + T
+    lens = ([n0] if B == 1 else
+            [ctx_cap, int(0.93 * ctx_cap), int(0.75 * ctx_cap),
+             ctx_cap // 2, int(0.34 * ctx_cap), int(0.16 * ctx_cap), 16, 1])
+    kstart = torch.tensor([ctx_cap - n for n in lens], dtype=torch.int32,
+                          device="cuda")
+    q = torch.randn((B, T, H, D), generator=g, device="cuda").bfloat16()
+    kw = {}
+    if kv_int8:
+        ck, cv = (torch.randint(-127, 128, (B, W, HK, D), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        kw["k_rows"], kw["v_rows"] = (
+            torch.rand((B, W, HK), generator=g, device="cuda") * 0.02 + 0.005
+            for _ in range(2))
+    else:
+        ck, cv = (torch.randn((B, W, HK, D), generator=g,
+                              device="cuda").bfloat16() for _ in range(2))
+    if tree:
+        depth = (T - 1) // 2
+        t = build_comb_tree(0, np.arange(1, depth + 1),
+                            [np.arange(1) + 100 * (d + 1)
+                             for d in range(depth)])
+        kw["tree_mask"] = torch.from_numpy(tree_ancestor_matrix(
+            t.parents)).cuda().expand(B, T, T).contiguous()
+    return (q, ck, cv, W, kstart), kw
+
+
 def measure(root: str) -> dict:
-    """B1-B3 and SDPA's forward of the checkout at ``root`` (imported
-    from there; call once per process)."""
+    """B1-B3 and SDPA's forward, and B11, of the checkout at ``root``
+    (imported from there; call once per process)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import serving_fused as sf
 
-    _build.build(["flash_attention"])
-    out = {"root": root}
+    _build.build(["flash_attention", "flash_chunk"])
+    out = {"root": root, "B11": {}}
+    for name, B, T, HK, cap, n0, tree in B11_SHAPES:
+        for kv_int8 in (False, True):
+            args, kw = chunk_inputs(torch, B, T, HK, cap, n0, tree, kv_int8,
+                                    seed=T + cap)
+            out["B11"][f"{name}-{'int8' if kv_int8 else 'bf16'}"] = time_ms(
+                torch, lambda: sf.flash_chunk_attention(*args, **kw))
+            del args, kw
     for B, S, H, D in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(5)
         q, k, v, do = (torch.randn((B, S, H, D), generator=g,

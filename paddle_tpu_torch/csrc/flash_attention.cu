@@ -79,8 +79,6 @@
 // turns), a persistent tile scheduler, GQA through kv_rep without the
 // caller's head repeat (ROADMAP.md), and B2 on the same Hopper design.
 
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
@@ -670,46 +668,6 @@ __device__ __forceinline__ void hop_produce(uint32_t base,
   }
 }
 
-// acc (64 x N) = X Y^T over D for the warpgroup's 64 rows of the row tile
-// at `x` (K-major A) and the N rows of the ring tile at `y` (K-major B).
-template <int D, int N, int ROWS_Y>
-__device__ __forceinline__ void hop_dot(float (&acc)[N / 2], uint32_t x,
-                                        uint32_t y) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    hop::wgmma_ss<0>(
-        acc,
-        hop::desc_sw128(x + (kk / 4) * kHopRows * 128 + (kk % 4) * 32, 16,
-                        1024),
-        hop::desc_sw128(y + (kk / 4) * ROWS_Y * 128 + (kk % 4) * 32, 16,
-                        1024),
-        kk > 0);
-}
-
-// acc (64 x D) += P Z: P (64 x BN) from registers, rounded to bf16 from
-// the score accumulator `p`; Z the BN x D ring tile at `z` as the
-// MN-major B operand (its D / 64 boxes BN * 128 bytes apart). Issues the
-// products and waits for them.
-template <int D, int BN>
-__device__ __forceinline__ void hop_pv(float (&acc)[D / 2],
-                                       const float (&p)[BN / 2], uint32_t z) {
-  uint32_t pa[BN / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = ptt::pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
-  hop::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    hop::wgmma_rs<1>(acc, pa[kk],
-                     hop::desc_sw128(z + kk * 16 * 128, BN * 128, 1024), 1);
-  hop::wgmma_commit();
-  hop::wgmma_wait<0>();
-  hop::fence_regs(acc);
-  hop::fence_regs(pa);
-}
-
 // The warpgroup's 64 x D block of acc, scaled per row by inv[i] (rows
 // row[0] and row[1] of this thread), into one head of (B, S, H, D) bf16;
 // rows past `limit` skip.
@@ -778,7 +736,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     hop::mbar_wait(base + L::kBars + 8 * s, (it / kHopStages) & 1);
     float sc[BN / 2];
     hop::wgmma_fence();
-    hop_dot<D, BN, BN>(sc, qa, sk);
+    hop::wgmma_xyt<D, BN, kHopRows, BN>(sc, qa, sk);
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
@@ -825,7 +783,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       }
     }
     // p is cast to V's dtype before the product, l sums it unrounded
-    hop_pv<D, BN>(o, sc, sk + L::kTile);
+    hop::wgmma_pz<D, BN>(o, sc, sk + L::kTile);
     hop::mbar_arrive(base + L::kBars + 8 * (kHopStages + s));
   }
 
@@ -906,8 +864,8 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     hop::mbar_wait(base + L::kBars + 8 * s, (it / kHopStages) & 1);
     float sc[BN / 2], dp[BN / 2];
     hop::wgmma_fence();
-    hop_dot<D, BN, BN>(sc, qa, sk);            // q . k
-    hop_dot<D, BN, BN>(dp, oa, sk + L::kTile);  // dO . v
+    hop::wgmma_xyt<D, BN, kHopRows, BN>(sc, qa, sk);       // q . k
+    hop::wgmma_xyt<D, BN, kHopRows, BN>(dp, oa, sk + L::kTile);  // dO . v
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(sc);
@@ -929,7 +887,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
       }
     // ds is cast to k's dtype before the product; K is the same ring
     // tile, read as the MN-major operand
-    hop_pv<D, BN>(dq, dp, sk);
+    hop::wgmma_pz<D, BN>(dq, dp, sk);
     hop::mbar_arrive(base + L::kBars + 8 * (kHopStages + s));
   }
   const float one[2] = {1.f, 1.f};
@@ -1048,34 +1006,14 @@ cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
 // Rows past S read as zeros and never as the next batch row's.
 bool tma_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B,
              int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess ||
-        fn == nullptr)
-      return false;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hop::tma_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims,
+                         strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // bf16 B1 (KIND kFwd) or B3 (kDq) on Hopper: grid (H, B, query tiles),

@@ -14,43 +14,100 @@
 // node j lies on t's root path; node t sees column c iff c >= kstart_b
 // and either c < W - T (committed context) or bit (c - (W - T)) is set.
 // Only that predicate differs from the linear form: the online softmax,
-// the dequant and the blocking are the same code, so a chain tree
-// (bits (2 << t) - 1) gives the linear kernel's bits. int8 caches carry
-// per-row f32 scales (B, W, HK).
+// the dequant and the blocking are the same code, chosen by shape alone,
+// so a chain tree (bits (2 << t) - 1) gives the linear kernel's bits.
+// int8 caches carry per-row f32 scales (B, W, HK); a row is dequantized
+// and rounded to bf16 before its product (dequant-then-cast), p is
+// rounded to bf16 before p.v while l sums it unrounded, and a row that
+// sees no column writes 0, as the TPU kernels do.
 //
-// What bounds it on the H100: it sits near the balance point. A chunk
-// of T queries against W >> T context columns does about 4*D*T*W flops
-// per head on 2*W*D K/V elements: T flops per bf16 byte, 256 at the
-// engine's chunk width, just under the card's ~295 (989 TFLOP/s over
-// 3.35 TB/s), so bf16 caches are bound by bytes and int8 caches, at
-// half the bytes, by the tensor cores' operations.
+// As the TPU kernel does, the T * rep query rows of one kv head (rep =
+// H / HK) are packed into one tile, row r = t * rep + j for head
+// g * rep + j, so each K/V byte is read once per kv head, not rep times.
+// The packed row count M = T * rep picks one of two designs:
 //
-// What the design does about it (a first, simple version):
-// - one CTA per (query tile of 64, head, batch row): the engine's
-//   prefill has B = 1, so the grid takes its parallelism from heads x
-//   query tiles (32 x 4 = 128 CTAs at Llama-2-7B width and T = 256);
-// - each CTA loops over 64-column key blocks from kstart's block up to
-//   its tile's causal limit only, so masked blocks cost nothing;
-// - the Q tile, the K and V blocks (dequantized and rounded to the
-//   working dtype at load) and the probability tile sit in shared
-//   memory as f32; each thread computes a 4 x 4 block of scores and a
-//   4 x (D/16) block of the output with plain f32 FMA, and keeps the
-//   online softmax state of its 4 rows in registers.
-// - tree mode runs the column loop to W, not to the tile's causal limit,
-//   so any ancestor matrix is honoured (the limits agree for T <= 64).
-// It does not reach the tensor-core bound: mma.sync/wgmma tiles and TMA
-// loads are later work. A verify chunk (T = 5..32) fills 5..32 of the
-// 64 rows of its query tile, so most of the tile's arithmetic is wasted;
-// at that shape the K/V read sets the bound. The page -> temp-cache
-// gather stays in PyTorch, as it stays in XLA in the JAX package.
+// 1. Prefill chunk, M >= 64 (the engine's T = 256): near the card's
+//    balance point. A 64-row tile does 4 * 64 * D flops per key column on
+//    4 D bytes of bf16 K and V (64 flops a byte, under the card's ~295:
+//    989 TFLOP/s over 3.35 TB/s), but the M / 64 tiles of a head read the
+//    same K/V from L2, so from HBM the chunk does M flops a byte: 256 at
+//    T = 256, bound by bytes in bf16 (7.4 us at ctx 1024 over Llama-2-7B's
+//    32 heads) and by operations in int8 (4.8 us). Either way the
+//    products must run on the tensor cores. The design is B1's
+//    (hopper.cuh):
+//    - one CTA per (64 packed rows, kv head, batch row): the engine's
+//      prefill has B = 1, and 128-row tiles would give 64 CTAs on 132
+//      SMs at T = 256, H = 32; 64-row tiles give 128, one wave. So a CTA
+//      is one consumer warpgroup and one producer warpgroup (256
+//      threads), 1 CTA an SM at up to 255 registers (no setmaxnreg);
+//    - K and V (B, W, HK, D) are read as the 4-D TMA tensor (D, HK, W, B):
+//      bf16 boxes of 64 columns x 64 keys with the 128-byte swizzle that
+//      wgmma reads, columns past W zero-filled. They stream through a
+//      3-stage mbarrier ring: one producer thread keeps TMA in flight;
+//    - int8 K/V arrive by TMA as int8 boxes (D x 64 keys, no swizzle)
+//      into a 2-stage staging ring; the 128 producer threads dequantize
+//      them into the swizzled bf16 ring tiles (the dequantized copy never
+//      touches HBM), fence the generic proxy against wgmma's, and arrive
+//      on the ring's full barrier. The producers are the int8 path's
+//      bound, so a thread loads its rows' scales before the tile lands
+//      and converts int8 exactly by a byte permute and an add (the
+//      int-to-float unit runs at a quarter of the FMA rate);
+//    - q.k^T is an SS wgmma (m64n64k16) on the Q tile (loaded once by
+//      the consumers into the same swizzled layout) and K-major K; p.v
+//      an RS wgmma with p packed to bf16 from the accumulator and V as
+//      the MN-major operand of the same ring tile: no transposed copy;
+//    - the key loop starts at kstart's tile and ends at the tile's
+//      causal limit W - T + (last row's t) + 1 (linear) or at W (tree);
+//      masks are applied only to tiles that cross kstart, W or the
+//      chunk's columns; longest tiles are launched first.
+// 2. Verify chunk, M < 64 (T = 5 and 9 in the engine, up to 32 tree
+//    nodes): bound by bytes. 4 D flops a column per query row on 4 D K/V
+//    bytes: M flops a byte, far under 295, so the design keeps bytes in
+//    flight and spreads them over the card:
+//    - the key axis is split across CTAs, flash-decoding style, into 1,
+//      2, 4 or 8 splits of at least 256 columns (rounded to 64), chosen
+//      from the shape alone (B, HK, W) so that the grid holds about one
+//      CTA an SM: a CTA's fixed costs (its first tile's latency, the
+//      merge) outweigh the parallelism of more, shorter splits, so 8 rows
+//      x 32 kv heads take 1 split and 8 x 8 take 2. A CTA is one (split,
+//      kv head, batch row); a split wholly below kstart_b loads nothing
+//      and leaves an empty partial, so short rows cost next to nothing.
+//      The splits of one (row, kv head) form a thread block cluster and
+//      merge their partial (m, l, acc) through distributed shared memory
+//      in split order, so the merge is deterministic and needs no
+//      workspace in HBM (the C entry has none to offer);
+//    - K/V stream through a 3-stage cp.async ring of 64-key tiles (int8
+//      with their row scales), rows past W zero-filled; 16-byte chunks
+//      sit XOR-swizzled in shared memory so that the fragment reads below
+//      spread over the banks (conflict-free for bf16 K/V);
+//    - products are mma.sync.m16n8k16 (mma.cuh): the M packed rows fill
+//      one, two or four 16-row tiles; 4 warps split each 64-key tile by
+//      keys (16 each; with four row tiles, 2 row groups x 32 keys). The
+//      contraction axes are permuted so a thread reads whole 16-byte
+//      chunks: for q.k its d's of a k16 step are 4 consecutive columns
+//      (one 8- or 4-byte piece of a K chunk), for p.v its 4 keys are 4
+//      consecutive rows and its n8 columns are D / 8 consecutive d of a
+//      row (output column (2t + e) * D / 8 + j); int8 K and V are
+//      dequantized from shared memory into the bf16 fragments;
+//    - each warp keeps an online softmax over its keys; the warps of a
+//      CTA merge in warp order through shared memory, then the cluster.
+// The float32 path (tests, not the card's main path) keeps plain f32 FMA:
+// one CTA per (64 query rows, head, batch row), 64-column key blocks in
+// shared memory, a 4 x 4 block of scores per thread.
+// The page -> temp-cache gather stays in PyTorch, as it stays in XLA in
+// the JAX package.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 64;       // key columns per block
-constexpr int kThreads = 256; // 16 x 16
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct ChunkArgs {
   const void* q;          // (B, T, H, D) model dtype, contiguous
@@ -67,14 +124,30 @@ struct ChunkArgs {
   float scale;
 };
 
-template <typename E, typename T, int D, bool QUANT>
+// Whether packed row (query t, valid) sees column col, given kstart and
+// the chunk's first column qoff: the one place the two forms differ.
+template <bool TREE>
+__device__ __forceinline__ bool sees(int col, int t, bool valid,
+                                     unsigned anc, int kst, int qoff,
+                                     int W) {
+  if (!valid || col < kst || col >= W) return false;
+  if (TREE) return col < qoff || ((anc >> (col - qoff)) & 1u);
+  return col <= qoff + t;
+}
+
+// ==================================================== float32: plain FMA
+constexpr int kF32Rows = 64;     // query rows per CTA
+constexpr int kF32Keys = 64;     // key columns per block
+constexpr int kF32Threads = 256; // 16 x 16
+
+template <typename E, int D, bool QUANT>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const E* src,
                                           const float* rows, long long sw,
                                           long long rsw,
                                           int row0, int nrows, int limit) {
   constexpr int EPC = 16 / sizeof(E);  // elements per 16-byte chunk
   constexpr int CPR = D / EPC;         // chunks per row
-  for (int idx = threadIdx.x; idx < nrows * CPR; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nrows * CPR; idx += kF32Threads) {
     const int r = idx / CPR;
     const int c = idx % CPR;
     float v[EPC];
@@ -83,7 +156,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const E* src,
       if (QUANT) {
         const float sc = rows[(long long)(row0 + r) * rsw];
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) v[e] = ptt::round_to<T>(v[e] * sc);
+        for (int e = 0; e < EPC; ++e) v[e] *= sc;
       }
     } else {
 #pragma unroll
@@ -94,20 +167,20 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const E* src,
   }
 }
 
-template <typename T, typename KV, int D, bool TREE>
-__global__ void __launch_bounds__(kThreads)
-    flash_chunk_kernel(const ChunkArgs a) {
+template <typename KV, int D, bool TREE>
+__global__ void __launch_bounds__(kF32Threads)
+    flash_chunk_f32_kernel(const ChunkArgs a) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int LDQ = D + 1;    // padded rows: conflict-free column walks
-  constexpr int LDP = kBK + 1;
+  constexpr int LDP = kF32Keys + 1;
   constexpr int DPT = D / 16;   // output columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;                  // [kBQ][LDQ]
-  float* sK = sQ + kBQ * LDQ;        // [kBK][LDQ]
-  float* sV = sK + kBK * LDQ;        // [kBK][D]
-  float* sP = sV + kBK * D;          // [kBQ][LDP]
+  float* sQ = smem;                     // [kF32Rows][LDQ]
+  float* sK = sQ + kF32Rows * LDQ;      // [kF32Keys][LDQ]
+  float* sV = sK + kF32Keys * LDQ;      // [kF32Keys][D]
+  float* sP = sV + kF32Keys * D;        // [kF32Rows][LDP]
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kF32Rows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = a.H / a.HK;
@@ -116,14 +189,14 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int qoff = a.W - a.T;
   const int kst = a.kstart[b];
-  const int qend = min(q0 + kBQ, a.T);  // exclusive
+  const int qend = min(q0 + kF32Rows, a.T);  // exclusive
 
   // Q tile: rows q0.. of head h (row stride H*D in the (B, T, H, D) q)
-  load_rows<T, T, D, false>(
+  load_rows<float, D, false>(
       sQ, LDQ,
-      static_cast<const T*>(a.q) + ((long long)b * a.T * a.H + h) * D +
+      static_cast<const float*>(a.q) + ((long long)b * a.T * a.H + h) * D +
           (long long)q0 * a.H * D,
-      nullptr, (long long)a.H * D, 0, 0, kBQ, a.T - q0);
+      nullptr, (long long)a.H * D, 0, 0, kF32Rows, a.T - q0);
 
   float m[4], l[4], acc[4][DPT];
   unsigned anc[4];  // this thread's rows' ancestor bits (tree only)
@@ -149,15 +222,15 @@ __global__ void __launch_bounds__(kThreads)
   const float* vsb = QUANT ? a.v_rows + (long long)b * a.r_sb +
                                  (long long)g * a.r_sh
                            : nullptr;
-  const int c_begin = (max(kst, 0) / kBK) * kBK;
+  const int c_begin = (max(kst, 0) / kF32Keys) * kF32Keys;
   // exclusive limit: the tile's causal limit, or W for a tree
   const int c_end = TREE ? a.W : min(a.W, qoff + qend);
 
-  for (int c0 = c_begin; c0 < c_end; c0 += kBK) {
-    load_rows<KV, T, D, QUANT>(sK, LDQ, kb, ksb, a.c_sw, a.r_sw, c0, kBK,
-                               a.W);
-    load_rows<KV, T, D, QUANT>(sV, D, vb, vsb, a.c_sw, a.r_sw, c0, kBK,
-                               a.W);
+  for (int c0 = c_begin; c0 < c_end; c0 += kF32Keys) {
+    load_rows<KV, D, QUANT>(sK, LDQ, kb, ksb, a.c_sw, a.r_sw, c0, kF32Keys,
+                            a.W);
+    load_rows<KV, D, QUANT>(sV, D, vb, vsb, a.c_sw, a.r_sw, c0, kF32Keys,
+                            a.W);
     __syncthreads();
 
     float s[4][4];
@@ -181,20 +254,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int t = q0 + ty * 4 + i;
-      const int qpos = qoff + t;
       bool ok[4];
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        bool seen;
-        if (TREE) {
-          const int rel = col - qoff;  // chunk node of this column
-          seen = rel < 0 || (rel < a.T && ((anc[i] >> rel) & 1u));
-        } else {
-          seen = col <= qpos;
-        }
-        ok[j] = t < a.T && col < a.W && col >= kst && seen;
+        ok[j] = sees<TREE>(c0 + tx + 16 * j, t, t < a.T, anc[i], kst, qoff,
+                           a.W);
         s[i][j] = ok[j] ? s[i][j] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -223,16 +288,13 @@ __global__ void __launch_bounds__(kThreads)
       m[i] = mn;
 #pragma unroll
       for (int jj = 0; jj < DPT; ++jj) acc[i][jj] *= alpha;
-      // p is cast to V's working dtype before the product, as in the
-      // TPU kernel
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty * 4 + i) * LDP + tx + 16 * j] = ptt::round_to<T>(p[j]);
+      for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * LDP + tx + 16 * j] = p[j];
     }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
+    for (int c = 0; c < kF32Keys; ++c) {
       float pa[4], vc[DPT];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pa[i] = sP[(ty * 4 + i) * LDP + c];
@@ -246,49 +308,980 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  T* ob = static_cast<T*>(a.out);
+  float* ob = static_cast<float*>(a.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty * 4 + i;
     if (t >= a.T) continue;
-    T* orow = ob + (((long long)b * a.T + t) * a.H + h) * D;
+    float* orow = ob + (((long long)b * a.T + t) * a.H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj)
-      orow[tx + 16 * jj] =
-          ptt::from_f<T>(l[i] > 0.f ? acc[i][jj] / l[i] : 0.f);
+      orow[tx + 16 * jj] = l[i] > 0.f ? acc[i][jj] / l[i] : 0.f;
   }
 }
 
-template <typename T, typename KV, int D, bool TREE>
-cudaError_t launch_typed(const ChunkArgs& a, int B, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((kBQ + kBK) * (D + 1) + kBK * D + kBQ * (kBK + 1));
+// ========================================= prefill chunk (M >= 64): wgmma
+constexpr int kPreRows = 64;      // packed query rows of a CTA
+constexpr int kPreBN = 64;        // keys of a ring tile
+constexpr int kPreStages = 3;     // bf16 ring depth
+constexpr int kPreStaging = 2;    // int8 staging ring depth
+constexpr int kPreThreads = 256;  // consumer warpgroup, producer warpgroup
+
+// Shared memory of a prefill CTA, byte offsets from a 1024-aligned base:
+// the Q tile (D / 64 boxes of 64 rows x 128 bytes), the ring of bf16
+// (K, V) tile pairs (D / 64 boxes of kPreBN rows each), for int8 the
+// staging ring of (K, V) int8 tile pairs (kPreBN rows of D bytes), then
+// the barriers full[kPreStages], empty[kPreStages], staged[kPreStaging].
+template <int D, bool QUANT>
+struct PreSmem {
+  static constexpr int kQ = kPreRows * D * 2;
+  static constexpr int kTile = kPreBN * D * 2;
+  static constexpr int kTile8 = kPreBN * D;
+  static constexpr int kRing = kQ;
+  static constexpr int kStaging = kRing + kPreStages * 2 * kTile;
+  static constexpr int kBars =
+      kStaging + (QUANT ? kPreStaging * 2 * kTile8 : 0);
+  static constexpr int kBytes = kBars + 8 * (2 * kPreStages + kPreStaging);
+};
+
+// int8 byte k of w as a float, exactly: 2^23 + 128 + x from the byte
+// with its sign bit flipped, less 2^23 + 128 (integer and add pipes, not
+// the quarter-rate int-to-float conversion)
+__device__ __forceinline__ float i8f(uint32_t w, int k) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 + k)) -
+         8388736.f;
+}
+
+// bf16 pair (lo, hi) of two int8 values times their scales
+__device__ __forceinline__ uint32_t deq2(float x0, float s0, float x1,
+                                         float s1) {
+  return ptt::pack_bf16(x0 * s0, x1 * s1);
+}
+
+// The int8 producers' share of a tile: thread pt takes 16-byte chunk
+// pt % CPR of rows pt / CPR + k * (128 / CPR), k < kDeqRows.
+template <int D>
+struct Deq {
+  static constexpr int CPR = D / 16;                // int8 chunks of a row
+  static constexpr int kRows = kPreBN * CPR / 128;  // rows a thread takes
+  static __device__ __forceinline__ int row(int pt, int k) {
+    return pt / CPR + k * (128 / CPR);
+  }
+};
+
+// One staged int8 tile (kPreBN rows of D bytes at `src`) into the swizzled
+// bf16 tile at `dst` (hopper.cuh's layout law): the thread's rows times
+// their scales sc[k] (0 past W), rounded to bf16.
+template <int D>
+__device__ __forceinline__ void dequant_tile(unsigned char* dst,
+                                             const unsigned char* src,
+                                             const float (&sc)[Deq<D>::kRows],
+                                             int pt) {
+  const int c = pt % Deq<D>::CPR;
+#pragma unroll
+  for (int k = 0; k < Deq<D>::kRows; ++k) {
+    const int r = Deq<D>::row(pt, k);
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(&raw);
+    uint32_t w[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[2 * q] = deq2(i8f(x[q], 0), sc[k], i8f(x[q], 1), sc[k]);
+      w[2 * q + 1] = deq2(i8f(x[q], 2), sc[k], i8f(x[q], 3), sc[k]);
+    }
+    // bf16 columns 16c .. 16c + 15 are 16-byte chunks 2c and 2c + 1
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int cc = 2 * c + hh;
+      *reinterpret_cast<uint4*>(dst + (cc / 8) * kPreBN * 128 + r * 128 +
+                                (((cc % 8) ^ (r % 8)) * 16)) =
+          make_uint4(w[4 * hh], w[4 * hh + 1], w[4 * hh + 2], w[4 * hh + 3]);
+    }
+  }
+}
+
+// Barriers of a prefill CTA after its ring and staging bytes.
+template <int D, bool QUANT>
+struct PreBars {
+  using L = PreSmem<D, QUANT>;
+  static __device__ __forceinline__ uint32_t full(uint32_t base, int s) {
+    return base + L::kBars + 8 * s;
+  }
+  static __device__ __forceinline__ uint32_t empty(uint32_t base, int s) {
+    return base + L::kBars + 8 * (kPreStages + s);
+  }
+  static __device__ __forceinline__ uint32_t staged(uint32_t base, int s) {
+    return base + L::kBars + 8 * (2 * kPreStages + s);
+  }
+};
+
+// bf16 producer (one thread): keys c_begin .. of K and V through the
+// ring by TMA; a stage is refilled once the consumers released it.
+template <int D>
+__device__ __forceinline__ void pre_produce_bf16(uint32_t base,
+                                                 const CUtensorMap* tk,
+                                                 const CUtensorMap* tv, int b,
+                                                 int g, int c_begin,
+                                                 int n_tiles) {
+  using L = PreSmem<D, false>;
+  using Bar = PreBars<D, false>;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kPreStages;
+    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    const int c0 = c_begin + it * kPreBN;
+    hop::mbar_wait(Bar::empty(base, s), ((it / kPreStages) & 1) ^ 1);
+    hop::mbar_arrive_expect_tx(Bar::full(base, s), 2 * L::kTile);
+    for (int j = 0; j < D / 64; ++j) {
+      hop::tma_load_4d(sk + j * kPreBN * 128, tk, Bar::full(base, s), 64 * j,
+                       g, c0, b);
+      hop::tma_load_4d(sk + L::kTile + j * kPreBN * 128, tv,
+                       Bar::full(base, s), 64 * j, g, c0, b);
+    }
+  }
+}
+
+// int8 producers (128 threads, pt the thread's index): thread 0 keeps the
+// int8 tiles' TMA loads in flight through the staging ring; all of them
+// dequantize each staged pair into the bf16 ring stage, fence the
+// generic proxy against wgmma's, and arrive on the stage's full barrier.
+template <int D>
+__device__ __forceinline__ void pre_produce_int8(
+    const ChunkArgs& a, uint32_t base, unsigned char* gbase,
+    const CUtensorMap* tk, const CUtensorMap* tv, int b, int g, int c_begin,
+    int n_tiles, int pt) {
+  using L = PreSmem<D, true>;
+  using Bar = PreBars<D, true>;
+  const float* ksb = a.k_rows + (long long)b * a.r_sb + (long long)g * a.r_sh;
+  const float* vsb = a.v_rows + (long long)b * a.r_sb + (long long)g * a.r_sh;
+  auto stage_in = [&](int it) {
+    const int ss = it % kPreStaging;
+    const uint32_t dst = base + L::kStaging + ss * 2 * L::kTile8;
+    const int c0 = c_begin + it * kPreBN;
+    hop::mbar_arrive_expect_tx(Bar::staged(base, ss), 2 * L::kTile8);
+    hop::tma_load_4d(dst, tk, Bar::staged(base, ss), 0, g, c0, b);
+    hop::tma_load_4d(dst + L::kTile8, tv, Bar::staged(base, ss), 0, g, c0, b);
+  };
+  if (pt == 0)
+    for (int it = 0; it < min(kPreStaging, n_tiles); ++it) stage_in(it);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int ss = it % kPreStaging;
+    const int s = it % kPreStages;
+    const int c0 = c_begin + it * kPreBN;
+    // the thread's row scales, loaded while the tile is still in flight
+    float ksc[Deq<D>::kRows], vsc[Deq<D>::kRows];
+#pragma unroll
+    for (int k = 0; k < Deq<D>::kRows; ++k) {
+      const int col = c0 + Deq<D>::row(pt, k);
+      ksc[k] = col < a.W ? ksb[(long long)col * a.r_sw] : 0.f;
+      vsc[k] = col < a.W ? vsb[(long long)col * a.r_sw] : 0.f;
+    }
+    hop::mbar_wait(Bar::staged(base, ss), (it / kPreStaging) & 1);
+    hop::mbar_wait(Bar::empty(base, s), ((it / kPreStages) & 1) ^ 1);
+    const unsigned char* src = gbase + L::kStaging + ss * 2 * L::kTile8;
+    unsigned char* dst = gbase + L::kRing + s * 2 * L::kTile;
+    dequant_tile<D>(dst, src, ksc, pt);
+    dequant_tile<D>(dst + L::kTile, src + L::kTile8, vsc, pt);
+    hop::fence_proxy_async();  // the bf16 tiles are wgmma operands
+    hop::mbar_arrive(Bar::full(base, s));
+    hop::bar_sync(1, 128);     // every producer is done with stage ss
+    if (pt == 0 && it + kPreStaging < n_tiles) {
+      hop::fence_proxy_async();
+      stage_in(it + kPreStaging);
+    }
+  }
+}
+
+template <typename KV, int D, bool TREE>
+__global__ void __launch_bounds__(kPreThreads, 1)
+    flash_chunk_prefill_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const ChunkArgs a) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  using L = PreSmem<D, QUANT>;
+  extern __shared__ __align__(128) unsigned char pre_smem[];
+  const uint32_t raw = hop::smem_u32(pre_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = pre_smem + (base - raw);  // generic view of base
+  const int rep = a.H / a.HK;
+  const int M = a.T * rep;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kPreRows;  // longest first
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int qoff = a.W - a.T;
+  const int kst = max(a.kstart[b], 0);
+  const int t_first = row0 / rep;
+  const int t_last = min(a.T - 1, (row0 + kPreRows - 1) / rep);
+  const int c_begin = (kst / kPreBN) * kPreBN;
+  const int c_end = TREE ? a.W : min(a.W, qoff + t_last + 1);
+  const int n_tiles =
+      c_end > c_begin ? (c_end - c_begin + kPreBN - 1) / kPreBN : 0;
+  using Bar = PreBars<D, QUANT>;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPreStages; ++s) {
+      // full: the TMA bytes (bf16) or every producer thread (int8)
+      hop::mbar_init(Bar::full(base, s), QUANT ? 128 : 1);
+      hop::mbar_init(Bar::empty(base, s), 128);
+    }
+    if (QUANT)
+      for (int s = 0; s < kPreStaging; ++s)
+        hop::mbar_init(Bar::staged(base, s), 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ------------------------------ producer
+    if constexpr (QUANT)
+      pre_produce_int8<D>(a, base, gbase, &tk, &tv, b, g, c_begin, n_tiles,
+                          threadIdx.x - 128);
+    else if (threadIdx.x == 128)
+      pre_produce_bf16<D>(base, &tk, &tv, b, g, c_begin, n_tiles);
+    return;
+  }
+
+  // ------------------------------------------------------------ consumer
+  const int w = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) / 4;
+  const int tq = threadIdx.x % 4;
+  {  // the Q tile: packed rows row0.. of kv head g, swizzled as TMA would
+    const bf16* qb = static_cast<const bf16*>(a.q) +
+                     (long long)b * a.T * a.H * D;
+    for (int i = threadIdx.x; i < kPreRows * (D / 8); i += 128) {
+      const int r = i / (D / 8);
+      const int c = i % (D / 8);
+      const int pr = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (pr < M)
+        v = *reinterpret_cast<const uint4*>(
+            qb + ((long long)(pr / rep) * a.H + g * rep + pr % rep) * D +
+            c * 8);
+      *reinterpret_cast<uint4*>(gbase + (c / 8) * kPreRows * 128 + r * 128 +
+                                (((c % 8) ^ (r % 8)) * 16)) = v;
+    }
+    hop::fence_proxy_async();
+    hop::bar_sync(2, 128);
+  }
+  int row[2], tr[2];
+  unsigned anc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = row0 + 16 * w + gq + 8 * i;
+    tr[i] = row[i] < M ? row[i] / rep : 0;
+    anc[i] = TREE && row[i] < M
+                 ? static_cast<unsigned>(a.tree_bits[b * a.T + tr[i]])
+                 : 0u;
+  }
+  const float c = a.scale * kLog2e;  // exp(x * scale) = 2^(x * c)
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // m: the row's running max of the raw scores q.k; l: this thread's
+  // share of its running sum of p (the quad's four shares add up last)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kPreStages;
+    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    const int c0 = c_begin + it * kPreBN;
+    hop::mbar_wait(Bar::full(base, s), (it / kPreStages) & 1);
+    float sc[kPreBN / 2];
+    hop::wgmma_fence();
+    hop::wgmma_xyt<D, kPreBN, kPreRows, kPreBN>(sc, base, sk);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+
+    // only a tile that crosses kstart, W or the chunk's columns masks
+    const bool edge = c0 < kst || c0 + kPreBN > a.W ||
+                      (TREE ? c0 + kPreBN > qoff
+                            : c0 + kPreBN - 1 > qoff + t_first);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kPreBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int col = c0 + 8 * j + 2 * tq + (e & 1);
+          if (!sees<TREE>(col, tr[i], row[i] < M, anc[i], kst, qoff, a.W))
+            sc[4 * j + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // rows g and g + 8
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kPreBN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[i], mx);
+      const float mc = mn == -INFINITY ? 0.f : mn * c;
+      const float alpha = hop::exp2_approx(m[i] * c - mc);  // 0 from -inf
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPreBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * i + e];
+          x = hop::exp2_approx(fmaf(x, c, -mc));  // masked: 2^-inf = 0
+          rsum += x;
+        }
+      l[i] = l[i] * alpha + rsum;
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+    // p is cast to V's dtype before the product, l sums it unrounded
+    hop::wgmma_pz<D, kPreBN>(o, sc, sk + L::kTile);
+    hop::mbar_arrive(Bar::empty(base, s));
+  }
+
+  bf16* ob = static_cast<bf16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (row[i] >= M) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    bf16* dst = ob + (((long long)b * a.T + tr[i]) * a.H + g * rep +
+                      row[i] % rep) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * tq) =
+          ptt::pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+  }
+}
+
+// ======================================== verify chunk (M < 64): split keys
+constexpr int kVerBN = 64;        // keys of a ring tile
+constexpr int kVerStages = 3;     // cp.async ring depth
+constexpr int kVerThreads = 128;  // four warps
+constexpr int kVerMaxSplits = 8;  // the portable cluster size
+constexpr int kVerMinSplit = 256; // columns a split covers at least
+constexpr int kVerTargetCtas = 160;  // CTAs a verify grid aims at
+
+// Chunk c of row r of a tile with CPR 16-byte chunks a row is stored at
+// chunk c ^ swz(r): conflict-free for the fragment reads of the verify
+// kernel (rows 2i and 2i + 1 reading 4 neighbouring chunks each; rows
+// r, r + 4, r + 8, r + 12 reading the chunks of D / 8 columns).
+template <int CPR>
+__device__ __forceinline__ int swz(int r) {
+  const int b2 = ((r ^ (r >> 2)) & 1) << 2;
+  const int hi = (r >> 3) & 1;
+  if (CPR >= 16) return b2 | hi;
+  if (CPR == 8) return b2 | (hi << 1);
+  return hi << 1;
+}
+
+// Shared memory of a verify CTA, byte offsets: the packed Q rows (MT * 16
+// rows of D bf16, swizzled), the ring (kVerStages x (K, V) tiles, and for
+// int8 their 2 x kVerBN row scales); after the key loop the ring's bytes
+// hold the warps' partials (KS slices x MT * 16 rows: D acc, m, l) and
+// then the CTA's merged partial, which the cluster reads.
+template <typename KV, int D, int MT>
+struct VerSmem {
+  static constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
+  static constexpr int CPR = kRowBytes / 16;
+  static constexpr int kTile = kVerBN * kRowBytes;
+  static constexpr int kStage = 2 * kTile + (QUANT ? 2 * kVerBN * 4 : 0);
+  static constexpr int kQ = MT * 16 * D * 2;
+  static constexpr int kRing = kQ;
+  static constexpr int MTW = MT < 2 ? MT : 2;  // row tiles of a warp
+  static constexpr int KS = 4 / (MT / MTW);    // key slices of a tile
+  static constexpr int kRowsP = MT * 16;
+  static constexpr int kPart = KS * kRowsP * (D + 2) * 4;
+  static constexpr int kMerged = kRing + kPart;  // CTA partial: o, m, l
+  static constexpr int kEnd = kMerged + kRowsP * (D + 2) * 4;
+  static constexpr int kRingEnd = kRing + kVerStages * kStage;
+  static constexpr int kBytes = kEnd > kRingEnd ? kEnd : kRingEnd;
+};
+
+// K/V tile (columns c0 .. c0 + kVerBN of kv head g, row b) and its row
+// scales into ring stage `st`: one 16-byte cp.async a chunk, rows past W
+// zero-filled.
+template <typename KV, int D, int MT>
+__device__ __forceinline__ void ver_load(const ChunkArgs& a, uint32_t st,
+                                         int b, int g, int c0) {
+  using L = VerSmem<KV, D, MT>;
+  constexpr int CPR = L::CPR;
+  constexpr int EPC = 16 / static_cast<int>(sizeof(KV));
+  const KV* kb = static_cast<const KV*>(a.ck) + (long long)b * a.c_sb +
+                 (long long)g * a.c_sh;
+  const KV* vb = static_cast<const KV*>(a.cv) + (long long)b * a.c_sb +
+                 (long long)g * a.c_sh;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 2 * kVerBN * CPR; i += kVerThreads) {
+    const int which = i / (kVerBN * CPR);
+    const int r = (i / CPR) % kVerBN;
+    const int ch = i % CPR;
+    const int col = c0 + r;
+    const KV* src = (which ? vb : kb) +
+                    (long long)min(col, a.W - 1) * a.c_sw + ch * EPC;
+    hop::cp_async16(st + which * L::kTile + r * L::kRowBytes +
+                        ((ch ^ swz<CPR>(r)) * 16),
+                    src, col < a.W ? 16 : 0);
+  }
+  if constexpr (L::QUANT) {
+    const long long off = (long long)b * a.r_sb + (long long)g * a.r_sh;
+    for (int i = threadIdx.x; i < 2 * kVerBN; i += kVerThreads) {
+      const int r = i % kVerBN;
+      const int col = c0 + r;
+      const float* src = (i < kVerBN ? a.k_rows : a.v_rows) + off +
+                         (long long)min(col, a.W - 1) * a.r_sw;
+      hop::cp_async4(st + 2 * L::kTile + i * 4, src, col < a.W ? 4 : 0);
+    }
+  }
+}
+
+template <typename KV, int D, bool TREE, int MT>
+__global__ void __launch_bounds__(kVerThreads)
+    flash_chunk_verify_kernel(const ChunkArgs a, int split) {
+  using L = VerSmem<KV, D, MT>;
+  constexpr bool QUANT = L::QUANT;
+  constexpr int CPR = L::CPR;
+  constexpr int MTW = L::MTW;
+  constexpr int KS = L::KS;
+  constexpr int KPW = kVerBN / KS;  // keys of a tile a warp takes
+  constexpr int NT = D / 8;         // n8 tiles of p.v
+  constexpr int QCPR = D / 8;       // 16-byte chunks of a Q row
+  extern __shared__ __align__(128) unsigned char ver_smem[];
+  const uint32_t base = hop::smem_u32(ver_smem);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = a.H / a.HK;
+  const int M = a.T * rep;
+  const int qoff = a.W - a.T;
+  const int kst = max(a.kstart[b], 0);
+  const int s_begin = blockIdx.x * split;
+  const int s_end = min(a.W, s_begin + split);
+  const int c_begin = max(s_begin, (kst / kVerBN) * kVerBN);
+  const int n_tiles =
+      s_end > c_begin ? (s_end - c_begin + kVerBN - 1) / kVerBN : 0;
+
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const int rg = w / KS;   // row group: row tiles rg * MTW ..
+  const int ks = w % KS;   // key slice: keys ks * KPW .. of each tile
+
+  {  // the packed Q rows (ordinary stores; read after the first barrier)
+    const bf16* qb = static_cast<const bf16*>(a.q) +
+                     (long long)b * a.T * a.H * D;
+    for (int i = threadIdx.x; i < MT * 16 * QCPR; i += kVerThreads) {
+      const int r = i / QCPR;
+      const int ch = i % QCPR;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < M)
+        v = *reinterpret_cast<const uint4*>(
+            qb + ((long long)(r / rep) * a.H + g * rep + r % rep) * D +
+            ch * 8);
+      *reinterpret_cast<uint4*>(ver_smem + r * D * 2 +
+                                ((ch ^ swz<QCPR>(r)) * 16)) = v;
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < kVerStages - 1; ++st) {  // the ring's prologue
+    if (st < n_tiles)
+      ver_load<KV, D, MT>(a, base + L::kRing + st * L::kStage, b, g,
+                          c_begin + st * kVerBN);
+    hop::cp_async_commit();
+  }
+
+  // this thread's rows: row tile rg * MTW + mi, rows gq and gq + 8
+  int prow[MTW][2], trow[MTW][2];
+  unsigned anc[MTW][2];
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (rg * MTW + mi) * 16 + gq + 8 * i;
+      prow[mi][i] = r;
+      trow[mi][i] = r < M ? r / rep : 0;
+      anc[mi][i] = TREE && r < M ? static_cast<unsigned>(
+                                       a.tree_bits[b * a.T + trow[mi][i]])
+                                 : 0u;
+    }
+  const float c = a.scale * kLog2e;
+  float acc[MTW][NT][4];
+  float m[MTW][2], l[MTW][2];
+#pragma unroll
+  for (int mi = 0; mi < MTW; ++mi) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mi][i] = -INFINITY;
+      l[mi][i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    hop::cp_async_wait<kVerStages - 2>();
+    __syncthreads();
+    const int ahead = it + kVerStages - 1;  // the tile to prefetch
+    if (ahead < n_tiles)
+      ver_load<KV, D, MT>(
+          a, base + L::kRing + (ahead % kVerStages) * L::kStage, b, g,
+          c_begin + ahead * kVerBN);
+    hop::cp_async_commit();
+    const unsigned char* stg =
+        ver_smem + L::kRing + (it % kVerStages) * L::kStage;
+    const unsigned char* sK = stg;
+    const unsigned char* sV = stg + L::kTile;
+    const float* kscale = reinterpret_cast<const float*>(stg + 2 * L::kTile);
+    const float* vscale = kscale + kVerBN;
+    const int c0 = c_begin + it * kVerBN;
+
+#pragma unroll
+    for (int kc = 0; kc < KPW / 16; ++kc) {
+      const int kb = ks * KPW + kc * 16;  // the 16 keys' first tile row
+      // ---- s = q . k^T over the warp's row tiles and 16 keys. n8 tile
+      // j, column gq is key kb + 4 (gq / 2) + 2 j + gq % 2; a thread's
+      // d's of a k16 step are 4 consecutive columns of one chunk
+      float s[MTW][2][4];
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+      int krow[2];
+      float ksc[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        krow[j] = kb + 4 * (gq >> 1) + 2 * j + (gq & 1);
+        ksc[j] = QUANT ? kscale[krow[j]] : 0.f;
+      }
+      // a block: 32 columns (bf16: one K chunk, 2 steps) or 64 (int8:
+      // one K chunk, 4 steps); the thread's chunk is t of the block's 4
+      constexpr int BLK = QUANT ? 64 : 32;
+      constexpr int SPB = BLK / 16;
+#pragma unroll
+      for (int blk = 0; blk < D / BLK; ++blk) {
+        uint4 kw[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          kw[j] = *reinterpret_cast<const uint4*>(
+              sK + krow[j] * L::kRowBytes +
+              (((4 * blk + tq) ^ swz<CPR>(krow[j])) * 16));
+        // the Q columns blk * BLK + t * BLK / 4 .. of rows gq, gq + 8
+        uint4 qw[MTW][2][SPB / 2];
+#pragma unroll
+        for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < SPB / 2; ++h) {
+              const int r = prow[mi][i];
+              const int ch = (blk * BLK + tq * (BLK / 4)) / 8 + h;
+              qw[mi][i][h] = *reinterpret_cast<const uint4*>(
+                  ver_smem + r * D * 2 + ((ch ^ swz<QCPR>(r)) * 16));
+            }
+#pragma unroll
+        for (int sp = 0; sp < SPB; ++sp) {
+          uint32_t b0[2], b1[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint32_t* kwj = reinterpret_cast<const uint32_t*>(&kw[j]);
+            if constexpr (QUANT) {
+              const uint32_t x = kwj[sp];
+              b0[j] = deq2(i8f(x, 0), ksc[j], i8f(x, 1), ksc[j]);
+              b1[j] = deq2(i8f(x, 2), ksc[j], i8f(x, 3), ksc[j]);
+            } else {
+              b0[j] = kwj[2 * sp];
+              b1[j] = kwj[2 * sp + 1];
+            }
+          }
+#pragma unroll
+          for (int mi = 0; mi < MTW; ++mi) {
+            const uint32_t* q0w =
+                reinterpret_cast<const uint32_t*>(&qw[mi][0][sp / 2]);
+            const uint32_t* q1w =
+                reinterpret_cast<const uint32_t*>(&qw[mi][1][sp / 2]);
+            const int o = 2 * (sp % 2);
+            const uint32_t af[4] = {q0w[o], q1w[o], q0w[o + 1], q1w[o + 1]};
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              ptt::mma_bf16_16816(s[mi][j], af, b0[j], b1[j]);
+          }
+        }
+      }
+
+      // ---- online softmax: element (j, e) is row gq + 8 (e / 2), key
+      // kb + 4 t + 2 j + e % 2
+      const int cc0 = c0 + kb;
+      const bool edge = cc0 < kst || cc0 + 16 > a.W || cc0 + 16 > qoff;
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) {
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              const int col = cc0 + 4 * tq + 2 * j + (e & 1);
+              if (!sees<TREE>(col, trow[mi][i], prow[mi][i] < M,
+                              anc[mi][i], kst, qoff, a.W))
+                s[mi][j][e] = -INFINITY;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = fmaxf(fmaxf(s[mi][0][2 * i], s[mi][0][2 * i + 1]),
+                           fmaxf(s[mi][1][2 * i], s[mi][1][2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(m[mi][i], mx);
+          const float mc = mn == -INFINITY ? 0.f : mn * c;
+          const float alpha = hop::exp2_approx(m[mi][i] * c - mc);
+          float rsum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = s[mi][j][2 * i + e];
+              x = hop::exp2_approx(fmaf(x, c, -mc));
+              rsum += x;
+            }
+          l[mi][i] = l[mi][i] * alpha + rsum;
+          m[mi][i] = mn;
+#pragma unroll
+          for (int jd = 0; jd < NT; ++jd) {
+            acc[mi][jd][2 * i] *= alpha;
+            acc[mi][jd][2 * i + 1] *= alpha;
+          }
+        }
+      }
+
+      // ---- acc += p v: k slots 2t, 2t + 1, 2t + 8, 2t + 9 are keys
+      // kb + 4t .. + 3 (tile rows vr[0..3]); the n8 tile jd's column gq is
+      // d = gq * NT + jd, so a thread reads NT consecutive d of 4 rows
+      uint32_t pa[MTW][4];
+#pragma unroll
+      for (int mi = 0; mi < MTW; ++mi) {
+        pa[mi][0] = ptt::pack_bf16(s[mi][0][0], s[mi][0][1]);
+        pa[mi][1] = ptt::pack_bf16(s[mi][0][2], s[mi][0][3]);
+        pa[mi][2] = ptt::pack_bf16(s[mi][1][0], s[mi][1][1]);
+        pa[mi][3] = ptt::pack_bf16(s[mi][1][2], s[mi][1][3]);
+      }
+      const int vr0 = kb + 4 * tq;
+      if constexpr (QUANT) {
+        float vsc[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) vsc[r] = vscale[vr0 + r];
+        // NT bytes of each row: one chunk (D = 128) or half of one
+#pragma unroll
+        for (int h = 0; h < NT / 4; ++h) {  // 4 d (one word) at a time
+          uint32_t x[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int vr = vr0 + r;
+            const int byte = gq * NT + 4 * h;
+            x[r] = *reinterpret_cast<const uint32_t*>(
+                sV + vr * L::kRowBytes + (((byte / 16) ^ swz<CPR>(vr)) * 16) +
+                byte % 16);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint32_t v0 =
+                deq2(i8f(x[0], k), vsc[0], i8f(x[1], k), vsc[1]);
+            const uint32_t v1 =
+                deq2(i8f(x[2], k), vsc[2], i8f(x[3], k), vsc[3]);
+#pragma unroll
+            for (int mi = 0; mi < MTW; ++mi)
+              ptt::mma_bf16_16816(acc[mi][4 * h + k], pa[mi], v0, v1);
+          }
+        }
+      } else {
+        // 2 NT bytes of each row: NT / 4 chunks (D = 128: 2, D = 64: 1)
+#pragma unroll
+        for (int h = 0; h < NT / 8; ++h) {
+          uint4 x[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int vr = vr0 + r;
+            x[r] = *reinterpret_cast<const uint4*>(
+                sV + vr * L::kRowBytes +
+                (((gq * (NT / 8) + h) ^ swz<CPR>(vr)) * 16));
+          }
+          const uint32_t* x0 = reinterpret_cast<const uint32_t*>(&x[0]);
+          const uint32_t* x1 = reinterpret_cast<const uint32_t*>(&x[1]);
+          const uint32_t* x2 = reinterpret_cast<const uint32_t*>(&x[2]);
+          const uint32_t* x3 = reinterpret_cast<const uint32_t*>(&x[3]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {  // d pair 2k, 2k + 1 of the chunk
+            const uint32_t lo0 = __byte_perm(x0[k], x1[k], 0x5410);
+            const uint32_t hi0 = __byte_perm(x0[k], x1[k], 0x7632);
+            const uint32_t lo1 = __byte_perm(x2[k], x3[k], 0x5410);
+            const uint32_t hi1 = __byte_perm(x2[k], x3[k], 0x7632);
+            const int jd = 8 * h + 2 * k;
+#pragma unroll
+            for (int mi = 0; mi < MTW; ++mi) {
+              ptt::mma_bf16_16816(acc[mi][jd], pa[mi], lo0, lo1);
+              ptt::mma_bf16_16816(acc[mi][jd + 1], pa[mi], hi0, hi1);
+            }
+          }
+        }
+      }
+    }
+  }
+  hop::cp_async_wait<0>();
+  __syncthreads();  // the ring's bytes now hold the partials
+
+  float* part = reinterpret_cast<float*>(ver_smem + L::kRing);
+  float* mo = reinterpret_cast<float*>(ver_smem + L::kMerged);
+  float* mml = mo + L::kRowsP * D;
+  constexpr int RP = L::kRowsP;
+  if (n_tiles == 0) {  // a split below kstart: an empty partial
+    for (int r = threadIdx.x; r < M; r += kVerThreads) {
+      mml[2 * r] = -INFINITY;
+      mml[2 * r + 1] = 0.f;
+    }
+  } else {
+    // ---- the warp's partial into slice ks: acc element (jd, e) is row
+    // gq + 8 (e / 2), column (2 t + e % 2) * NT + jd, stored at column
+    // pcol(r, d) (a swizzle within 32 columns, so a store instruction's
+    // 32 lanes meet 32 banks)
+    auto pcol = [](int r, int d) {
+      return d ^ (((d >> 5) & 3) | ((r & 7) << 2));
+    };
+#pragma unroll
+    for (int mi = 0; mi < MTW; ++mi)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float li = l[mi][i];
+        li += __shfl_xor_sync(0xffffffffu, li, 1);
+        li += __shfl_xor_sync(0xffffffffu, li, 2);
+        const int r = prow[mi][i];
+        float* po = part + ((long long)ks * RP + r) * D;
+#pragma unroll
+        for (int jd = 0; jd < NT; ++jd) {
+          po[pcol(r, (2 * tq) * NT + jd)] = acc[mi][jd][2 * i];
+          po[pcol(r, (2 * tq + 1) * NT + jd)] = acc[mi][jd][2 * i + 1];
+        }
+        if (tq == 0) {
+          float* pml = part + (long long)KS * RP * D + 2 * (ks * RP + r);
+          pml[0] = m[mi][i];
+          pml[1] = li;
+        }
+      }
+    __syncthreads();
+    // ---- the CTA's partial: the slices merged in order
+    const float* pml = part + (long long)KS * RP * D;
+    for (int i = threadIdx.x; i < M * D; i += kVerThreads) {
+      const int r = i / D;
+      const int d = i % D;
+      float mk = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < KS; ++k) mk = fmaxf(mk, pml[2 * (k * RP + r)]);
+      float o = 0.f, lk = 0.f;
+      if (mk != -INFINITY) {
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const float wk =
+              hop::exp2_approx((pml[2 * (k * RP + r)] - mk) * c);
+          o += wk * part[((long long)k * RP + r) * D + pcol(r, d)];
+          lk += wk * pml[2 * (k * RP + r) + 1];
+        }
+      }
+      mo[r * D + d] = o;
+      if (d == 0) {
+        mml[2 * r] = mk;
+        mml[2 * r + 1] = lk;
+      }
+    }
+  }
+  cluster.sync();  // every split's partial is in place
+  // ---- the splits merged in order; split rank takes every nr-th element
+  const int nr = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  bf16* ob = static_cast<bf16*>(a.out);
+  for (int i = rank * kVerThreads + threadIdx.x; i < M * D;
+       i += nr * kVerThreads) {
+    const int r = i / D;
+    const int d = i % D;
+    // every rank's (m, l, o) first, so the remote loads overlap
+    float mr[kVerMaxSplits], lr[kVerMaxSplits], orr[kVerMaxSplits];
+#pragma unroll
+    for (int k = 0; k < kVerMaxSplits; ++k) {
+      mr[k] = -INFINITY;
+      lr[k] = orr[k] = 0.f;
+      if (k < nr) {
+        const float* rml = cluster.map_shared_rank(mml, k);
+        mr[k] = rml[2 * r];
+        lr[k] = rml[2 * r + 1];
+        orr[k] = cluster.map_shared_rank(mo, k)[r * D + d];
+      }
+    }
+    float mk = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kVerMaxSplits; ++k) mk = fmaxf(mk, mr[k]);
+    float o = 0.f, lk = 0.f;
+    if (mk != -INFINITY) {
+#pragma unroll
+      for (int k = 0; k < kVerMaxSplits; ++k) {
+        if (mr[k] == -INFINITY) continue;  // empty: its o was not written
+        const float wk = hop::exp2_approx((mr[k] - mk) * c);
+        o += wk * orr[k];
+        lk += wk * lr[k];
+      }
+    }
+    ob[(((long long)b * a.T + r / rep) * a.H + g * rep + r % rep) * D + d] =
+        ptt::from_f<bf16>(lk > 0.f ? o / lk : 0.f);
+  }
+  cluster.sync();  // keep this CTA's partial until every rank has read it
+}
+
+// ------------------------------------------------------------ launch
+template <typename KV, int D, bool TREE>
+cudaError_t launch_f32(const ChunkArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((kF32Rows + kF32Keys) * (D + 1) +
+                                       kF32Keys * D +
+                                       kF32Rows * (kF32Keys + 1));
   cudaError_t e = cudaFuncSetAttribute(
-      flash_chunk_kernel<T, KV, D, TREE>,
+      flash_chunk_f32_kernel<KV, D, TREE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.T + kBQ - 1) / kBQ, a.H, B);
-  flash_chunk_kernel<T, KV, D, TREE><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.T + kF32Rows - 1) / kF32Rows, a.H, B);
+  flash_chunk_f32_kernel<KV, D, TREE>
+      <<<grid, kF32Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool TREE>
-cudaError_t launch_kv(const ChunkArgs& a, int B, bool kv_int8,
-                      cudaStream_t stream) {
-  return kv_int8 ? launch_typed<T, int8_t, D, TREE>(a, B, stream)
-                 : launch_typed<T, T, D, TREE>(a, B, stream);
+// The cache (B, W, HK, D) as the TMA tensor (D, HK, W, B): bf16 boxes of
+// 64 columns x kPreBN keys, 128-byte swizzled; int8 boxes of D columns x
+// kPreBN keys, unswizzled (the producers swizzle as they dequantize).
+template <typename KV, int D>
+bool cache_map(CUtensorMap* map, const void* ptr, const ChunkArgs& a, int B) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  const unsigned long long esz = QUANT ? 1 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(a.HK),
+                              static_cast<cuuint64_t>(a.W),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {esz * a.c_sh, esz * a.c_sw, esz * a.c_sb};
+  const cuuint32_t box[4] = {QUANT ? static_cast<cuuint32_t>(D) : 64u, 1,
+                             static_cast<cuuint32_t>(kPreBN), 1};
+  return hop::tma_map_4d(
+      map,
+      QUANT ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      ptr, dims, strides, box,
+      QUANT ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <typename T>
-cudaError_t launch_d(const ChunkArgs& a, int B, int D, bool kv_int8,
+template <typename KV, int D, bool TREE>
+cudaError_t launch_prefill(const ChunkArgs& a, int B, cudaStream_t stream) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  const int M = a.T * (a.H / a.HK);
+  CUtensorMap tk, tv;
+  if (!cache_map<KV, D>(&tk, a.ck, a, B) || !cache_map<KV, D>(&tv, a.cv, a, B))
+    return cudaErrorInvalidValue;
+  const size_t nbytes = PreSmem<D, QUANT>::kBytes + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_chunk_prefill_kernel<KV, D, TREE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(nbytes));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + kPreRows - 1) / kPreRows, a.HK, B);
+  flash_chunk_prefill_kernel<KV, D, TREE>
+      <<<grid, kPreThreads, nbytes, stream>>>(tk, tv, a);
+  return cudaGetLastError();
+}
+
+// The key split of a verify chunk, from its shape alone: the most splits
+// (a power of two, at most kVerMaxSplits) that keep the grid within about
+// one CTA an SM (kVerTargetCtas) and leave each split at least
+// kVerMinSplit columns, each a multiple of kVerBN columns. A CTA's fixed
+// costs (its first tile's latency, the merge) outweigh the parallelism of
+// more, shorter splits.
+void verify_split(int B, int HK, int W, int* nsplit, int* split) {
+  int n = 1;
+  while (n < kVerMaxSplits && 2LL * n * B * HK <= kVerTargetCtas &&
+         W >= 2 * n * kVerMinSplit)
+    n *= 2;
+  const int per = (W + n - 1) / n;
+  *split = (per + kVerBN - 1) / kVerBN * kVerBN;
+  *nsplit = n;
+}
+
+template <typename KV, int D, bool TREE, int MT>
+cudaError_t launch_verify_mt(const ChunkArgs& a, int B, cudaStream_t stream) {
+  int nsplit, split;
+  verify_split(B, a.HK, a.W, &nsplit, &split);
+  const size_t nbytes = VerSmem<KV, D, MT>::kBytes;
+  auto kern = flash_chunk_verify_kernel<KV, D, TREE, MT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(nbytes));
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, a.HK, B);
+  cfg.blockDim = dim3(kVerThreads, 1, 1);
+  cfg.dynamicSmemBytes = nbytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a, split);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename KV, int D, bool TREE>
+cudaError_t launch_verify(const ChunkArgs& a, int B, cudaStream_t stream) {
+  const int M = a.T * (a.H / a.HK);
+  if (M <= 16) return launch_verify_mt<KV, D, TREE, 1>(a, B, stream);
+  if (M <= 32) return launch_verify_mt<KV, D, TREE, 2>(a, B, stream);
+  return launch_verify_mt<KV, D, TREE, 4>(a, B, stream);
+}
+
+// bf16: the regime from the packed row count M = T * rep alone
+template <typename KV, int D, bool TREE>
+cudaError_t launch_bf16(const ChunkArgs& a, int B, cudaStream_t stream) {
+  const int M = a.T * (a.H / a.HK);
+  return M >= kPreRows ? launch_prefill<KV, D, TREE>(a, B, stream)
+                       : launch_verify<KV, D, TREE>(a, B, stream);
+}
+
+template <typename KV, int D, bool TREE>
+cudaError_t launch_typed(const ChunkArgs& a, int B, bool bf,
+                         cudaStream_t stream) {
+  if (bf) {
+    if constexpr (std::is_same<KV, float>::value)
+      return launch_bf16<bf16, D, TREE>(a, B, stream);
+    else
+      return launch_bf16<KV, D, TREE>(a, B, stream);
+  }
+  return launch_f32<KV, D, TREE>(a, B, stream);
+}
+
+template <int D, bool TREE>
+cudaError_t launch_kv(const ChunkArgs& a, int B, bool bf, bool kv_int8,
+                      cudaStream_t stream) {
+  return kv_int8 ? launch_typed<int8_t, D, TREE>(a, B, bf, stream)
+                 : launch_typed<float, D, TREE>(a, B, bf, stream);
+}
+
+cudaError_t launch_d(const ChunkArgs& a, int B, int D, bool bf, bool kv_int8,
                      cudaStream_t stream) {
   const bool tree = a.tree_bits != nullptr;
   if (D == 128)
-    return tree ? launch_kv<T, 128, true>(a, B, kv_int8, stream)
-                : launch_kv<T, 128, false>(a, B, kv_int8, stream);
+    return tree ? launch_kv<128, true>(a, B, bf, kv_int8, stream)
+                : launch_kv<128, false>(a, B, bf, kv_int8, stream);
   if (D == 64)
-    return tree ? launch_kv<T, 64, true>(a, B, kv_int8, stream)
-                : launch_kv<T, 64, false>(a, B, kv_int8, stream);
+    return tree ? launch_kv<64, true>(a, B, bf, kv_int8, stream)
+                : launch_kv<64, false>(a, B, bf, kv_int8, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -307,8 +1300,9 @@ extern "C" int ptt_flash_chunk(
     int HK, int D, int W, long long c_sb, long long c_sw, long long c_sh,
     long long r_sb, long long r_sw, long long r_sh, float scale,
     int q_dtype, int kv_int8, void* stream) {
-  if (B <= 0 || T <= 0 || HK <= 0 || H % HK != 0 || W < T ||
-      (tree_bits != nullptr && T > 32))
+  if (B <= 0 || B > 65535 || T <= 0 || HK <= 0 || HK > 65535 ||
+      H % HK != 0 || W < T || (tree_bits != nullptr && T > 32) ||
+      (q_dtype != 0 && q_dtype != 1))
     return cudaErrorInvalidValue;
   ChunkArgs a;
   a.q = q;
@@ -330,13 +1324,6 @@ extern "C" int ptt_flash_chunk(
   a.r_sw = r_sw;
   a.r_sh = r_sh;
   a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (q_dtype == 1)
-    e = launch_d<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
-  else if (q_dtype == 0)
-    e = launch_d<float>(a, B, D, kv_int8 != 0, s);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
+  return static_cast<int>(launch_d(a, B, D, q_dtype == 1, kv_int8 != 0,
+                                   static_cast<cudaStream_t>(stream)));
 }

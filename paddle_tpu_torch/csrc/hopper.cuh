@@ -1,5 +1,6 @@
-// Hopper (sm_90a) primitives as inline PTX: mbarriers, TMA tensor loads,
-// wgmma shared-memory descriptors and products, and setmaxnreg.
+// Hopper (sm_90a) primitives as inline PTX: mbarriers, TMA tensor loads
+// (and the host's tensor-map encoder), cp.async rings, wgmma shared-memory
+// descriptors and products, and setmaxnreg.
 //
 // Layout law of every operand tile in shared memory here: a TMA box of
 // 64 bf16 columns (128 bytes, the 128-byte swizzle's limit) by R rows,
@@ -37,7 +38,10 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace hop {
 
@@ -107,6 +111,79 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Host: encode the TMA map of a 4-D tensor, dims innermost first with the
+// byte strides of dims 1..3, boxes of `box` elements. cuTensorMapEncodeTiled
+// comes through the runtime's driver entry point, so the library needs no
+// -lcuda. Returns false when the driver refuses the map.
+inline bool tma_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* ptr, const cuuint64_t (&dims)[4],
+                       const cuuint64_t (&strides)[3],
+                       const cuuint32_t (&box)[4],
+                       CUtensorMapSwizzle swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess ||
+        fn == nullptr)
+      return false;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------------ proxies
+// Orders this thread's ordinary shared-memory stores before later reads
+// of the same bytes by the async proxy (a wgmma operand written by
+// threads, not by TMA), and its earlier reads before a TMA write.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+// A ring of stages filled by every thread with cp.async (sm_80 and later):
+// each thread issues its copies of a stage, commits them as one group, and
+// waits until at most N of its groups are in flight; a __syncthreads then
+// makes the stage visible to the whole CTA.
+// 16 bytes from global `src` to shared `dst`: `src_bytes` (16 or 0) read,
+// the rest zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes, likewise (`src_bytes` 4 or 0)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -215,6 +292,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 #undef HOP_F32
 #undef HOP_D32
 #undef HOP_D64
+
+// acc (64 x N) = X Y^T over D, issued but not waited for: X the
+// warpgroup's 64 rows of the K-major tile at `x`, whose 64-column boxes
+// are ROWS_X * 128 bytes apart; Y the N rows of the K-major tile at `y`
+// (boxes ROWS_Y * 128 apart).
+template <int D, int N, int ROWS_X, int ROWS_Y>
+__device__ __forceinline__ void wgmma_xyt(float (&acc)[N / 2], uint32_t x,
+                                          uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<0>(acc,
+                desc_sw128(x + (kk / 4) * ROWS_X * 128 + (kk % 4) * 32, 16,
+                           1024),
+                desc_sw128(y + (kk / 4) * ROWS_Y * 128 + (kk % 4) * 32, 16,
+                           1024),
+                kk > 0);
+}
+
+// acc (64 x D) += P Z: P (64 x BN) from registers, rounded to bf16 from
+// the score accumulator `p`; Z the BN x D tile at `z` as the MN-major B
+// operand (its D / 64 boxes BN * 128 bytes apart). Issues the products
+// and waits for them.
+template <int D, int BN>
+__device__ __forceinline__ void wgmma_pz(float (&acc)[D / 2],
+                                         const float (&p)[BN / 2],
+                                         uint32_t z) {
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = ptt::pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<1>(acc, pa[kk], desc_sw128(z + kk * 16 * 128, BN * 128, 1024),
+                1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(pa);
+}
 
 // ------------------------------------------------------------ setmaxnreg
 // Move registers between the warpgroups of a warp-specialised CTA: the

@@ -14,7 +14,10 @@ at GQA rep 2, Sq = 320 against Sk = 192 (uneven across B1's and B3's
 128-row query tiles) and lengths that are not multiples of 8 (77; 45
 against 83: the TMA zero fill past S); the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
 and two chunks a thread, ragged row counts included; B11-tree at verify
-shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B7
+shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B11
+on both sides of its regime boundary (M = T * rep packed rows 60 to 68),
+at the engine's prefill chunk and at key-split boundaries, a chain tree
+bit-equal to the linear form in both regimes; B7
 (decode attention against a contiguous cache) at GQA rep 1, 2, 4 and 8
 on strided layer views of a padded cache whose tail past each row's
 length is NaN, beside a planted fault (the last live key tile of one
@@ -189,6 +192,55 @@ def test_flash_chunk_tree_kernel_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(tree, linear)
     assert kernels.launch_counts() == {**NONE, "B11": 1, "B11-tree": 2}
+
+
+# (B, T, H, HK, D, W, kstart) in bfloat16: both sides of the boundary
+# between the prefill (wgmma) and verify (key-split) kernels at M = T * rep
+# packed rows 63 / 64 / 65 (rep 1) and 60 / 64 / 68 (rep 4); the engine's
+# prefill chunk (B = 1, T = 256 against 1000 context columns); a verify
+# chunk whose rows start on and beside the key-split boundaries (W = 1029:
+# 4 splits of 320 columns; the last row sees one column). Every row sees
+# at least one column.
+REGIME_CASES = [
+    (2, 63, 2, 2, 128, 200, (0, 100)),
+    (2, 64, 2, 2, 128, 200, (5, 136)),
+    (2, 65, 2, 2, 64, 200, (64, 0)),
+    (2, 15, 8, 2, 64, 150, (3, 90)),
+    (2, 16, 8, 2, 128, 150, (3, 90)),
+    (2, 17, 8, 2, 128, 150, (0, 133)),
+    (1, 256, 32, 32, 128, 1280, (24,)),
+    (4, 5, 4, 2, 128, 1029, (319, 320, 960, 1024)),
+]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", REGIME_CASES, ids=[
+    f"B{c[0]}-T{c[1]}-M{c[1] * c[2] // c[3]}-D{c[4]}-W{c[5]}"
+    for c in REGIME_CASES])
+def test_flash_chunk_regimes_match_plain(cuda, case, q8):
+    """B11 on both sides of its regime boundary, held row by row against
+    the plain version; where T <= 32, a chain tree through B11-tree must
+    give B11-linear's bits in either regime."""
+    B, T, H, HK, D, W, ks = case
+    g = torch.Generator().manual_seed(T * 7 + W)
+    q = torch.randn((B, T, H, D), generator=g).bfloat16().to(cuda)
+    k, v, kr, vr = _pools(g, cuda, B, W, HK, D, torch.bfloat16, q8)
+    kstart = torch.tensor(ks, dtype=torch.int32, device=cuda)
+    kw = dict(k_rows=kr, v_rows=vr)
+    kernels.reset_launch_counts()
+    out = sf.flash_chunk_attention(q, k, v, W, kstart, **kw)
+    _close(out, sf.flash_chunk_attention_plain(q, k, v, W, kstart, **kw),
+           torch.bfloat16)
+    want = {**NONE, "B11": 1}
+    if T <= sf.TREE_MAX_NODES:
+        chain = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                      device=cuda)).expand(B, T, T)
+        tree = sf.flash_chunk_attention(q, k, v, W, kstart, tree_mask=chain,
+                                        **kw)
+        assert torch.equal(tree, out)
+        want["B11-tree"] = 1
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == want
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
