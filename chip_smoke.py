@@ -13,11 +13,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``nvidia-smi``), then builds every CUDA kernel of ``paddle_tpu_torch``
    from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, all started
    together) and prints the build time and ptxas's register report; the
-   warp-specialised Hopper kernels (B1 and B3 in bf16) must enter with
-   the launch bound's 168 registers, or nothing is launched
-   (``hopper_ptxas``), and every bf16 B11 instantiation (the prefill
-   wgmma and the verify key-split kernels) is listed with its registers
-   and spills (``ptxas B11``).
+   warp-specialised Hopper kernels (B1, B2 and B3 in bf16, D = 64 and
+   128: six) must enter with the launch bound's 168 registers, or
+   nothing is launched (``hopper_ptxas``), and every bf16 B11
+   instantiation (the prefill wgmma and the verify key-split kernels)
+   and B8 split-key kernel is listed with its registers and spills
+   (``ptxas B11``, ``ptxas B8``).
 2. Kernel vs plain: B9 (ragged paged decode), B10 (fused RoPE paged
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
    the serving shapes (H = HK = 32, D = 128, page 16, B = 8 rows of
@@ -69,7 +70,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with (B, HK) and (HK,) scales, NaN past every row's length, -1 past
    its pages, row by row against the plain version with a planted fault
    (the longest row's last 64 keys dropped), timed beside the plain
-   version, SDPA and the bound (``check_paged_hm``).
+   version, SDPA and the bound, and the same at the Paddle decoder's
+   shape (8 equal rows of 1,056 tokens in 17 pages; bf16 and (B, HK)
+   int8), and where the key split rule splits: one row of 4,096 tokens
+   (8 splits) and the ragged rows under GQA (HK = 8, 4 splits); every
+   shape but the (HK,) one is also run with 1, 2, 4 and 8 splits forced
+   (each held to the row rule, each timed), and at the two splitting
+   shapes the rule's choice fails unless it is 10% faster than one
+   split (``check_paged_hm``).
 3. The engine at Llama-2-7B width (random weights from a seeded
    generator): ``max_batch=8, page_size=16, max_len=2048,
    prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
@@ -1018,10 +1026,15 @@ def check_rope(torch, tl, fk, B: int, S: int, H: int, HK: int, D: int,
     return rec
 
 
-def check_paged_hm(torch, F, fk, scales: str, seed: int):
+def check_paged_hm(torch, F, fk, scales: str, seed: int,
+                   lens=(1, 2048, 1537, 700, 1024, 333, 2000, 64),
+                   pps: int = 32, H: int = 32, HK: int = 32,
+                   sweep: bool = False):
     """B8 over a head-major (P, HK, page, D) pool at the Llama-2-7B
-    decode shape (B = 8, H = HK = 32, D = 128, page 64, Paddle's
-    ``block_size`` default, lengths 1 ... 2048): pages scattered through
+    decode shape (B = len(lens), H = HK = 32, D = 128, page 64, Paddle's
+    ``block_size`` default; by default ragged lengths 1 ... 2048 in a
+    table of ``pps`` = 32 pages, or the Paddle decoder's 8 equal rows in
+    its 17 pages; HK = 8 for Llama-3-8B's GQA): pages scattered through
     a shuffled block table with -1 past each row's pages; in bf16 every
     slot past a row's length and the whole of page 0 (where -1 entries
     point) NaN. ``scales``: "bf16", or int8 pages with "(HK,)" or
@@ -1030,13 +1043,14 @@ def check_paged_hm(torch, F, fk, scales: str, seed: int):
     not reach the output; the plain version without the longest row's
     last FAULT_TILE keys must fail the check. Timed beside the plain
     version, SDPA under a boolean length mask on the cache gathered and
-    dequantized beforehand (NaN cleared), and the bound (the live K and
-    V rows, their table entries and scales, q and the output)."""
+    dequantized beforehand (NaN cleared; kv heads repeated under GQA),
+    and the bound (the live K and V rows, their table entries and scales,
+    q and the output). ``sweep`` also runs the kernel with each key split
+    count forced (``split_ms``), each held to the same row rule."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, HK, D, page, pps = 8, 32, 32, 128, 64, 32
+    B, D, page = len(lens), 128, 64
     P = 1 + B * pps
-    lens = torch.tensor([1, 2048, 1537, 700, 1024, 333, 2000, 64],
-                        dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1).reshape(
         B, pps).to(torch.int32)
     live_pages = (lens.long() + page - 1) // page
@@ -1097,7 +1111,8 @@ def check_paged_hm(torch, F, fk, scales: str, seed: int):
             c = (c.float() * sc.expand(B, HK)[:, :, None, None]).bfloat16()
         return torch.nan_to_num(c)
 
-    K, V = gathered(kp, ks), gathered(vp, vs)
+    K, V = (gathered(kp, ks).repeat_interleave(H // HK, 1),
+            gathered(vp, vs).repeat_interleave(H // HK, 1))
     mask = (torch.arange(pps * page, device="cuda")[None, :]
             < lens[:, None].long())[:, None, None, :]
     ql = q[:, :, None, :]
@@ -1114,10 +1129,22 @@ def check_paged_hm(torch, F, fk, scales: str, seed: int):
               + (2 * ks.numel() * 4 if quant else 0)
               + int(live_pages.sum().item()) * 4 + B * 4)
     b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
-    return dict(shape=what, lengths=lens.tolist(), max_abs_err=err,
-                row_ratio=ratio, fault_row_ratio=fault, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    rec = dict(shape=what, B=B, H=H, HK=HK, lengths=lens.tolist(),
+               max_abs_err=err, row_ratio=ratio, fault_row_ratio=fault,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    if sweep:
+        rec["split_ms"] = {}
+        for n in fk.DECODE_SPLITS:
+            def forced(n=n):
+                return fk.launch_paged_decode_hm(q, kp, vp, bt, lens,
+                                                 splits=n, **kw)
+            r = row_ratio(torch, forced(), out_p)
+            if not r <= 1.0:
+                fail(f"{what}: {n} forced key splits at {r:.3g} of the "
+                     f"row limit")
+            rec["split_ms"][n] = time_ms(torch, forced)
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2206,10 +2233,19 @@ def main(argv=None) -> int:
         errors="replace"))
     for r in hop:
         print("ptxas hopper " + json.dumps(r))
-    if len(hop) != 4 or any(r.get("registers") != 168 for r in hop):
-        fail(f"the Hopper flash kernels must enter with 168 registers "
-             f"(setmaxnreg moves them between warpgroups): {hop}")
+    if len(hop) != 6 or any(r.get("registers") != 168 for r in hop):
+        fail(f"the six Hopper flash kernels (B1, B2, B3 at D = 64 and 128) "
+             f"must enter with 168 registers (setmaxnreg moves them "
+             f"between warpgroups): {hop}")
     record["hopper_ptxas"] = hop
+    # B8 in bf16: the split-key kernels of csrc/decode_attention.cu
+    b8 = ptxas_report(_build.log_path("decode_attention").read_text(
+        errors="replace"), r"paged_decode_split_kernel")
+    for r in b8:
+        print("ptxas B8 " + json.dumps(r))
+    if len(b8) != 4 or any("registers" not in r for r in b8):
+        fail(f"expected ptxas's report of 4 B8 split kernels, got {b8}")
+    record["b8_ptxas"] = b8
     # every bf16 B11 instantiation: the prefill (wgmma) and verify
     # (mma.sync, key split) kernels of csrc/flash_chunk.cu
     b11 = ptxas_report(_build.log_path("flash_chunk").read_text(
@@ -2349,13 +2385,38 @@ def main(argv=None) -> int:
                          row_ratio=max(r["row_ratio"] for r in rope))
     # B8 at the Llama-2-7B decode shape: bf16, int8 with the (B, HK)
     # scales of the decoder's dynamic quantization (its int8 row) and
-    # with (HK,) scales
+    # with (HK,) scales; then at the Paddle decoder's own shape (8 equal
+    # rows at the middle of its 63 decode steps, 1,056 tokens, in its
+    # 17-page table), bf16 and (B, HK) int8
     paged_hm = []
     for scales in ("bf16", "(B, HK)", "(HK,)"):
-        r = check_paged_hm(torch, F, fk, scales, seed=51)
+        r = check_paged_hm(torch, F, fk, scales, seed=51,
+                           sweep=scales != "(HK,)")
         torch.cuda.synchronize()
         paged_hm.append(r)
         print("kernel B8 " + json.dumps(r))
+    for scales in ("bf16", "(B, HK)"):
+        r = check_paged_hm(torch, F, fk, scales, seed=52, lens=(1056,) * 8,
+                           pps=17, sweep=True)
+        torch.cuda.synchronize()
+        paged_hm.append(r)
+        print("kernel B8 decoder " + json.dumps(r))
+    # B8 where the split rule splits: one Llama-2-7B row of 4,096 tokens
+    # (B x HK = 32: 8 splits), and Llama-3-8B's GQA (HK = 8) over the
+    # ragged rows (64: 4 splits); the rule's choice must beat one split
+    for name, lens, pps, HK in (
+            ("single", (4096,), 64, 32),
+            ("gqa", (1, 2048, 1537, 700, 1024, 333, 2000, 64), 32, 8)):
+        for scales in ("bf16", "(B, HK)"):
+            r = check_paged_hm(torch, F, fk, scales, seed=53, lens=lens,
+                               pps=pps, HK=HK, sweep=True)
+            torch.cuda.synchronize()
+            print(f"kernel B8 {name} " + json.dumps(r))
+            if not r["ms"] < 0.9 * r["split_ms"][1]:
+                fail(f"B8 {name} {scales}: the split rule's choice "
+                     f"({r['ms']:.4g} ms) is not 10% faster than one "
+                     f"split ({r['split_ms'][1]:.4g} ms)")
+            paged_hm.append(r)
     results["B8-bf16"], results["B8-int8"] = paged_hm[0], paged_hm[1]
     gc.collect()
     torch.cuda.empty_cache()

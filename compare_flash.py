@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernels B1, B2 and B3 and the flash chunk
-kernel B11 of the port in a given checkout, on one CUDA card.
+"""Time the flash-attention kernels B1, B2 and B3, the flash chunk kernel
+B11 and the head-major paged decode kernel B8 of the port in a given
+checkout, on one CUDA card.
 
     python3 compare_flash.py PATH [PATH ...]
 
@@ -14,9 +15,13 @@ SDPA's forward; B11 at ``chip_smoke.py`` phase 2's shapes (D = 128,
 H = 32, bf16 and int8 KV): the prefill chunk T = 256 at ctx_cap 0, 256,
 1024 and 2048 (B = 1), the linear verify T = 5 at ctx_cap 1024 and 2048
 and the (2, 4) comb tree T = 9 at 2048 (B = 8 ragged rows), and under
-GQA (HK = 8) T = 256 and T = 5 at 2048. Times are CUDA events over 20
-launches after 3 warm-up launches; one JSON line per checkout,
-``compare {...}``.
+GQA (HK = 8) T = 256 and T = 5 at 2048; B8 at ``chip_smoke.py`` phase
+2's shapes (H = 32, D = 128, pages of 64, bf16 and int8 KV with (B, HK)
+scales): at HK = 32 the ragged rows of lengths 1 ... 2048 in a 32-page
+table, the Paddle decoder's 8 equal rows of 1,056 tokens in 17 pages and
+one row of 4,096 tokens in 64, and the ragged rows under GQA (HK = 8).
+Times are CUDA events over 20 launches after 3 warm-up launches; one
+JSON line per checkout, ``compare {...}``.
 """
 from __future__ import annotations
 
@@ -37,6 +42,10 @@ B11_SHAPES = tuple(
         (8, 5, 32, 1024, 1024, False), (8, 5, 32, 2048, 2048, False),
         (8, 9, 32, 2048, 2048, True), (1, 256, 8, 2048, 1900, False),
         (8, 5, 8, 2048, 2048, False)))
+# B8: (name, row lengths, table pages a row, kv heads)
+RAGGED = (1, 2048, 1537, 700, 1024, 333, 2000, 64)
+B8_SHAPES = (("ragged", RAGGED, 32, 32), ("decoder", (1056,) * 8, 17, 32),
+             ("single", (4096,), 64, 32), ("gqa", RAGGED, 32, 8))
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -96,18 +105,52 @@ def chunk_inputs(torch, B, T, HK, ctx_cap, n0, tree, kv_int8, seed):
     return (q, ck, cv, W, kstart), kw
 
 
+def paged_inputs(torch, lens, pps, HK, kv_int8, seed):
+    """A B8 call's arguments: q (B, 32, 128) bf16, head-major (P, HK, 64,
+    128) pools (int8 with (B, HK) scales), a shuffled block table with -1
+    past each row's pages, the row lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, D, page = len(lens), 32, 128, 64
+    P = 1 + B * pps
+    bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1).reshape(
+        B, pps).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = (ln.long() + page - 1) // page
+    bt[torch.arange(pps, device="cuda")[None, :] >= live[:, None]] = -1
+    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+    kw = {}
+    if kv_int8:
+        kp, vp = (torch.randint(-127, 128, (P, HK, page, D), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        kw["k_dequant_scale"], kw["v_dequant_scale"] = (
+            torch.rand((B, HK), generator=g, device="cuda") * 0.02 + 0.005
+            for _ in range(2))
+    else:
+        kp, vp = (torch.randn((P, HK, page, D), generator=g,
+                              device="cuda").bfloat16() for _ in range(2))
+    return (q, kp, vp, bt, ln), kw
+
+
 def measure(root: str) -> dict:
-    """B1-B3 and SDPA's forward, and B11, of the checkout at ``root``
+    """B1-B3 and SDPA's forward, B11 and B8 of the checkout at ``root``
     (imported from there; call once per process)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused as fk
     from paddle_tpu_torch.ops.kernels import serving_fused as sf
 
-    _build.build(["flash_attention", "flash_chunk"])
-    out = {"root": root, "B11": {}}
+    _build.build(["flash_attention", "flash_chunk", "decode_attention"])
+    out = {"root": root, "B11": {}, "B8": {}}
+    for name, lens, pps, HK in B8_SHAPES:
+        for kv_int8 in (False, True):
+            args, kw = paged_inputs(torch, lens, pps, HK, kv_int8, seed=pps)
+            out["B8"][f"{name}-{'int8' if kv_int8 else 'bf16'}"] = time_ms(
+                torch, lambda: fk.paged_decode_attention(*args, **kw))
+            del args, kw
     for name, B, T, HK, cap, n0, tree in B11_SHAPES:
         for kv_int8 in (False, True):
             args, kw = chunk_inputs(torch, B, T, HK, cap, n0, tree, kv_int8,

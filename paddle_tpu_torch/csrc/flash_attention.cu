@@ -32,33 +32,40 @@
 //   next, becomes a loop inside one CTA, so no sum crosses CTAs and no
 //   atomics are needed: B1 and B3 run one CTA per (128-row query tile,
 //   head, batch row) and loop over key tiles up to the tile's causal
-//   limit; B2 runs one CTA per (64-row key tile, head, batch row) and
-//   loops over the query tiles from the diagonal on. Tiles past the
-//   causal limit cost nothing;
+//   limit; B2 runs one CTA per (64-key tile, head, batch row) and loops
+//   over the query tiles from the first one that sees its keys. Tiles
+//   past the causal limit cost nothing;
 // - the causal grid is uneven (a tile's work grows with its distance
 //   from the first row), so the longest CTAs are launched first: B1 and
 //   B3 put the query tile on the grid's slowest axis and take it from
 //   the last (every head's longest tile before any shorter one), B2's
-//   key tile 0 is its longest;
-// - B1 and B3 in bf16 are Hopper kernels (hopper.cuh): 384 threads, a
+//   key tile 0 is its longest and comes first;
+// - B1, B2 and B3 in bf16 are Hopper kernels (hopper.cuh): 384 threads, a
 //   producer warpgroup whose one thread keeps TMA loads in flight (it
 //   gives its registers up with setmaxnreg, down to 24) and two consumer
-//   warpgroups (240 registers) that each own 64 of the 128 query rows.
-//   The row tiles (B1: Q; B3: Q and dO) are loaded once; K and V tiles
-//   stream through a ring of 2 stages under full / empty mbarriers, 128
-//   keys a tile in B1 and 64 in B3 (three f32 sums, S, dP and dQ, with
-//   ds beside them fit 240 registers at 64 keys; 128 would need 224 for
-//   them alone). Q, K, V and dO are read as 4-D TMA tensors (D, H, S, B),
-//   boxes of 64 columns with the 128-byte swizzle, so D = 128 is two
-//   boxes a tile, and rows past S arrive as zeros (the TPU kernels'
+//   warpgroups. In B1 and B3 each owns 64 of the CTA's 128 query rows.
+//   B2 is key-stationary and its two warpgroups share 64 keys and split
+//   the work: the first computes S^T, p and dV += p^T dO and hands p to
+//   the second through shared memory, which computes dP^T, ds and dK +=
+//   ds^T q (ptxas allocates the consumers within the entry's 168
+//   registers, and a warpgroup holding dK, dV and the scores spilled).
+//   The row tiles (B1: Q; B2: K and V; B3: Q and dO) are loaded once; the
+//   other two tiles stream through a ring of 2 stages under full / empty
+//   mbarriers: K and V, 128 keys a tile in B1 and 64 in B3 (three f32
+//   sums, S, dP and dQ, with ds beside them fit at 64 keys; 128 would
+//   need 224 registers for them alone); Q and dO, 64 queries a tile in
+//   B2. Q, K, V and dO are read as 4-D TMA tensors (D, H, S, B), boxes of
+//   64 columns with the 128-byte swizzle, so D = 128 is two boxes a
+//   tile, and rows past S arrive as zeros (the TPU kernels'
 //   _zero_pad_rows) without reading the next batch row;
 // - every product is a wgmma (m64nNk16, bf16 in, f32 sums): q.k^T and
-//   dO.v^T with K and V as K-major B operands; p.v (B1) and ds.k (B3)
-//   with p or ds taken from the score accumulator's registers as the A
-//   operand, rounded to bf16 (the accumulator layout of m64nN is the A
-//   layout of its k16 slices), and V or K as MN-major B operands of the
-//   same shared tile, in their natural (keys x D) layout: no transposed
-//   copy anywhere;
+//   dO.v^T with K and V as K-major B operands, and B2's transposed k.q^T
+//   and v.dO^T with Q and dO as the K-major B operands; p.v (B1), ds.k
+//   (B3), p^T.dO and ds^T.q (B2) with p or ds taken from the score
+//   accumulator's registers as the A operand, rounded to bf16 (the
+//   accumulator layout of m64nN is the A layout of its k16 slices), and
+//   V, K, dO or Q as MN-major B operands of the same shared tile, in
+//   their natural (rows x D) layout: no transposed copy anywhere;
 // - the online softmax stays in registers: exp2 with scale * log2(e)
 //   folded into one FMA, the row max and sum over the 4 threads of a
 //   row by two quad shuffles (the sum only at the end), the causal mask
@@ -66,18 +73,18 @@
 //   rounded to bf16 for p.v while l sums it unrounded; O = acc / l is
 //   rounded once; the max is kept in raw q.k units so lse = m * scale +
 //   log(l) comes out in natural-log units without the log2 folding's
-//   rounding. B3 reads lse (times log2(e)) and delta into registers;
+//   rounding. B3 reads lse (times log2(e)) and delta into registers; in
+//   B2 they vary along the accumulator's columns, so its warpgroups
+//   stage a tile's lse or delta in shared memory a tile ahead (f32 rows
+//   of odd length cannot be TMA tensors), and queries past Sq,
+//   zero-filled with lse 0 (p = 1), are masked on the last tile;
 // - float32 (the tests' dtype) keeps plain f32 FMA: each of 256 threads
 //   computes a 4 x 4 block of a 64 x 64 score tile and a 4 x (D/16)
-//   block of its output from f32 tiles in shared memory;
-// - B2 in bf16 runs mma.sync.m16n8k16 (mma.cuh): four warps each own 16
-//   of the CTA's 64 keys, tiles in shared memory as bf16 rows padded by
-//   16 bytes, Q and dO also stored transposed; rows past the end are
-//   loaded as zeros and masked.
+//   block of its output from f32 tiles in shared memory.
 // Left for later: overlap of the softmax with the next tile's wgmma
 // inside a warpgroup (two score buffers, or the two warpgroups taking
-// turns), a persistent tile scheduler, GQA through kv_rep without the
-// caller's head repeat (ROADMAP.md), and B2 on the same Hopper design.
+// turns), a persistent tile scheduler, and GQA through kv_rep without
+// the caller's head repeat (ROADMAP.md).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -473,149 +480,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 
-// ------------------------------------------------ bf16: tensor cores
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
-constexpr int kLdT = kB + 8;      // row of a transposed (D x kB) tile
 
-// Rows [row0, row0 + kB) of one head of a (B, S, H, D) bf16 tensor into
-// shared memory: row-major into `rows` (kB x (D + 8)) and/or transposed
-// into `cols` (D x kLdT); either may be null. Rows at or past `limit`
-// are zero.
-template <int D>
-__device__ __forceinline__ void load_bf16(bf16* rows, bf16* cols,
-                                          const bf16* src,
-                                          long long row_stride, int row0,
-                                          int limit) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kB * CPR; idx += kMmaThreads) {
-    const int r = idx % kB;   // neighbouring threads, neighbouring rows
-    const int c = idx / kB;
-    uint4 v = {0u, 0u, 0u, 0u};
-    if (row0 + r < limit)
-      v = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * row_stride + c * 8);
-    if (rows != nullptr)
-      *reinterpret_cast<uint4*>(rows + r * (D + 8) + c * 8) = v;
-    if (cols != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cols[(c * 8 + j) * kLdT + r] = e[j];
-    }
-  }
-}
-
-// s[nt] += X[r0 .. r0+16) . Y[nt*8 .. nt*8+8)^T over the D columns of two
-// row-major bf16 tiles (row stride LD): the warp's 16 x 64 block of
-// X Y^T, 8 n-tiles of 8 columns.
-template <int D>
-__device__ __forceinline__ void warp_dot(float (&s)[8][4], const bf16* X,
-                                         const bf16* Y, int r0, int g,
-                                         int t) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int k = 0; k < D; k += 16) {
-    uint32_t a[4];
-    a[0] = ptt::ld_pair(X + (r0 + g) * LD + k + 2 * t);
-    a[1] = ptt::ld_pair(X + (r0 + g + 8) * LD + k + 2 * t);
-    a[2] = ptt::ld_pair(X + (r0 + g) * LD + k + 8 + 2 * t);
-    a[3] = ptt::ld_pair(X + (r0 + g + 8) * LD + k + 8 + 2 * t);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* y = Y + (nt * 8 + g) * LD + k + 2 * t;
-      ptt::mma_bf16_16816(s[nt], a, ptt::ld_pair(y), ptt::ld_pair(y + 8));
-    }
-  }
-}
-
-// acc[dt] += P Z, P the warp's 16 x 64 block held as score fragments
-// (rounded to bf16 here), Z a 64 x D operand stored transposed in `Zt`
-// (D x kLdT): the A operand comes straight from the C fragments.
-template <int D>
-__device__ __forceinline__ void warp_pv(float (&acc)[D / 8][4],
-                                        const float (&p)[8][4],
-                                        const bf16* Zt, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {  // 16-column slices of P
-    uint32_t a[4];
-    a[0] = ptt::pack_bf16(p[2 * j][0], p[2 * j][1]);
-    a[1] = ptt::pack_bf16(p[2 * j][2], p[2 * j][3]);
-    a[2] = ptt::pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]);
-    a[3] = ptt::pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* z = Zt + (dt * 8 + g) * kLdT + j * 16 + 2 * t;
-      ptt::mma_bf16_16816(acc[dt], a, ptt::ld_pair(z), ptt::ld_pair(z + 8));
-    }
-  }
-}
-
-// The warp's 16 x D block of acc, scaled per row by inv[0] (row g) and
-// inv[1] (row g + 8), into rows row0.. of one head; rows past Sq skip.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
-                                           int row0, int limit,
-                                           const float (&acc)[D / 8][4],
-                                           const float (&inv)[2], int g,
-                                           int t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + g + 8 * i;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + row * row_stride + dt * 8 + 2 * t) =
-          ptt::pack_bf16(acc[dt][2 * i] * inv[i], acc[dt][2 * i + 1] * inv[i]);
-  }
-}
-
-// p = exp(s * scale - lse) where visible, else 0, and ds = p * (dp -
-// delta) * scale, in place of the score fragments: s -> p, dp -> ds.
-// `qrow`/`kcol` give a fragment element's query and key; lse/delta come
-// per query from sL/sD (indexed by query - q_base).
-template <bool KEYS_ARE_ROWS>
-__device__ __forceinline__ void warp_probs(const FlashArgs& a,
-                                           float (&s)[8][4],
-                                           float (&dp)[8][4],
-                                           const float* sL, const float* sD,
-                                           int row0, int col0, int g,
-                                           int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = g + 8 * (e / 2);          // row within the warp
-      const int c = nt * 8 + 2 * t + (e % 2); // column within the tile
-      // scores are (query, key) pairs: rows are queries in B3, keys in B2
-      const int qi = KEYS_ARE_ROWS ? c : row0 % kB + r;
-      const int query = KEYS_ARE_ROWS ? col0 + c : row0 + r;
-      const int key = KEYS_ARE_ROWS ? row0 + r : col0 + c;
-      const float p = visible(a, query, key)
-                          ? expf(s[nt][e] * a.scale - sL[qi]) : 0.f;
-      s[nt][e] = p;
-      dp[nt][e] = p * (dp[nt][e] - sD[qi]) * a.scale;
-    }
-}
-
-// ------------------------------------------- bf16 on Hopper: B1 and B3
-constexpr int kHopRows = 128;       // query rows of a CTA (two warpgroups)
+// -------------------------------------- bf16 on Hopper: B1, B2 and B3
+constexpr int kHopRows = 128;       // row-tile rows of a CTA (two warpgroups)
 constexpr int kHopConsumers = 256;  // threads of the consumer warpgroups
 constexpr int kHopThreads = 384;    // and one producer warpgroup
-constexpr int kHopStages = 2;       // ring depth of the (K, V) tiles
+constexpr int kHopStages = 2;       // ring depth of the streamed tiles
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of a Hopper flash CTA, byte offsets from a 1024-aligned
-// base: NQ row tiles of kHopRows x D loaded once (B1: Q; B3: Q and dO),
-// the ring of kHopStages (K, V) pairs of BN x D, then the barriers
-// full[kHopStages], empty[kHopStages] and the row tiles'. A tile of D
-// columns is D / 64 TMA boxes of 64 (hopper.cuh's layout law).
-template <int D, int BN, int NQ>
+// base: NQ row tiles of kHopRows x D loaded once (B1: Q; B2: K and V; B3:
+// Q and dO), the ring of kHopStages tile pairs of BN x D (B1, B3: K and
+// V; B2: Q and dO), then the barriers full[kHopStages], empty[kHopStages]
+// and the row tiles'. A tile of D columns is D / 64 TMA boxes of 64
+// (hopper.cuh's layout law).
+template <int D, int BN, int NQ, int ROWS = kHopRows>
 struct HopSmem {
-  static constexpr int kRowTile = kHopRows * D * 2;
+  static constexpr int kRowTile = ROWS * D * 2;
   static constexpr int kTile = BN * D * 2;
   static constexpr int kRing = NQ * kRowTile;
   static constexpr int kBars = kRing + kHopStages * 2 * kTile;
@@ -638,32 +520,35 @@ __device__ __forceinline__ void hop_init(uint32_t base) {
   __syncthreads();
 }
 
-// The producer: the NQ row tiles of rows [q0, q0 + kHopRows) once (maps
-// rm[0 .. NQ)), then keys [0, n_tiles * BN) of K and V through the ring:
-// a stage is refilled once all consumer threads released it. Rows past
-// the end of a tensor arrive as zeros (TMA's out-of-bounds fill).
-template <int D, int BN, int NQ>
+// The producer: the NQ row tiles of rows [r0, r0 + ROWS) once (maps
+// rm[0 .. NQ)), then rows [c0, c0 + n_tiles * BN) of the maps ta and tb
+// through the ring: a stage is refilled once all consumer threads
+// released it. Rows past the end of a tensor arrive as zeros (TMA's
+// out-of-bounds fill).
+template <int D, int BN, int NQ, int ROWS = kHopRows>
 __device__ __forceinline__ void hop_produce(uint32_t base,
                                             const CUtensorMap* const* rm,
-                                            const CUtensorMap* tk,
-                                            const CUtensorMap* tv, int h,
-                                            int b, int q0, int n_tiles) {
-  using L = HopSmem<D, BN, NQ>;
+                                            const CUtensorMap* ta,
+                                            const CUtensorMap* tb, int h,
+                                            int b, int r0, int c0,
+                                            int n_tiles) {
+  using L = HopSmem<D, BN, NQ, ROWS>;
   hop::mbar_arrive_expect_tx(base + L::kRowBar, NQ * L::kRowTile);
   for (int n = 0; n < NQ; ++n)
     for (int j = 0; j < D / 64; ++j)
-      hop::tma_load_4d(base + n * L::kRowTile + j * kHopRows * 128, rm[n],
-                       base + L::kRowBar, 64 * j, h, q0, b);
+      hop::tma_load_4d(base + n * L::kRowTile + j * ROWS * 128, rm[n],
+                       base + L::kRowBar, 64 * j, h, r0, b);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kHopStages;
     const uint32_t full = base + L::kBars + 8 * s;
-    const uint32_t sk = base + L::kRing + s * 2 * L::kTile;
+    const uint32_t st = base + L::kRing + s * 2 * L::kTile;
+    const int c = c0 + it * BN;
     hop::mbar_wait(full + 8 * kHopStages, ((it / kHopStages) & 1) ^ 1);
     hop::mbar_arrive_expect_tx(full, 2 * L::kTile);
     for (int j = 0; j < D / 64; ++j) {
-      hop::tma_load_4d(sk + j * BN * 128, tk, full, 64 * j, h, it * BN, b);
-      hop::tma_load_4d(sk + L::kTile + j * BN * 128, tv, full, 64 * j, h,
-                       it * BN, b);
+      hop::tma_load_4d(st + j * BN * 128, ta, full, 64 * j, h, c, b);
+      hop::tma_load_4d(st + L::kTile + j * BN * 128, tb, full, 64 * j, h, c,
+                       b);
     }
   }
 }
@@ -711,7 +596,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     hop::setmaxnreg_dec<24>();
     const CUtensorMap* rm[1] = {&tq};
     if (threadIdx.x == 2 * 128)
-      hop_produce<D, BN, 1>(base, rm, &tk, &tv, h, b, q0, n_tiles);
+      hop_produce<D, BN, 1>(base, rm, &tk, &tv, h, b, q0, 0, n_tiles);
     return;
   }
   hop::setmaxnreg_inc<240>();
@@ -834,7 +719,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
     hop::setmaxnreg_dec<24>();
     const CUtensorMap* rm[2] = {&tq, &tdo};
     if (threadIdx.x == 2 * 128)
-      hop_produce<D, BN, 2>(base, rm, &tk, &tv, h, b, q0, n_tiles);
+      hop_produce<D, BN, 2>(base, rm, &tk, &tv, h, b, q0, 0, n_tiles);
     return;
   }
   hop::setmaxnreg_inc<240>();
@@ -897,106 +782,202 @@ __global__ void __launch_bounds__(kHopThreads, 1)
 }
 
 // --------------------------------------------------------- B2, bf16
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_kernel(const FlashArgs a) {
-  constexpr int LD = D + 8;
-  extern __shared__ float smem[];
-  float* sL = smem;                              // [kB] lse
-  float* sD = sL + kB;                           // [kB] delta
-  bf16* sK = reinterpret_cast<bf16*>(sD + kB);   // [kB][LD]
-  bf16* sV = sK + kB * LD;                       // [kB][LD]
-  bf16* sQ = sV + kB * LD;                       // [kB][LD]
-  bf16* sO = sQ + kB * LD;                       // [kB][LD] dO
-  bf16* sQt = sO + kB * LD;                      // [D][kLdT]
-  bf16* sOt = sQt + D * kLdT;                    // [D][kLdT]
+// Keys of a B2 CTA and queries of its ring tiles. ptxas allocates the
+// consumers within the entry's 168 registers (not setmaxnreg's 240): one
+// warpgroup holding both dK and dV (D registers) beside the transposed S
+// and dP spilled and serialized its wgmma at D = 128, with 64- or
+// 32-query tiles. So the two consumer warpgroups share one
+// 64-key tile and split the work instead: warpgroup 0 computes S^T, p and
+// dV += p^T dO and hands p to warpgroup 1 through shared memory, which
+// computes dP^T, ds and dK += ds^T q. Each holds one D-wide sum and one
+// 64 x 64 score tile: four products a tile, none twice.
+constexpr int kDkvKeys = 64;
+constexpr int kDkvBQ = 64;
 
-  const int k0 = blockIdx.x * kB;  // key tile 0 is the longest
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int wr = (threadIdx.x / 32) * 16;  // the warp's first key
+// B2's shared memory: HopSmem's (K and V row tiles of kDkvKeys rows, the
+// ring of Q and dO tiles, the barriers), then from kP two slots of p as
+// warpgroup 0's threads hold it (32 floats a thread), then from kRows
+// each warpgroup's two slots (the tile in use and the next) of kDkvBQ
+// f32: lse * log2(e) for warpgroup 0, delta for warpgroup 1.
+template <int D>
+struct DkvSmem {
+  using L = HopSmem<D, kDkvBQ, 2, kDkvKeys>;
+  static constexpr int kP = (L::kBytes + 15) & ~15;
+  static constexpr int kPSlot = kDkvKeys * kDkvBQ * 4;
+  static constexpr int kRows = kP + 2 * kPSlot;
+  static constexpr int kBytes = kRows + 2 * 2 * kDkvBQ * 4;
+};
+
+// named barriers (0 is __syncthreads): p of slot s written (kBarPFull + s)
+// and read (kBarPFree + s) across the two warpgroups; warpgroup wg's row
+// values staged (kBarRows + wg)
+constexpr int kBarPFull = 1, kBarPFree = 3, kBarRows = 5;
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const FlashArgs a) {
+  constexpr int BQ = kDkvBQ;
+  constexpr int NP = BQ / 2;  // score registers of a thread
+  using L = HopSmem<D, BQ, 2, kDkvKeys>;
+  using S = DkvSmem<D>;
+  extern __shared__ __align__(128) unsigned char hop_smem[];
+  const uint32_t base = (hop::smem_u32(hop_smem) + 1023u) & ~1023u;
+  unsigned char* gbase = hop_smem + (base - hop::smem_u32(hop_smem));
+  const int k0 = blockIdx.z * kDkvKeys;  // key tile 0 is the longest
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // under the causal mask query rows before k0 see none of these keys; a
+  // key tile that no query sees streams nothing and writes zeros
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = q_begin < a.Sq ? (a.Sq - q_begin + BQ - 1) / BQ : 0;
+  hop_init<L>(base);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hop::setmaxnreg_dec<24>();
+    const CUtensorMap* rm[2] = {&tk, &tv};
+    if (threadIdx.x == 2 * 128 && n_tiles > 0)
+      hop_produce<D, BQ, 2, kDkvKeys>(base, rm, &tq, &tdo, h, b, k0,
+                                      q_begin, n_tiles);
+    return;
+  }
+  hop::setmaxnreg_inc<240>();
+  const int w = (threadIdx.x / 32) % 4;
   const int g = (threadIdx.x % 32) / 4;
   const int t = threadIdx.x % 4;
-  const long long rs = (long long)a.H * D;
-  const long long qoff = ((long long)b * a.Sq * a.H + h) * D;
-  const long long koff = ((long long)b * a.Sk * a.H + h) * D;
+  const int li = threadIdx.x % 128;
+  const int key[2] = {k0 + 16 * w + g, k0 + 16 * w + g + 8};
+  const float c = a.scale * kLog2e;
+  // warpgroup 0: K rows and lse; warpgroup 1: V rows and delta
+  const uint32_t xa = base + wg * L::kRowTile;
+  float4* pbuf = reinterpret_cast<float4*>(gbase + S::kP);
+  float* rows = reinterpret_cast<float*>(gbase + S::kRows) + wg * 2 * BQ;
+  // thread li < BQ stages query li of a tile: lse * log2(e) (p = 2^(s * c
+  // - lse * log2(e)) = exp(s * scale - lse)) or delta; 0 past Sq
   const long long loff = ((long long)b * a.H + h) * a.Sq;
-
-  load_bf16<D>(sK, nullptr, static_cast<const bf16*>(a.k) + koff, rs, k0,
-               a.Sk);
-  load_bf16<D>(sV, nullptr, static_cast<const bf16*>(a.v) + koff, rs, k0,
-               a.Sk);
-  float dk[D / 8][4], dv[D / 8][4];  // the warp's 16 keys x D
+  auto row_val = [&](int it) {
+    const int q = q_begin + it * BQ + li;
+    if (li >= BQ || it >= n_tiles || q >= a.Sq) return 0.f;
+    return wg == 0 ? a.lse[loff + q] * kLog2e : a.delta[loff + q];
+  };
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_tiles > 0) {
+    if (li < BQ) rows[li] = row_val(0);
+    hop::bar_sync(kBarRows + wg, 128);
+    hop::mbar_wait(base + L::kRowBar, 0);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kHopStages;
+    const int slot = it & 1;
+    const uint32_t sq = base + L::kRing + s * 2 * L::kTile;  // Q, then dO
+    const float next = row_val(it + 1);  // loaded a tile ahead
+    const float* rv = rows + slot * BQ;
+    float4* ps = pbuf + slot * (S::kPSlot / 16);
+    const int q0 = q_begin + it * BQ;
+    hop::mbar_wait(base + L::kBars + 8 * s, (it / kHopStages) & 1);
+    // the transposed scores: rows are the tile's keys, columns its
+    // queries (Q and dO as K-major B operands): k . q or v . dO
+    float sc[NP];
+    hop::wgmma_fence();
+    hop::wgmma_xyt<D, BQ, kDkvKeys, BQ>(sc, xa, sq + wg * L::kTile);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    if (wg == 0) {
+      // only a tile that crosses the diagonal or the end of the queries
+      // masks: a query past Sq (zero-filled, lse 0) would give p = 1
+      const bool edge =
+          q0 + BQ > a.Sq || (a.causal && q0 < k0 + kDkvKeys - 1);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
-  // under the causal mask query rows before k0 see none of these keys
-  for (int r0 = a.causal ? k0 : 0; r0 < a.Sq; r0 += kB) {
-    load_bf16<D>(sQ, sQt, static_cast<const bf16*>(a.q) + qoff, rs, r0,
-                 a.Sq);
-    load_bf16<D>(sO, sOt, static_cast<const bf16*>(a.dout) + qoff, rs, r0,
-                 a.Sq);
-    for (int r = threadIdx.x; r < kB; r += kMmaThreads) {
-      sL[r] = r0 + r < a.Sq ? a.lse[loff + r0 + r] : 0.f;
-      sD[r] = r0 + r < a.Sq ? a.delta[loff + r0 + r] : 0.f;
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(rv + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int odd = e & 1;
+          float p = hop::exp2_approx(
+              fmaf(sc[4 * j + e], c, odd ? -l2.y : -l2.x));
+          if (edge) {
+            const int col = q0 + 8 * j + 2 * t + odd;
+            if (col >= a.Sq || (a.causal && col < key[e >> 1])) p = 0.f;
+          }
+          sc[4 * j + e] = p;
+        }
+      }
+      // hand p (unrounded) to warpgroup 1, once it has read this slot's
+      // last p, two tiles back
+      if (it >= 2) hop::bar_sync(kBarPFree + slot, 256);
+#pragma unroll
+      for (int i = 0; i < NP / 4; ++i)
+        ps[i * 128 + li] = make_float4(sc[4 * i], sc[4 * i + 1],
+                                       sc[4 * i + 2], sc[4 * i + 3]);
+      hop::bar_arrive(kBarPFull + slot, 256);
+      // dV += p^T dO, p cast to dO's dtype: the stage's dO tile read as
+      // the MN-major operand
+      hop::wgmma_pz<D, BQ>(acc, sc, sq + L::kTile);
+    } else {
+      hop::bar_sync(kBarPFull + slot, 256);
+#pragma unroll
+      for (int i = 0; i < NP / 4; ++i) {
+        const float4 p = ps[i * 128 + li];
+        // elements 4i .. 4i + 3: rows g, g, g + 8, g + 8 of columns
+        // 8i + 2t and 8i + 2t + 1
+        const float2 d0 = *reinterpret_cast<const float2*>(rv + 8 * i + 2 * t);
+        sc[4 * i] = p.x * (sc[4 * i] - d0.x) * a.scale;  // ds
+        sc[4 * i + 1] = p.y * (sc[4 * i + 1] - d0.y) * a.scale;
+        sc[4 * i + 2] = p.z * (sc[4 * i + 2] - d0.x) * a.scale;
+        sc[4 * i + 3] = p.w * (sc[4 * i + 3] - d0.y) * a.scale;
+      }
+      if (it + 2 < n_tiles) hop::bar_arrive(kBarPFree + slot, 256);
+      // dK += ds^T q, ds cast to q's dtype: the stage's Q tile read as
+      // the MN-major operand
+      hop::wgmma_pz<D, BQ>(acc, sc, sq);
     }
-    __syncthreads();
-    // the transposed products: rows are the warp's keys, columns queries
-    float s[8][4], dp[8][4];
-    warp_dot<D>(s, sK, sQ, wr, g, t);    // (q . k)^T
-    warp_dot<D>(dp, sV, sO, wr, g, t);   // (dO . v)^T
-    warp_probs<true>(a, s, dp, sL, sD, k0 + wr, r0, g, t);
-    // p is cast to dO's dtype, ds to q's, before the products
-    warp_pv<D>(dv, s, sOt, g, t);        // p^T dO
-    warp_pv<D>(dk, dp, sQt, g, t);       // ds^T q
-    __syncthreads();
+    hop::mbar_arrive(base + L::kBars + 8 * (kHopStages + s));
+    // the other slot was last read in tile it - 1, before the barrier
+    // that ended it
+    if (li < BQ) rows[(slot ^ 1) * BQ + li] = next;
+    hop::bar_sync(kBarRows + wg, 128);
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(static_cast<bf16*>(a.out) + koff, rs, k0 + wr, a.Sk, dk, one,
-                g, t);
-  store_rows<D>(static_cast<bf16*>(a.out2) + koff, rs, k0 + wr, a.Sk, dv,
-                one, g, t);
+  const long long koff = ((long long)b * a.Sk * a.H + h) * D;
+  hop_store<D>(static_cast<bf16*>(wg == 0 ? a.out2 : a.out) + koff,
+               (long long)a.H * D, key, a.Sk, acc, one, t);
 }
 
 // ------------------------------------------------------------ launch
-template <int KIND, typename T, int D>
+template <int KIND, int D>
 constexpr size_t smem_bytes() {
-  if constexpr (std::is_same<T, float>::value)
-    // f32 tiles of kB x (D + 1), score tiles of kB x kLDP, row values
-    return sizeof(float) *
-           (KIND == kFwd ? 2 * kB * (D + 1) + kB * D + kB * kLDP
-            : KIND == kDkv ? 4 * kB * (D + 1) + 2 * kB * kLDP + 2 * kB
-                           : 4 * kB * (D + 1) + kB * kLDP + 2 * kB);
-  else
-    // B2: bf16 row-major tiles of kB x (D + 8), transposed of D x kLdT,
-    // and two f32 rows of kB (lse, delta)
-    return sizeof(bf16) * (4 * kB * (D + 8) + 2 * D * kLdT) +
-           2 * kB * sizeof(float);
+  // f32 tiles of kB x (D + 1), score tiles of kB x kLDP, row values
+  return sizeof(float) *
+         (KIND == kFwd ? 2 * kB * (D + 1) + kB * D + kB * kLDP
+          : KIND == kDkv ? 4 * kB * (D + 1) + 2 * kB * kLDP + 2 * kB
+                         : 4 * kB * (D + 1) + kB * kLDP + 2 * kB);
 }
 
-// The plain FMA kernels (f32) and B2's mma.sync body (bf16).
-template <int KIND, typename T, int D>
+// The plain FMA kernels (f32).
+template <int KIND, int D>
 cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, bf16>::value;
-  static_assert(!kMma || KIND == kDkv, "bf16 B1 and B3 run on Hopper");
   void (*kern)(const FlashArgs);
   if constexpr (KIND == kFwd)
     kern = flash_fwd_kernel<D>;
   else if constexpr (KIND == kDkv)
-    kern = kMma ? flash_bwd_dkv_mma_kernel<D>
-                : flash_bwd_dkv_kernel<D>;
+    kern = flash_bwd_dkv_kernel<D>;
   else
     kern = flash_bwd_dq_kernel<D>;
-  const size_t nbytes = smem_bytes<KIND, T, D>();
+  const size_t nbytes = smem_bytes<KIND, D>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(nbytes));
   if (e != cudaSuccess) return e;
   const int rows = KIND == kDkv ? a.Sk : a.Sq;
   const dim3 grid((rows + kB - 1) / kB, a.H, B);
-  kern<<<grid, kMma ? kMmaThreads : kThreads, nbytes, stream>>>(a);
+  kern<<<grid, kThreads, nbytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1051,6 +1032,29 @@ cudaError_t launch_hopper(const FlashArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// bf16 B2 on Hopper: grid (H, B, key tiles of kDkvKeys), K and V the row
+// tiles, Q and dO streamed in tiles of kDkvBQ rows.
+template <int D>
+cudaError_t launch_dkv_hopper(const FlashArgs& a, int B, cudaStream_t stream) {
+  const int tiles = (a.Sk + kDkvKeys - 1) / kDkvKeys;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tk, tv, tq, tdo;
+  if (!tma_map(&tk, a.k, D, a.H, a.Sk, B, kDkvKeys) ||
+      !tma_map(&tv, a.v, D, a.H, a.Sk, B, kDkvKeys) ||
+      !tma_map(&tq, a.q, D, a.H, a.Sq, B, kDkvBQ) ||
+      !tma_map(&tdo, a.dout, D, a.H, a.Sq, B, kDkvBQ))
+    return cudaErrorInvalidValue;
+  const size_t nbytes = DkvSmem<D>::kBytes + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(nbytes));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(a.H, B, tiles);
+  flash_bwd_dkv_wgmma_kernel<D>
+      <<<grid, kHopThreads, nbytes, stream>>>(tk, tv, tq, tdo, a);
+  return cudaGetLastError();
+}
+
 // dtype: 0 = float32, 1 = bfloat16; D: 64 or 128.
 template <int KIND>
 cudaError_t dispatch(const FlashArgs& a, int B, int D, int dtype,
@@ -1060,15 +1064,15 @@ cudaError_t dispatch(const FlashArgs& a, int B, int D, int dtype,
     return cudaErrorInvalidValue;
   if (dtype == 1) {
     if constexpr (KIND == kDkv) {
-      if (D == 128) return launch<KIND, bf16, 128>(a, B, stream);
-      if (D == 64) return launch<KIND, bf16, 64>(a, B, stream);
+      if (D == 128) return launch_dkv_hopper<128>(a, B, stream);
+      if (D == 64) return launch_dkv_hopper<64>(a, B, stream);
     } else {
       if (D == 128) return launch_hopper<KIND, 128>(a, B, stream);
       if (D == 64) return launch_hopper<KIND, 64>(a, B, stream);
     }
   } else if (dtype == 0) {
-    if (D == 128) return launch<KIND, float, 128>(a, B, stream);
-    if (D == 64) return launch<KIND, float, 64>(a, B, stream);
+    if (D == 128) return launch<KIND, 128>(a, B, stream);
+    if (D == 64) return launch<KIND, 64>(a, B, stream);
   }
   return cudaErrorInvalidValue;
 }

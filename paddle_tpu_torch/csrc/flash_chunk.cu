@@ -66,16 +66,18 @@
 //    flight and spreads them over the card:
 //    - the key axis is split across CTAs, flash-decoding style, into 1,
 //      2, 4 or 8 splits of at least 256 columns (rounded to 64), chosen
-//      from the shape alone (B, HK, W) so that the grid holds about one
-//      CTA an SM: a CTA's fixed costs (its first tile's latency, the
+//      from the shape alone (B, HK, W) so that the grid holds about two
+//      CTAs an SM: a CTA's fixed costs (its first tile's latency, the
 //      merge) outweigh the parallelism of more, shorter splits, so 8 rows
-//      x 32 kv heads take 1 split and 8 x 8 take 2. A CTA is one (split,
+//      x 32 kv heads take 1 split and 8 x 8 take 4. A CTA is one (split,
 //      kv head, batch row); a split wholly below kstart_b loads nothing
 //      and leaves an empty partial, so short rows cost next to nothing.
 //      The splits of one (row, kv head) form a thread block cluster and
 //      merge their partial (m, l, acc) through distributed shared memory
 //      in split order, so the merge is deterministic and needs no
-//      workspace in HBM (the C entry has none to offer);
+//      workspace in HBM (the C entry has none to offer). The split rule,
+//      the cluster launch and the merges are keysplit.cuh's, shared with
+//      B8's decode (decode_attention.cu);
 //    - K/V stream through a 3-stage cp.async ring of 64-key tiles (int8
 //      with their row scales), rows past W zero-filled; 16-byte chunks
 //      sit XOR-swizzled in shared memory so that the fragment reads below
@@ -97,16 +99,18 @@
 // The page -> temp-cache gather stays in PyTorch, as it stays in XLA in
 // the JAX package.
 
-#include <cooperative_groups.h>
-
 #include "common.cuh"
 #include "hopper.cuh"
+#include "keysplit.cuh"
 #include "mma.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
+namespace ksp = ptt::keysplit;
 using bf16 = __nv_bfloat16;
+using ptt::deq2;
+using ptt::i8f;
+using ptt::keysplit::swz;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct ChunkArgs {
@@ -343,21 +347,6 @@ struct PreSmem {
       kStaging + (QUANT ? kPreStaging * 2 * kTile8 : 0);
   static constexpr int kBytes = kBars + 8 * (2 * kPreStages + kPreStaging);
 };
-
-// int8 byte k of w as a float, exactly: 2^23 + 128 + x from the byte
-// with its sign bit flipped, less 2^23 + 128 (integer and add pipes, not
-// the quarter-rate int-to-float conversion)
-__device__ __forceinline__ float i8f(uint32_t w, int k) {
-  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
-                                     0x7540 + k)) -
-         8388736.f;
-}
-
-// bf16 pair (lo, hi) of two int8 values times their scales
-__device__ __forceinline__ uint32_t deq2(float x0, float s0, float x1,
-                                         float s1) {
-  return ptt::pack_bf16(x0 * s0, x1 * s1);
-}
 
 // The int8 producers' share of a tile: thread pt takes 16-byte chunk
 // pt % CPR of rows pt / CPR + k * (128 / CPR), k < kDeqRows.
@@ -655,25 +644,9 @@ __global__ void __launch_bounds__(kPreThreads, 1)
 }
 
 // ======================================== verify chunk (M < 64): split keys
-constexpr int kVerBN = 64;        // keys of a ring tile
-constexpr int kVerStages = 3;     // cp.async ring depth
-constexpr int kVerThreads = 128;  // four warps
-constexpr int kVerMaxSplits = 8;  // the portable cluster size
-constexpr int kVerMinSplit = 256; // columns a split covers at least
-constexpr int kVerTargetCtas = 160;  // CTAs a verify grid aims at
-
-// Chunk c of row r of a tile with CPR 16-byte chunks a row is stored at
-// chunk c ^ swz(r): conflict-free for the fragment reads of the verify
-// kernel (rows 2i and 2i + 1 reading 4 neighbouring chunks each; rows
-// r, r + 4, r + 8, r + 12 reading the chunks of D / 8 columns).
-template <int CPR>
-__device__ __forceinline__ int swz(int r) {
-  const int b2 = ((r ^ (r >> 2)) & 1) << 2;
-  const int hi = (r >> 3) & 1;
-  if (CPR >= 16) return b2 | hi;
-  if (CPR == 8) return b2 | (hi << 1);
-  return hi << 1;
-}
+constexpr int kVerBN = ksp::kTile;          // keys of a ring tile
+constexpr int kVerStages = ksp::kStages;    // cp.async ring depth
+constexpr int kVerThreads = ksp::kThreads;  // four warps
 
 // Shared memory of a verify CTA, byte offsets: the packed Q rows (MT * 16
 // rows of D bf16, swizzled), the ring (kVerStages x (K, V) tiles, and for
@@ -749,7 +722,6 @@ __global__ void __launch_bounds__(kVerThreads)
   constexpr int QCPR = D / 8;       // 16-byte chunks of a Q row
   extern __shared__ __align__(128) unsigned char ver_smem[];
   const uint32_t base = hop::smem_u32(ver_smem);
-  cg::cluster_group cluster = cg::this_cluster();
 
   const int g = blockIdx.y;
   const int b = blockIdx.z;
@@ -1041,103 +1013,26 @@ __global__ void __launch_bounds__(kVerThreads)
   float* mml = mo + L::kRowsP * D;
   constexpr int RP = L::kRowsP;
   if (n_tiles == 0) {  // a split below kstart: an empty partial
-    for (int r = threadIdx.x; r < M; r += kVerThreads) {
-      mml[2 * r] = -INFINITY;
-      mml[2 * r + 1] = 0.f;
-    }
+    ksp::empty_partial(mml, M);
   } else {
-    // ---- the warp's partial into slice ks: acc element (jd, e) is row
-    // gq + 8 (e / 2), column (2 t + e % 2) * NT + jd, stored at column
-    // pcol(r, d) (a swizzle within 32 columns, so a store instruction's
-    // 32 lanes meet 32 banks)
-    auto pcol = [](int r, int d) {
-      return d ^ (((d >> 5) & 3) | ((r & 7) << 2));
-    };
+    // ---- the warp's partial into slice ks, then the CTA's: the slices
+    // merged in order
+    float* pml = part + (long long)KS * RP * D;
 #pragma unroll
     for (int mi = 0; mi < MTW; ++mi)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float li = l[mi][i];
-        li += __shfl_xor_sync(0xffffffffu, li, 1);
-        li += __shfl_xor_sync(0xffffffffu, li, 2);
-        const int r = prow[mi][i];
-        float* po = part + ((long long)ks * RP + r) * D;
-#pragma unroll
-        for (int jd = 0; jd < NT; ++jd) {
-          po[pcol(r, (2 * tq) * NT + jd)] = acc[mi][jd][2 * i];
-          po[pcol(r, (2 * tq + 1) * NT + jd)] = acc[mi][jd][2 * i + 1];
-        }
-        if (tq == 0) {
-          float* pml = part + (long long)KS * RP * D + 2 * (ks * RP + r);
-          pml[0] = m[mi][i];
-          pml[1] = li;
-        }
-      }
+      for (int i = 0; i < 2; ++i)
+        ksp::put_partial<D>(part, pml, ks * RP + prow[mi][i], prow[mi][i],
+                            tq, acc[mi], i, m[mi][i], l[mi][i]);
     __syncthreads();
-    // ---- the CTA's partial: the slices merged in order
-    const float* pml = part + (long long)KS * RP * D;
-    for (int i = threadIdx.x; i < M * D; i += kVerThreads) {
-      const int r = i / D;
-      const int d = i % D;
-      float mk = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < KS; ++k) mk = fmaxf(mk, pml[2 * (k * RP + r)]);
-      float o = 0.f, lk = 0.f;
-      if (mk != -INFINITY) {
-#pragma unroll
-        for (int k = 0; k < KS; ++k) {
-          const float wk =
-              hop::exp2_approx((pml[2 * (k * RP + r)] - mk) * c);
-          o += wk * part[((long long)k * RP + r) * D + pcol(r, d)];
-          lk += wk * pml[2 * (k * RP + r) + 1];
-        }
-      }
-      mo[r * D + d] = o;
-      if (d == 0) {
-        mml[2 * r] = mk;
-        mml[2 * r + 1] = lk;
-      }
-    }
+    ksp::merge_slices<D, KS, RP>(part, pml, mo, mml, M, c);
   }
-  cluster.sync();  // every split's partial is in place
-  // ---- the splits merged in order; split rank takes every nr-th element
-  const int nr = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
+  // ---- the splits merged in order, into the (B, T, H, D) output
   bf16* ob = static_cast<bf16*>(a.out);
-  for (int i = rank * kVerThreads + threadIdx.x; i < M * D;
-       i += nr * kVerThreads) {
-    const int r = i / D;
-    const int d = i % D;
-    // every rank's (m, l, o) first, so the remote loads overlap
-    float mr[kVerMaxSplits], lr[kVerMaxSplits], orr[kVerMaxSplits];
-#pragma unroll
-    for (int k = 0; k < kVerMaxSplits; ++k) {
-      mr[k] = -INFINITY;
-      lr[k] = orr[k] = 0.f;
-      if (k < nr) {
-        const float* rml = cluster.map_shared_rank(mml, k);
-        mr[k] = rml[2 * r];
-        lr[k] = rml[2 * r + 1];
-        orr[k] = cluster.map_shared_rank(mo, k)[r * D + d];
-      }
-    }
-    float mk = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kVerMaxSplits; ++k) mk = fmaxf(mk, mr[k]);
-    float o = 0.f, lk = 0.f;
-    if (mk != -INFINITY) {
-#pragma unroll
-      for (int k = 0; k < kVerMaxSplits; ++k) {
-        if (mr[k] == -INFINITY) continue;  // empty: its o was not written
-        const float wk = hop::exp2_approx((mr[k] - mk) * c);
-        o += wk * orr[k];
-        lk += wk * lr[k];
-      }
-    }
+  ksp::merge_cluster<D>(mo, mml, M, c, [&](int r, int d, float v) {
     ob[(((long long)b * a.T + r / rep) * a.H + g * rep + r % rep) * D + d] =
-        ptt::from_f<bf16>(lk > 0.f ? o / lk : 0.f);
-  }
-  cluster.sync();  // keep this CTA's partial until every rank has read it
+        ptt::from_f<bf16>(v);
+  });
 }
 
 // ------------------------------------------------------------ launch
@@ -1195,47 +1090,13 @@ cudaError_t launch_prefill(const ChunkArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The key split of a verify chunk, from its shape alone: the most splits
-// (a power of two, at most kVerMaxSplits) that keep the grid within about
-// one CTA an SM (kVerTargetCtas) and leave each split at least
-// kVerMinSplit columns, each a multiple of kVerBN columns. A CTA's fixed
-// costs (its first tile's latency, the merge) outweigh the parallelism of
-// more, shorter splits.
-void verify_split(int B, int HK, int W, int* nsplit, int* split) {
-  int n = 1;
-  while (n < kVerMaxSplits && 2LL * n * B * HK <= kVerTargetCtas &&
-         W >= 2 * n * kVerMinSplit)
-    n *= 2;
-  const int per = (W + n - 1) / n;
-  *split = (per + kVerBN - 1) / kVerBN * kVerBN;
-  *nsplit = n;
-}
-
+// The verify grid: (splits, HK, B) from the shape alone (keysplit.cuh).
 template <typename KV, int D, bool TREE, int MT>
 cudaError_t launch_verify_mt(const ChunkArgs& a, int B, cudaStream_t stream) {
-  int nsplit, split;
-  verify_split(B, a.HK, a.W, &nsplit, &split);
-  const size_t nbytes = VerSmem<KV, D, MT>::kBytes;
-  auto kern = flash_chunk_verify_kernel<KV, D, TREE, MT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(nbytes));
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, a.HK, B);
-  cfg.blockDim = dim3(kVerThreads, 1, 1);
-  cfg.dynamicSmemBytes = nbytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a, split);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  const int nsplit = ksp::split_count((long long)B * a.HK, a.W);
+  return ksp::launch(flash_chunk_verify_kernel<KV, D, TREE, MT>, nsplit,
+                     a.HK, B, VerSmem<KV, D, MT>::kBytes, stream, a,
+                     ksp::split_length(a.W, nsplit));
 }
 
 template <typename KV, int D, bool TREE>

@@ -157,6 +157,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+// arrive at named barrier `id` without waiting: a producer's half of a
+// bar_sync by the consumers (count the two sides' threads together); its
+// earlier shared-memory writes are visible to them after their bar_sync
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 
 // ------------------------------------------------------------- cp.async
 // A ring of stages filled by every thread with cp.async (sm_80 and later):

@@ -1,6 +1,8 @@
 // Warp-level bf16 tensor-core helpers (mma.sync.m16n8k16, sm_80 and
 // later): the product of a 16 x 16 A tile and a 16 x 8 B tile summed
-// into a 16 x 8 f32 tile, all held in registers spread over the warp.
+// into a 16 x 8 f32 tile, all held in registers spread over the warp;
+// and the int8-to-bf16 pairs the key-split kernels (keysplit.cuh) build
+// their fragments with.
 //
 // Fragments, with g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix
 // fragments for mma.m16n8k16"):
@@ -36,6 +38,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // two consecutive bf16 (4-byte aligned) as one 32-bit word
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// int8 byte k of w as a float, exactly: 2^23 + 128 + x from the byte
+// with its sign bit flipped, less 2^23 + 128 (integer and add pipes, not
+// the quarter-rate int-to-float conversion)
+__device__ __forceinline__ float i8f(uint32_t w, int k) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u,
+                                     0x7540 + k)) -
+         8388736.f;
+}
+
+// bf16 pair (lo, hi) of two int8 values times their scales
+__device__ __forceinline__ uint32_t deq2(float x0, float s0, float x1,
+                                         float s1) {
+  return pack_bf16(x0 * s0, x1 * s1);
 }
 
 }  // namespace ptt

@@ -83,7 +83,14 @@ DECODE_SIGNATURES = {
         _I, _I, _I, _I, _I, _I,         # B, H, HK, D, page, ppseq
         _L, _L, _L, _L, _L,             # pool strides, scale strides
         ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+    "ptt_paged_decode_hm_splits": (
+        _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L,
+        ctypes.c_float, _I, _I, _I, _P),  # ..., kv int8, splits, stream
 }
+#: key splits B8's bf16 kernel can be forced to (a thread block cluster)
+DECODE_SPLITS = (1, 2, 4, 8)
 ROPE_SIGNATURES = {
     "ptt_rope": (_P, _P, _P, _P,              # x, cos, sin, out
                  _I, _I, _I, _I,              # B, S, H, D/2
@@ -608,11 +615,14 @@ def paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
 
 def launch_paged_decode_hm(q, k_pages, v_pages, block_tables, cache_len, *,
                            scale=None, k_dequant_scale=None,
-                           v_dequant_scale=None) -> torch.Tensor:
+                           v_dequant_scale=None,
+                           splits=None) -> torch.Tensor:
     """Launch ``ptt_paged_decode_hm`` (B8) on CUDA tensors. The pools may
     be strided views whose rows are contiguous and 16-byte aligned.
-    Validates every input and raises on what the kernel does not take;
-    never falls back."""
+    ``splits`` (one of :data:`DECODE_SPLITS`, bf16 queries only) forces
+    the key split that the kernel otherwise chooses from the shape, to
+    time the choice against the others. Validates every input and raises
+    on what the kernel does not take; never falls back."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention: the kernel needs CUDA "
@@ -634,6 +644,10 @@ def launch_paged_decode_hm(q, k_pages, v_pages, block_tables, cache_len, *,
         raise ValueError(f"paged_decode_attention: H={H} must be a multiple "
                          f"of HK={HK} with at most {DECODE_MAX_REP} query "
                          f"heads per kv head")
+    if splits is not None and (splits not in DECODE_SPLITS
+                               or q.dtype != torch.bfloat16):
+        raise ValueError(f"paged_decode_attention: splits={splits} needs "
+                         f"bfloat16 queries and one of {DECODE_SPLITS}")
     quant = k_dequant_scale is not None
     kv_dtype = torch.int8 if quant else q.dtype
     for t, nm in ((k_pages, "k_pages"), (v_pages, "v_pages")):
@@ -672,12 +686,15 @@ def launch_paged_decode_hm(q, k_pages, v_pages, block_tables, cache_len, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.ptt_paged_decode_hm(
-        ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks), ptr(vs),
-        ptr(bt.contiguous()),
-        ptr(lens), ptr(out), B, H, HK, D, page, bt.shape[1],
-        *k_pages.stride()[:3], *sc_strides, float(s), _DTYPES[q.dtype],
-        int(quant), _build.stream_handle(dev))
+    args = (ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks), ptr(vs),
+            ptr(bt.contiguous()), ptr(lens), ptr(out), B, H, HK, D, page,
+            bt.shape[1], *k_pages.stride()[:3], *sc_strides, float(s),
+            _DTYPES[q.dtype], int(quant))
+    if splits is None:
+        rc = lib.ptt_paged_decode_hm(*args, _build.stream_handle(dev))
+    else:
+        rc = lib.ptt_paged_decode_hm_splits(*args, splits,
+                                            _build.stream_handle(dev))
     _build.check(lib, rc, "paged_decode_attention")
     return out
 

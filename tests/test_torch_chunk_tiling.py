@@ -10,7 +10,8 @@ and the packed row count M picks the design:
   the tile's causal limit (W for a tree), one online softmax a row;
 - M < 64 (verify): the rows fill 1, 2 or 4 sixteen-row tiles; the key axis
   is cut into ``verify_split`` splits (a power of two that keeps the grid
-  near 160 CTAs and each split at least 256 columns, rounded to 64); in a
+  near 264 CTAs and each split at least 256 columns, rounded to 64; the
+  rule of ``keysplit.cuh``, shared with B8); in a
   split, 4 (or with four row tiles 2) key slices of each 64-key tile each
   keep their own online softmax over their 16-key chunks; the slices merge
   in order, then the splits in order.
@@ -56,7 +57,7 @@ LOG2E = 1.4426950408889634
 F32 = dict(rtol=2e-5, atol=2e-5)
 BN = 64            # keys of a tile (both designs)
 PRE_ROWS = 64      # packed rows of a prefill tile
-MAX_SPLITS, MIN_SPLIT, TARGET_CTAS = 8, 256, 160
+MAX_SPLITS, MIN_SPLIT, TARGET_CTAS = 8, 256, 264
 
 
 def verify_split(B, HK, W):

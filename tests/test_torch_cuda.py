@@ -12,7 +12,10 @@ and int8 KV, GQA rep 1 and 2; the flash kernels B1-B3 also causal and
 full, at ragged lengths (Sq = Sk = 200; Sq = 72 against Sk = 136) and,
 at GQA rep 2, Sq = 320 against Sk = 192 (uneven across B1's and B3's
 128-row query tiles) and lengths that are not multiples of 8 (77; 45
-against 83: the TMA zero fill past S); the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
+against 83: the TMA zero fill past S), and B2's edges (Sq = 45 against
+Sk = 300: 64-key tiles that no query sees; query tails inside its
+64-row tiles), each beside a planted fault (the plain backward without
+the last 16 keys some query sees); the fused RMSNorm and SwiGLU kernels B4a-B5b at widths that give one
 and two chunks a thread, ragged row counts included; B11-tree at verify
 shapes (B = 8, T = 5, 9, 32 nodes of random trees, ragged kstart); B11
 on both sides of its regime boundary (M = T * rep packed rows 60 to 68),
@@ -27,8 +30,10 @@ dense ``generate`` and ``beam_search`` with their B7 launch counts; B6
 shapes, head dims 6, 64 and 128 (every vector width), forward and VJP,
 beside a planted fault (the sign of sin flipped); B8 (decode attention
 over a head-major page pool) at GQA rep 1, 2 and 8 with NaN past each
-row's length and in page 0, beside a planted fault (one row's last 16
-live keys dropped); and ``block_multihead_attention``'s B8 branch
+row's length and in page 0, lengths that end mid-page, and in bf16 at
+table capacities that give its split kernel 1, 2, 4 and 8 splits,
+beside a planted fault (one row's last 16 live keys dropped); and
+``block_multihead_attention``'s B8 branch
 against its per-row branch on the same CUDA inputs.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
@@ -358,20 +363,27 @@ def _on(tree, dev):
 # (D, dtype, causal, GQA group, (Sq, Sk) pairs): lengths that leave
 # ragged 64- and 128-row tiles; then 320 / 192, which crosses the
 # 128-row query tiles unevenly, and lengths that are not multiples of 8
-# (the Hopper kernels' TMA zero fill past S)
+# (the Hopper kernels' TMA zero fill past S); then B2's edges: Sq = 45
+# against Sk = 300 (under the causal mask four of B2's five 64-key tiles
+# see no query and write zeros) and query tails that end inside B2's
+# 64-row query tiles (100, 290)
 FLASH_CASES = [(d, dt, causal, rep, ((200, 200), (72, 136)))
                for d in (64, 128)
                for dt in (torch.float32, torch.bfloat16)
                for causal in (False, True) for rep in (1, 2)] + [
     (d, dt, causal, 2, ((320, 192), (77, 77), (45, 83)))
     for d in (64, 128) for dt in (torch.float32, torch.bfloat16)
+    for causal in (False, True)] + [
+    (d, dt, causal, 1, ((45, 300), (100, 260), (290, 100)))
+    for d in (64, 128) for dt in (torch.float32, torch.bfloat16)
     for causal in (False, True)]
+FLASH_FAULT = 16   # keys dropped from the plain backward: it must fail
 
 
 def _fids(c):
-    odd = "" if c[4][0] == (200, 200) else "-odd"
+    odd = {(200, 200): "", (320, 192): "-odd", (45, 300): "-b2edge"}
     return (f"D{c[0]}-{str(c[1])[6:]}-{'causal' if c[2] else 'full'}-"
-            f"rep{c[3]}{odd}")
+            f"rep{c[3]}{odd[c[4][0]]}")
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
@@ -399,6 +411,20 @@ def test_flash_kernels_match_plain(cuda, case):
         torch.cuda.synchronize()
         assert kernels.launch_counts() == {**NONE, "B1": 2, "B2": 1,
                                            "B3": 1}
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+        f = [t.float() for t in (q, kr, vr, do)]
+
+        def plain_grads(keys):
+            """dQ, dK, dV of the plain backward passes over the first
+            ``keys`` keys (dK, dV zero past them), on B1's lse."""
+            kk, vk = f[1][:, :keys], f[2][:, :keys]
+            args = (f[0], kk, vk, f[3], lse, delta.contiguous(), causal,
+                    D ** -0.5)
+            dk, dv = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, sk - keys))
+                      for t in fa.flash_bwd_dkv_plain(*args))
+            return [fa.flash_bwd_dq_plain(*args)] + [
+                t.reshape(B, sk, HK, rep, D).sum(3) for t in (dk, dv)]
+
         if dtype == torch.float32:
             ref = [t.float().requires_grad_() for t in (q, k, v)]
             o, _ = fa.flash_attention_plain(
@@ -408,15 +434,15 @@ def test_flash_kernels_match_plain(cuda, case):
             for a, b in zip(leaves, ref):
                 torch.testing.assert_close(a.grad, b.grad, rtol=1e-4,
                                            atol=1e-4)
-            continue
-        delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
-        f = [t.float() for t in (q, kr, vr, do)]
-        args = (*f, lse, delta.contiguous(), causal, D ** -0.5)
-        dk, dv = fa.flash_bwd_dkv_plain(*args)
-        want = [fa.flash_bwd_dq_plain(*args)] + [
-            t.reshape(B, sk, HK, rep, D).sum(3) for t in (dk, dv)]
-        for a, b in zip(leaves, want):
-            _close(a.grad, b, dtype)
+        else:
+            for a, b in zip(leaves, plain_grads(sk)):
+                _close(a.grad, b, dtype)
+        # the planted fault: the last FLASH_FAULT keys that a query sees
+        # dropped from the plain version must fail dK and dV (and dQ)
+        seen = min(sq, sk) if causal else sk
+        rtol = 1e-4 if dtype == torch.float32 else 2e-2
+        for a, b in zip(leaves, plain_grads(seen - FLASH_FAULT)):
+            assert _rows_ratio(a.grad, b, rtol).max() > 1.0
 
 
 def test_flash_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
@@ -701,14 +727,16 @@ def test_rope_kernel_matches_plain(cuda, case):
     assert fault.max() > 1.0
 
 
-def _head_major_case(g, cuda, D, dtype, q8, rep):
-    """B = 4 rows of lengths 1, 150, 77 and 0 over pages of 16 in a
-    head-major pool, -1 past each row's pages; float pools NaN past the
-    lengths and in page 0."""
-    B, HK, page, pps = 4, 2, 16, 10
+def _head_major_case(g, cuda, D, dtype, q8, rep, cap=160):
+    """B = 4 rows of lengths 1, cap - 10, 77 and 0 (two of them end
+    mid-page) over pages of 16 in a head-major pool whose block table
+    holds ``cap`` tokens, -1 past each row's pages; float pools NaN past
+    the lengths and in page 0."""
+    B, HK, page = 4, 2, 16
+    pps = cap // page
     P = 1 + B * pps
     H = HK * rep
-    lens = torch.tensor([1, 150, 77, 0], dtype=torch.int32)
+    lens = torch.tensor([1, cap - 10, 77, 0], dtype=torch.int32)
     bt = (torch.randperm(P - 1, generator=g) + 1).reshape(B, pps).int()
     for b in range(B):
         bt[b, -(-int(lens[b]) // page):] = -1
@@ -734,20 +762,27 @@ def _head_major_case(g, cuda, D, dtype, q8, rep):
             {k: v.to(cuda) for k, v in kw.items()})
 
 
-B8_CASES = [(d, dt, q8, rep) for d in (64, 128)
+# (D, dtype, int8 pages, GQA group, table capacity): bf16 queries take
+# the split-key kernel, whose split count follows B, HK and the capacity:
+# at B = 4, HK = 2 capacities 160, 512, 1024 and 2048 give 1, 2, 4 and 8
+# splits; float32 queries take the plain-FMA body
+B8_CASES = [(d, dt, q8, rep, 160) for d in (64, 128)
             for dt in (torch.float32, torch.bfloat16)
-            for q8 in (False, True) for rep in (1, 2, 8)]
+            for q8 in (False, True) for rep in (1, 2, 8)] + [
+    (d, torch.bfloat16, q8, rep, cap) for cap in (512, 1024, 2048)
+    for d in (64, 128) for q8 in (False, True) for rep in (1, 2, 8)]
 
 
-@pytest.mark.parametrize("case", B8_CASES, ids=[_ids(c) for c in B8_CASES])
+@pytest.mark.parametrize("case", B8_CASES,
+                         ids=[f"{_ids(c)}-cap{c[4]}" for c in B8_CASES])
 def test_paged_decode_hm_kernel_matches_plain(cuda, case):
     """B8 against its plain version on the same pool (which masks what
     lies past the lengths), per row; no NaN in the output and zeros for
     the row of length 0; the plain version without row 1's last 16 live
     keys must fail the check."""
-    D, dtype, q8, rep = case
+    D, dtype, q8, rep, cap = case
     (q, kp, vp, bt, lens), kw = _head_major_case(
-        torch.Generator().manual_seed(6), cuda, D, dtype, q8, rep)
+        torch.Generator().manual_seed(6), cuda, D, dtype, q8, rep, cap)
     kernels.reset_launch_counts()
     out = fk.paged_decode_attention(q, kp, vp, bt, lens, **kw)
     want = fk.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
@@ -760,6 +795,30 @@ def test_paged_decode_hm_kernel_matches_plain(cuda, case):
     fault = _rows_ratio(out, fk.paged_decode_attention_plain(
         q, kp, vp, bt, bad, **kw), 1e-5 if dtype == torch.float32 else 2e-2)
     assert fault.max() > 1.0
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("splits", fk.DECODE_SPLITS)
+def test_paged_decode_hm_forced_splits_match_plain(cuda, splits, q8):
+    """B8's bf16 kernel with its key split forced (capacity 2048, where
+    the rule takes 8) against the plain version, per row, with the same
+    planted fault; a split count the kernel does not take raises."""
+    (q, kp, vp, bt, lens), kw = _head_major_case(
+        torch.Generator().manual_seed(6), cuda, 128, torch.bfloat16, q8, 2,
+        2048)
+    out = fk.launch_paged_decode_hm(q, kp, vp, bt, lens, splits=splits,
+                                    **kw)
+    want = fk.paged_decode_attention_plain(q, kp, vp, bt, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not out[3].any()
+    _close(out, want, torch.bfloat16)
+    bad = lens.clone()
+    bad[1] -= 16
+    fault = _rows_ratio(out, fk.paged_decode_attention_plain(
+        q, kp, vp, bt, bad, **kw), 2e-2)
+    assert fault.max() > 1.0
+    with pytest.raises(ValueError, match="splits"):
+        fk.launch_paged_decode_hm(q, kp, vp, bt, lens, splits=3, **kw)
 
 
 @pytest.mark.parametrize("kv", [None, "static", "dynamic"])
