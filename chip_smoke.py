@@ -17,8 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    128: six) must enter with the launch bound's 168 registers, or
    nothing is launched (``hopper_ptxas``), and every bf16 B11
    instantiation (the prefill wgmma and the verify key-split kernels)
-   and B8 split-key kernel is listed with its registers and spills
-   (``ptxas B11``, ``ptxas B8``).
+   and every instantiation of the key-split paged decode kernel
+   (``csrc/paged_split.cuh``: four for B8, eight for B9/B10) is listed
+   with its registers and spills (``ptxas B11``, ``ptxas B8``, ``ptxas
+   B9/B10``).
 2. Kernel vs plain: B9 (ragged paged decode), B10 (fused RoPE paged
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
    the serving shapes (H = HK = 32, D = 128, page 16, B = 8 rows of
@@ -30,7 +32,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    planted fault (one ancestor bit of a depth-2 node cleared) must fail
    the row check and a chain tree must give B11-linear's bits; and B11
    under GQA (H = 32, HK = 8, ctx_cap 2048) at T = 256 and at the linear
-   verify's T = 5, bf16 and int8 rows. Each
+   verify's T = 5, bf16 and int8 rows. B9 and B10 read a token-major
+   pool whose bf16 slots past each row's length and page 0 are NaN,
+   through tables with -1 past each row's pages (the plain versions
+   read a NaN-free copy); NaN must not reach the output, and the plain
+   version without the longest row's last 64 keys must fail the row
+   check. They are also run where the key split rule splits (one row of
+   4,096 tokens: 8 splits; the ragged rows under GQA, HK = 8: 4), and
+   at every shape with 1, 2, 4 and 8 splits forced, each held to the row
+   rule and timed; at the two splitting shapes the rule's choice fails
+   unless it is 10% faster than one split (``check_decode``). Each
    kernel's output is held against its
    plain PyTorch version on the same inputs within the stated bf16
    tolerance, and timed with CUDA events beside its plain version, one
@@ -274,11 +285,23 @@ def ptxas_report(log_text: str, kernels: str) -> list:
             out[cur]["registers"] = int(m.group(1))
     recs = []
     for mangled, r in out.items():
-        m = re.search(r"([a-z][a-z0-9_]*_kernel)I(.*?)EEv", mangled)
-        name = (f"{m.group(1)}<{_template_args(m.group(2))}>" if m
-                else mangled)
-        recs.append(dict(r, kernel=name))
+        recs.append(dict(r, kernel=_kernel_name(mangled)))
     return recs
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled kernel: the identifier
+    ending in ``_kernel`` whose length prefix matches it (an anonymous
+    namespace's hash may run digits into that prefix)."""
+    for m in re.finditer(r"(?=(\d+)[a-z_])", mangled):
+        st = m.start() + len(m.group(1))
+        ident = mangled[st:st + int(m.group(1))]
+        rest = mangled[st + len(ident):]
+        if ident.endswith("_kernel") and rest.startswith("I"):
+            args = re.match(r"I(.*?)EEv", rest)
+            return (f"{ident}<{_template_args(args.group(1))}>" if args
+                    else ident)
+    return mangled
 
 
 def hopper_ptxas(log_text: str) -> list:
@@ -341,96 +364,152 @@ def check_close(torch, got, want, what: str, rtol: float = ROW_RTOL):
 
 
 # ---------------------------------------------------------------- phase 2
-def decode_inputs(torch, kv_int8: bool, seed: int):
-    """B = 8 rows at mixed lengths (one of length 1) over a shuffled pool
-    of 1 + 8 * 128 pages, H = HK = 32, D = 128, page 16."""
+RAGGED_LENS = (1, 2048, 1537, 700, 1024, 333, 2000, 64)
+
+
+def decode_inputs(torch, kv_int8: bool, seed: int, lens=RAGGED_LENS,
+                  pps: int = 128, HK: int = 32):
+    """B9/B10's arguments at the engine's decode shape: B = len(lens)
+    rows (by default mixed lengths 1 ... 2048) in tables of ``pps`` pages
+    of 16 over a shuffled token-major (P, 16, HK, 128) pool, H = 32, -1
+    past each row's pages; int8 pages with per-token scales. bf16 pools
+    hold NaN in every slot past each row's length and in page 0 (where -1
+    entries point); ``clean`` holds the same pools with the NaN cleared,
+    for the plain versions and SDPA (which multiply NaN by zero weights)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B, H, HK, D, page, ppseq = 8, 32, 32, 128, 16, 128
-    P = 1 + B * ppseq
-    lens = torch.tensor([1, 2048, 1537, 700, 1024, 333, 2000, 64],
-                        dtype=torch.int32, device="cuda")
-    perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
-    bt = perm.reshape(B, ppseq).to(torch.int32)
+    B, H, D, page = len(lens), 32, 128, 16
+    P = 1 + B * pps
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1).reshape(
+        B, pps).to(torch.int32)
+    live_pages = (lens.long() + page - 1) // page
+    bt[torch.arange(pps, device="cuda")[None, :] >= live_pages[:, None]] = -1
     q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
     shape = (P, page, HK, D)
     if kv_int8:
-        kp = torch.randint(-127, 128, shape, generator=g, device="cuda",
-                           dtype=torch.int8)
-        vp = torch.randint(-127, 128, shape, generator=g, device="cuda",
-                           dtype=torch.int8)
-        ks = torch.rand(shape[:3], generator=g, device="cuda") * 0.02 + 0.005
-        vs = torch.rand(shape[:3], generator=g, device="cuda") * 0.02 + 0.005
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:3], generator=g, device="cuda") * 0.02
+                  + 0.005 for _ in range(2))
+        clean = (kp, vp)
     else:
-        kp = torch.randn(shape, generator=g, device="cuda").bfloat16()
-        vp = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        kp, vp = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
         ks = vs = None
+        clean = (kp.clone(), vp.clone())
+        pos = torch.arange(pps * page, device="cuda")
+        for b in range(B):
+            pages = bt[b].long().repeat_interleave(page)
+            tail = (pos >= lens[b].long()) & (pages >= 0)
+            for t in (kp, vp):
+                t[pages[tail], pos[tail] % page] = float("nan")
+        kp[0] = vp[0] = float("nan")
     return dict(q=q, k_pages=kp, v_pages=vp, block_tables=bt, lengths=lens,
-                ks_pages=ks, vs_pages=vs)
+                ks_pages=ks, vs_pages=vs, clean=clean, live_pages=live_pages)
 
 
-def check_decode(torch, F, kernels, fused: bool, kv_int8: bool):
+def check_decode(torch, F, kernels, fused: bool, kv_int8: bool, seed: int,
+                 lens=RAGGED_LENS, pps: int = 128, HK: int = 32,
+                 sweep: bool = False):
+    """B9 (B10 with ``fused``: q rotated at each row's position in the
+    kernel) on ``decode_inputs``: row by row against the plain version on
+    the clean pools; NaN must not reach the output; the plain version
+    without the longest row's last FAULT_TILE keys must fail the check.
+    Timed beside the plain version, SDPA under a boolean length mask on
+    the cache gathered and dequantized beforehand (kv heads repeated under
+    GQA; B10's q rotated beforehand) and the bound (the live K and V rows,
+    their scales and table entries, q, the output, the cos/sin rows).
+    ``sweep`` also runs the kernel with each key split count forced
+    (``split_ms``), each held to the same row rule."""
     from paddle_tpu_torch.models.llama import rope_tables
     pa, sf = kernels.paged_attention, kernels.serving_fused
-    x = decode_inputs(torch, kv_int8, seed=11 if fused else 7)
+    x = decode_inputs(torch, kv_int8, seed, lens, pps, HK)
     q, kp, vp, bt, lens = (x["q"], x["k_pages"], x["v_pages"],
                            x["block_tables"], x["lengths"])
-    ks, vs = x["ks_pages"], x["vs_pages"]
+    ck_pool, cv_pool = x["clean"]
     B, H, D = q.shape
-    HK, page = kp.shape[2], kp.shape[1]
-    kw = dict(ks_pages=ks, vs_pages=vs)
+    page = kp.shape[1]
+    kw = dict(ks_pages=x["ks_pages"], vs_pages=x["vs_pages"])
+    what = f"{'B10' if fused else 'B9'} kv_int8={kv_int8} HK={HK}"
+    rope = {}
     if fused:
-        cos, sin = rope_tables(2048, D, 10000.0, device="cuda")
+        cos, sin = rope_tables(pps * page, D, 10000.0, device="cuda")
         pos = (lens - 1).long()
-        cos_row, sin_row = cos[pos], sin[pos]
-        def kern():
+        rope = dict(cos_row=cos[pos], sin_row=sin[pos])
+
+    def kern():
+        if fused:
             return sf.fused_paged_decode_attention(
-                q, cos_row, sin_row, kp, vp, bt, lens, **kw)
-        def plain():
+                q, rope["cos_row"], rope["sin_row"], kp, vp, bt, lens, **kw)
+        return pa.paged_attention(q, kp, vp, bt, lens, **kw)
+
+    def plain(n=lens):
+        if fused:
             return sf.fused_paged_decode_plain(
-                q, cos_row, sin_row, kp, vp, bt, lens, **kw)
-        q_lib = sf.rotate_q_plain(q, cos_row, sin_row)
-    else:
-        def kern():
-            return pa.paged_attention(q, kp, vp, bt, lens, **kw)
-        def plain():
-            return pa.paged_attention_plain(q, kp, vp, bt, lens, **kw)
-        q_lib = q
+                q, rope["cos_row"], rope["sin_row"], ck_pool, cv_pool, bt, n,
+                **kw)
+        return pa.paged_attention_plain(q, ck_pool, cv_pool, bt, n, **kw)
+
     out_k = kern()
     torch.cuda.synchronize()
+    if not bool(torch.isfinite(out_k).all()):
+        fail(f"{what}: NaN past the lengths reached the output")
     out_p = plain()
-    torch.cuda.synchronize()
-    err, ratio = check_close(torch, out_k, out_p,
-                             f"{'B10' if fused else 'B9'} kv_int8={kv_int8}")
-    # library yardstick: SDPA over the cache gathered and dequantized
-    # beforehand (outside the timed call)
-    ck = pa.gather_pages(kp, bt)
-    cv = pa.gather_pages(vp, bt)
+    err, ratio = check_close(torch, out_k, out_p, what)
+    bad = lens.clone()
+    longest = int(torch.argmax(lens))
+    bad[longest] -= FAULT_TILE
+    fault = row_ratio(torch, out_k, plain(bad))
+    if not fault > 1.0:
+        fail(f"{what}: the check passes the plain version without the "
+             f"last {FAULT_TILE} keys of row {longest} (worst row at "
+             f"{fault:.3g})")
+    # library yardstick: SDPA over the clean cache gathered and
+    # dequantized beforehand (outside the timed call)
+    ck = pa.gather_pages(ck_pool, bt)
+    cv = pa.gather_pages(cv_pool, bt)
     if kv_int8:
-        ck = (ck.float() * pa.gather_pages(ks, bt)[..., None]).bfloat16()
-        cv = (cv.float() * pa.gather_pages(vs, bt)[..., None]).bfloat16()
-    K = ck.permute(0, 2, 1, 3).contiguous()
-    V = cv.permute(0, 2, 1, 3).contiguous()
-    S = K.shape[2]
-    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())
-    mask = mask[:, None, None, :]
-    ql = q_lib[:, :, None, :]
+        ck = (ck.float() * pa.gather_pages(kw["ks_pages"], bt)[..., None]
+              ).bfloat16()
+        cv = (cv.float() * pa.gather_pages(kw["vs_pages"], bt)[..., None]
+              ).bfloat16()
+    K = ck.permute(0, 2, 1, 3).repeat_interleave(H // HK, 1).contiguous()
+    V = cv.permute(0, 2, 1, 3).repeat_interleave(H // HK, 1).contiguous()
+    mask = (torch.arange(K.shape[2], device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    ql = (sf.rotate_q_plain(q, rope["cos_row"], rope["sin_row"]) if fused
+          else q)[:, :, None, :]
+
     def lib():
         return F.scaled_dot_product_attention(ql, K, V, attn_mask=mask)
+
     ms = time_ms(torch, kern)
     plain_ms = time_ms(torch, plain, reps=5, warmup=1)
     lib_ms = time_ms(torch, lib)
     n_tok = int(lens.sum().item())
     esz = 1 if kv_int8 else 2
-    n_pages = int(((lens + page - 1) // page).sum().item())
     nbytes = (2 * B * H * D * 2                       # q in, out
               + 2 * n_tok * HK * D * esz              # live K and V rows
-              + (2 * n_tok * HK * 4 if kv_int8 else 0)  # row scales
-              + n_pages * 4 + B * 4                   # live table, lengths
+              + (2 * n_tok * HK * 4 if kv_int8 else 0)  # token scales
+              + int(x["live_pages"].sum().item()) * 4 + B * 4  # table, lens
               + (2 * B * (D // 2) * 4 if fused else 0))  # cos/sin rows
-    flops = 4 * n_tok * H * D
-    b_ms, b_by = bound_ms(nbytes, flops)
-    return dict(max_abs_err=err, row_ratio=ratio, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
+    rec = dict(shape=what, B=B, H=H, HK=HK, lengths=lens.tolist(),
+               max_abs_err=err, row_ratio=ratio, fault_row_ratio=fault,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    if sweep:
+        rec["split_ms"] = {}
+        for n in pa.DECODE_SPLITS:
+            def forced(n=n):
+                return pa.launch_paged_decode(q, kp, vp, bt, lens, splits=n,
+                                              **rope, **kw)
+            r = row_ratio(torch, forced(), out_p)
+            if not r <= 1.0:
+                fail(f"{what}: {n} forced key splits at {r:.3g} of the "
+                     f"row limit")
+            rec["split_ms"][n] = time_ms(torch, forced)
+    return rec
 
 
 def check_chunk(torch, F, kernels, kv_int8: bool, ctx_cap: int,
@@ -2246,6 +2325,16 @@ def main(argv=None) -> int:
     if len(b8) != 4 or any("registers" not in r for r in b8):
         fail(f"expected ptxas's report of 4 B8 split kernels, got {b8}")
     record["b8_ptxas"] = b8
+    # B9/B10 in bf16: the same key-split body over token-major pools with
+    # per-token int8 scales, {bf16, int8} x D {64, 128} x {B9, B10}
+    b910 = ptxas_report(_build.log_path("paged_decode").read_text(
+        errors="replace"), r"paged_decode_split_kernel")
+    for r in b910:
+        print("ptxas B9/B10 " + json.dumps(r))
+    if len(b910) != 8 or any("registers" not in r for r in b910):
+        fail(f"expected ptxas's report of 8 B9/B10 split kernels, got "
+             f"{b910}")
+    record["b9_b10_ptxas"] = b910
     # every bf16 B11 instantiation: the prefill (wgmma) and verify
     # (mma.sync, key split) kernels of csrc/flash_chunk.cu
     b11 = ptxas_report(_build.log_path("flash_chunk").read_text(
@@ -2258,13 +2347,35 @@ def main(argv=None) -> int:
 
     # ---- phase 2: kernels vs plain
     results = {}
+    decode_kernel = []
     for fused, name in ((False, "B9"), (True, "B10")):
         for kv_int8 in (False, True):
-            r = check_decode(torch, F, kernels, fused, kv_int8)
+            r = check_decode(torch, F, kernels, fused, kv_int8,
+                             seed=11 if fused else 7, sweep=True)
             torch.cuda.synchronize()
             key = f"{name}-{'int8' if kv_int8 else 'bf16'}"
             results[key] = r
+            decode_kernel.append(r)
             print(f"kernel {key}: " + json.dumps(r))
+    # B9 and B10 where the key split rule splits: one Llama-2-7B row of
+    # 4,096 tokens (B x HK = 32: 8 splits), and Llama-3-8B's GQA (HK = 8)
+    # over the ragged rows (64: 4 splits); the rule's choice must beat
+    # one split
+    for shape, lens, pps, HK in (("single", (4096,), 256, 32),
+                                 ("gqa", RAGGED_LENS, 128, 8)):
+        for fused, name in ((False, "B9"), (True, "B10")):
+            for kv_int8 in (False, True):
+                r = check_decode(torch, F, kernels, fused, kv_int8, seed=13,
+                                 lens=lens, pps=pps, HK=HK, sweep=True)
+                torch.cuda.synchronize()
+                print(f"kernel {name} {shape}: " + json.dumps(r))
+                if not r["ms"] < 0.9 * r["split_ms"][1]:
+                    fail(f"{r['shape']} {shape}: the split rule's choice "
+                         f"({r['ms']:.4g} ms) is not 10% faster than one "
+                         f"split ({r['split_ms'][1]:.4g} ms)")
+                decode_kernel.append(r)
+    gc.collect()
+    torch.cuda.empty_cache()
     for kv_int8 in (False, True):
         worst, worst_ratio = 0.0, 0.0
         key = f"B11-{'int8' if kv_int8 else 'bf16'}"
@@ -2421,6 +2532,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     record["kernels_phase"] = results
+    record["paged_decode_phase"] = decode_kernel
     record["dense_kernel_phase"] = dense_kernel
     record["verify_phase"] = verify
     record["gqa_phase"] = gqa
@@ -2546,11 +2658,11 @@ def main(argv=None) -> int:
                "paddle_tpu/ops/pallas/fused.py:237"),
         "B7": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
                "paddle_tpu/ops/pallas/fused.py:444"),
-        "B8": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "B8": ("cuda", "paddle_tpu_torch/csrc/paged_split.cuh",
                "paddle_tpu/ops/pallas/fused.py:564"),
-        "B9": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
+        "B9": ("cuda", "paddle_tpu_torch/csrc/paged_split.cuh",
                "paddle_tpu/ops/pallas/paged_attention.py:250"),
-        "B10": ("cuda", "paddle_tpu_torch/csrc/paged_decode.cu",
+        "B10": ("cuda", "paddle_tpu_torch/csrc/paged_split.cuh",
                 "paddle_tpu/ops/pallas/serving_fused.py:257"),
         "B11": ("cuda", "paddle_tpu_torch/csrc/flash_chunk.cu",
                 "paddle_tpu/ops/pallas/serving_fused.py:548"),

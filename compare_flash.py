@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Time the flash-attention kernels B1, B2 and B3, the flash chunk kernel
-B11 and the head-major paged decode kernel B8 of the port in a given
-checkout, on one CUDA card.
+B11 and the paged decode kernels B8 (head-major pool), B9 and B10
+(token-major pool; B10 with q's RoPE) of the port in a given checkout, on
+one CUDA card; or, with ``--engine``, the card time of the paged
+engine's decode step.
 
     python3 compare_flash.py PATH [PATH ...]
+    python3 compare_flash.py --engine PATH [PATH ...]
 
 Each PATH is the root of a checkout of this repository (``.`` for this
 one; an older commit unpacked with ``git archive`` for a comparison).
@@ -19,9 +22,18 @@ GQA (HK = 8) T = 256 and T = 5 at 2048; B8 at ``chip_smoke.py`` phase
 2's shapes (H = 32, D = 128, pages of 64, bf16 and int8 KV with (B, HK)
 scales): at HK = 32 the ragged rows of lengths 1 ... 2048 in a 32-page
 table, the Paddle decoder's 8 equal rows of 1,056 tokens in 17 pages and
-one row of 4,096 tokens in 64, and the ragged rows under GQA (HK = 8).
+one row of 4,096 tokens in 64, and the ragged rows under GQA (HK = 8);
+B9 and B10 at ``chip_smoke.py`` phase 2's (H = 32, D = 128, pages of
+16, bf16 and int8 KV with per-token scales): the ragged rows in 128-page
+tables at HK = 32 and under GQA (HK = 8), and one row of 4,096 tokens.
 Times are CUDA events over 20 launches after 3 warm-up launches; one
 JSON line per checkout, ``compare {...}``.
+
+``--engine`` runs the checkout's own ``chip_smoke.profile_tier`` (the
+bf16 KV, fused tier of the engine at Llama-2-7B width, 32 layers, seeded
+random weights: ``torch.profiler`` over 4 prefill chunks and 8 decode
+steps of 8 rows) and prints its record, ``engine {...}``: card busy and
+host wall ms a step, by kind.
 """
 from __future__ import annotations
 
@@ -46,6 +58,9 @@ B11_SHAPES = tuple(
 RAGGED = (1, 2048, 1537, 700, 1024, 333, 2000, 64)
 B8_SHAPES = (("ragged", RAGGED, 32, 32), ("decoder", (1056,) * 8, 17, 32),
              ("single", (4096,), 64, 32), ("gqa", RAGGED, 32, 8))
+# B9/B10: (name, row lengths, table pages a row, kv heads)
+B9_SHAPES = (("ragged", RAGGED, 128, 32), ("single", (4096,), 256, 32),
+             ("gqa", RAGGED, 128, 8))
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -132,6 +147,57 @@ def paged_inputs(torch, lens, pps, HK, kv_int8, seed):
     return (q, kp, vp, bt, ln), kw
 
 
+def token_major_inputs(torch, lens, pps, HK, kv_int8, seed):
+    """A B9/B10 call's arguments: q (B, 32, 128) bf16, token-major (P,
+    16, HK, 128) pools (int8 with per-token scales), a shuffled block
+    table with -1 past each row's pages, the row lengths, and the cos/sin
+    rows at each row's position."""
+    from paddle_tpu_torch.models.llama import rope_tables
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, D, page = len(lens), 32, 128, 16
+    P = 1 + B * pps
+    bt = (torch.randperm(P - 1, generator=g, device="cuda") + 1).reshape(
+        B, pps).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = (ln.long() + page - 1) // page
+    bt[torch.arange(pps, device="cuda")[None, :] >= live[:, None]] = -1
+    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+    kw = {}
+    if kv_int8:
+        kp, vp = (torch.randint(-127, 128, (P, page, HK, D), generator=g,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        kw["ks_pages"], kw["vs_pages"] = (
+            torch.rand((P, page, HK), generator=g, device="cuda") * 0.02
+            + 0.005 for _ in range(2))
+    else:
+        kp, vp = (torch.randn((P, page, HK, D), generator=g,
+                              device="cuda").bfloat16() for _ in range(2))
+    cos, sin = rope_tables(pps * page, D, 10000.0, device="cuda")
+    pos = (ln - 1).long()
+    return (q, kp, vp, bt, ln), (cos[pos], sin[pos]), kw
+
+
+def measure_engine(root: str) -> dict:
+    """``profile_tier`` of the checkout at ``root`` (imported from there;
+    call once per process)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    import chip_smoke
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.llama2_7b(num_layers=32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    reqs = chip_smoke.make_requests(16, cfg.vocab_size, 0)
+    rec = chip_smoke.profile_tier(torch, ContinuousBatchingEngine, params,
+                                  cfg, reqs)
+    rec["root"] = root
+    return rec
+
+
 def measure(root: str) -> dict:
     """B1-B3 and SDPA's forward, B11 and B8 of the checkout at ``root``
     (imported from there; call once per process)."""
@@ -141,10 +207,24 @@ def measure(root: str) -> dict:
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused as fk
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import serving_fused as sf
 
-    _build.build(["flash_attention", "flash_chunk", "decode_attention"])
-    out = {"root": root, "B11": {}, "B8": {}}
+    _build.build(["flash_attention", "flash_chunk", "decode_attention",
+                  "paged_decode"])
+    out = {"root": root, "B11": {}, "B8": {}, "B9": {}, "B10": {}}
+    for name, lens, pps, HK in B9_SHAPES:
+        for kv_int8 in (False, True):
+            args, rows, kw = token_major_inputs(torch, lens, pps, HK,
+                                                kv_int8, seed=pps + HK)
+            key = f"{name}-{'int8' if kv_int8 else 'bf16'}"
+            out["B9"][key] = time_ms(
+                torch, lambda: pa.paged_attention(*args, **kw))
+            q, *rest = args
+            out["B10"][key] = time_ms(
+                torch, lambda: sf.fused_paged_decode_attention(
+                    q, *rows, *rest, **kw))
+            del args, rows, kw, q, rest
     for name, lens, pps, HK in B8_SHAPES:
         for kv_int8 in (False, True):
             args, kw = paged_inputs(torch, lens, pps, HK, kv_int8, seed=pps)
@@ -181,12 +261,18 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print("compare " + json.dumps(measure(argv[1])), flush=True)
         return 0
+    if len(argv) == 2 and argv[0] == "--one-engine":
+        print("engine " + json.dumps(measure_engine(argv[1])), flush=True)
+        return 0
+    one = "--one"
+    if argv and argv[0] == "--engine":
+        one, argv = "--one-engine", argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", root])
+                            one, root])
         if r.returncode:
             return r.returncode
     return 0

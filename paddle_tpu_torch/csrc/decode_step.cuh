@@ -1,9 +1,11 @@
 // The one-token decode attention core shared by B7 (decode_attention.cu,
-// a contiguous padded cache), B8 (decode_attention.cu, a head-major page
-// pool) and B9/B10 (paged_decode.cu, block-table page pools): the online
-// softmax of one CTA's GQA group of query rows over the live tokens of
-// one batch row, and the merge of its warps' partial states. The kernels differ only in where a token's K/V row
-// and scale live, which they pass in as an address functor.
+// a contiguous padded cache, bf16 and float32 queries) and the float32
+// bodies of B8 (decode_attention.cu, a head-major page pool) and B9/B10
+// (paged_decode.cu, block-table page pools; their bf16 bodies are the key
+// split of paged_split.cuh): the online softmax of one CTA's GQA group of
+// query rows over the live tokens of one batch row, and the merge of its
+// warps' partial states. The kernels differ only in where a token's K/V
+// row and scale live, which they pass in as an address functor.
 //
 // Each of the CTA's kWarps warps takes kUnroll consecutive tokens at a
 // time and issues all of their K and V loads (one vector load per lane

@@ -54,7 +54,7 @@ import math
 import torch
 
 from . import _build
-from .paged_attention import _aligned, _check_pair
+from .paged_attention import DECODE_SPLITS, _aligned, _check_pair
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 8192
@@ -89,8 +89,6 @@ DECODE_SIGNATURES = {
         _L, _L, _L, _L, _L,
         ctypes.c_float, _I, _I, _I, _P),  # ..., kv int8, splits, stream
 }
-#: key splits B8's bf16 kernel can be forced to (a thread block cluster)
-DECODE_SPLITS = (1, 2, 4, 8)
 ROPE_SIGNATURES = {
     "ptt_rope": (_P, _P, _P, _P,              # x, cos, sin, out
                  _I, _I, _I, _I,              # B, S, H, D/2

@@ -10,8 +10,10 @@ each request owns an ordered block table of page ids.
 - :func:`paged_attention` is the wrapper. CPU tensors take the plain
   version. CUDA tensors launch the hand-written kernel of
   ``csrc/paged_decode.cu`` (it replaces the TPU kernels
-  ``_paged_kernel`` / ``_paged_kernel_rowq``) or raise; there is no
-  fallback. ``paged_attention.launches`` counts kernel launches.
+  ``_paged_kernel`` / ``_paged_kernel_rowq``; for bf16 queries the
+  key-split body of ``csrc/paged_split.cuh``, shared with B8 and B10) or
+  raise; there is no fallback. ``paged_attention.launches`` counts
+  kernel launches.
 """
 from __future__ import annotations
 
@@ -34,8 +36,16 @@ PAGED_DECODE_SIGNATURES = {
         _I, _I, _I, _I, _I, _I,         # B, H, HK, D, page, ppseq
         _L, _L, _L, _L, _L, _L,         # pool strides, scale strides
         ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+    "ptt_paged_decode_splits": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L,
+        ctypes.c_float, _I, _I, _I, _P),  # ..., kv int8, splits, stream
 }
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: key splits the bf16 paged decode kernels (B8, B9, B10) can be forced
+#: to (the CTAs of a thread block cluster)
+DECODE_SPLITS = (1, 2, 4, 8)
 
 
 def gather_pages(pages: torch.Tensor,
@@ -103,10 +113,14 @@ def _aligned(t: torch.Tensor, dims=()) -> bool:
 
 def launch_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
                         scale=None, ks_pages=None, vs_pages=None,
-                        cos_row=None, sin_row=None) -> torch.Tensor:
+                        cos_row=None, sin_row=None,
+                        splits=None) -> torch.Tensor:
     """Launch ``ptt_paged_decode`` (B9; B10 when ``cos_row``/``sin_row``
-    are given) on CUDA tensors. Validates every input and raises on what
-    the kernel does not take; never falls back."""
+    are given) on CUDA tensors. ``splits`` (one of :data:`DECODE_SPLITS`,
+    bf16 queries only) forces the key split that the kernel otherwise
+    chooses from the shape, to time the choice against the others.
+    Validates every input and raises on what the kernel does not take;
+    never falls back."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged decode kernel needs CUDA tensors, got {dev}")
@@ -129,6 +143,10 @@ def launch_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
     if H % HK or H // HK > 8:
         raise ValueError(f"paged_decode: H={H} must be a multiple of "
                          f"HK={HK} with at most 8 query heads per kv head")
+    if splits is not None and (splits not in DECODE_SPLITS
+                               or q.dtype != torch.bfloat16):
+        raise ValueError(f"paged_decode: splits={splits} needs bfloat16 "
+                         f"queries and one of {DECODE_SPLITS}")
     for t, nm in ((k_pages, "k_pages"), (v_pages, "v_pages")):
         if t.dtype != kv_dtype or t.device != dev:
             raise ValueError(f"paged_decode: {nm} must be {kv_dtype} on "
@@ -158,7 +176,7 @@ def launch_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
     if not _aligned(q):
         raise ValueError("paged_decode: q must be 16-byte aligned")
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    if bt.dim() != 2 or bt.shape[0] != B:
+    if bt.dim() != 2 or bt.shape[0] != B or bt.shape[1] == 0:
         raise ValueError("paged_decode: block_tables must be (B, ppseq)")
     lens = torch.as_tensor(lengths, device=dev).to(
         torch.int32).broadcast_to((B,)).contiguous()
@@ -169,12 +187,16 @@ def launch_paged_decode(q, k_pages, v_pages, block_tables, lengths, *,
     def ptr(t: Optional[torch.Tensor]):
         return None if t is None else t.data_ptr()
 
-    rc = lib.ptt_paged_decode(
-        ptr(q), ptr(cos_row), ptr(sin_row), ptr(k_pages), ptr(v_pages),
-        ptr(ks_pages), ptr(vs_pages), ptr(bt), ptr(lens), ptr(out),
-        B, H, HK, D, page, bt.shape[1], *k_pages.stride()[:3],
-        *sc_strides, float(s), _Q_DTYPES[q.dtype], int(quant),
-        _build.stream_handle(dev))
+    args = (ptr(q), ptr(cos_row), ptr(sin_row), ptr(k_pages),
+            ptr(v_pages), ptr(ks_pages), ptr(vs_pages), ptr(bt), ptr(lens),
+            ptr(out), B, H, HK, D, page, bt.shape[1],
+            *k_pages.stride()[:3], *sc_strides, float(s),
+            _Q_DTYPES[q.dtype], int(quant))
+    if splits is None:
+        rc = lib.ptt_paged_decode(*args, _build.stream_handle(dev))
+    else:
+        rc = lib.ptt_paged_decode_splits(*args, splits,
+                                         _build.stream_handle(dev))
     _build.check(lib, rc, "paged_decode")
     return out
 

@@ -6,8 +6,10 @@ Counterpart of ``paddle_tpu/ops/pallas/serving_fused.py``:
   q's RoPE rotation done in the kernel, so the rotated q never makes a
   round trip through device memory. CUDA tensors launch
   ``csrc/paged_decode.cu`` in its RoPE variant (it replaces the TPU
-  kernels ``_fused_paged_kernel`` / ``_fused_paged_kernel_rowq``); the
-  contract with the unfused path is token identity per KV tier.
+  kernels ``_fused_paged_kernel`` / ``_fused_paged_kernel_rowq``; for
+  bf16 queries the key-split body of ``csrc/paged_split.cuh``, which
+  rotates q as it stages it); the contract with the unfused path is
+  token identity per KV tier.
 - :func:`flash_chunk_attention`: multi-token ragged flash attention of
   a prefill or verify chunk against its dense temp cache. CUDA tensors
   launch ``csrc/flash_chunk.cu`` (it replaces ``_chunk_kernel`` /

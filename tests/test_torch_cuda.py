@@ -821,6 +821,133 @@ def test_paged_decode_hm_forced_splits_match_plain(cuda, splits, q8):
         fk.launch_paged_decode_hm(q, kp, vp, bt, lens, splits=3, **kw)
 
 
+def _token_major_case(g, cuda, D, q8, rep, cap):
+    """B = 4 rows of lengths 1, cap - 10, 77 and 0 (two of them end
+    mid-page) over pages of 16 in a token-major (P, page, HK, D) pool
+    whose block table holds ``cap`` tokens, -1 past each row's pages;
+    int8 pages with per-token scales of 0.005-0.025 (``chip_smoke.py``'s,
+    scores of order one as in bf16, so that a dropped key tile moves the
+    output); bf16 pools NaN past the lengths and in page 0. Returns the kernel's inputs, the same pools with the NaN
+    cleared (the plain versions multiply NaN by their zero weights) and
+    RoPE rows at each row's position."""
+    B, HK, page = 4, 2, 16
+    pps = cap // page
+    P = 1 + B * pps
+    H = HK * rep
+    lens = torch.tensor([1, cap - 10, 77, 0], dtype=torch.int32)
+    bt = (torch.randperm(P - 1, generator=g) + 1).reshape(B, pps).int()
+    for b in range(B):
+        bt[b, -(-int(lens[b]) // page):] = -1
+    shape = (P, page, HK, D)
+    if q8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        kw = dict(ks_pages=torch.rand(shape[:3], generator=g) * 0.02 + 0.005,
+                  vs_pages=torch.rand(shape[:3], generator=g) * 0.02 + 0.005)
+        clean = (kp, vp)
+    else:
+        kp, vp = (torch.randn(shape, generator=g).bfloat16()
+                  for _ in range(2))
+        clean = (kp.clone(), vp.clone())
+        for b in range(B):
+            for j in range(int(lens[b]), pps * page):
+                if bt[b, j // page] >= 0:
+                    kp[bt[b, j // page], j % page] = float("nan")
+                    vp[bt[b, j // page], j % page] = float("nan")
+        kp[0] = vp[0] = float("nan")
+        kw = {}
+    q = torch.randn((B, H, D), generator=g).bfloat16()
+    cos, sin = tl.rope_tables(cap, D, 10000.0, device="cpu")
+    pos = (lens - 1).clamp(min=0).long()
+    rows = (cos[pos], sin[pos])
+    return ([t.to(cuda) for t in (q, kp, vp, bt, lens)],
+            [t.to(cuda) for t in clean], [t.to(cuda) for t in rows],
+            {k: v.to(cuda) for k, v in kw.items()})
+
+
+def _b9_b10(fused, q, kp, vp, bt, lens, rows, kw, splits=None):
+    """B9 (or B10 with ``rows``) on CUDA tensors: through the wrapper, or
+    with ``splits`` forced through the launcher."""
+    rope = dict(cos_row=rows[0], sin_row=rows[1]) if fused else {}
+    if splits is not None:
+        return pa.launch_paged_decode(q, kp, vp, bt, lens, splits=splits,
+                                      **rope, **kw)
+    if fused:
+        return sf.fused_paged_decode_attention(q, *rows, kp, vp, bt, lens,
+                                               **kw)
+    return pa.paged_attention(q, kp, vp, bt, lens, **kw)
+
+
+def _b9_b10_plain(fused, q, kp, vp, bt, lens, rows, kw):
+    if fused:
+        return sf.fused_paged_decode_plain(q, *rows, kp, vp, bt, lens, **kw)
+    return pa.paged_attention_plain(q, kp, vp, bt, lens, **kw)
+
+
+# (D, int8 pages, GQA group, table capacity): bf16 queries take the
+# key-split kernel shared with B8; at B = 4, HK = 2 capacities 160, 512,
+# 1024 and 2048 give 1, 2, 4 and 8 splits
+B9_SPLIT_CASES = [(d, q8, rep, cap) for d in (64, 128) for q8 in (False, True)
+                  for rep, cap in ((1, 160), (2, 160), (8, 160), (2, 512),
+                                   (2, 1024), (1, 2048), (2, 2048),
+                                   (8, 2048))]
+
+
+@pytest.mark.parametrize("case", B9_SPLIT_CASES, ids=[
+    f"D{c[0]}-{'int8' if c[1] else 'bf16'}-rep{c[2]}-cap{c[3]}"
+    for c in B9_SPLIT_CASES])
+def test_paged_decode_split_kernels_match_plain(cuda, case):
+    """B9 and B10 in bf16 (the key-split body) against their plain
+    versions on the NaN-free pools, per row; no NaN in the output, zeros
+    for the row of length 0 (the plain versions average V there, a length
+    no engine passes); the plain version without row 1's last 64 live
+    keys (one key tile of the kernel) must fail the check."""
+    D, q8, rep, cap = case
+    (q, kp, vp, bt, lens), clean, rows, kw = _token_major_case(
+        torch.Generator().manual_seed(8), cuda, D, q8, rep, cap)
+    bad = lens.clone()
+    bad[1] -= 64
+    for fused in (False, True):
+        kernels.reset_launch_counts()
+        out = _b9_b10(fused, q, kp, vp, bt, lens, rows, kw)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == {**NONE, ("B10" if fused
+                                                    else "B9"): 1}
+        assert torch.isfinite(out).all() and not out[3].any()
+        want = _b9_b10_plain(fused, q, *clean, bt, lens, rows, kw)
+        _close(out[:3], want[:3], torch.bfloat16)
+        fault = _rows_ratio(out[:3], _b9_b10_plain(
+            fused, q, *clean, bt, bad, rows, kw)[:3], 2e-2)
+        assert fault.max() > 1.0
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits", pa.DECODE_SPLITS)
+@pytest.mark.parametrize("fused", [False, True], ids=["B9", "B10"])
+def test_paged_decode_forced_splits_match_plain(cuda, fused, splits, q8):
+    """B9 and B10's bf16 kernel with its key split forced (capacity
+    2048, where the rule takes 8) against the plain version, per row,
+    with the same planted fault; a split count the kernel does not take,
+    or a forced split for float32 queries, raises."""
+    (q, kp, vp, bt, lens), clean, rows, kw = _token_major_case(
+        torch.Generator().manual_seed(9), cuda, 128, q8, 2, 2048)
+    out = _b9_b10(fused, q, kp, vp, bt, lens, rows, kw, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and not out[3].any()
+    _close(out[:3], _b9_b10_plain(fused, q, *clean, bt, lens, rows,
+                                  kw)[:3], torch.bfloat16)
+    bad = lens.clone()
+    bad[1] -= 64
+    fault = _rows_ratio(out[:3], _b9_b10_plain(
+        fused, q, *clean, bt, bad, rows, kw)[:3], 2e-2)
+    assert fault.max() > 1.0
+    with pytest.raises(ValueError, match="splits"):
+        _b9_b10(fused, q, kp, vp, bt, lens, rows, kw, splits=3)
+    with pytest.raises(ValueError, match="splits"):
+        _b9_b10(fused, q.float(), *clean, bt, lens, rows, kw,
+                splits=splits)
+
+
 @pytest.mark.parametrize("kv", [None, "static", "dynamic"])
 def test_block_attention_kernel_branch_matches_the_loop(cuda, kv):
     """``block_multihead_attention`` on a pure-decode batch of CUDA

@@ -1,9 +1,12 @@
-"""A CPU model of the numerics of the split-key B8 kernel (decode attention
-over a head-major page pool, bf16 queries) against the JAX package's
-``paged_decode_attention``, on the CPU.
+"""A CPU model of the numerics of the split-key paged decode kernel
+(``csrc/paged_split.cuh``, bf16 queries) against the JAX package's
+kernels, on the CPU: B8 (a head-major page pool, one dequant scale per
+(row, kv head)) against ``paged_decode_attention``, and B9 / B10 (a
+token-major pool, one scale per token; B10 rotates q first) against
+``paged_attention_kernel`` and ``fused_paged_decode_kernel``.
 
-``csrc/decode_attention.cu`` computes, for bf16 queries on an H100, what
-the emulation below computes step by step. The rep query rows of one kv
+The kernel computes, for bf16 queries on an H100, what the emulation
+below computes step by step. The rep query rows of one kv
 head fill one 16-row tile; the token axis is cut into ``decode_split``
 splits (``keysplit.cuh``) (a power of two, chosen from B, HK and the table's capacity
 ``ppseq * page`` alone, each split at least 256 tokens, rounded to 64); a
@@ -12,8 +15,10 @@ the block table (-1 entries read page 0), in 64-token tiles, and each of
 4 slices of a tile (16 tokens, one warp) keeps its own online softmax:
 exp2 with ``scale * log2(e)`` folded in, the running max in raw ``q.k``
 units, p rounded to the query dtype before ``p @ v`` while l sums it
-unrounded. int8 pages are dequantized with the (row, kv head) scale and
-rounded to the query dtype before their products. The slices merge in
+unrounded. int8 pages are dequantized with the (row, kv head) scale
+(B8) or each token's own scale (B9/B10) and rounded to the query dtype
+before their products. B10's q is rotated in f32 (each product and sum
+rounded) and rounded to the query dtype before q.k. The slices merge in
 order, then the splits in order; a split past the row's length leaves an
 empty partial, and a row of length 0 writes zeros. The kernel cannot run
 here; this model settles that those choices compute what the TPU kernel
@@ -25,9 +30,12 @@ through the model, at table capacities that give 1, 2, 4 and 8 splits,
 with rows of length 1, 0, one that ends mid-page in the last split and
 one that leaves every split but the first empty, -1 table entries past
 each row's pages, float32 and bfloat16 queries and int8 pages with
-(B, HK) scales. Tolerances: float32 within 2e-5 (the same f32 math
-summed in another order); bfloat16, ``chip_smoke.py``'s row rule (every
-D-vector within ``ROW_RTOL * |its row| + ROW_FLOOR * rms``).
+(B, HK) scales; B9 and B10 go through the model and the JAX kernels
+(interpret mode) on token-major pools of 16-token pages (four a tile)
+with per-token int8 scales, B10 with each row's cos/sin rows.
+Tolerances: float32 within 2e-5 (the same f32 math summed in another
+order); bfloat16, ``chip_smoke.py``'s row rule (every D-vector within
+``ROW_RTOL * |its row| + ROW_FLOOR * rms``).
 """
 import math
 import sys
@@ -40,6 +48,8 @@ import torch
 
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu.ops.pallas import fused as jfz
+from paddle_tpu.ops.pallas import paged_attention as jpa
+from paddle_tpu.ops.pallas import serving_fused as jsf
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the row rule and its limits)
@@ -98,13 +108,27 @@ def merge(parts, c):
     return mk, l, acc
 
 
-def model_decode(q, kp, vp, bt, lens, scale, ks=None, vs=None):
-    """B8 on q (B, H, D) and head-major pools (P, HK, page, D) through
-    the block tables bt (B, ppseq) -> (B, H, D) in q's dtype, the way the
-    split kernel tiles and rounds; ks, vs (B, HK) scales of int8 pools."""
+def rotate(q, cos_row, sin_row):
+    """q (B, H, D) rotated by RoPE in f32 (each product and sum rounded,
+    no fused multiply-add) and rounded to q's dtype: B10's staging."""
+    x1, x2 = q.float().chunk(2, dim=-1)
+    c, s = cos_row[:, None, :], sin_row[:, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(q.dtype)
+
+
+def model_decode(q, kp, vp, bt, lens, scale, ks=None, vs=None,
+                 token_major=False, rope=None):
+    """The split kernel on q (B, H, D) through the block tables bt (B,
+    ppseq) -> (B, H, D) in q's dtype, the way it tiles and rounds: B8 on
+    head-major pools (P, HK, page, D) with (B, HK) scales ks, vs of int8
+    pools; with ``token_major`` B9 on (P, page, HK, D) pools with (P,
+    page, HK) scales; ``rope`` (cos_row, sin_row) makes it B10."""
     B, H, D = q.shape
-    HK, page = kp.shape[1], kp.shape[2]
+    HK, page = ((kp.shape[2], kp.shape[1]) if token_major
+                else (kp.shape[1], kp.shape[2]))
     rep, cap = H // HK, bt.shape[1] * page
+    if rope is not None:
+        q = rotate(q, *rope)
     nsplit, split = decode_split(B, HK, cap)
     c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
@@ -117,10 +141,15 @@ def model_decode(q, kp, vp, bt, lens, scale, ks=None, vs=None):
             def rows(pool, sc, j0, j1):
                 """Tokens [j0, j1) of kv head g, zeros at or past n."""
                 t = torch.zeros((j1 - j0, D), dtype=q.dtype)
-                for j in range(j0, min(j1, n)):
-                    x = pool[max(int(bt[b, j // page]), 0), g, j % page]
-                    t[j - j0] = (x if sc is None else
-                                 x.float() * sc[b, g]).to(q.dtype)
+                j = torch.arange(j0, max(j0, min(j1, n)))
+                pg = bt[b, j // page].long().clamp(min=0)
+                if token_major:
+                    x = pool[pg, j % page, g]
+                    s = None if sc is None else sc[pg, j % page, g, None]
+                else:
+                    x = pool[pg, g, j % page]
+                    s = None if sc is None else sc[b, g]
+                t[:len(j)] = (x if s is None else x.float() * s).to(q.dtype)
                 return t
 
             parts = []
@@ -208,12 +237,74 @@ def test_split_decode_model_matches_jax(nsplit, kind):
     assert ratio <= 1.0, f"worst row at {ratio:.3g} of its limit"
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("nsplit", SPLITS)
+def test_token_major_split_model_matches_jax(nsplit, kind):
+    """B9 and B10 on token-major pools of 16-token pages, capacity 256 *
+    nsplit tokens (B = 4, HK = 2, rep 2, D = 16): rows of lengths 1, 0,
+    cap - 37 and 100 as above, per-token int8 scales; B10's cos/sin rows
+    at each row's position. JAX's kernels write zeros for the row of
+    length 0, as the model does."""
+    rs = np.random.RandomState(100 + 10 * nsplit + KINDS.index(kind))
+    B, HK, rep, D, page = 4, 2, 2, 16, 16
+    H, pps = HK * rep, 16 * nsplit
+    cap = pps * page
+    assert decode_split(B, HK, cap)[0] == nsplit
+    lens = np.asarray([1, 0, cap - 37, 100], np.int32)
+    P = 1 + B * pps
+    bt = (rs.permutation(P - 1) + 1).reshape(B, pps).astype(np.int32)
+    for b, n in enumerate(lens):
+        bt[b, -(-n // page):] = -1
+    q = rs.randn(B, H, D).astype(np.float32)
+    ang = np.outer(np.maximum(lens - 1, 0),
+                   1.0 / 10000 ** (np.arange(0, D, 2) / D))
+    rows = [np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)]
+    qdt = "float32" if kind == "float32" else "bfloat16"
+    jd, td = getattr(jnp, qdt), getattr(torch, qdt)
+    kw = {}
+    if kind == "int8":
+        kp, vp = (rs.randint(-127, 128, (P, page, HK, D)).astype(np.int8)
+                  for _ in range(2))
+        kw = {k: (rs.rand(P, page, HK) * 0.05 + 0.01).astype(np.float32)
+              for k in ("ks_pages", "vs_pages")}
+        jkv = [jnp.asarray(a) for a in (kp, vp)]
+        tkv = [torch.from_numpy(a) for a in (kp, vp)]
+    else:
+        kp, vp = (rs.randn(P, page, HK, D).astype(np.float32)
+                  for _ in range(2))
+        jkv = [jnp.asarray(a).astype(jd) for a in (kp, vp)]
+        tkv = [torch.from_numpy(a).to(td) for a in (kp, vp)]
+    scale = 1.0 / math.sqrt(D)
+    jq, jsc = jnp.asarray(q).astype(jd), {k: jnp.asarray(v)
+                                          for k, v in kw.items()}
+    jrest = (jnp.asarray(bt), jnp.asarray(lens))
+    wants = (jpa.paged_attention_kernel(jq, *jkv, *jrest, **jsc),
+             jsf.fused_paged_decode_kernel(jq, *map(jnp.asarray, rows),
+                                           *jkv, *jrest, **jsc))
+    sc = {k: torch.from_numpy(v) for k, v in kw.items()}
+    for rope, want in zip((None, [torch.from_numpy(r) for r in rows]),
+                          wants):
+        want = np.asarray(want.astype(jnp.float32))
+        got = model_decode(torch.from_numpy(q).to(td), *tkv,
+                           torch.from_numpy(bt), torch.from_numpy(lens),
+                           scale, sc.get("ks_pages"), sc.get("vs_pages"),
+                           token_major=True, rope=rope)
+        assert not got[1].any() and not want[1].any()  # length 0: zeros
+        if kind == "float32":
+            np.testing.assert_allclose(got.numpy(), want, **F32)
+            continue
+        ratio = chip_smoke.row_ratio(torch, got[[0, 2, 3]],
+                                     torch.tensor(want)[[0, 2, 3]])
+        assert ratio <= 1.0, f"worst row at {ratio:.3g} of its limit"
+
+
 @pytest.mark.parametrize("shape,want", [
     ((8, 32, 2048), 1), ((8, 32, 1088), 1), ((1, 32, 4096), 8),
     ((8, 8, 2048), 4), ((1, 32, 256), 1), ((4, 2, 2048), 8)])
 def test_split_rule_at_the_timed_shapes(shape, want):
     """The split counts the kernel's source note and ``chip_smoke.py``
-    state: 8 rows x 32 kv heads (ragged and the Paddle decoder's rows)
+    state: 8 rows x 32 kv heads (ragged and the Paddle decoder's rows;
+    the paged engine's decode step, ``max_batch=8`` at ``max_len=2048``)
     1, one row of 4,096 tokens 8, GQA's 8 x 8 4; a table shorter than
     two splits' minimum 1; the card tests' B = 4, HK = 2 at 2048, 8."""
     n, split = decode_split(*shape)
