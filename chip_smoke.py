@@ -17,9 +17,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    128: six) must enter with the launch bound's 168 registers, or
    nothing is launched (``hopper_ptxas``), and every bf16 B11
    instantiation (the prefill wgmma and the verify key-split kernels)
-   and every instantiation of the key-split paged decode kernel
-   (``csrc/paged_split.cuh``: four for B8, eight for B9/B10) is listed
-   with its registers and spills (``ptxas B11``, ``ptxas B8``, ``ptxas
+   and every instantiation of the key-split decode kernel
+   (``csrc/paged_split.cuh``: four for B8, four for B7's dense cache,
+   which must not spill, eight for B9/B10) is listed with its registers
+   and spills (``ptxas B11``, ``ptxas B8``, ``ptxas B7``, ``ptxas
    B9/B10``).
 2. Kernel vs plain: B9 (ragged paged decode), B10 (fused RoPE paged
    decode) and B11 (flash chunk prefill), each with bf16 and int8 KV, at
@@ -65,11 +66,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention against a contiguous cache) in bf16 and int8 at the
    Llama-2-7B dense decode shape (B = 8, H = HK = 32, D = 128, S = 2048,
    mixed lengths with one of 1) and at the JAX bench model's (H = HK =
-   12, S = 192), on a layer view of a two-layer cache whose columns past
-   each row's length are NaN, row by row against the plain version on a
-   clean copy, with a planted fault (the longest row's last 64 live keys
-   dropped) that must fail, timed beside SDPA under a boolean length
-   mask and the bound (``check_dense_decode``). Then B6 (fused RoPE)
+   12, S = 192), and where the key split rule splits (one row of 4,096;
+   GQA, HK = 8, over the mixed lengths), on a layer view of a two-layer
+   cache whose columns past each row's length are NaN, row by row
+   against the plain version on a clean copy, with a planted fault (the
+   longest row's last 64 live keys dropped) that must fail, timed beside
+   SDPA under a boolean length mask and the bound, and swept over forced
+   1/2/4/8 key splits, each within the row limit, the rule's choice 10%
+   faster than one split where it splits (``check_dense_decode``). Then B6 (fused RoPE)
    on q and k cut as strided views from one qkv tensor, at the
    Llama-2-7B prefill shape (B = 8, S = 1024, H = HK = 32, D = 128,
    bf16) and a ragged GQA one in f32 (S = 1003, H = 32, HK = 8, D = 64),
@@ -120,7 +124,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``precompute_prompt_cache``) at the same width and depth, fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
-   long tier (prompt 1920, 128 new); beam search (B = 2, 4 beams, 32
+   long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
    new); a shared 200-token prompt cache; a left-padded batch. Per tier
    decode tokens/s net of the prefill (``bench.py``'s ``decode_rate``),
    ms per decode step, peak memory, and the launch counters, zeroed
@@ -708,19 +712,23 @@ def check_verify(torch, F, kernels, kv_int8: bool, ctx_cap: int, T: int,
     return rec
 
 def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
-                       lens, seed: int):
-    """B7 on layer 1 of a (2, B, S, H, D) dense cache (H = HK, D = 128,
-    B = len(lens)), every column at or past a row's length NaN (int8: its
-    scale NaN), held row by row against the plain version on the same
-    cache with a clean tail; the plain version without the last
-    FAULT_TILE live keys of the longest row must fail the same check.
-    Timed beside the plain version, SDPA under a boolean length mask on
-    the cache dequantized and transposed beforehand, and the bound (the
-    live K and V rows and their scales, q and the output)."""
+                       lens, seed: int, HK: int = 0, sweep: bool = False):
+    """B7 on layer 1 of a (2, B, S, HK, D) dense cache (HK = H unless
+    given, D = 128, B = len(lens)), every column at or past a row's
+    length NaN (int8: its scale NaN), held row by row against the plain
+    version on the same cache with a clean tail; the plain version
+    without the last FAULT_TILE live keys of the longest row must fail
+    the same check. Timed beside the plain version, SDPA under a boolean
+    length mask on the cache dequantized, transposed and (under GQA) its
+    kv heads repeated beforehand, and the bound (the live K and V rows
+    and their scales, q, the output and the lengths). ``sweep`` also
+    runs the kernel with each key split count forced (``split_ms``),
+    each held to the same row rule."""
     fz = kernels.fused
     g = torch.Generator(device="cuda").manual_seed(seed)
+    HK = HK or H
     B, D = len(lens), 128
-    shape = (2, B, S, H, D)
+    shape = (2, B, S, HK, D)
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
     if kv_int8:
@@ -743,7 +751,7 @@ def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
     ck, cv, kr, vr = (t if t is None else t[1] for t in dirty)
     kw = dict(k_rows=kr, v_rows=vr)
     pkw = dict(k_rows=clean[2], v_rows=clean[3])
-    what = f"B7 kv_int8={kv_int8} H{H} S{S}"
+    what = f"B7 kv_int8={kv_int8} H{H} HK{HK} S{S}"
 
     def kern():
         return fz.decode_attention(q, ck, cv, lens, **kw)
@@ -753,6 +761,8 @@ def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
 
     out_k = kern()
     torch.cuda.synchronize()
+    if not bool(torch.isfinite(out_k).all()):
+        fail(f"{what}: NaN past the lengths reached the output")
     out_p = plain()
     torch.cuda.synchronize()
     err, ratio = check_close(torch, out_k, out_p, what)
@@ -770,8 +780,8 @@ def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
         cvd = (clean[1].float() * clean[3][..., None]).bfloat16()
     else:
         ckd, cvd = clean[0], clean[1]
-    K = ckd.permute(0, 2, 1, 3).contiguous()
-    V = cvd.permute(0, 2, 1, 3).contiguous()
+    K, V = (t.permute(0, 2, 1, 3).repeat_interleave(H // HK, 1).contiguous()
+            for t in (ckd, cvd))
     mask = (~tail)[:, None, None, :]
     ql = q[:, :, None, :]
 
@@ -783,13 +793,24 @@ def check_dense_decode(torch, F, kernels, kv_int8: bool, H: int, S: int,
     lib_ms = time_ms(torch, lib)
     n_tok = int(lens.sum().item())
     esz = 1 if kv_int8 else 2
-    nbytes = (2 * B * H * D * 2 + 2 * n_tok * H * D * esz
-              + (2 * n_tok * H * 4 if kv_int8 else 0) + 4 * B)
+    nbytes = (2 * B * H * D * 2 + 2 * n_tok * HK * D * esz
+              + (2 * n_tok * HK * 4 if kv_int8 else 0) + 4 * B)
     b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
-    return dict(shape=what, lengths=lens.tolist(), max_abs_err=err,
-                row_ratio=ratio, fault_row_ratio=fault, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    rec = dict(shape=what, lengths=lens.tolist(), max_abs_err=err,
+               row_ratio=ratio, fault_row_ratio=fault, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    if sweep:
+        rec["split_ms"] = {}
+        for n in fz.DECODE_SPLITS:
+            def forced(n=n):
+                return fz.launch_decode(q, ck, cv, lens, splits=n, **kw)
+            r = row_ratio(torch, forced(), out_p)
+            if not r <= 1.0:
+                fail(f"{what}: {n} forced key splits at {r:.3g} of the "
+                     f"row limit")
+            rec["split_ms"][n] = time_ms(torch, forced)
+    return rec
 
 
 def flash_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -1725,10 +1746,10 @@ def run_dense(torch, np, kernels, tl, gen, cfg, seed: int):
     seeded random weights. The JAX bench's decode tier (B = 8, prompt
     128, 64 new, greedy) for weights {bf16, int8, int4} x KV {bf16,
     int8}, each with its decode-step logits check; a long tier (prompt
-    1920, 128 new); ``beam_search`` (B = 2, 4 beams, 32 new); a shared
-    200-token prompt cache; a left-padded batch, whose decode steps take
-    the plain composition and so launch no B7; then the profiles of the
-    bf16 and int8-weight bench tiers."""
+    1920, 128 new) and its profile; ``beam_search`` (B = 2, 4 beams, 32
+    new); a shared 200-token prompt cache; a left-padded batch, whose
+    decode steps take the plain composition and so launch no B7; and the
+    profiles of the bf16 and int8-weight bench tiers."""
     V = cfg.vocab_size
     t0 = time.perf_counter()
     params = tl.init_params(cfg, torch.Generator(device="cuda").manual_seed(
@@ -1770,10 +1791,17 @@ def run_dense(torch, np, kernels, tl, gen, cfg, seed: int):
         del pp
         gc.collect()
         torch.cuda.empty_cache()
-    rec = dense_tier(torch, kernels, gen, params, cfg, "long",
-                     tokens((8, 1920)), 128, reps=1)
+    long_prompt = tokens((8, 1920))
+    rec = dense_tier(torch, kernels, gen, params, cfg, "long", long_prompt,
+                     128, reps=1)
     print("dense " + json.dumps(rec))
     tiers.append(rec)
+    profiles["long"] = profile_dense(torch, tl, gen, params, cfg,
+                                     long_prompt)
+    print("dense profile long " + json.dumps(profiles["long"]))
+    del long_prompt
+    gc.collect()
+    torch.cuda.empty_cache()
     rec = dense_tier(torch, kernels, gen, params, cfg, "beam",
                      tokens((2, 128)), 32, fn="beam_search", num_beams=4)
     print("dense " + json.dumps(rec))
@@ -2317,14 +2345,23 @@ def main(argv=None) -> int:
              f"must enter with 168 registers (setmaxnreg moves them "
              f"between warpgroups): {hop}")
     record["hopper_ptxas"] = hop
-    # B8 in bf16: the split-key kernels of csrc/decode_attention.cu
-    b8 = ptxas_report(_build.log_path("decode_attention").read_text(
+    # B8 and B7 in bf16: the split-key kernels of csrc/decode_attention.cu,
+    # B7's with the dense addressing (the last template flag); B7's must
+    # not spill
+    split = ptxas_report(_build.log_path("decode_attention").read_text(
         errors="replace"), r"paged_decode_split_kernel")
-    for r in b8:
-        print("ptxas B8 " + json.dumps(r))
-    if len(b8) != 4 or any("registers" not in r for r in b8):
-        fail(f"expected ptxas's report of 4 B8 split kernels, got {b8}")
+    b7 = [r for r in split if r["kernel"].endswith(", true>")]
+    b8 = [r for r in split if r not in b7]
+    for name, recs in (("B8", b8), ("B7", b7)):
+        for r in recs:
+            print(f"ptxas {name} " + json.dumps(r))
+        if len(recs) != 4 or any("registers" not in r for r in recs):
+            fail(f"expected ptxas's report of 4 {name} split kernels, got "
+                 f"{recs}")
+    if any(r.get("spill_stores") or r.get("spill_loads") for r in b7):
+        fail(f"B7's split kernels spill: {b7}")
     record["b8_ptxas"] = b8
+    record["b7_ptxas"] = b7
     # B9/B10 in bf16: the same key-split body over token-major pools with
     # per-token int8 scales, {bf16, int8} x D {64, 128} x {B9, B10}
     b910 = ptxas_report(_build.log_path("paged_decode").read_text(
@@ -2415,20 +2452,32 @@ def main(argv=None) -> int:
             gqa.append(r)
             print(f"kernel B11-gqa-{kvn}: " + json.dumps(r))
     # B7 at the Llama-2-7B dense decode shape (its row in the kernel
-    # line) and at the JAX bench model's (H = 12, prompt 128 + 64 new)
+    # line) and at the JAX bench model's (H = 12, prompt 128 + 64 new);
+    # then where the key split rule splits: one Llama-2-7B row of 4,096
+    # tokens (B x HK = 32: 8 splits) and Llama-3-8B's GQA (HK = 8) over
+    # the ragged rows (64: 4 splits), where the rule's choice must beat
+    # one split; every shape swept over forced splits
     dense_kernel = []
     for kv_int8 in (False, True):
         kvn = "int8" if kv_int8 else "bf16"
-        for H, S, lens in ((32, 2048, (1, 2048, 1537, 700, 1024, 333, 2000,
-                                       64)),
-                           (12, 192, (1, 192, 150, 129, 64, 100, 191, 17))):
+        for name, H, HK, S, lens in (
+                ("ragged", 32, 32, 2048, RAGGED_LENS),
+                ("bench", 12, 12, 192, (1, 192, 150, 129, 64, 100, 191,
+                                        17)),
+                ("single", 32, 32, 4096, (4096,)),
+                ("gqa", 32, 8, 2048, RAGGED_LENS)):
             r = check_dense_decode(torch, F, kernels, kv_int8, H, S, lens,
-                                   seed=300 + H)
+                                   seed=300 + H + HK, HK=HK, sweep=True)
             torch.cuda.synchronize()
             dense_kernel.append(r)
-            print(f"kernel B7-{kvn}: " + json.dumps(r))
-            if H == 32:
+            print(f"kernel B7-{kvn} {name}: " + json.dumps(r))
+            if name == "ragged":
                 results[f"B7-{kvn}"] = r
+            if (name in ("single", "gqa")
+                    and not r["ms"] < 0.9 * r["split_ms"][1]):
+                fail(f"{r['shape']} {name}: the split rule's choice "
+                     f"({r['ms']:.4g} ms) is not 10% faster than one "
+                     f"split ({r['split_ms'][1]:.4g} ms)")
         gc.collect()
         torch.cuda.empty_cache()
     # the training shape (its row in the kernel line), the same length at
@@ -2656,7 +2705,7 @@ def main(argv=None) -> int:
         "B5b": ("cuda", fused_src, "paddle_tpu/ops/pallas/fused.py:188"),
         "B6": ("cuda", "paddle_tpu_torch/csrc/rope.cu",
                "paddle_tpu/ops/pallas/fused.py:237"),
-        "B7": ("cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "B7": ("cuda", "paddle_tpu_torch/csrc/paged_split.cuh",
                "paddle_tpu/ops/pallas/fused.py:444"),
         "B8": ("cuda", "paddle_tpu_torch/csrc/paged_split.cuh",
                "paddle_tpu/ops/pallas/fused.py:564"),

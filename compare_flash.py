@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time the flash-attention kernels B1, B2 and B3, the flash chunk kernel
-B11 and the paged decode kernels B8 (head-major pool), B9 and B10
-(token-major pool; B10 with q's RoPE) of the port in a given checkout, on
-one CUDA card; or, with ``--engine``, the card time of the paged
-engine's decode step.
+B11, the decode kernel B7 (contiguous cache) and the paged decode kernels
+B8 (head-major pool), B9 and B10 (token-major pool; B10 with q's RoPE)
+of the port in a given checkout, on one CUDA card; or, with
+``--engine``, the card time of the paged engine's decode step; or, with
+``--dense``, that of dense decoding's long tier.
 
     python3 compare_flash.py PATH [PATH ...]
     python3 compare_flash.py --engine PATH [PATH ...]
+    python3 compare_flash.py --dense PATH [PATH ...]
 
 Each PATH is the root of a checkout of this repository (``.`` for this
 one; an older commit unpacked with ``git archive`` for a comparison).
@@ -25,15 +27,25 @@ table, the Paddle decoder's 8 equal rows of 1,056 tokens in 17 pages and
 one row of 4,096 tokens in 64, and the ragged rows under GQA (HK = 8);
 B9 and B10 at ``chip_smoke.py`` phase 2's (H = 32, D = 128, pages of
 16, bf16 and int8 KV with per-token scales): the ragged rows in 128-page
-tables at HK = 32 and under GQA (HK = 8), and one row of 4,096 tokens.
-Times are CUDA events over 20 launches after 3 warm-up launches; one
-JSON line per checkout, ``compare {...}``.
+tables at HK = 32 and under GQA (HK = 8), and one row of 4,096 tokens;
+B7 at ``chip_smoke.py`` phase 2's shapes (D = 128, layer 1 of a
+two-layer dense cache, bf16 and int8 KV with per-token scales): the
+ragged rows at H = HK = 32 and S = 2048, the JAX bench model's 8 rows
+at H = HK = 12 and S = 192, one row of 4,096 tokens, the ragged rows
+under GQA (HK = 8), and dense decoding's long tier (8 rows of 1,984
+tokens, the middle of its decode steps, S = 2048). Times are CUDA events
+over 20 launches after 3 warm-up launches; one JSON line per checkout,
+``compare {...}``.
 
 ``--engine`` runs the checkout's own ``chip_smoke.profile_tier`` (the
 bf16 KV, fused tier of the engine at Llama-2-7B width, 32 layers, seeded
 random weights: ``torch.profiler`` over 4 prefill chunks and 8 decode
 steps of 8 rows) and prints its record, ``engine {...}``: card busy and
-host wall ms a step, by kind.
+host wall ms a step, by kind. ``--dense`` runs the checkout's own
+``chip_smoke.profile_dense`` at dense decoding's long tier (Llama-2-7B
+width, 32 layers, seeded random bf16 weights, 8 prompts of 1,920
+tokens: ``torch.profiler`` over 8 decode steps) and prints its record,
+``dense {...}``.
 """
 from __future__ import annotations
 
@@ -61,6 +73,12 @@ B8_SHAPES = (("ragged", RAGGED, 32, 32), ("decoder", (1056,) * 8, 17, 32),
 # B9/B10: (name, row lengths, table pages a row, kv heads)
 B9_SHAPES = (("ragged", RAGGED, 128, 32), ("single", (4096,), 256, 32),
              ("gqa", RAGGED, 128, 8))
+# B7: (name, row lengths, capacity S, query heads, kv heads)
+B7_SHAPES = (("ragged", RAGGED, 2048, 32, 32),
+             ("bench", (1, 192, 150, 129, 64, 100, 191, 17), 192, 12, 12),
+             ("single", (4096,), 4096, 32, 32),
+             ("gqa", RAGGED, 2048, 32, 8),
+             ("long", (1984,) * 8, 2048, 32, 32))
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -178,6 +196,49 @@ def token_major_inputs(torch, lens, pps, HK, kv_int8, seed):
     return (q, kp, vp, bt, ln), (cos[pos], sin[pos]), kw
 
 
+def dense_inputs(torch, lens, S, H, HK, kv_int8, seed):
+    """A B7 call's arguments: q (B, H, 128) bf16, layer 1 of a two-layer
+    (2, B, S, HK, 128) cache (int8 with (B, S, HK) per-token scales), the
+    row lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, D = len(lens), 128
+    shape = (2, B, S, HK, D)
+    q = torch.randn((B, H, D), generator=g, device="cuda").bfloat16()
+    kw = {}
+    if kv_int8:
+        ck, cv = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int8)[1] for _ in range(2))
+        kw["k_rows"], kw["v_rows"] = (
+            torch.rand(shape[:4], generator=g, device="cuda")[1] * 0.02
+            + 0.005 for _ in range(2))
+    else:
+        ck, cv = (torch.randn(shape, generator=g, device="cuda").bfloat16()[1]
+                  for _ in range(2))
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return (q, ck, cv, ln), kw
+
+
+def measure_dense(root: str) -> dict:
+    """``profile_dense`` of the checkout at ``root`` at dense decoding's
+    long tier (imported from there; call once per process)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+    import chip_smoke
+    from paddle_tpu_torch.models import generate as gen
+    from paddle_tpu_torch.models import llama as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tl.LlamaConfig.llama2_7b(num_layers=32)
+    params = tl.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        0), device="cuda")
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        3, cfg.vocab_size, (8, 1920)), dtype=torch.int32, device="cuda")
+    rec = chip_smoke.profile_dense(torch, tl, gen, params, cfg, prompt)
+    rec["root"] = root
+    return rec
+
+
 def measure_engine(root: str) -> dict:
     """``profile_tier`` of the checkout at ``root`` (imported from there;
     call once per process)."""
@@ -199,8 +260,8 @@ def measure_engine(root: str) -> dict:
 
 
 def measure(root: str) -> dict:
-    """B1-B3 and SDPA's forward, B11 and B8 of the checkout at ``root``
-    (imported from there; call once per process)."""
+    """B1-B3 and SDPA's forward, B11, B7 and B8-B10 of the checkout at
+    ``root`` (imported from there; call once per process)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     import torch.nn.functional as F
@@ -212,7 +273,15 @@ def measure(root: str) -> dict:
 
     _build.build(["flash_attention", "flash_chunk", "decode_attention",
                   "paged_decode"])
-    out = {"root": root, "B11": {}, "B8": {}, "B9": {}, "B10": {}}
+    out = {"root": root, "B11": {}, "B7": {}, "B8": {}, "B9": {},
+           "B10": {}}
+    for name, lens, S, H, HK in B7_SHAPES:
+        for kv_int8 in (False, True):
+            args, kw = dense_inputs(torch, lens, S, H, HK, kv_int8,
+                                    seed=S + HK)
+            out["B7"][f"{name}-{'int8' if kv_int8 else 'bf16'}"] = time_ms(
+                torch, lambda: fk.decode_attention(*args, **kw))
+            del args, kw
     for name, lens, pps, HK in B9_SHAPES:
         for kv_int8 in (False, True):
             args, rows, kw = token_major_inputs(torch, lens, pps, HK,
@@ -264,9 +333,12 @@ def main(argv) -> int:
     if len(argv) == 2 and argv[0] == "--one-engine":
         print("engine " + json.dumps(measure_engine(argv[1])), flush=True)
         return 0
+    if len(argv) == 2 and argv[0] == "--one-dense":
+        print("dense " + json.dumps(measure_dense(argv[1])), flush=True)
+        return 0
     one = "--one"
-    if argv and argv[0] == "--engine":
-        one, argv = "--one-engine", argv[1:]
+    if argv and argv[0] in ("--engine", "--dense"):
+        one, argv = "--one-" + argv[0][2:], argv[1:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2

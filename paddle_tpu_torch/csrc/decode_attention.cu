@@ -1,44 +1,55 @@
 // B7 one-token decode attention against a contiguous, padded KV cache:
-// dense `generate` and `beam_search` decode steps. B8, below, the same
-// over a head-major page pool: `incubate`'s `block_multihead_attention`.
+// the decode steps of dense `generate`, `beam_search` and generation from
+// a prompt cache. B8, below, the same over a head-major page pool:
+// `incubate`'s `block_multihead_attention`.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/fused.py
 // `_decode_kernel` / `_decode_kernel_qrow` (shared step
 // `_decode_softmax_step`, wrapper `decode_attention`): each query row of
-// q (B, H, D) attends to the first cache_len[b] rows of its batch row of
-// a (B, S, HK, D) cache, with optional int8 rows and per-row f32 dequant
+// q (B, H, D) attends to the first lengths[b] rows of its batch row of a
+// (B, S, HK, D) cache, with optional int8 rows and per-row f32 dequant
 // scales (B, S, HK).
 //
 // What bounds it on the H100: bytes. Each live K and V row is read once
 // and feeds 4*D flops per query head: about 1 flop per byte in bf16 with
 // no GQA, against the ~295 flops/byte at which the tensor cores would
-// become the limit.
+// become the limit. A CTA that walks a whole (row, kv head) alone keeps
+// too few loads in flight to stream it at the card's rate, and a few
+// long rows leave most SMs idle; the bytes are laid out as in B9's
+// token-major pool, so B7 takes B9's design.
 //
-// What the design does about it:
-// - one CTA per (batch row, kv head) serves the whole GQA group of
-//   rep = H/HK query heads, so each K/V row is read from HBM once for all
-//   of them, with no repeated copy of the cache (the TPU kernel's one
-//   grid row per kv-head group);
-// - the CTA walks only the row's live columns [0, cache_len[b]) and
-//   reads nothing at or past cache_len[b], where the TPU kernel fetched
-//   every block of the padded cache and masked (and zeroed V past the
-//   length so NaNs there could not leak): here a NaN tail is never read;
+// What the design does about it: bf16 queries (the card's path) take the
+// key-split kernel of paged_split.cuh, shared with B8 and B9/B10, with
+// its dense addressing (DENSE): token j of (row b, kv head g) at
+// b * kv_sb + g * kv_sh + j * kv_ss, its int8 scale at b * sc_sb +
+// j * sc_ss + g * sc_sh, the capacity S; no block table is read and no
+// token index is divided by a page size.
+// - the token axis is split over a thread block cluster by keysplit.cuh's
+//   rule from (B * HK, S): 1 split for 8 rows x 32 kv heads at S = 2048
+//   or the JAX bench model's 8 x 12 at 192, 4 for GQA's 8 x 8 at 2048, 8
+//   for one row of 4,096, so a long row no longer rests on one CTA;
+// - K and V stream through the 3-stage cp.async ring of 64-token tiles
+//   (a tile is 64 rows of D elements, HK * D apart: whole 128-byte
+//   lines), int8 rows with each token's two scales staged beside them
+//   (one 4-byte cp.async a scale, HK floats apart), and q.k and p.v run
+//   on mma.sync with the GQA group padded to one 16-row tile;
 // - the cache is read in place through its strides (a layer slice of the
 //   dense (L, B, S, HK, D) cache is a strided view), where the TPU
-//   wrapper transposed the whole cache to (B*HK, S, D) on every call;
-// - int8 rows dequantize in registers, so HBM traffic stays 1 byte an
-//   element; 8 warps keep 4 tokens' K and V loads each in flight, and
-//   the online softmax lives in registers (decode_step.cuh, the core
-//   shared with the float32 bodies of B8 and B9/B10).
-// One CTA per (row, kv head) gives B*HK CTAs: 256 at the Llama-2-7B
-// decode shape (B = 8, HK = 32), 96 on 132 SMs at the JAX bench model's
-// (HK = 12); B7 keeps that design (the key split of B8-B10,
-// paged_split.cuh, is later work for B7).
+//   wrapper transposed the whole cache to (B*HK, S, D) on every call, and
+//   only a row's live columns [0, min(lengths[b], S)) are read, where the
+//   TPU kernel fetched every block of the padded cache and masked (and
+//   zeroed V past the length so NaN there could not leak): here a NaN
+//   tail is never read;
+// - the lengths are a (B,) int32 device tensor, read by the kernel: the
+//   caller never reads one on the host.
+// float32 queries (the tests' dtype) keep the plain-FMA body that B8 and
+// B9/B10 keep for them (decode_step.cuh): one CTA of 8 warps per (row,
+// kv head) serving its GQA group, int8 rows dequantized in registers.
 //
-// A row with cache_len 0 outputs zeros (the TPU kernel divides by 1 when
+// A row with length 0 outputs zeros (the TPU kernel divides by 1 when
 // l == 0); the plain composition softmaxes a row of -1e30 scores into
-// the mean of V instead. No path of the port decodes with length 0.
-// cache_len larger than S clamps to S, which is what the plain
+// the mean of V instead. No path of the port decodes with length 0. A
+// length larger than S clamps to S, which is what the plain
 // composition's mask does.
 
 // B8 replaces paddle_tpu/ops/pallas/fused.py `_paged_decode_kernel` /
@@ -72,21 +83,6 @@ namespace psp = ptt::paged_split;
 using ptt::decode::kMaxRep;
 using ptt::decode::kWarps;
 
-struct Args {
-  const void* q;          // (B, H, D) model dtype, contiguous
-  const void* k;          // (B, S, HK, D) model dtype or int8, strided
-  const void* v;
-  const float* k_scales;  // (B, S, HK) f32, int8 caches only, strided
-  const float* v_scales;
-  const int* lengths;     // (B,) int32, or NULL: every row has len_all
-  int len_all;
-  void* out;              // (B, H, D) model dtype, contiguous
-  int H, HK, S;
-  long long kv_sb, kv_ss, kv_sh;  // element strides of the caches
-  long long sc_sb, sc_ss, sc_sh;  // element strides of the scales
-  float scale;
-};
-
 // Token j of one (batch row, kv head): row j of the row's cache slice.
 struct DenseAddr {
   long long kv_ss, kv_off, sc_ss, sc_off;
@@ -97,9 +93,12 @@ struct DenseAddr {
   }
 };
 
-template <typename T, typename KV, int D>
+// float32 queries: one CTA of kWarps warps per (kv head, batch row) of
+// a dense cache in psp::Args (kv_sp / sc_sp the batch row's strides,
+// kv_st / sc_st the token's, page the capacity S).
+template <typename KV, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    decode_attention_kernel(const Args a) {
+    decode_attention_kernel(const psp::Args a) {
   constexpr int DPL = D / 32;  // dims per lane
   const int g = blockIdx.x;  // kv head
   const int b = blockIdx.y;  // batch row
@@ -107,44 +106,51 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x % 32;
   const int rep = a.H / a.HK;
   const int d0 = lane * DPL;
-  int len = a.lengths != nullptr ? a.lengths[b] : a.len_all;
-  len = len < 0 ? 0 : (len > a.S ? a.S : len);
+  int len = a.lengths[b];
+  len = len < 0 ? 0 : (len > a.page ? a.page : len);
 
-  const T* qb = static_cast<const T*>(a.q) +
-                ((long long)b * a.H + (long long)g * rep) * D;
+  const float* qb = static_cast<const float*>(a.q) +
+                    ((long long)b * a.H + (long long)g * rep) * D;
   float q[kMaxRep][DPL];
-  ptt::decode::load_q<T, D>(qb, rep, d0, q);
+  ptt::decode::load_q<float, D>(qb, rep, d0, q);
   const DenseAddr addr{
-      a.kv_ss, (long long)b * a.kv_sb + (long long)g * a.kv_sh + d0,
-      a.sc_ss, (long long)b * a.sc_sb + (long long)g * a.sc_sh};
+      a.kv_st, (long long)b * a.kv_sp + (long long)g * a.kv_sh + d0,
+      a.sc_st, (long long)b * a.sc_sp + (long long)g * a.sc_sh};
   float m[kMaxRep], l[kMaxRep], acc[kMaxRep][DPL];
-  ptt::decode::attend<T, KV, D>(
+  ptt::decode::attend<float, KV, D>(
       q, rep, len, a.scale, static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), a.k_scales, a.v_scales, addr, warp, m,
       l, acc);
-  T* ob = static_cast<T*>(a.out) +
-          ((long long)b * a.H + (long long)g * rep) * D;
-  ptt::decode::merge_store<T, D>(m, l, acc, rep, warp, lane, ob);
+  float* ob = static_cast<float*>(a.out) +
+              ((long long)b * a.H + (long long)g * rep) * D;
+  ptt::decode::merge_store<float, D>(m, l, acc, rep, warp, lane, ob);
 }
 
+// float32 queries: the plain-FMA body (decode_step.cuh); bf16: the split
+// kernel with the dense addressing and per-token scales
 template <typename T, typename KV, int D>
-cudaError_t launch_typed(const Args& a, int B, cudaStream_t stream) {
-  const dim3 grid(a.HK, B);
-  decode_attention_kernel<T, KV, D>
-      <<<grid, kWarps * 32, ptt::decode::merge_smem_bytes<D>(a.H / a.HK),
-         stream>>>(a);
-  return cudaGetLastError();
+cudaError_t launch_typed(const psp::Args& a, int B, int nsplit,
+                         cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    const dim3 grid(a.HK, B);
+    decode_attention_kernel<KV, D>
+        <<<grid, kWarps * 32, ptt::decode::merge_smem_bytes<D>(a.H / a.HK),
+           stream>>>(a);
+    return cudaGetLastError();
+  } else {
+    return psp::launch<KV, D, true, false, true>(a, B, nsplit, stream);
+  }
 }
 
 template <typename T>
-cudaError_t launch_kv(const Args& a, int B, int D, bool kv_int8,
-                      cudaStream_t stream) {
+cudaError_t launch_kv(const psp::Args& a, int B, int D, bool kv_int8,
+                      int nsplit, cudaStream_t stream) {
   if (D == 128)
-    return kv_int8 ? launch_typed<T, int8_t, 128>(a, B, stream)
-                   : launch_typed<T, T, 128>(a, B, stream);
+    return kv_int8 ? launch_typed<T, int8_t, 128>(a, B, nsplit, stream)
+                   : launch_typed<T, T, 128>(a, B, nsplit, stream);
   if (D == 64)
-    return kv_int8 ? launch_typed<T, int8_t, 64>(a, B, stream)
-                   : launch_typed<T, T, 64>(a, B, stream);
+    return kv_int8 ? launch_typed<T, int8_t, 64>(a, B, nsplit, stream)
+                   : launch_typed<T, T, 64>(a, B, nsplit, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -207,7 +213,7 @@ cudaError_t launch_hm_typed(const psp::Args& a, int B, int nsplit,
            stream>>>(a);
     return cudaGetLastError();
   } else {
-    return psp::launch<KV, D, false, false>(a, B, nsplit, stream);
+    return psp::launch<KV, D, false, false, false>(a, B, nsplit, stream);
   }
 }
 
@@ -227,45 +233,61 @@ cudaError_t launch_hm_kv(const psp::Args& a, int B, int D,
 
 PTT_EXPORT_ERROR_STRING
 
-// q_dtype: 0 = float32, 1 = bfloat16. lengths == NULL gives every row
-// len_all live columns. k_scales/v_scales are read only when
-// kv_int8 != 0.
-extern "C" int ptt_decode_attention(
+// B7 with `nsplit` key splits for bf16 queries: 0 chooses them from the
+// shape, as ptt_decode_attention does; 1, 2, 4 or 8 force them (to time
+// the split rule against its alternatives). float32 queries take 0 only.
+// q_dtype: 0 = float32, 1 = bfloat16. lengths: (B,) int32 on the device.
+// k_scales/v_scales are read only when kv_int8 != 0.
+extern "C" int ptt_decode_attention_splits(
     const void* q, const void* k, const void* v, const void* k_scales,
-    const void* v_scales, const void* lengths, int len_all, void* out,
-    int B, int H, int HK, int D, int S, long long kv_sb, long long kv_ss,
+    const void* v_scales, const void* lengths, void* out, int B, int H,
+    int HK, int D, int S, long long kv_sb, long long kv_ss,
     long long kv_sh, long long sc_sb, long long sc_ss, long long sc_sh,
-    float scale, int q_dtype, int kv_int8, void* stream) {
-  if (B <= 0 || HK <= 0 || H % HK != 0 || H / HK > kMaxRep || S <= 0)
+    float scale, int q_dtype, int kv_int8, int nsplit, void* stream) {
+  if (B <= 0 || HK <= 0 || H % HK != 0 || H / HK > kMaxRep || S <= 0 ||
+      lengths == nullptr || !psp::valid_splits(nsplit, q_dtype))
     return cudaErrorInvalidValue;
-  Args a;
+  psp::Args a = {};  // a dense cache: the batch row is the page of S
   a.q = q;
   a.k = k;
   a.v = v;
   a.k_scales = static_cast<const float*>(k_scales);
   a.v_scales = static_cast<const float*>(v_scales);
   a.lengths = static_cast<const int*>(lengths);
-  a.len_all = len_all;
   a.out = out;
   a.H = H;
   a.HK = HK;
-  a.S = S;
-  a.kv_sb = kv_sb;
-  a.kv_ss = kv_ss;
+  a.page = S;
+  a.ppseq = 1;
+  a.kv_sp = kv_sb;
   a.kv_sh = kv_sh;
-  a.sc_sb = sc_sb;
-  a.sc_ss = sc_ss;
+  a.kv_st = kv_ss;
+  a.sc_sp = sc_sb;
   a.sc_sh = sc_sh;
+  a.sc_st = sc_ss;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q_dtype == 1)
-    e = launch_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, s);
+    e = launch_kv<__nv_bfloat16>(a, B, D, kv_int8 != 0, nsplit, s);
   else if (q_dtype == 0)
-    e = launch_kv<float>(a, B, D, kv_int8 != 0, s);
+    e = launch_kv<float>(a, B, D, kv_int8 != 0, 0, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+// B7 with the split count chosen from the shape.
+extern "C" int ptt_decode_attention(
+    const void* q, const void* k, const void* v, const void* k_scales,
+    const void* v_scales, const void* lengths, void* out, int B, int H,
+    int HK, int D, int S, long long kv_sb, long long kv_ss,
+    long long kv_sh, long long sc_sb, long long sc_ss, long long sc_sh,
+    float scale, int q_dtype, int kv_int8, void* stream) {
+  return ptt_decode_attention_splits(
+      q, k, v, k_scales, v_scales, lengths, out, B, H, HK, D, S, kv_sb,
+      kv_ss, kv_sh, sc_sb, sc_ss, sc_sh, scale, q_dtype, kv_int8, 0,
+      stream);
 }
 
 // B8 with `nsplit` key splits for bf16 queries: 0 chooses them from the

@@ -125,7 +125,7 @@ cudaError_t launch_typed(const psp::Args& a, int B, int nsplit,
            stream>>>(a);
     return cudaGetLastError();
   } else {
-    return psp::launch<KV, D, true, ROPE>(a, B, nsplit, stream);
+    return psp::launch<KV, D, true, ROPE, false>(a, B, nsplit, stream);
   }
 }
 

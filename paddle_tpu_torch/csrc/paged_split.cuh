@@ -1,12 +1,17 @@
-// One-token decode attention over a paged KV pool for bf16 queries: the
-// key-split kernel shared by B8 (decode_attention.cu: a head-major (P, HK,
-// page, D) pool, int8 pages with one dequant scale per (row, kv head)) and
-// B9/B10 (paged_decode.cu: a token-major (P, page, HK, D) pool, int8
-// pages with one scale per token; B10 rotates q by RoPE in the kernel).
-// Both layouts are read in place through three element strides (page,
-// kv head, token in page), so one body serves them; the template flags
-// choose where the scales live (TOKEN_SCALES) and whether q is rotated
-// (ROPE).
+// One-token decode attention for bf16 queries over a KV cache read in
+// place: the key-split kernel shared by B7 (decode_attention.cu: a dense,
+// padded (B, S, HK, D) cache, a layer of the (L, B, S, HK, D) cache of
+// dense `generate`, int8 rows with one scale per token), B8 (the same
+// file: a head-major (P, HK, page, D) pool, int8 pages with one dequant
+// scale per (row, kv head)) and B9/B10 (paged_decode.cu: a token-major
+// (P, page, HK, D) pool, int8 pages with one scale per token; B10
+// rotates q by RoPE in the kernel). The pools are read in place through
+// three element strides (page, kv head, token in page), so one body
+// serves both page layouts; a dense cache (DENSE) is the same three
+// strides with the batch row in place of the page and no block table:
+// no table is read and no token index is divided by a page size. The
+// template flags choose where the scales live (TOKEN_SCALES), whether q
+// is rotated (ROPE) and whether the cache is dense (DENSE).
 //
 // What bounds it on the H100: bytes. Each live K and V row is read once
 // and feeds 4 * D flops per query head: about 1 flop per byte in bf16 with
@@ -17,11 +22,12 @@
 // - the token axis is split across CTAs, flash-decoding style: a CTA is
 //   one (split, kv head, row), with 1, 2, 4 or 8 splits of at least 256
 //   tokens (rounded to 64) chosen from the shape alone (B, HK and the
-//   table's capacity ppseq * page) so that the grid holds about two CTAs
-//   an SM: 8 rows x 32 kv heads (Llama-2-7B) take 1 split, 8 x 8 (GQA)
-//   take 4, a single row x 32 take 8. A split wholly past a row's length
-//   loads nothing and leaves an empty partial, so short rows cost next to
-//   nothing and the longest row does not rest on one CTA. The splits of
+//   capacity: the table's ppseq * page, or a dense cache's S) so that the
+//   grid holds about two CTAs an SM: 8 rows x 32 kv heads (Llama-2-7B)
+//   take 1 split, 8 x 8 (GQA) take 4, a single row x 32 take 8. A split
+//   wholly past a row's length loads nothing and leaves an empty partial,
+//   so short rows cost next to nothing and the longest row does not rest
+//   on one CTA. The splits of
 //   one (row, kv head) form a thread block cluster and merge their partial
 //   (m, l, acc) in split order through distributed shared memory:
 //   deterministic, and no workspace (the C entries have none to offer).
@@ -31,10 +37,11 @@
 //   16-byte chunks XOR-swizzled in shared memory against bank conflicts,
 //   each token's page looked up in the CTA (the block table's -1 entries
 //   read page 0, as the TPU kernels clamp them). A head-major page of one
-//   kv head is contiguous; in the token-major pool a tile is 64 rows of
-//   D elements, HK * D apart, over 64 / page pages: every row is still
-//   whole 128-byte lines. No token at or past the row's length is read,
-//   so NaN there never reaches the output;
+//   kv head is contiguous; in the token-major pool and the dense cache a
+//   tile is 64 rows of D elements, HK * D apart (over 64 / page pages in
+//   the pool): every row is still whole 128-byte lines. No token at or
+//   past the row's length (clamped to the capacity) is read, so NaN
+//   there never reaches the output;
 // - int8 pages dequantize from shared memory into the bf16 fragments as
 //   `round_to<bf16>(float(x) * s)` with an exact byte-permute int8-to-float
 //   (mma.cuh). A per-token scale is staged in the ring stage beside its
@@ -76,7 +83,9 @@ static_assert(ksp::kThreads == 2 * ksp::kTile,
 
 // The arguments of every paged decode body (this kernel and the f32 FMA
 // bodies of B8 and B9/B10 beside it). Token j of batch row b and kv head
-// h lies at bt[b, j / page] * kv_sp + h * kv_sh + (j % page) * kv_st.
+// h lies at bt[b, j / page] * kv_sp + h * kv_sh + (j % page) * kv_st; in
+// a dense cache (B7) at b * kv_sp + h * kv_sh + j * kv_st, where page is
+// the capacity S, ppseq 1 and block_tables unused.
 struct Args {
   const void* q;           // (B, H, D) model dtype, contiguous
   const float* cos_row;    // (B, D/2) f32, B10 only
@@ -91,7 +100,7 @@ struct Args {
   int H, HK, page, ppseq;
   long long kv_sp, kv_sh, kv_st;  // element strides of the pools
   // element strides of the scales: per (row, kv head) sc_sb and sc_sh;
-  // per token sc_sp, sc_sh and sc_st
+  // per token sc_sp (the batch row's in a dense cache), sc_sh and sc_st
   long long sc_sb, sc_sp, sc_sh, sc_st;
   float scale;
 };
@@ -118,32 +127,45 @@ struct Smem {
   static constexpr int kBytes = kEnd > kRingEnd ? kEnd : kRingEnd;
 };
 
-// Tokens [c0, c0 + kTile) of kv head g of one row (block table bt) into
-// ring stage `st`: one 16-byte cp.async a chunk of K and one of V from
-// the same address, and with per-token int8 scales one 4-byte cp.async a
-// scale; tokens at or past c_end are zero-filled and never read.
-// page_shift is log2(page) for a power-of-two page, else -1.
-template <typename KV, int D, bool TOKEN_SCALES>
+// Tokens [c0, c0 + kTile) of kv head g of batch row b (block table bt;
+// a dense cache has none: the row is the page) into ring stage `st`: one
+// 16-byte cp.async a chunk of K and one of V from the same address, and
+// with per-token int8 scales one 4-byte cp.async a scale; tokens at or
+// past c_end are zero-filled and never read. page_shift is log2(page)
+// for a power-of-two page, else -1.
+template <typename KV, int D, bool TOKEN_SCALES, bool DENSE>
 __device__ __forceinline__ void split_load(const Args& a, const int* bt,
-                                           int page_shift, uint32_t st,
-                                           int g, int c0, int c_end) {
+                                           int b, int page_shift,
+                                           uint32_t st, int g, int c0,
+                                           int c_end) {
   using L = Smem<KV, D, TOKEN_SCALES>;
   constexpr int CPR = L::CPR;
   constexpr int EPC = 16 / static_cast<int>(sizeof(KV));
   const KV* kb = static_cast<const KV*>(a.k) + (long long)g * a.kv_sh;
   const KV* vb = static_cast<const KV*>(a.v) + (long long)g * a.kv_sh;
+  // token j's (page, row in page): (b, j) in a dense cache, else from
+  // the table; a dead token reads (page 0 or b, row 0) with size 0
+  auto locate = [&](int j, bool live, int& pg, int& row) {
+    if constexpr (DENSE) {
+      pg = b;
+      row = live ? j : 0;
+    } else {
+      const int pi = page_shift >= 0 ? j >> page_shift : j / a.page;
+      pg = live ? bt[pi] : 0;
+      pg = pg < 0 ? 0 : pg;  // a -1 entry reads page 0, as the TPU clamps
+      row = live ? j - pi * a.page : 0;
+    }
+  };
 #pragma unroll 4
   for (int i = threadIdx.x; i < ksp::kTile * CPR; i += ksp::kThreads) {
     const int r = i / CPR;
     const int ch = i % CPR;
     const int j = c0 + r;
     const bool live = j < c_end;
-    const int pi = page_shift >= 0 ? j >> page_shift : j / a.page;
-    int pg = live ? bt[pi] : 0;
-    pg = pg < 0 ? 0 : pg;  // a -1 entry reads page 0, as the TPU clamps
+    int pg, row;
+    locate(j, live, pg, row);
     const long long off =
-        (long long)pg * a.kv_sp +
-        (long long)(live ? j - pi * a.page : 0) * a.kv_st + ch * EPC;
+        (long long)pg * a.kv_sp + (long long)row * a.kv_st + ch * EPC;
     const uint32_t dst = st + r * L::kRowBytes + ((ch ^ swz<CPR>(r)) * 16);
     hop::cp_async16(dst, kb + off, live ? 16 : 0);
     hop::cp_async16(dst + L::kTile, vb + off, live ? 16 : 0);
@@ -152,11 +174,10 @@ __device__ __forceinline__ void split_load(const Args& a, const int* bt,
     const int r = threadIdx.x % ksp::kTile;
     const int j = c0 + r;
     const bool live = j < c_end;
-    const int pi = page_shift >= 0 ? j >> page_shift : j / a.page;
-    int pg = live ? bt[pi] : 0;
-    pg = pg < 0 ? 0 : pg;
+    int pg, row;
+    locate(j, live, pg, row);
     const long long off = (long long)pg * a.sc_sp +
-                          (long long)(live ? j - pi * a.page : 0) * a.sc_st +
+                          (long long)row * a.sc_st +
                           (long long)g * a.sc_sh;
     hop::cp_async4(st + 2 * L::kTile + threadIdx.x * 4,
                    (threadIdx.x < ksp::kTile ? a.k_scales : a.v_scales) + off,
@@ -196,9 +217,10 @@ namespace {
 
 // One CTA per (split, kv head, batch row): the rep query rows of kv head
 // g, padded to one 16-row mma tile, against tokens [blockIdx.x * split,
-// +split) of the row's live [0, len); the splits of a (row, kv head) form
-// a thread block cluster and merge in split order.
-template <typename KV, int D, bool TOKEN_SCALES, bool ROPE>
+// +split) of the row's live [0, len), len clamped to the capacity; the
+// splits of a (row, kv head) form a thread block cluster and merge in
+// split order.
+template <typename KV, int D, bool TOKEN_SCALES, bool ROPE, bool DENSE>
 __global__ void __launch_bounds__(ksp::kThreads)
     paged_decode_split_kernel(const Args a, int split) {
   using L = Smem<KV, D, TOKEN_SCALES>;
@@ -222,9 +244,10 @@ __global__ void __launch_bounds__(ksp::kThreads)
   const int s_end = min(len, s_begin + split);
   // a split wholly past the row's length loads nothing
   const int n_tiles = s_end > s_begin ? (s_end - s_begin + kBN - 1) / kBN : 0;
-  const int* bt = a.block_tables + (long long)b * a.ppseq;
+  const int* bt =
+      DENSE ? nullptr : a.block_tables + (long long)b * a.ppseq;
   const int page_shift =
-      (a.page & (a.page - 1)) == 0 ? __ffs(a.page) - 1 : -1;
+      DENSE || (a.page & (a.page - 1)) != 0 ? -1 : __ffs(a.page) - 1;
 
   const int w = threadIdx.x / 32;  // key slice: tokens 16 w .. of a tile
   const int lane = threadIdx.x % 32;
@@ -253,9 +276,9 @@ __global__ void __launch_bounds__(ksp::kThreads)
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {  // the ring's prologue
     if (st < n_tiles)
-      split_load<KV, D, TOKEN_SCALES>(a, bt, page_shift,
-                                      base + L::kRing + st * L::kStage, g,
-                                      s_begin + st * kBN, s_end);
+      split_load<KV, D, TOKEN_SCALES, DENSE>(
+          a, bt, b, page_shift, base + L::kRing + st * L::kStage, g,
+          s_begin + st * kBN, s_end);
     hop::cp_async_commit();
   }
   // per (row, kv head) scales: the same for every token
@@ -279,9 +302,10 @@ __global__ void __launch_bounds__(ksp::kThreads)
     __syncthreads();
     const int ahead = it + kStages - 1;  // the tile to prefetch
     if (ahead < n_tiles)
-      split_load<KV, D, TOKEN_SCALES>(
-          a, bt, page_shift, base + L::kRing + (ahead % kStages) * L::kStage,
-          g, s_begin + ahead * kBN, s_end);
+      split_load<KV, D, TOKEN_SCALES, DENSE>(
+          a, bt, b, page_shift,
+          base + L::kRing + (ahead % kStages) * L::kStage, g,
+          s_begin + ahead * kBN, s_end);
     hop::cp_async_commit();
     const unsigned char* sK = spl_smem + L::kRing + (it % kStages) * L::kStage;
     const unsigned char* sV = sK + L::kTile;
@@ -483,15 +507,17 @@ __global__ void __launch_bounds__(ksp::kThreads)
 }  // namespace
 
 // The split grid: (splits, HK, B), the split count from the shape alone
-// (B, HK and the table's capacity ppseq * page; keysplit.cuh), or
-// `nsplit` splits where it is given (a power of two up to 8).
-template <typename KV, int D, bool TOKEN_SCALES, bool ROPE>
+// (B, HK and the capacity ppseq * page: the table's, or a dense cache's
+// S; keysplit.cuh), or `nsplit` splits where it is given (a power of two
+// up to 8).
+template <typename KV, int D, bool TOKEN_SCALES, bool ROPE, bool DENSE>
 cudaError_t launch(const Args& a, int B, int nsplit, cudaStream_t stream) {
   const int cap = a.ppseq * a.page;
   if (nsplit == 0) nsplit = ksp::split_count((long long)B * a.HK, cap);
-  return ksp::launch(paged_decode_split_kernel<KV, D, TOKEN_SCALES, ROPE>,
-                     nsplit, a.HK, B, Smem<KV, D, TOKEN_SCALES>::kBytes,
-                     stream, a, ksp::split_length(cap, nsplit));
+  return ksp::launch(
+      paged_decode_split_kernel<KV, D, TOKEN_SCALES, ROPE, DENSE>, nsplit,
+      a.HK, B, Smem<KV, D, TOKEN_SCALES>::kBytes, stream, a,
+      ksp::split_length(cap, nsplit));
 }
 
 // Whether `nsplit` is a split count the C entries take: 0 (the shape's

@@ -188,21 +188,22 @@ def _use_decode_kernel(x: torch.Tensor, override=None) -> bool:
 
 def _attn_with_cache(q, ck, cv, length: int, kstart=None, k_rows=None,
                      v_rows=None, fused=False, tree_mask=None,
-                     use_kernel=None):
+                     lengths=None):
     """q (B,T,nh,hd) vs cache (B,Smax,nkv,hd); positions >= length
     masked, and below ``kstart`` (B,) when given (left-padded rows, the
-    prefill and verify temp caches). A one-token step without ``kstart``
-    (dense decode) runs decode kernel B7 unless ``use_kernel`` is False
-    (:func:`_use_decode_kernel`). ``fused`` runs the flash chunk kernel
+    prefill and verify temp caches). With ``lengths`` (the (B,) int32
+    tensor of ``length`` on q's device, which :func:`_forward_cached`
+    builds for a one-token step without ``kstart`` that
+    :func:`_use_decode_kernel` sends to the kernel) the step runs
+    decode kernel B7. ``fused`` runs the flash chunk kernel
     (B11) for chunks with ``kstart``; the plain branch is the JAX
     composition, op for op, which is B11's plain version.
     ``tree_mask`` (B, T, T) bool: the T chunk lanes are token-tree nodes
     and the ancestor-or-self matrix replaces the in-chunk causal
     triangle (B11-tree when fused); it needs the verify layout, the
     chunk being the cache's last T rows."""
-    T = q.shape[1]
-    if T == 1 and kstart is None and _use_decode_kernel(q, use_kernel):
-        return _fz.decode_attention(q[:, 0], ck, cv, length, k_rows=k_rows,
+    if lengths is not None:
+        return _fz.decode_attention(q[:, 0], ck, cv, lengths, k_rows=k_rows,
                                     v_rows=v_rows)[:, None]
     if tree_mask is not None and int(length) != ck.shape[1]:
         raise ValueError(
@@ -216,14 +217,14 @@ def _attn_with_cache(q, ck, cv, length: int, kstart=None, k_rows=None,
 
 def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                  cfg: LlamaConfig, rpos=None, kstart=None, fused=False,
-                 tree_mask=None, use_kernel=None):
+                 tree_mask=None, lengths=None):
     """One decoder layer over T tokens written at cache index ``pos``
     (layer ``l`` of the dense ``cache``, updated in place). ``rpos``
     (B, T) are their rope positions where they differ from the cache
     index (left-padded rows, the temp caches; None rotates at ``pos +
     t``), ``kstart`` (B,) the first valid cache column, ``tree_mask`` an
-    optional (B, T, T) ancestor matrix and ``use_kernel`` the decode
-    kernel's switch (:func:`_attn_with_cache`). Every weight goes
+    optional (B, T, T) ancestor matrix and ``lengths`` decode kernel
+    B7's (B,) length tensor (:func:`_attn_with_cache`). Every weight goes
     through :func:`~.llama._w`, so quantized weights dequantize here."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -244,8 +245,7 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                          kstart=kstart,
                          k_rows=cache["ks"][l] if quant else None,
                          v_rows=cache["vs"][l] if quant else None,
-                         fused=fused, tree_mask=tree_mask,
-                         use_kernel=use_kernel)
+                         fused=fused, tree_mask=tree_mask, lengths=lengths)
     x = x + o.reshape(B, T, nh * hd) @ _w(lp, "wo", x.dtype)
     return _mlp(x, lp, cfg)
 
@@ -258,15 +258,23 @@ def _forward_cached(params, tokens, cache: Dict, pos: int,
     """tokens (B, T) at cache positions [pos, pos+T) -> logits (B, V)
     f32 at row ``logits_at`` (default the last row), or (B, T, V) at
     every row with ``logits_all`` (the verify's targets); ``cache`` is
-    updated in place. ``rpos``, ``kstart``, ``tree_mask``,
-    ``use_kernel``: see :func:`_block_infer`."""
+    updated in place. ``rpos``, ``kstart``, ``tree_mask``: see
+    :func:`_block_infer`. A one-token forward without ``kstart`` runs
+    decode kernel B7 unless ``use_kernel`` is False
+    (:func:`_use_decode_kernel`), on one (B,) length tensor built here,
+    on the device, for every layer."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = rope_tables(max_len, cfg.hd, cfg.rope_theta,
                            device=x.device)
+    B, T = tokens.shape
+    lengths = None
+    if T == 1 and kstart is None and _use_decode_kernel(x, use_kernel):
+        lengths = torch.full((B,), pos + 1, dtype=torch.int32,
+                             device=x.device)
     for l in range(cfg.num_layers):
         x = _block_infer(x, layer_params(params, l), cache, l, pos, cos,
                          sin, cfg, rpos=rpos, kstart=kstart, fused=fused,
-                         tree_mask=tree_mask, use_kernel=use_kernel)
+                         tree_mask=tree_mask, lengths=lengths)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if logits_all:
         return (x @ _lm_head(params, cfg, x.dtype)).float()

@@ -19,7 +19,9 @@ Counterpart of ``paddle_tpu/ops/pallas/fused.py``:
   against the first ``cache_len[b]`` rows of a padded (B, S, HK, D)
   cache, GQA by head group, optional int8 rows with per-row f32 scales.
   CUDA tensors launch ``csrc/decode_attention.cu`` (it replaces
-  ``_decode_kernel`` / ``_decode_kernel_qrow``).
+  ``_decode_kernel`` / ``_decode_kernel_qrow``); bf16 queries run the
+  key-split body of ``csrc/paged_split.cuh`` that B8-B10 share, with
+  its dense addressing, and the lengths are read on the device.
 - :func:`rope_apply` (B6): neox rotate-half RoPE of x (B, S, H, D) by
   (S, D/2) f32 tables, ``sign`` -1 for the VJP. CUDA tensors launch
   ``csrc/rope.cu`` (it replaces ``_rope_kernel``); :class:`_RopeQK` and
@@ -73,10 +75,15 @@ SIGNATURES = {
 DECODE_SIGNATURES = {
     "ptt_decode_attention": (
         _P, _P, _P, _P, _P,             # q, k/v caches, k/v row scales
-        _P, _I, _P,                     # lengths (or NULL), len_all, out
+        _P, _P,                         # lengths (B,) int32, out
         _I, _I, _I, _I, _I,             # B, H, HK, D, S
         _L, _L, _L, _L, _L, _L,         # cache strides, scale strides
         ctypes.c_float, _I, _I, _P),    # scale, q dtype, kv int8, stream
+    "ptt_decode_attention_splits": (
+        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I,
+        _L, _L, _L, _L, _L, _L,
+        ctypes.c_float, _I, _I, _I, _P),  # ..., kv int8, splits, stream
     "ptt_paged_decode_hm": (
         _P, _P, _P, _P, _P,             # q, k/v pages, k/v scales
         _P, _P, _P,                     # block tables, lengths, out
@@ -357,13 +364,17 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *, scale=None,
 
 
 def launch_decode(q, k_cache, v_cache, cache_len, *, scale=None,
-                  k_rows=None, v_rows=None) -> torch.Tensor:
+                  k_rows=None, v_rows=None, splits=None) -> torch.Tensor:
     """Launch ``ptt_decode_attention`` (B7) on CUDA tensors. The caches
     may be strided views (a layer of the dense ``(L, B, S, HK, D)``
-    cache) whose rows are contiguous and 16-byte aligned. ``cache_len``
-    as an int reaches the kernel as an argument; as a tensor it is used
-    on the device, with no host sync. Validates every input and raises
-    on what the kernel does not take; never falls back."""
+    cache) whose rows are contiguous and 16-byte aligned. The kernel
+    reads the lengths on the device: a ``(B,)`` int32 tensor there is
+    used as it is, an int becomes one without a host sync (a caller
+    that decodes through many layers builds the tensor once).
+    ``splits`` (one of :data:`DECODE_SPLITS`, bf16 queries only) forces
+    the key split that the kernel otherwise chooses from the shape, to
+    time the choice against the others. Validates every input and
+    raises on what the kernel does not take; never falls back."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention: the kernel needs CUDA tensors, "
@@ -387,6 +398,10 @@ def launch_decode(q, k_cache, v_cache, cache_len, *, scale=None,
         raise ValueError(f"decode_attention: H={H} must be a multiple of "
                          f"HK={HK} with at most {DECODE_MAX_REP} query heads "
                          f"per kv head")
+    if splits is not None and (splits not in DECODE_SPLITS
+                               or q.dtype != torch.bfloat16):
+        raise ValueError(f"decode_attention: splits={splits} needs bfloat16 "
+                         f"queries and one of {DECODE_SPLITS}")
     quant = k_rows is not None
     kv_dtype = torch.int8 if quant else q.dtype
     for t, nm in ((k_cache, "k_cache"), (v_cache, "v_cache")):
@@ -412,9 +427,8 @@ def launch_decode(q, k_cache, v_cache, cache_len, *, scale=None,
     q = q.contiguous()
     if not _aligned(q):
         raise ValueError("decode_attention: q must be 16-byte aligned")
-    lens, len_all = None, 0
     if isinstance(cache_len, int):
-        len_all = cache_len
+        lens = torch.full((B,), cache_len, dtype=torch.int32, device=dev)
     else:
         lens = torch.as_tensor(cache_len, device=dev).to(
             torch.int32).broadcast_to((B,)).contiguous()
@@ -425,11 +439,14 @@ def launch_decode(q, k_cache, v_cache, cache_len, *, scale=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = lib.ptt_decode_attention(
-        ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_rows), ptr(v_rows),
-        ptr(lens), int(len_all), ptr(out), B, H, HK, D, S,
-        *k_cache.stride()[:3], *sc_strides, float(s), _DTYPES[q.dtype],
-        int(quant), _build.stream_handle(dev))
+    args = (ptr(q), ptr(k_cache), ptr(v_cache), ptr(k_rows), ptr(v_rows),
+            ptr(lens), ptr(out), B, H, HK, D, S, *k_cache.stride()[:3],
+            *sc_strides, float(s), _DTYPES[q.dtype], int(quant))
+    if splits is None:
+        rc = lib.ptt_decode_attention(*args, _build.stream_handle(dev))
+    else:
+        rc = lib.ptt_decode_attention_splits(*args, splits,
+                                             _build.stream_handle(dev))
     _build.check(lib, rc, "decode_attention")
     return out
 

@@ -38,10 +38,12 @@ order); bfloat16, ``chip_smoke.py``'s row rule (every D-vector within
 ``ROW_RTOL * |its row| + ROW_FLOOR * rms``).
 """
 import math
+import re
 import sys
 from pathlib import Path
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -58,6 +60,25 @@ F32 = dict(rtol=2e-5, atol=2e-5)
 BN = 64            # keys of a tile (both designs)
 PRE_ROWS = 64      # packed rows of a prefill tile
 MAX_SPLITS, MIN_SPLIT, TARGET_CTAS = 8, 256, 264
+
+
+def _jit_call(fn, *args, **kw):
+    """``fn(*args, **kw)`` compiled as one XLA program: the array
+    arguments are traced, the rest (ints, floats, None, tuples of them)
+    fixed. Eager JAX compiles each op of ``fn`` on its own, which is
+    most of this file's time on the CPU."""
+    flat, tree = jax.tree.flatten((args, kw), is_leaf=lambda x: x is None)
+    live = [i for i, x in enumerate(flat)
+            if isinstance(x, (np.ndarray, jax.Array))]
+
+    def run(xs):
+        full = list(flat)
+        for i, x in zip(live, xs):
+            full[i] = x
+        a, k = jax.tree.unflatten(tree, full)
+        return fn(*a, **k)
+
+    return jax.jit(run)([flat[i] for i in live])
 
 
 def verify_split(B, HK, W):
@@ -253,10 +274,11 @@ def test_chunk_tiling_model_matches_jax(name):
                          else cv.float().numpy(),
                          jnp.int8 if kind == "int8" else jdt),
              W, jnp.asarray(kstart))
-    ref = np.asarray(jsf.flash_chunk_attention_reference(
-        *jargs, scale=scale, **jkw).astype(jnp.float32))
-    ker = np.asarray(jsf.flash_chunk_attention_kernel(
-        *jargs, scale=scale, block_k=128, **jkw).astype(jnp.float32))
+    ref = np.asarray(_jit_call(jsf.flash_chunk_attention_reference, *jargs,
+                               scale=scale, **jkw).astype(jnp.float32))
+    ker = np.asarray(_jit_call(jsf.flash_chunk_attention_kernel, *jargs,
+                               scale=scale, block_k=128,
+                               **jkw).astype(jnp.float32))
     if tree:  # node 31 of a 32-node tree sets the sign bit of its mask
         bits = (kw["tree_mask"].astype(np.int64)
                 << np.arange(T)).sum(axis=2)
@@ -268,3 +290,22 @@ def test_chunk_tiling_model_matches_jax(name):
             ratio = chip_smoke.row_ratio(torch, got,
                                          torch.from_numpy(want.copy()))
             assert ratio <= 1.0, f"worst row at {ratio:.3g} of its limit"
+
+
+CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("flash_chunk.cu", "kPreRows", PRE_ROWS),
+    ("flash_chunk.cu", "kPreBN", BN),
+    ("keysplit.cuh", "kTile", BN),
+    ("keysplit.cuh", "kMaxSplits", MAX_SPLITS),
+    ("keysplit.cuh", "kMinSplit", MIN_SPLIT),
+    ("keysplit.cuh", "kTargetCtas", TARGET_CTAS)])
+def test_model_constants_are_the_kernels(source, name, value):
+    """The model's tile sizes and verify split rule are the ones
+    ``csrc/flash_chunk.cu`` compiles with (its prefill tile, and the
+    verify tile and rule it takes from ``keysplit.cuh``)."""
+    src = (CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", src)
+    assert found == [str(value)]

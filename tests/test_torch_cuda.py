@@ -23,8 +23,10 @@ at the engine's prefill chunk and at key-split boundaries, a chain tree
 bit-equal to the linear form in both regimes; B7
 (decode attention against a contiguous cache) at GQA rep 1, 2, 4 and 8
 on strided layer views of a padded cache whose tail past each row's
-length is NaN, beside a planted fault (the last live key tile of one
-row dropped from the plain version) that the row check must reject;
+length is NaN, in bf16 at capacities that give its split kernel 1, 2, 4
+and 8 splits and with each split count forced, beside a planted fault
+(the last live keys of one row dropped from the plain version) that the
+row check must reject;
 dense ``generate`` and ``beam_search`` with their B7 launch counts; B6
 (fused RoPE) on strided q/k views of a fused qkv tensor at ragged
 shapes, head dims 6, 64 and 128 (every vector width), forward and VJP,
@@ -558,9 +560,15 @@ def test_train_step_on_the_card_matches_cpu(cuda, policy, fused_kernels):
             metrics[1][k]), (k, metrics)
 
 
-B7_CASES = [(d, dt, q8, rep) for d in (64, 128)
+# (D, dtype, int8 rows, GQA group, capacity S): bf16 queries take the
+# key-split kernel with its dense addressing, whose split count follows
+# B, HK and S: at B = 4, HK = 2 capacities 150, 512, 1024 and 2048 give
+# 1, 2, 4 and 8 splits; float32 queries take the plain-FMA body
+B7_CASES = [(d, dt, q8, rep, 150) for d in (64, 128)
             for dt in (torch.float32, torch.bfloat16)
-            for q8 in (False, True) for rep in (1, 2, 4, 8)]
+            for q8 in (False, True) for rep in (1, 2, 4, 8)] + [
+    (d, torch.bfloat16, q8, rep, S) for S in (512, 1024, 2048)
+    for d in (64, 128) for q8 in (False, True) for rep in (1, 4)]
 
 
 def _rows_ratio(got, want, rtol):
@@ -571,27 +579,25 @@ def _rows_ratio(got, want, rtol):
     return (g - w).norm(dim=-1) / lim
 
 
-@pytest.mark.parametrize("case", B7_CASES, ids=[_ids(c) for c in B7_CASES])
-def test_decode_attention_kernel_matches_plain(cuda, case):
-    """B7 on layer 1 of a (B, L, Smax, HK, D) cache viewed as (B, S, HK,
-    D) — strides that are not a contiguous tensor's — at row lengths
-    1, S, and between, with every column at or past a row's length NaN
-    (int8: its scale NaN). The kernel must equal the plain version on
-    the same cache with a clean tail (so it read no tail column), per
-    row, for a (B,) length tensor (and, on the clean views, for one int
-    length); the plain version without row 1's last 16 live keys must
-    fail that check."""
-    D, dtype, q8, rep = case
-    g = torch.Generator().manual_seed(4)
-    B, L, Smax, S, HK = 4, 2, 160, 150, 2
+def _dense_case(g, cuda, D, dtype, q8, rep, S):
+    """B7's inputs: layer 1 of a (B, L, S + 10, HK, D) cache viewed as
+    (B, S, HK, D) (strides that are not a contiguous tensor's), B = 4,
+    HK = 2, rows of lengths 1, S, S - 73 and 16, every column at or past
+    a row's length NaN (int8: its scale NaN). int8 scales are 0.01-0.06
+    at S = 150 and 0.005-0.025 above (``chip_smoke.py``'s, scores of
+    order one, so that a dropped key tile of a long row moves the
+    output). Returns q, the NaN-tailed views, the same views clean (for
+    the plain version) and the lengths."""
+    B, L, Smax, HK = 4, 2, S + 10, 2
     H = HK * rep
-    lens = torch.tensor([1, S, 77, 16], dtype=torch.int32)
+    lens = torch.tensor([1, S, S - 73, 16], dtype=torch.int32)
     big = (B, L, Smax, HK, D)
+    lo, span = (0.01, 0.05) if S == 150 else (0.005, 0.02)
     if q8:
         k = torch.randint(-127, 128, big, generator=g, dtype=torch.int8)
         v = torch.randint(-127, 128, big, generator=g, dtype=torch.int8)
-        ks = torch.rand(big[:4], generator=g) * 0.05 + 0.01
-        vs = torch.rand(big[:4], generator=g) * 0.05 + 0.01
+        ks = torch.rand(big[:4], generator=g) * span + lo
+        vs = torch.rand(big[:4], generator=g) * span + lo
     else:
         k = torch.randn(big, generator=g).to(dtype)
         v = torch.randn(big, generator=g).to(dtype)
@@ -606,10 +612,23 @@ def test_decode_attention_kernel_matches_plain(cuda, case):
     def view(ts):
         return [t if t is None else t.to(cuda)[:, 1, :S] for t in ts]
 
-    ck, cv, kr, vr = view(dirty)
-    pk, pv, pkr, pvr = view((k, v, ks, vs))
+    return q, view(dirty), view((k, v, ks, vs)), lens.to(cuda)
+
+
+@pytest.mark.parametrize("case", B7_CASES, ids=[
+    _ids(c) if c[4] == 150 else f"{_ids(c)}-S{c[4]}" for c in B7_CASES])
+def test_decode_attention_kernel_matches_plain(cuda, case):
+    """B7 on layer 1 of a (B, L, Smax, HK, D) cache viewed as (B, S, HK,
+    D) (``_dense_case``), with every column at or past a row's length
+    NaN. The kernel must equal the plain version on the same cache with
+    a clean tail (so it read no tail column), per row, for a (B,) length
+    tensor (and, on the clean views, for one int length); the plain
+    version without row 1's last 16 live keys (at S = 150; 64 keys, one
+    key tile of the split kernel, above) must fail that check."""
+    D, dtype, q8, rep, S = case
+    q, (ck, cv, kr, vr), (pk, pv, pkr, pvr), lens = _dense_case(
+        torch.Generator().manual_seed(4), cuda, D, dtype, q8, rep, S)
     assert not ck.is_contiguous()
-    lens = lens.to(cuda)
     kw = dict(k_rows=kr, v_rows=vr)
     pkw = dict(k_rows=pkr, v_rows=pvr)
     kernels.reset_launch_counts()
@@ -618,7 +637,7 @@ def test_decode_attention_kernel_matches_plain(cuda, case):
     _close(out, want, dtype)
     assert torch.isfinite(out).all()
     bad_lens = lens.clone()
-    bad_lens[1] -= 16                     # row 1 loses its last live tile
+    bad_lens[1] -= 16 if S == 150 else 64   # row 1 loses its last keys
     fault = _rows_ratio(out, fk.decode_attention_plain(q, pk, pv, bad_lens,
                                                        **pkw),
                         1e-5 if dtype == torch.float32 else 2e-2)
@@ -627,6 +646,34 @@ def test_decode_attention_kernel_matches_plain(cuda, case):
     _close(same, fk.decode_attention_plain(q, pk, pv, 77, **pkw), dtype)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {**NONE, "B7": 2}
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits", fk.DECODE_SPLITS)
+def test_decode_attention_forced_splits_match_plain(cuda, splits, q8):
+    """B7's bf16 kernel with its key split forced (S = 2048, where the
+    rule takes 8) against the plain version, per row, on the NaN-tailed
+    cache, with the same planted fault; a split count the kernel does
+    not take, or a forced split for float32 queries, raises."""
+    q, (ck, cv, kr, vr), (pk, pv, pkr, pvr), lens = _dense_case(
+        torch.Generator().manual_seed(5), cuda, 128, torch.bfloat16, q8, 2,
+        2048)
+    kw = dict(k_rows=kr, v_rows=vr)
+    pkw = dict(k_rows=pkr, v_rows=pvr)
+    out = fk.launch_decode(q, ck, cv, lens, splits=splits, **kw)
+    want = fk.decode_attention_plain(q, pk, pv, lens, **pkw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    _close(out, want, torch.bfloat16)
+    bad = lens.clone()
+    bad[1] -= 64
+    fault = _rows_ratio(out, fk.decode_attention_plain(q, pk, pv, bad,
+                                                       **pkw), 2e-2)
+    assert fault.max() > 1.0
+    with pytest.raises(ValueError, match="splits"):
+        fk.launch_decode(q, ck, cv, lens, splits=3, **kw)
+    with pytest.raises(ValueError, match="splits"):
+        fk.launch_decode(q.float(), pk, pv, lens, splits=splits, **pkw)
 
 
 def test_decode_attention_wrapper_raises_on_what_the_kernel_does_not_take(

@@ -38,6 +38,7 @@ order); bfloat16, ``chip_smoke.py``'s row rule (every D-vector within
 ``ROW_RTOL * |its row| + ROW_FLOOR * rms``).
 """
 import math
+import re
 import sys
 from pathlib import Path
 
@@ -122,11 +123,17 @@ def model_decode(q, kp, vp, bt, lens, scale, ks=None, vs=None,
     ppseq) -> (B, H, D) in q's dtype, the way it tiles and rounds: B8 on
     head-major pools (P, HK, page, D) with (B, HK) scales ks, vs of int8
     pools; with ``token_major`` B9 on (P, page, HK, D) pools with (P,
-    page, HK) scales; ``rope`` (cos_row, sin_row) makes it B10."""
+    page, HK) scales; ``rope`` (cos_row, sin_row) makes it B10. With
+    ``bt`` None, B7: dense (B, S, HK, D) caches with (B, S, HK) scales,
+    the capacity S."""
     B, H, D = q.shape
-    HK, page = ((kp.shape[2], kp.shape[1]) if token_major
-                else (kp.shape[1], kp.shape[2]))
-    rep, cap = H // HK, bt.shape[1] * page
+    if bt is None:
+        HK, cap = kp.shape[2], kp.shape[1]
+    else:
+        HK, page = ((kp.shape[2], kp.shape[1]) if token_major
+                    else (kp.shape[1], kp.shape[2]))
+        cap = bt.shape[1] * page
+    rep = H // HK
     if rope is not None:
         q = rotate(q, *rope)
     nsplit, split = decode_split(B, HK, cap)
@@ -142,6 +149,12 @@ def model_decode(q, kp, vp, bt, lens, scale, ks=None, vs=None,
                 """Tokens [j0, j1) of kv head g, zeros at or past n."""
                 t = torch.zeros((j1 - j0, D), dtype=q.dtype)
                 j = torch.arange(j0, max(j0, min(j1, n)))
+                if bt is None:        # dense: the row is its own page
+                    x = pool[b, j, g]
+                    s = None if sc is None else sc[b, j, g, None]
+                    t[:len(j)] = (x if s is None else x.float() * s).to(
+                        q.dtype)
+                    return t
                 pg = bt[b, j // page].long().clamp(min=0)
                 if token_major:
                     x = pool[pg, j % page, g]
@@ -298,14 +311,96 @@ def test_token_major_split_model_matches_jax(nsplit, kind):
         assert ratio <= 1.0, f"worst row at {ratio:.3g} of its limit"
 
 
+# B7: (capacity S, GQA group); at B = 6 rows, HK = 2 the rule gives 1,
+# 2, 4 and 8 splits
+DENSE_CASES = ((192, 1), (512, 4), (1024, 1), (2048, 4))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("S,rep", DENSE_CASES,
+                         ids=[f"S{c[0]}-rep{c[1]}" for c in DENSE_CASES])
+def test_dense_split_model_matches_jax(S, rep, kind):
+    """B7: the split kernel's dense addressing on layer 1 of a (B, L, S,
+    HK, D) cache (a strided view, as dense ``generate`` passes a layer),
+    B = 6, HK = 2, D = 16, against the JAX ``decode_attention`` in
+    interpret mode: rows of lengths 1, 0, S, one past S (clamped to S),
+    S - 37 (ends mid-tile in the last split) and 100 (every split but
+    the first empty); S = 192 is not a multiple of the 64-token tile.
+    The model reads a cache whose columns past each row's length are
+    NaN (int8: their scales), JAX the same cache with a clean tail; int8
+    rows carry (B, S, HK) per-token scales. JAX writes zeros for the row
+    of length 0, as the model does."""
+    rs = np.random.RandomState(1000 + S + KINDS.index(kind))
+    B, L, HK, D = 6, 2, 2, 16
+    H = HK * rep
+    nsplit = {192: 1, 512: 2, 1024: 4, 2048: 8}[S]
+    assert decode_split(B, HK, S)[0] == nsplit
+    lens = np.asarray([1, 0, S, S + 1, S - 37, 100], np.int32)
+    q = rs.randn(B, H, D).astype(np.float32)
+    qdt = "float32" if kind == "float32" else "bfloat16"
+    jd, td = getattr(jnp, qdt), getattr(torch, qdt)
+    big = (B, L, S, HK, D)
+    if kind == "int8":
+        kv = [rs.randint(-127, 128, big).astype(np.int8) for _ in range(2)]
+        sc = [(rs.rand(*big[:4]) * 0.05 + 0.01).astype(np.float32)
+              for _ in range(2)]
+        jkv = [jnp.asarray(a[:, 1]) for a in kv]
+        tkv = [torch.from_numpy(a.copy())[:, 1] for a in kv]
+    else:
+        kv = [rs.randn(*big).astype(np.float32) for _ in range(2)]
+        sc = [None, None]
+        jkv = [jnp.asarray(a[:, 1]).astype(jd) for a in kv]
+        tkv = [torch.from_numpy(a.copy()).to(td)[:, 1] for a in kv]
+    jsc = {} if sc[0] is None else dict(
+        k_dequant_rows=jnp.asarray(sc[0][:, 1]),
+        v_dequant_rows=jnp.asarray(sc[1][:, 1]))
+    tsc = [None if a is None else torch.from_numpy(a.copy())[:, 1]
+           for a in sc]
+    tail = np.arange(S)[None, :] >= lens[:, None]            # (B, S)
+    for t in (tsc if kind == "int8" else tkv):
+        t[torch.from_numpy(tail)] = float("nan")
+    assert not tkv[0].is_contiguous()
+    want = np.asarray(jfz.decode_attention(
+        jnp.asarray(q).astype(jd), *jkv, jnp.asarray(lens),
+        **jsc).astype(jnp.float32))
+    got = model_decode(torch.from_numpy(q).to(td), *tkv, None,
+                       torch.from_numpy(lens), 1.0 / math.sqrt(D), *tsc)
+    assert torch.isfinite(got).all() and not got[1].any()
+    assert not want[1].any()                 # the row of length 0: zeros
+    live = [0, 2, 3, 4, 5]
+    if kind == "float32":
+        np.testing.assert_allclose(got.numpy()[live], want[live], **F32)
+        return
+    ratio = chip_smoke.row_ratio(torch, got[live], torch.tensor(want)[live])
+    assert ratio <= 1.0, f"worst row at {ratio:.3g} of its limit"
+
+
 @pytest.mark.parametrize("shape,want", [
     ((8, 32, 2048), 1), ((8, 32, 1088), 1), ((1, 32, 4096), 8),
-    ((8, 8, 2048), 4), ((1, 32, 256), 1), ((4, 2, 2048), 8)])
+    ((8, 8, 2048), 4), ((1, 32, 256), 1), ((4, 2, 2048), 8),
+    ((8, 12, 192), 1), ((4, 2, 512), 2), ((4, 2, 1024), 4)])
 def test_split_rule_at_the_timed_shapes(shape, want):
     """The split counts the kernel's source note and ``chip_smoke.py``
-    state: 8 rows x 32 kv heads (ragged and the Paddle decoder's rows;
-    the paged engine's decode step, ``max_batch=8`` at ``max_len=2048``)
-    1, one row of 4,096 tokens 8, GQA's 8 x 8 4; a table shorter than
-    two splits' minimum 1; the card tests' B = 4, HK = 2 at 2048, 8."""
+    state, for B7's dense cache (capacity S) as for B8-B10's tables: 8
+    rows x 32 kv heads (ragged and the Paddle decoder's rows; the paged
+    engine's decode step, ``max_batch=8`` at ``max_len=2048``; dense
+    decoding's long tier and beam rows) 1, one row of 4,096 tokens 8,
+    GQA's 8 x 8 4; a table shorter than two splits' minimum 1; the JAX
+    bench model's 8 x 12 at S = 192 1; the card tests' B = 4, HK = 2 at
+    512, 1024 and 2048, 2, 4 and 8."""
     n, split = decode_split(*shape)
     assert n == want and split % BN == 0 and n * split >= shape[2]
+
+
+CSRC = Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kTile", BN), ("kMaxSplits", MAX_SPLITS), ("kMinSplit", MIN_SPLIT),
+    ("kTargetCtas", TARGET_CTAS)])
+def test_model_constants_are_the_headers(name, value):
+    """The model's tile and split-rule constants are ``keysplit.cuh``'s,
+    which the kernels of B7-B10 compile with."""
+    src = (CSRC / "keysplit.cuh").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", src)
+    assert found == [str(value)]

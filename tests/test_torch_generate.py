@@ -348,6 +348,41 @@ def test_decode_steps_run_b7_once_per_layer(model, prompt, monkeypatch):
     assert len(calls) == L * (NEW - 1)
 
 
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["kv-fp", "kv-int8"])
+def test_decode_steps_build_one_device_length_tensor(model, prompt, kv,
+                                                     monkeypatch):
+    """Each dense decode step hands B7 one (B,) int32 length tensor on
+    the model's device, built once for all its layers (no layer builds
+    its own), holding the step's length; ``generate`` reads no tensor on
+    the host (the kernel reads the lengths on the card)."""
+    _, _, tcfg, tp = model
+    seen = []
+    plain = fk.decode_attention_plain
+
+    def spy(q, k, v, n, **kw):
+        seen.append(n)
+        return plain(q, k, v, n, **kw)
+
+    def host_read(*a, **k):
+        raise AssertionError("generate read a tensor on the host")
+
+    monkeypatch.setattr(fk, "decode_attention_plain", spy)
+    for name in ("item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    out = tgen.generate(tp, prompt, tcfg, max_new_tokens=NEW,
+                        kv_cache_dtype=kv)
+    monkeypatch.undo()
+    L, (B, S) = tcfg.num_layers, prompt.shape
+    assert tuple(out.shape) == (B, S + NEW) and len(seen) == L * (NEW - 1)
+    for i in range(NEW - 1):
+        step = seen[i * L:(i + 1) * L]
+        assert all(t is step[0] for t in step), i
+        assert isinstance(step[0], torch.Tensor)
+        assert step[0].dtype == torch.int32 and step[0].device == out.device
+        assert torch.equal(step[0], torch.full((B,), S + i + 1,
+                                               dtype=torch.int32)), i
+
+
 # ---------------- the engine's weight_bits ----------------
 ENGINE_KW = dict(max_batch=2, page_size=8, max_len=32, prefill_chunk=8)
 
