@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path (plain and speculative),
-dense decoding, Paddle fused-op decoder and training step on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's serving path (plain, speculative and
+under the SLO scheduler), dense decoding, Paddle fused-op decoder and
+training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -120,6 +120,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shares between the plain tiers with and without the fused kernels.
    Last, ``torch.profiler`` traces a few draft-tree steps and splits
    them into proposal and verify on the host clock.
+3e. The SLO scheduler (``ServingScheduler``) over the engine at the
+   same width and depth, fresh weights from phase 3's seed, budget 384:
+   phase 3's 16 requests as alternating NORMAL and LOW, then after 8
+   steps four HIGH requests of 512 prompt tokens and 32 new, each
+   admitted by preempting a LOW one; KV bf16 and int8 with the fused
+   kernels and bf16 without, each synchronous and ``overlap=True`` (bf16
+   fused in turns: sync, overlap, overlap, sync); a no-budget,
+   no-burst set in the same turns, which must be token-identical; an
+   overlapped n-gram run (``spec_k=4``) and a short plain one with every
+   ``decode_dispatch``, ``spec_dispatch`` and ``prefill_dispatch`` under
+   ``torch.cuda.set_sync_debug_mode("error")``; ``torch.profiler``
+   windows of 8 decoding rows in the same turns (``device_breakdown``).
+   Per run: every request finishes, no plan over the budget, the
+   allocator balanced after the drain, a burst run preempts and resumes,
+   launches equal the counted forwards (B10 or B9 per decode, B11 per
+   fused prefill chunk and verify); ms a step, tokens/s,
+   ``host_frac_ema``, the host split into dispatch, commit and the
+   scheduler's own work, and the greedy-token agreement of each burst
+   run with its synchronous twin and with phase 3's uninterrupted tier,
+   beside phase 3's fused-vs-unfused yardstick (``run_scheduler``).
 3c. Dense decoding (``generate``, ``beam_search``,
    ``precompute_prompt_cache``) at the same width and depth, fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
@@ -1269,7 +1289,7 @@ def chunked_prefill(torch, gen, eng, slot, seq, fused):
     widths and context buckets; returns the last chunk's logits."""
     cache = eng.cache
     page = cache.page_size
-    bt = cache.block_table_tensor(slot)
+    bt = torch.from_numpy(cache.block_tables[slot].copy()).cuda()
     done, logits = 0, None
     while done < seq.size:
         width = min(cache.pages_for(seq.size - done) * page,
@@ -1302,7 +1322,8 @@ def consistency(torch, gen, eng, req):
     active = torch.zeros(eng.max_batch, dtype=torch.bool)
     active[0] = True
     dec, _ = gen.paged_decode_forward(
-        eng.params, last.cuda(), cache.pool, cache.block_table_tensor(),
+        eng.params, last.cuda(), cache.pool,
+        torch.from_numpy(cache.block_tables.copy()).cuda(),
         lengths.cuda(), eng.cfg, active=active.cuda(), fused=eng.fused)
     cache.admit(1, n)
     ref = chunked_prefill(torch, gen, eng, 1, seq, False)
@@ -1613,6 +1634,283 @@ def profile_spec_tier(torch, Engine, params, cfg, reqs, draft_layers: int,
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+# --------------------------------------------------------------- phase 3e
+SCHED_BUDGET = 384      # one 256-token chunk plus the decode rows, with room
+BURST_AT = 8            # scheduler steps before the HIGH burst arrives
+
+
+def burst_requests(n: int, vocab: int, seed: int):
+    """The HIGH burst: ``n`` prompts of 512 tokens, 32 new tokens each."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(3, vocab, (512,)).astype(np.int32), 32)
+            for _ in range(n)]
+
+
+def instrument_engine(torch, eng, no_sync: bool):
+    """Time ``eng``'s dispatch halves (``decode_dispatch``,
+    ``spec_dispatch``, ``prefill_dispatch``) and commit halves
+    (``commit_inflight``, ``commit_prefills``: the fetch and the host
+    bookkeeping) on the host clock, outermost calls only, and count the
+    dispatch calls. With ``no_sync`` every dispatch runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing
+    operation inside one raises. Returns the live tallies."""
+    kinds = {"decode_dispatch": "dispatch", "spec_dispatch": "dispatch",
+             "prefill_dispatch": "dispatch", "commit_inflight": "commit",
+             "commit_prefills": "commit"}
+    tally = {"calls": {k: 0 for k, v in kinds.items() if v == "dispatch"},
+             "dispatch_s": 0.0, "commit_s": 0.0}
+    depth = {"dispatch": 0, "commit": 0}
+
+    def wrap(name, kind, fn):
+        def wrapper(*a, **k):
+            if kind == "dispatch":
+                tally["calls"][name] += 1
+            outer = depth[kind] == 0
+            if outer:
+                if no_sync and kind == "dispatch":
+                    torch.cuda.set_sync_debug_mode("error")
+                t0 = time.perf_counter()
+            depth[kind] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[kind] -= 1
+                if outer:
+                    tally[f"{kind}_s"] += time.perf_counter() - t0
+                    if no_sync and kind == "dispatch":
+                        torch.cuda.set_sync_debug_mode(0)
+        return wrapper
+
+    for name, kind in kinds.items():
+        setattr(eng, name, wrap(name, kind, getattr(eng, name)))
+    return tally
+
+
+def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
+              reqs, highs, name, kv=None, fused=True, overlap=False,
+              budget=SCHED_BUDGET, sync_check=False, **spec):
+    """One scheduler run at the engine's serving shape: ``reqs``
+    submitted as alternating NORMAL and LOW, the ``highs`` (if any)
+    submitted as HIGH after ``BURST_AT`` steps, then driven as
+    ``ServingScheduler.run`` drives it (an empty step fences). The
+    launch counters are zeroed just before the first step and read
+    after the drain; they must equal the counted forwards. Every request
+    finishes with its count, every plan stays within the budget, the
+    allocator is balanced after the drain, and a burst run that finds
+    all 8 slots busy preempts and resumes at least once. The host time
+    of a step splits into dispatch, commit and the rest (the
+    scheduler's admission and planning); ``sync_check`` runs every
+    dispatch under the sync debug mode (``instrument_engine``)."""
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 kv_cache_dtype=kv, prefill_chunk=256, fused=fused,
+                 overlap=overlap, **spec)
+    sched = Scheduler(eng, token_budget=budget)
+    handles = [sched.submit(p, max_new_tokens=m,
+                            priority=Priority.LOW if i % 2 else
+                            Priority.NORMAL)
+               for i, (p, m) in enumerate(reqs)]
+    tally = instrument_engine(torch, eng, sync_check)
+    plans, steps = [], 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    while True:
+        if highs and steps == BURST_AT:
+            handles += [sched.submit(p, max_new_tokens=m,
+                                     priority=Priority.HIGH)
+                        for p, m in highs]
+        more = sched.step()
+        steps += 1
+        plan = sched.last_plan
+        plans.append(plan.scheduled_tokens)
+        if budget is not None and plan.scheduled_tokens > budget:
+            fail(f"sched {name}: step {steps} planned "
+                 f"{plan.scheduled_tokens} tokens over the budget {budget}")
+        if not more:
+            break
+        if (plan.scheduled_tokens == 0 and plan.reserved_tokens == 0
+                and sched.last_committed == 0):
+            sched._idle_fence()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for h in handles:
+        if not h.done or (len(h.tokens) != h.max_new_tokens
+                          and h.finish_reason != "eos"):
+            fail(f"sched {name}: request {h.rid} finished "
+                 f"{h.finish_reason} with {len(h.tokens)}/"
+                 f"{h.max_new_tokens} tokens")
+    st = sched.stats()
+    f, L = st["forwards"], cfg.num_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    if fused:
+        want.update(B10=L * f["decode"], B11=L * (f["prefill"] + f["verify"]))
+    else:
+        want["B9"] = L * f["decode"]
+    if counts != want:
+        fail(f"sched {name}: launches {counts} != {want} (forwards {f})")
+    # the burst preempts when it finds every slot busy (the full
+    # request set; a short check with fewer requests may not)
+    if highs and len(reqs) >= 8 and not (sched.preemptions_total >= 1
+                                         and sched.resumes_total >= 1):
+        fail(f"sched {name}: {sched.preemptions_total} preemptions, "
+             f"{sched.resumes_total} resumes under the HIGH burst")
+    eng.cache.prefix.drop_all(eng.cache.allocator)
+    alloc = eng.cache.allocator
+    if (alloc.num_used or alloc.allocs_total != alloc.frees_total
+            or eng.has_inflight()):
+        fail(f"sched {name}: allocator not balanced ({alloc.stats()})")
+    gen_tokens = sum(len(h.tokens) for h in handles)
+    rec = dict(run=name, kv=kv or "bf16", fused=fused, overlap=overlap,
+               budget=budget, spec={k: v for k, v in spec.items()},
+               requests=len(handles), burst=len(highs or ()),
+               generated_tokens=gen_tokens, wall_s=wall, steps=steps,
+               step_ms_mean=wall * 1e3 / steps,
+               tokens_per_s=gen_tokens / wall,
+               max_plan_tokens=max(plans),
+               host_frac_ema=sched.host_frac_ema,
+               idle_fences_total=sched.idle_fences_total,
+               preemptions_total=sched.preemptions_total,
+               resumes_total=sched.resumes_total, forwards=f,
+               launches=counts,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if eng.spec is not None:
+        rec.update({k: st[k] for k in ("spec_drafted_total",
+                                       "spec_accepted_total",
+                                       "spec_verify_steps")})
+    rec["dispatch_ms_per_step"] = tally["dispatch_s"] * 1e3 / steps
+    rec["commit_ms_per_step"] = tally["commit_s"] * 1e3 / steps
+    rec["other_host_ms_per_step"] = (rec["step_ms_mean"]
+                                     - rec["dispatch_ms_per_step"]
+                                     - rec["commit_ms_per_step"])
+    if sync_check:
+        rec["dispatch_calls_without_sync"] = tally["calls"]
+    rec["tokens"] = [list(h.tokens) for h in handles]
+    del eng, sched, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def profile_sched(torch, Engine, Scheduler, params, cfg, reqs,
+                  overlap: bool, steps: int = 8):
+    """Where a scheduler step's time goes (bf16 KV, fused, no budget):
+    submit 8 requests, drive until every prefill is done, then trace
+    ``steps`` scheduler steps of the 8 decoding rows with
+    ``torch.profiler``, synchronous or overlapped. Launches made here
+    are not counted on the main path."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 prefill_chunk=256, fused=True, overlap=overlap)
+    sched = Scheduler(eng)
+    for p, _ in reqs[:8]:
+        sched.submit(p, max_new_tokens=128)
+    while eng.pending_prefills() or any(sched._queues.values()):
+        sched.step()
+    sched.step()                          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        sched.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rec = device_breakdown(torch, prof, steps, wall)
+    rec.update(overlap=overlap, rows=int(eng.cache.active.sum()),
+               host_frac_ema=sched.host_frac_ema)
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
+    """Phase 3e: the SLO scheduler over the engine at Llama-2-7B width,
+    on fresh weights from phase 3's seed (phase 3's before its draft
+    tiers damp them). Burst runs (``SCHED_BUDGET``, the HIGH burst) for
+    KV bf16 and int8 with the fused kernels and bf16 without, each
+    synchronous and overlapped (bf16 fused in turns: sync, overlap,
+    overlap, sync, so that the spread of one mode is seen beside the
+    gap between them); a no-budget, no-burst set in the same turns that
+    must be token-identical; an overlapped n-gram run and a short plain
+    one with every dispatch under the sync debug mode; profiled windows
+    in the same turns. Greedy-token agreement of each burst run with
+    its synchronous twin and with phase 3's uninterrupted tier is
+    reported beside phase 3's fused-vs-unfused yardstick."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.serving import Priority, ServingScheduler as S
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    highs = burst_requests(4, cfg.vocab_size, seed + 7)
+    plain = {(t["kv"], t["fused"]): t for t in tiers[:4]}
+    turns = (False, True, True, False)
+    runs, agreement = [], {}
+
+    def in_turns(stem, modes, *a, **kw):
+        out = {}
+        for i, overlap in enumerate(modes):
+            name = (f"{stem}-{'overlap' if overlap else 'sync'}"
+                    + ("-2" if overlap in modes[:i] else ""))
+            rec = run_sched(torch, kernels, E, S, Priority, params, cfg,
+                            *a, name=name, overlap=overlap, **kw)
+            print("sched " + show(rec))
+            runs.append(rec)
+            out.setdefault(overlap, []).append(rec)
+        return out
+
+    for kv, fused in ((None, True), ("int8", True), (None, False)):
+        tag = f"{'int8' if kv else 'bf16'}-{'fused' if fused else 'unfused'}"
+        pair = in_turns(f"burst-{tag}",
+                        turns if (kv, fused) == (None, True)
+                        else (False, True), reqs, highs, kv=kv, fused=fused)
+        n = len(reqs)
+        ref = plain[(kv or "bf16", fused)]["tokens"]
+        sync, ov = pair[False][0]["tokens"], pair[True][0]["tokens"]
+        agreement[tag] = {
+            "overlap_vs_sync": token_agreement(ov, sync),
+            "sync_vs_uninterrupted": token_agreement(sync[:n], ref),
+            "overlap_vs_uninterrupted": token_agreement(ov[:n], ref)}
+    pair = in_turns("nobudget-bf16-fused", turns, reqs, None, budget=None)
+    toks = [r["tokens"] for rs in pair.values() for r in rs]
+    if any(t != toks[0] for t in toks):
+        fail("sched: the no-budget runs are not token-identical, "
+             f"{[token_agreement(t, toks[0]) for t in toks]}")
+    agreement["nobudget_overlap_vs_sync"] = token_agreement(toks[-1],
+                                                            toks[0])
+    # every dispatch under the sync debug mode: an overlapped n-gram run
+    # (verify and prefill dispatches) and a short plain one (decode)
+    for name, sub, spec, kinds in (
+            ("ngram-overlap-nosync", reqs[:8], {"spec_k": 4},
+             ("spec_dispatch", "prefill_dispatch")),
+            ("plain-overlap-nosync", reqs[:4], {},
+             ("decode_dispatch", "prefill_dispatch"))):
+        rec = run_sched(torch, kernels, E, S, Priority, params, cfg, sub,
+                        None, name, overlap=True, sync_check=True, **spec)
+        calls = rec["dispatch_calls_without_sync"]
+        if not all(calls[k] for k in kinds) or (
+                spec and not rec["forwards"]["verify"]):
+            fail(f"sched {name}: a dispatch kind did not run under the "
+                 f"sync check ({calls}, forwards {rec['forwards']})")
+        print("sched " + show(rec))
+        runs.append(rec)
+    agreement["plain_fused_vs_unfused"] = yardstick
+    print("sched agreement " + json.dumps(agreement))
+    profiles = []
+    for overlap in turns:
+        p = profile_sched(torch, E, S, params, cfg, reqs, overlap)
+        profiles.append(p)
+        print("sched profile " + json.dumps(p))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "agreement": agreement, "profiles": profiles}
+
 
 # --------------------------------------------------------------- phase 3c
 def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
@@ -2650,6 +2948,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase 3e: the SLO scheduler over the engine, sync and overlap
+    sched = run_scheduler(torch, kernels, cfg, args.seed, reqs, tiers,
+                          record["plain_fused_vs_unfused"])
+    record["scheduler"] = sched
+
     # ---- phase 3c: dense generate / beam_search at the engine's width
     dense = run_dense(torch, np, kernels, tl, gen, cfg, args.seed)
     record["dense"] = dense
@@ -2684,7 +2987,8 @@ def main(argv=None) -> int:
     launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
-    for rec in tiers + dense["tiers"] + decoder["tiers"]:
+    for rec in (tiers + sched["runs"] + dense["tiers"]
+                + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:

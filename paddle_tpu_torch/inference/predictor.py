@@ -1,15 +1,15 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/inference/predictor.py``'s
-``ContinuousBatchingEngine`` on one device and synchronous: no mesh,
-adapters, constraints or host tier (ROADMAP.md, queue A step 1).
-``weight_bits`` quantizes the weights once at construction (int8 per
-channel or int4 per group, ``generate.quantize_weights``), and every
-forward dequantizes them at each use. Each :meth:`step` admits queued
-requests FIFO into free slots (prefix-cache sharing and copy-on-write
-included), advances one pending admission by one prefill chunk, then
-advances every fully prefilled slot by one decode token — or, with
-speculation on, by a verified run of drafted tokens:
+``ContinuousBatchingEngine`` on one device: no mesh, adapters,
+constraints or host tier (ROADMAP.md, queue A). ``weight_bits``
+quantizes the weights once at construction (int8 per channel or int4
+per group, ``generate.quantize_weights``), and every forward
+dequantizes them at each use. Each :meth:`step` admits queued requests
+FIFO into free slots (prefix-cache sharing and copy-on-write included),
+advances one pending admission by one prefill chunk, then advances
+every fully prefilled slot by one decode token — or, with speculation
+on, by a verified run of drafted tokens:
 
 - ``spec_k``: n-gram drafts (:mod:`..serving.speculative`), all rows
   verified in one batched forward, each committing its longest accepted
@@ -24,6 +24,19 @@ speculation on, by a verified run of drafted tokens:
 
 Greedy speculation is token-identical to plain greedy decode.
 
+The SLO control plane (:class:`~..serving.scheduler.ServingScheduler`)
+composes the same lifecycle pieces — :meth:`admit_request`,
+:meth:`preempt_request` (pages back to the pool, token-identical resume
+through the continuation prefill), :meth:`cancel_request`,
+:meth:`prefill_step`, :meth:`decode_step` — under priority classes,
+deadlines and a per-step token budget. Every forward is split into a
+DISPATCH half (launch, leave the result on the card) and a COMMIT half
+(the one device-to-host fetch and all host bookkeeping); ``overlap=True``
+marks the engine for the scheduler's double-buffered pipeline, which
+plans step N+1 while step N runs. Dispatch never waits on the card: its
+host inputs go up through pinned host memory with non-blocking copies
+on the one CUDA stream (:meth:`ContinuousBatchingEngine._up`).
+
 Greedy decoding is token-identical to the JAX engine's on the same
 parameters; temperature sampling draws from a ``torch.Generator`` (the
 JAX engine's ``jax.random`` key), so sampled tokens differ from JAX's.
@@ -34,6 +47,7 @@ engine's, so the attention reductions run over the same widths.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,9 +70,23 @@ FORWARDS = ("prefill", "decode", "verify", "tree", "draft_catchup",
 
 class GenerationRequest:
     """One in-flight generation request tracked by the engine.
-    ``finish_reason`` is ``"eos"`` or ``"max_len"`` once ``done``."""
+
+    ``finish_reason`` holds the string values of
+    :class:`~..serving.policy.FinishReason`: ``eos`` / ``max_len`` on
+    completion, ``deadline_exceeded`` (or a caller's reason) when
+    cancelled, and the transient ``preempted`` while the request sits
+    evicted awaiting resume (``done`` stays False and the reason clears
+    when its replay prefill completes).
+
+    ``priority`` (lower = more important), ``deadline_at`` /
+    ``submitted_at`` / ``enqueued_at`` (scheduler-clock seconds; the
+    last resets on every requeue) and ``preemptions`` are
+    scheduler-facing metadata; the engine's own FIFO path ignores them.
+    """
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
-                 "tokens", "done", "finish_reason", "slot")
+                 "tokens", "done", "finish_reason", "slot", "priority",
+                 "deadline_at", "submitted_at", "enqueued_at",
+                 "preemptions")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id):
         self.rid = rid
@@ -69,6 +97,22 @@ class GenerationRequest:
         self.done = False
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
+        self.priority = 1                # serving.policy.Priority.NORMAL
+        self.deadline_at: Optional[float] = None
+        self.submitted_at: Optional[float] = None
+        self.enqueued_at: Optional[float] = None   # latest (re)queue time
+        self.preemptions = 0
+
+    def resume_sequence(self) -> np.ndarray:
+        """The tokens whose KV must be in the pool before this request
+        can (re)enter decode: the prompt plus — after a preemption —
+        every generated token EXCEPT the last (decode feeds the last
+        sampled token back through the decode step, which writes its KV
+        then)."""
+        if not self.tokens:
+            return self.prompt[0]
+        return np.concatenate(
+            [self.prompt[0], np.asarray(self.tokens[:-1], np.int32)])
 
     @property
     def output(self) -> np.ndarray:
@@ -79,16 +123,23 @@ class GenerationRequest:
 
 class InFlightStep:
     """One dispatched decode or verify forward awaiting its commit: the
-    kind (``"decode"``, ``"spec"`` or ``"tree"``), the mask it ran, its
-    device output (sampled tokens, greedy targets or f32 logits) and
-    what the commit needs besides. The engine is synchronous, so a
-    commit always follows its dispatch with nothing in between."""
-    __slots__ = ("kind", "mask", "out", "drafts", "dlen", "qs", "rows")
+    kind (``"decode"``, ``"spec"`` or ``"tree"``), the mask it ran, a
+    SNAPSHOT of the per-slot request ids and seat generations at
+    dispatch, its device output (sampled tokens, greedy targets or f32
+    logits) and what the commit needs besides. The commit credits a
+    slot only while it still holds the same seating of the same
+    request: a slot preempted and re-admitted between dispatch and
+    commit (even by the same request) gets nothing, and the victim
+    re-decodes the dropped token on resume."""
+    __slots__ = ("kind", "mask", "rids", "seats", "out", "drafts", "dlen",
+                 "qs", "rows")
 
-    def __init__(self, kind, mask, out, drafts=None, dlen=None, qs=None,
-                 rows=None):
+    def __init__(self, kind, mask, rids, seats, out, drafts=None,
+                 dlen=None, qs=None, rows=None):
         self.kind = kind
         self.mask = mask
+        self.rids = rids                # per-slot rid snapshot
+        self.seats = seats              # per-slot seating generation
         self.out = out
         self.drafts = drafts            # slot -> drafts / TreeDraft
         self.dlen = dlen                # (B,) linear draft counts
@@ -139,6 +190,13 @@ class ContinuousBatchingEngine:
     channel) or 4 (int4 per group of 128 input rows, held in int8):
     ``generate.quantize_weights`` at construction; the draft model
     shares the quantized stacks.
+
+    ``enable_prefix_cache``: False builds the cache without its prefix
+    trie. ``overlap``: a :class:`~..serving.scheduler.ServingScheduler`
+    attached without its own ``overlap=`` inherits it and runs the
+    double-buffered pipeline; the engine's own :meth:`step` stays
+    synchronous (each dispatch followed by its commit), the reference
+    the pipeline is held to.
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -146,12 +204,13 @@ class ContinuousBatchingEngine:
                  num_pages: Optional[int] = None, kv_cache_dtype=None,
                  temperature: float = 0.0, eos_token_id=None,
                  generator: Optional[torch.Generator] = None,
-                 prefill_chunk: Optional[int] = None, fused: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 enable_prefix_cache: bool = True, fused: bool = False,
                  spec_k: int = 0, spec_ngram: int = 3, speculator=None,
                  draft_layers: Optional[int] = None,
                  draft_pages: Optional[int] = None,
                  spec_tree: Optional[Tuple[int, int]] = None,
-                 weight_bits: Optional[int] = None,
+                 weight_bits: Optional[int] = None, overlap: bool = False,
                  mesh=None, adapters=None, constraints: bool = False,
                  device: DeviceLike = None):
         if mesh is not None:
@@ -170,10 +229,12 @@ class ContinuousBatchingEngine:
         self.temperature = float(temperature)
         self.eos_token_id = eos_token_id
         self.fused = bool(fused)
+        self.overlap = bool(overlap)
         self.cache = PagedKVCache(
             cfg, max_batch, max_len or cfg.max_seq_len,
             page_size=page_size, num_pages=num_pages,
-            kv_dtype=kv_cache_dtype, device=self.device)
+            kv_dtype=kv_cache_dtype,
+            enable_prefix_cache=enable_prefix_cache, device=self.device)
         if prefill_chunk is not None:
             # page-rounded, so chunk boundaries stay page-aligned
             prefill_chunk = self.cache.pages_for(
@@ -186,12 +247,23 @@ class ContinuousBatchingEngine:
         self._queue: List[GenerationRequest] = []
         self._slots: List[Optional[GenerationRequest]] = [None] * max_batch
         self._last = np.zeros((max_batch,), np.int32)
-        # slot -> [request, prompt, tokens already in pages]
+        # per-slot seating that the commit guard compares with its
+        # dispatch snapshot: _install_slot and _clear_slot are the only
+        # writers of _rids (-1 = empty) and _seat (bumped on every
+        # seating)
+        self._rids = np.full((max_batch,), -1, np.int64)
+        self._seat = np.zeros((max_batch,), np.int64)
+        # slot -> [request, sequence being prefilled (prompt, or the
+        # preemption-resume replay), tokens already in pages]
         self._pending: Dict[int, list] = {}
         self._next_rid = 0
         self._steps = 0
         self.forwards = dict.fromkeys(FORWARDS, 0)
+        # dispatched, uncommitted work: at most one decode/verify
+        # forward plus this step's prefill chunks
         self._inflight: Optional[InFlightStep] = None
+        self._inflight_chunks: List[Dict] = []
+        self._fence_ns = 0
         self._init_spec(spec_k, spec_ngram, speculator, draft_layers,
                         draft_pages, spec_tree, max_len or cfg.max_seq_len,
                         page_size, kv_cache_dtype)
@@ -295,27 +367,93 @@ class ContinuousBatchingEngine:
         return req
 
     # ---- slots ----
+    def _install_slot(self, slot: int, req: GenerationRequest):
+        """Seat ``req`` in ``slot`` and mirror what the commit guard
+        reads: rid and seating generation."""
+        req.slot = slot
+        self._slots[slot] = req
+        self._rids[slot] = req.rid
+        self._seat[slot] += 1
+
+    def _clear_slot(self, slot: int):
+        self._slots[slot] = None
+        self._rids[slot] = -1
+        if self.draft_cache is not None:
+            # the draft pool's state is disposable: retire, preempt and
+            # cancel just drop the slot's draft pages (a new tenant or a
+            # resume catches up cold)
+            if self.draft_cache.active[slot]:
+                self.draft_cache.release(slot)
+            self._draft_chain.pop(slot, None)
+            self._draft_q.pop(slot, None)
+            self._draft_base[slot] = 0
+
     def admit_request(self, req: GenerationRequest) -> bool:
         """Place ``req`` into a free slot, reserving its pages (prefix-
         shared where the trie holds them). False when every slot is
         busy; raises :class:`PoolExhausted` when the pool can't cover
-        it. The prompt then prefills chunk by chunk in
-        :meth:`prefill_step`."""
+        it. The sequence then prefills chunk by chunk in
+        :meth:`prefill_step`. A preempted request re-enters the same
+        way: its :meth:`~GenerationRequest.resume_sequence` (prompt plus
+        every generated token but the last) replays through the
+        continuation prefill, and decode goes on from its last token."""
         free = self.cache.free_slots()
         if not free:
             return False
         slot = free[0]
-        seq = req.prompt[0]
+        seq = req.resume_sequence()
         _, shared = self.cache.admit_prompt(
             slot, seq, req.prompt.shape[1] + req.max_new_tokens)
-        req.slot = slot
-        self._slots[slot] = req
+        self._install_slot(slot, req)
         self._pending[slot] = [req, seq, int(shared)]
         return True
 
+    def preempt_request(self, req: GenerationRequest) -> int:
+        """Evict a RUNNING request's pages back to the pool
+        (:meth:`PagedKVCache.evict_for_preempt`: pages the prefix trie
+        or another table shares survive under those references) and
+        reset it for a token-identical resume through
+        :meth:`admit_request`. ``finish_reason`` reads the transient
+        ``"preempted"`` until the resume's replay completes; ``done``
+        stays False. Returns the number of pages returned to the free
+        list. A decode step in flight for the slot is dropped at its
+        commit (the seat guard)."""
+        slot = req.slot
+        if slot is None or self._slots[slot] is not req:
+            raise ValueError(
+                f"preempt_request: request {req.rid} is not running")
+        self._pending.pop(slot, None)
+        freed = self.cache.evict_for_preempt(slot)
+        self._clear_slot(slot)
+        req.slot = None
+        req.preemptions += 1
+        req.finish_reason = "preempted"
+        return freed
+
+    def cancel_request(self, req: GenerationRequest,
+                       reason: str = "cancelled"):
+        """Finish ``req`` without further decode (for example a
+        scheduler's ``deadline_exceeded``): a running request releases
+        its slot and pages, a queued or preempted one is just marked
+        done. Idempotent on finished requests."""
+        if req.done:
+            return
+        if req.slot is not None and self._slots[req.slot] is req:
+            self._pending.pop(req.slot, None)
+            self._retire(req, reason)
+            return
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            pass                        # a scheduler-owned queue entry
+        req.done = True
+        req.finish_reason = reason
+
     def _admit(self):
         """Fill free slots from the queue, FIFO: a head-of-line request
-        the pool can't cover yet blocks admission."""
+        the pool can't cover yet blocks admission. Priority-aware
+        admission lives in :class:`~..serving.scheduler.
+        ServingScheduler`, which calls :meth:`admit_request` directly."""
         while self._queue:
             try:
                 if not self.admit_request(self._queue[0]):
@@ -328,50 +466,138 @@ class ContinuousBatchingEngine:
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy at temperature 0 (first maximum, like ``jnp.argmax``),
-        else a draw from ``softmax(logits / temperature)``."""
+        else a draw from ``softmax(logits / temperature)``: the argmax
+        of ``p / q`` with ``q ~ Exp(1)`` from the engine's generator,
+        which is how ``torch.multinomial`` draws one sample (the same
+        generator draws, the same token) without its host-side check of
+        the probabilities, a fence."""
         if self.temperature == 0.0:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits / self.temperature, dim=-1)
-        return torch.multinomial(probs, 1,
-                                 generator=self.generator).squeeze(-1)
+        q = torch.empty_like(probs).exponential_(1,
+                                                 generator=self.generator)
+        return torch.argmax(probs / q, dim=-1)
 
-    # ---- the two forwards ----
-    def prefill_step(self, slot: Optional[int] = None) -> int:
-        """Advance ONE pending admission (default the oldest) by one
-        chunk; returns the chunk width scheduled (0 when none). The
-        final chunk's logits seed the first token, and the finished
-        prompt's pages are published to the prefix trie."""
+    def _up(self, a) -> torch.Tensor:
+        """A host numpy array as a tensor on the engine's device, sent so
+        that the dispatch does not wait. ``.to(device)`` from pageable
+        memory ends in a stream synchronize; from pinned memory with
+        ``non_blocking=True`` it is queued on the current stream, before
+        the kernels that read it, and PyTorch's caching host allocator
+        records an event on that stream so the pinned block is not
+        reused before the copy has run. On the CPU an upload is a plain
+        copy, so the caller may change its array at once."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch(self, t: torch.Tensor, commit: bool = True) -> np.ndarray:
+        """The device-to-host fetch: waits for the stream, and counts the
+        wait as fence time when it is a commit's (:meth:`take_fence_ns`)."""
+        t0 = time.perf_counter_ns()
+        out = t.cpu().numpy()
+        if commit:
+            self._fence_ns += time.perf_counter_ns() - t0
+        return out
+
+    # ---- prefill: dispatch and commit ----
+    def prefill_dispatch(self, slot: Optional[int] = None,
+                         max_tokens: Optional[int] = None) -> int:
+        """Dispatch half of :meth:`prefill_step`: launch one pending
+        admission's next chunk and queue an in-flight handle; every host
+        mutation (the ``done`` cursor, the prefix registration,
+        ``cache.lengths``) waits for :meth:`commit_prefills`. On the
+        final chunk of a fresh admission the first token is sampled on
+        the device here, so both pipelines draw from the generator in
+        the same order; its fetch waits for the commit. A resume
+        replay's final chunk samples nothing. ``max_tokens`` caps the
+        width, floored to a page multiple (0 below one page). Returns
+        the width scheduled (0 when nothing was)."""
         if not self._pending:
             return 0
         cache = self.cache
         if slot is None:
             slot = min(self._pending, key=lambda s: self._pending[s][0].rid)
         req, seq, done = self._pending[slot]
+        if any(h["slot"] == slot for h in self._inflight_chunks):
+            raise RuntimeError(
+                f"prefill_dispatch: slot {slot} already has an in-flight "
+                f"chunk — commit it first")
         S = seq.size
         page = cache.page_size
         remaining = S - done
         width = cache.pages_for(remaining) * page
         if self.prefill_chunk is not None:
             width = min(width, self.prefill_chunk)
+        if max_tokens is not None:
+            cap = (int(max_tokens) // page) * page
+            if cap < page:
+                return 0
+            width = min(width, cap)
         take = min(remaining, width)
         ctx_cap = cache.ctx_cap_pages(cache.pages_for(done)) * page
         chunk = np.zeros((1, width), np.int32)
         chunk[0, :take] = seq[done:done + take]
         logits, _ = _gen.paged_prefill_chunk(
-            self.params, torch.from_numpy(chunk).to(self.device),
-            cache.pool, cache.block_table_tensor(slot), self.cfg,
+            self.params, self._up(chunk), cache.pool,
+            self._up(cache.block_tables[slot]), self.cfg,
             ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=self.fused)
         self.forwards["prefill"] += 1
-        done += take
-        if done < S:
-            self._pending[slot][2] = done
-            return width
+        samp = None
+        if done + take >= S and not req.tokens:
+            samp = self._sample(logits[0])
+        self._inflight_chunks.append(
+            {"slot": slot, "req": req, "seat": int(self._seat[slot]),
+             "take": take, "samp": samp})
+        return width
+
+    def _commit_chunk(self, h: Dict) -> int:
+        """Commit half of one prefill chunk: advance the ``done``
+        cursor; on the last chunk publish the prompt to the prefix trie,
+        set the slot's length and seed decode — with the fetched first
+        token, or on a resume with the request's last token (the
+        resumed request must not fork). A chunk whose slot was
+        cancelled, or preempted and re-seated, since its dispatch
+        commits nothing: the new seating replays the span itself."""
+        slot, req, take = h["slot"], h["req"], h["take"]
+        ent = self._pending.get(slot)
+        if (ent is None or ent[0] is not req
+                or int(self._seat[slot]) != h["seat"]):
+            return 0
+        done = ent[2] + take
+        if done < ent[1].size:
+            ent[2] = done
+            return take
         del self._pending[slot]
-        cache.register_prefix(slot, req.prompt[0])
-        cache.lengths[slot] = S
-        first = int(self._sample(logits[0]))
-        self._last[slot] = first
-        self._record_token(req, first)
+        self.cache.register_prefix(slot, req.prompt[0])
+        self.cache.lengths[slot] = ent[1].size
+        req.finish_reason = None            # clears a transient "preempted"
+        if req.tokens:
+            self._last[slot] = np.int32(req.tokens[-1])
+        else:
+            first = int(self._fetch(h["samp"]))
+            self._last[slot] = first
+            self._record_token(req, first)
+        return take
+
+    def commit_prefills(self) -> int:
+        """Commit every in-flight prefill chunk in dispatch order;
+        returns the prompt tokens committed."""
+        chunks, self._inflight_chunks = self._inflight_chunks, []
+        return sum(self._commit_chunk(h) for h in chunks)
+
+    def prefill_step(self, slot: Optional[int] = None,
+                     max_tokens: Optional[int] = None) -> int:
+        """Advance ONE pending admission (default the oldest) by one
+        chunk of at most ``max_tokens`` (page-floored); returns the
+        chunk width scheduled (0 when none). The final chunk's logits
+        seed the first token (a resume goes on from its last token
+        instead), and the finished prompt's pages are published to the
+        prefix trie. :meth:`prefill_dispatch` then
+        :meth:`commit_prefills`."""
+        width = self.prefill_dispatch(slot, max_tokens=max_tokens)
+        self.commit_prefills()
         return width
 
     def _record_token(self, req: GenerationRequest, tok: int):
@@ -387,17 +613,6 @@ class ContinuousBatchingEngine:
         self.cache.release(req.slot)
         self._clear_slot(req.slot)
 
-    def _clear_slot(self, slot: int):
-        self._slots[slot] = None
-        if self.draft_cache is not None:
-            # the draft pool's state is disposable: a retired slot just
-            # drops its draft pages (a new tenant catches up cold)
-            if self.draft_cache.active[slot]:
-                self.draft_cache.release(slot)
-            self._draft_chain.pop(slot, None)
-            self._draft_q.pop(slot, None)
-            self._draft_base[slot] = 0
-
     def ready_mask(self) -> np.ndarray:
         """(max_batch,) bool — slots whose sequence is fully in the pool
         and can decode this step."""
@@ -405,6 +620,28 @@ class ContinuousBatchingEngine:
         if self._pending:
             ready[list(self._pending)] = False
         return ready
+
+    # ---- decode: dispatch and commit ----
+    def has_inflight(self) -> bool:
+        """True while a dispatched forward or prefill chunk awaits its
+        commit."""
+        return self._inflight is not None or bool(self._inflight_chunks)
+
+    def take_fence_ns(self) -> int:
+        """Nanoseconds the commits' device-to-host fetches waited since
+        the last call (the scheduler's host-versus-device split)."""
+        ns, self._fence_ns = self._fence_ns, 0
+        return ns
+
+    def _check_idle(self):
+        if self._inflight is not None:
+            raise RuntimeError("a decode/verify forward is already in "
+                               "flight: commit_inflight() first")
+
+    def _handle(self, kind, mask, out, **kw) -> InFlightStep:
+        self._inflight = InFlightStep(kind, mask, self._rids.copy(),
+                                      self._seat.copy(), out, **kw)
+        return self._inflight
 
     def decode_dispatch(self, mask) -> Optional[InFlightStep]:
         """Run the ragged decode forward for the ``mask`` slots over all
@@ -416,44 +653,44 @@ class ContinuousBatchingEngine:
         if not mask.any():
             return None
         self._check_idle()
-        dev = self.device
         logits, _ = _gen.paged_decode_forward(
-            self.params, torch.from_numpy(self._last.copy()).to(dev),
-            cache.pool, cache.block_table_tensor(),
-            torch.from_numpy(cache.lengths.copy()).to(dev), self.cfg,
-            active=torch.from_numpy(mask).to(dev), fused=self.fused)
+            self.params, self._up(self._last), cache.pool,
+            self._up(cache.block_tables), self._up(cache.lengths),
+            self.cfg, active=self._up(mask), fused=self.fused)
         self.forwards["decode"] += 1
-        self._inflight = InFlightStep("decode", mask, self._sample(logits))
-        return self._inflight
+        return self._handle("decode", mask, self._sample(logits))
 
-    def _check_idle(self):
-        if self._inflight is not None:
-            raise RuntimeError("a decode/verify forward is already in "
-                               "flight: commit_inflight() first")
+    def _guard(self, h: InFlightStep) -> np.ndarray:
+        """(max_batch,) bool: the masked slots that still hold the
+        seating they held at dispatch."""
+        return (h.mask & (self._rids == h.rids) & (h.rids >= 0)
+                & (self._seat == h.seats))
 
     def _decode_commit(self, h: InFlightStep) -> int:
-        cache = self.cache
-        nxt = h.out.cpu().numpy()                   # the one fetch
-        slots = np.flatnonzero(h.mask)
-        toks = nxt[slots].astype(np.int32)
-        cache.lengths[slots] += 1
-        self._last[slots] = toks
-        for s, t in zip(slots.tolist(), toks.tolist()):
-            self._record_token(self._slots[s], t)
+        """Commit half of :meth:`decode_step`: the one fetch, then the
+        guarded slots' lengths and last tokens, and each one's token
+        through :meth:`_record_token` (eos / max_len). Returns the slots
+        advanced."""
+        nxt = self._fetch(h.out)
+        slots = np.flatnonzero(self._guard(h))
+        self.cache.lengths[slots] += 1
+        self._last[slots] = nxt[slots]
+        for s in slots.tolist():
+            self._record_token(self._slots[s], int(nxt[s]))
         self._steps += 1
         return int(slots.size)
 
     def commit_inflight(self) -> int:
-        """Commit the dispatched forward: decode slots advanced, or the
-        tokens a verify committed."""
+        """Commit everything in flight in dispatch order: prefill chunks
+        first, then the decode or verify forward. Returns the committed
+        units (prompt tokens plus decode slots or verify tokens)."""
+        n = self.commit_prefills()
         h, self._inflight = self._inflight, None
-        if h is None:
-            return 0
-        if h.kind == "decode":
-            return self._decode_commit(h)
-        if h.kind == "tree":
-            return self._tree_commit(h)
-        return self._spec_commit(h)
+        if h is not None:
+            n += (self._decode_commit(h) if h.kind == "decode"
+                  else self._tree_commit(h) if h.kind == "tree"
+                  else self._spec_commit(h))
+        return n
 
     def decode_step(self, mask) -> int:
         """Advance every ``mask`` slot by one token in one ragged decode
@@ -493,10 +730,6 @@ class ContinuousBatchingEngine:
                 drafts[slot] = d
         return drafts
 
-    def _tensor(self, a) -> torch.Tensor:
-        """A host numpy array as a tensor on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def _propose_model_drafts(self, mask) -> Dict:
         """The draft-model proposer: ``spec_k`` autoregressive steps of
         the truncated-layer draft model against each row's pages in the
@@ -511,6 +744,10 @@ class ContinuousBatchingEngine:
         steps from the last token, each giving the full distribution q:
         the chain token is its argmax (a q-sample when sampling), tree
         mode keeps the top-``width`` candidates of each depth.
+
+        Each draft decode step fetches its logits to the host, as the
+        JAX engine's proposer does, so proposing is a fence: a
+        speculating dispatch with a draft model waits for the card.
 
         The draft pool's ``lengths`` stay at its valid prefix; the
         speculative feeds advance a local run length only, and the
@@ -564,10 +801,10 @@ class ContinuousBatchingEngine:
             ctx_cap = dc.ctx_cap_pages(dc.pages_for(
                 int(dc.lengths[cmask].max()))) * dc.page_size
             _gen.paged_verify_forward(
-                self.draft_params, self._tensor(chunk), dc.pool,
-                dc.block_table_tensor(), self._tensor(dc.lengths),
+                self.draft_params, self._up(chunk), dc.pool,
+                self._up(dc.block_tables), self._up(dc.lengths),
                 self.draft_cfg, ctx_cap=ctx_cap,
-                active=self._tensor(cmask), fused=self.fused)
+                active=self._up(cmask), fused=self.fused)
             self.forwards["draft_catchup"] += 1
             dc.lengths[cmask] += adv[cmask]
         # the autoregressive draft loop
@@ -585,12 +822,12 @@ class ContinuousBatchingEngine:
         cands = {s: [] for s in rows} if tree_w else None
         for i in range(k):
             logits, _ = _gen.paged_decode_forward(
-                self.draft_params, self._tensor(x), dc.pool,
-                dc.block_table_tensor(), self._tensor(run_len),
-                self.draft_cfg, active=self._tensor(amask),
+                self.draft_params, self._up(x), dc.pool,
+                self._up(dc.block_tables), self._up(run_len),
+                self.draft_cfg, active=self._up(amask),
                 fused=self.fused)
             self.forwards["draft_decode"] += 1
-            logits = logits.float().cpu().numpy()
+            logits = self._fetch(logits.float(), commit=False)
             run_len[amask] += 1
             for s in rows:
                 z = logits[s].astype(np.float64)
@@ -643,14 +880,33 @@ class ContinuousBatchingEngine:
             return 0
         return self.commit_inflight()
 
-    def spec_plan_widths(self, mask):
-        """The overlapped scheduler's budget planning: not ported."""
-        _not_ported("spec_plan_widths (the overlapped scheduler's "
-                    "verify-width planning)", "1.2")
+    def spec_plan_widths(self, mask) -> Dict[int, int]:
+        """Pessimistic per-row verify widths for budget planning before
+        drafts can be proposed: the overlapped scheduler plans step N+1
+        before step N commits, so the history the proposer needs is not
+        final. Charging ``min(spec_k, room)`` per ready row (tree
+        speculation: its node count) keeps the token budget a hard
+        ceiling; the real drafts are proposed after the commit and
+        trimmed to the planned allowance. Rows with no token room are
+        absent, as in :meth:`propose_drafts`."""
+        if self.spec is None:
+            return {}
+        mask = np.asarray(mask, bool)
+        nodes = (self._tree_T - 1 if self.spec_tree is not None
+                 else self.spec_k)
+        out: Dict[int, int] = {}
+        for slot, req in enumerate(self._slots):
+            if req is None or not mask[slot]:
+                continue
+            room = req.max_new_tokens - len(req.tokens) - 1
+            if room > 0:
+                out[slot] = min(nodes, room)
+        return out
 
     def _ctx_cap(self, mask) -> int:
         """Power-of-two page bucket of the longest masked context (the
-        chunk program's rule; ready rows hold >= 1 token)."""
+        chunk program's rule; ready rows hold >= 1 token), from the host
+        lengths as they stand at dispatch."""
         cache = self.cache
         return cache.ctx_cap_pages(cache.pages_for(
             int(cache.lengths[mask].max()))) * cache.page_size
@@ -666,7 +922,8 @@ class ContinuousBatchingEngine:
                       drafts: Optional[Dict] = None
                       ) -> Optional[InFlightStep]:
         """Dispatch half of :meth:`spec_step`: propose (unless given
-        ``drafts``), build the (B, spec_k + 1) chunk and run the verify
+        ``drafts``, for example trimmed to a scheduler's per-row
+        allowance), build the (B, spec_k + 1) chunk and run the verify
         forward. Falls back to :meth:`decode_dispatch` when no masked
         row drafted."""
         if self.spec is None:
@@ -696,14 +953,13 @@ class ContinuousBatchingEngine:
             chunk[s, 1:1 + d.size] = d
             dlen[s] = d.size
         logits, _ = _gen.paged_verify_forward(
-            self.params, self._tensor(chunk), cache.pool,
-            cache.block_table_tensor(), self._tensor(cache.lengths),
+            self.params, self._up(chunk), cache.pool,
+            self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, ctx_cap=self._ctx_cap(mask),
-            active=self._tensor(mask), fused=self.fused)
+            active=self._up(mask), fused=self.fused)
         self.forwards["verify"] += 1
-        self._inflight = InFlightStep("spec", mask, self._targets(logits),
-                                      drafts=drafts, dlen=dlen, qs=qs)
-        return self._inflight
+        return self._handle("spec", mask, self._targets(logits),
+                            drafts=drafts, dlen=dlen, qs=qs)
 
     def _advance_draft(self, slot: int, toks, a: int):
         """Move the draft pool's valid prefix past the accepted tokens
@@ -734,13 +990,14 @@ class ContinuousBatchingEngine:
     def _spec_commit(self, h: InFlightStep) -> int:
         """Commit half of :meth:`spec_step`: each row's longest accepted
         prefix plus the bonus token (rejection sampling at temperature
-        > 0, against the draft model's q when it has one)."""
-        out = h.out.cpu().numpy()   # (B, T) targets, or (B, T, V) logits
+        > 0, against the draft model's q when it has one). Slots whose
+        seating changed since the dispatch are skipped."""
+        out = self._fetch(h.out)   # (B, T) targets, or (B, T, V) logits
         sampled = self.temperature != 0.0
+        valid = self._guard(h)
         committed = 0
-        for slot, req in enumerate(self._slots):
-            if req is None or not h.mask[slot]:
-                continue
+        for slot in np.flatnonzero(valid).tolist():
+            req = self._slots[slot]
             j = int(h.dlen[slot])
             d = h.drafts.get(slot)
             if sampled:
@@ -785,33 +1042,33 @@ class ContinuousBatchingEngine:
             depths[s, :n] = tree_depths(t.parents)
             anc[s, :n, :n] = tree_ancestor_matrix(t.parents)
         logits, rows = _gen.paged_verify_forward(
-            self.params, self._tensor(chunk), cache.pool,
-            cache.block_table_tensor(), self._tensor(cache.lengths),
+            self.params, self._up(chunk), cache.pool,
+            self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, ctx_cap=self._ctx_cap(mask),
-            active=self._tensor(mask), fused=self.fused,
-            tree_depth=self._tensor(depths), tree_mask=self._tensor(anc))
+            active=self._up(mask), fused=self.fused,
+            tree_depth=self._up(depths), tree_mask=self._up(anc))
         self.forwards["tree"] += 1
-        self._inflight = InFlightStep("tree", mask, self._targets(logits),
-                                      drafts=trees, rows=rows)
-        return self._inflight
+        return self._handle("tree", mask, self._targets(logits),
+                            drafts=trees, rows=rows)
 
     def _tree_commit(self, h: InFlightStep) -> int:
         """Commit half of the tree step: each row's longest accepted
         root path (greedy walk, or sequential point-mass rejection down
         the tree when sampling), its nodes' KV placed at the PRE-commit
         lengths (bit-identical to a linear verify of the path), then the
-        bookkeeping. Rejected nodes were never placed."""
+        bookkeeping. Rejected nodes were never placed; slots whose
+        seating changed since the dispatch place nothing (path length
+        0) and commit nothing."""
         cache = self.cache
-        out = h.out.cpu().numpy()   # (B, T) targets, or (B, T, V) logits
+        out = self._fetch(h.out)   # (B, T) targets, or (B, T, V) logits
         sampled = self.temperature != 0.0
         B, T = self.max_batch, self._tree_T
         path_nodes = np.zeros((B, T), np.int32)
         path_len = np.zeros((B,), np.int32)
         base_len = cache.lengths.copy()
         plans = []
-        for slot, req in enumerate(self._slots):
-            if req is None or not h.mask[slot]:
-                continue
+        for slot in np.flatnonzero(self._guard(h)).tolist():
+            req = self._slots[slot]
             t = h.drafts.get(slot)
             if t is None:
                 # un-drafted row: exactly the plain token at the root
@@ -837,9 +1094,8 @@ class ContinuousBatchingEngine:
         # placement first, against the pre-commit tables and lengths
         # (retirement below resets them for finished rows)
         _gen.paged_tree_commit(
-            cache.pool, h.rows, cache.block_table_tensor(),
-            self._tensor(base_len), self._tensor(path_nodes),
-            self._tensor(path_len))
+            cache.pool, h.rows, self._up(cache.block_tables),
+            self._up(base_len), self._up(path_nodes), self._up(path_len))
         committed = 0
         for slot, req, t, toks, a in plans:
             self._advance_draft(slot, toks, a)
@@ -867,10 +1123,29 @@ class ContinuousBatchingEngine:
         while self.step():
             pass
 
+    # ---- scheduler-facing state ----
     @property
     def idle(self) -> bool:
+        """Nothing queued, mid-prefill or decoding: the state a
+        scheduler requires when it attaches."""
         return not (self._queue or self._pending
                     or self.cache.active.any())
+
+    def running_requests(self) -> List[GenerationRequest]:
+        """Live requests holding slots (mid-prefill ones included): the
+        preemption-victim candidates."""
+        return [r for r in self._slots if r is not None]
+
+    def queued_requests(self) -> List[GenerationRequest]:
+        """Requests in the engine's own FIFO queue (empty under a
+        scheduler, which keeps its own queues)."""
+        return list(self._queue)
+
+    def pending_prefills(self) -> Dict[int, tuple]:
+        """``slot -> (request, remaining_tokens)`` for every admission
+        whose sequence is not yet fully in the pool."""
+        return {s: (ent[0], int(ent[1].size - ent[2]))
+                for s, ent in self._pending.items()}
 
     def generate(self, prompts, max_new_tokens: int = 16) -> List[np.ndarray]:
         """Submit all, run to completion, return each request's
@@ -892,7 +1167,8 @@ class ContinuousBatchingEngine:
         if self.fused:
             s["fused_kernels"] = True
         s["cow_copies"] = self.cache.cow_copies
-        s["prefix_evictions_total"] = self.cache.prefix.evictions_total
+        if self.cache.prefix is not None:
+            s["prefix_evictions_total"] = self.cache.prefix.evictions_total
         s["forwards"] = dict(self.forwards)
         if self.spec is not None:
             s.update(self.spec.stats())

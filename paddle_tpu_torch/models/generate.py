@@ -584,7 +584,8 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
             g = paged[name][:, ctx_tbl]                # (L, ppc, pg, ...)
             g = g.reshape((g.shape[0], ppc * page) + tuple(g.shape[3:]))
             dense[name][:, 0, :ctx_cap] = g[:, srows].to(dense[name].dtype)
-    kstart = torch.tensor([pad], dtype=torch.int32, device=dev)
+    # a fill, not a host copy: the engine dispatches this without a fence
+    kstart = torch.full((1,), pad, dtype=torch.int32, device=dev)
     rpos = (ctx_len + torch.arange(C, device=dev))[None, :]
     logits = _forward_cached(params, tokens.to(dev), dense, ctx_cap, cfg,
                              W, rpos=rpos, kstart=kstart,

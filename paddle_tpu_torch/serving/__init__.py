@@ -1,7 +1,11 @@
-"""Serving layer of the port: the paged KV cache and its allocator, and
-the host side of speculative decoding."""
+"""Serving layer of the port: the paged KV cache and its allocator, the
+host side of speculative decoding, and the SLO-aware scheduler with its
+policy."""
 from .paged_cache import (TRASH_PAGE, BlockAllocator, PagedKVCache,  # noqa: F401
                           PoolExhausted, PrefixCache)
+from .policy import (FinishReason, PreemptionPolicy, Priority,  # noqa: F401
+                     StepPlan, TokenBudgetPlanner)
+from .scheduler import DEGRADED_MODES, ServingScheduler  # noqa: F401
 from .speculative import (NgramProposer, Speculator, TreeDraft,  # noqa: F401
                           build_comb_tree, longest_accepted_path,
                           longest_accepted_prefix, rejection_sample_tokens,

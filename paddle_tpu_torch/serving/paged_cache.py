@@ -76,9 +76,24 @@ class BlockAllocator:
     def shared_pages(self) -> int:
         return int((self._refcount > 1).sum())
 
+    def refcount(self, page: int) -> int:
+        return int(self._refcount[page])
+
     def utilization(self) -> float:
         total = self.num_usable
         return self.num_used / total if total else 0.0
+
+    def fragmentation(self) -> float:
+        """Fraction of free pages sitting BELOW the highest used page:
+        holes a compaction would close. Shared pages count as used like
+        any other live page."""
+        if not self._free or self.num_used == 0:
+            return 0.0
+        free = set(self._free)
+        top_used = max(i for i in range(self.reserved, self.num_pages)
+                       if i not in free)
+        holes = sum(1 for f in self._free if f < top_used)
+        return holes / len(self._free)
 
     def alloc(self, n: int) -> List[int]:
         if n < 0:
@@ -133,6 +148,7 @@ class BlockAllocator:
             "num_free": self.num_free,
             "shared_pages": self.shared_pages,
             "utilization": self.utilization(),
+            "fragmentation": self.fragmentation(),
             "allocs_total": self.allocs_total,
             "frees_total": self.frees_total,
             "shares_total": self.shares_total,
@@ -284,11 +300,14 @@ class PagedKVCache:
     ``page_size`` tokens. Block tables, lengths and the active mask are
     host numpy; the pool tensors in ``self.pool`` (keys ``k``/``v``, plus
     ``ks``/``vs`` for the int8 tier) live on ``device`` and are written
-    in place by the prefill and decode forwards."""
+    in place by the prefill and decode forwards. ``enable_prefix_cache``
+    (default on) attaches the :class:`PrefixCache` trie; off, ``prefix``
+    is None and admissions share nothing."""
 
     def __init__(self, cfg, max_batch: int, max_len: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 kv_dtype=None, device: DeviceLike = None):
+                 kv_dtype=None, enable_prefix_cache: bool = True,
+                 device: DeviceLike = None):
         from ..models import generate as _gen
         if max_len % page_size:
             max_len = (max_len // page_size + 1) * page_size
@@ -304,7 +323,7 @@ class PagedKVCache:
                                           kv_dtype=kv_dtype,
                                           device=self.device)
         self.allocator = BlockAllocator(num_pages)
-        self.prefix = PrefixCache(page_size)
+        self.prefix = PrefixCache(page_size) if enable_prefix_cache else None
         self.cow_copies = 0
         self.block_tables = np.full((max_batch, self.pages_per_seq),
                                     TRASH_PAGE, np.int32)
@@ -345,7 +364,9 @@ class PagedKVCache:
         try:
             return self.allocator.alloc(n)
         except PoolExhausted:
-            self.prefix.evict(self.allocator, n - self.allocator.num_free)
+            if self.prefix is not None:
+                self.prefix.evict(self.allocator,
+                                  n - self.allocator.num_free)
             if n > self.allocator.num_free:
                 raise
             return self.allocator.alloc(n)
@@ -375,7 +396,7 @@ class PagedKVCache:
             raise ValueError(
                 f"admit_prompt: total_tokens={total_tokens} is smaller "
                 f"than the {prompt.size}-token prompt it must contain")
-        if prompt.size == 0:
+        if self.prefix is None or prompt.size == 0:
             return self._install(slot, self._alloc_with_evict(n)), 0
         shared, tail = self.prefix.match(prompt)
         # pin the matched pages FIRST: the eviction a fresh-page alloc
@@ -403,6 +424,8 @@ class PagedKVCache:
 
     def register_prefix(self, slot: int, prompt):
         """Publish a fully prefilled prompt's pages into the trie."""
+        if self.prefix is None:
+            return
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0 or not self.active[slot]:
             return
@@ -418,11 +441,25 @@ class PagedKVCache:
         self.lengths[slot] = 0
         self.active[slot] = False
 
+    def evict_for_preempt(self, slot: int) -> int:
+        """Preemption eviction: release ``slot``'s page references back
+        to the pool and report how many pages actually reached the free
+        list. Pages the prefix trie (or another table) still references
+        survive under those references, and a later resume can map them
+        straight back in. The slot's KV rows are not zeroed: freed pages
+        carry finite garbage until their next tenant overwrites them.
+        On the card a decode step still in flight for the evicted slot
+        writes its row into a freed page; the next tenant's writes are
+        queued after it on the same stream, so they land last."""
+        if not self.active[slot]:
+            raise ValueError(f"evict_for_preempt of inactive slot {slot}")
+        before = self.allocator.num_free
+        self.release(slot)
+        return self.allocator.num_free - before
+
     def free_slots(self) -> List[int]:
         return [i for i in range(self.max_batch) if not self.active[i]]
 
-    def block_table_tensor(self, slot: Optional[int] = None) -> torch.Tensor:
-        """The block tables (or one slot's row) as an int32 tensor on
-        the pool's device."""
-        bt = self.block_tables if slot is None else self.block_tables[slot]
-        return torch.from_numpy(np.ascontiguousarray(bt)).to(self.device)
+    def pages_held(self, slot: int) -> List[int]:
+        """The page ids ``slot``'s block table references (a copy)."""
+        return list(self._slot_pages[slot])

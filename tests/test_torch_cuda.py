@@ -36,7 +36,13 @@ row's length and in page 0, lengths that end mid-page, and in bf16 at
 table capacities that give its split kernel 1, 2, 4 and 8 splits,
 beside a planted fault (one row's last 16 live keys dropped); and
 ``block_multihead_attention``'s B8 branch
-against its per-row branch on the same CUDA inputs.
+against its per-row branch on the same CUDA inputs; and the serving
+control plane: an overlapped engine's decode, verify and prefill
+dispatches under ``torch.cuda.set_sync_debug_mode("error")`` (a planted
+pageable copy must raise there), uploads queued behind a busy stream
+from a host array that changes between them, overlapped against
+synchronous scheduling without a budget, and a preempted slot's pages
+refilled by the next tenant while the victim's decode is still queued.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -1037,3 +1043,165 @@ def test_block_attention_kernel_branch_matches_the_loop(cuda, kv):
                                atol=1e-5)
     for a, b in zip(runs[0][1:], runs[1][1:]):
         assert torch.equal(a, b)
+
+
+def _sched_cfg():
+    return tl.LlamaConfig.tiny(hidden_size=128, num_heads=2, num_kv_heads=1,
+                               intermediate_size=256, num_layers=2,
+                               max_seq_len=64)
+
+
+def _sched_prompts():
+    rs = np.random.RandomState(0)
+    motif = np.asarray([7, 11, 13], np.int32)
+    return ([rs.randint(3, 256, (n,)).astype(np.int32) for n in (5, 19, 9)]
+            + [np.tile(motif, 5)[:14]])
+
+
+def _no_sync(eng):
+    """Run ``eng``'s dispatch halves under the sync debug mode "error";
+    returns their call counts."""
+    calls = {"decode_dispatch": 0, "spec_dispatch": 0,
+             "prefill_dispatch": 0}
+    depth = [0]
+
+    def wrap(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            if depth[0] == 0:
+                torch.cuda.set_sync_debug_mode("error")
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    torch.cuda.set_sync_debug_mode(0)
+        return wrapper
+
+    for name in calls:
+        setattr(eng, name, wrap(name, getattr(eng, name)))
+    return calls
+
+
+def _serve(eng, prompts, budget=16, new=6):
+    from paddle_tpu_torch.serving import Priority, ServingScheduler
+    sched = ServingScheduler(eng, token_budget=budget)
+    reqs = [sched.submit(p, max_new_tokens=new,
+                         priority=Priority.LOW if i % 2 else Priority.NORMAL)
+            for i, p in enumerate(prompts)]
+    sched.run()
+    assert all(r.done and len(r.tokens) == new for r in reqs)
+    return [r.output.tolist() for r in reqs]
+
+
+@pytest.mark.parametrize("spec_k", [0, 2], ids=["plain", "ngram"])
+def test_overlapped_dispatch_does_not_synchronize(cuda, spec_k):
+    """Every decode, verify and prefill dispatch of an overlapped engine
+    runs under ``set_sync_debug_mode("error")``: its inputs go up through
+    pinned buffers with non-blocking copies, and no kernel wrapper reads
+    the card."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    kw = dict(max_batch=2, page_size=8, max_len=48, prefill_chunk=8,
+              fused=True, spec_k=spec_k, overlap=True, device=cuda)
+    _serve(ContinuousBatchingEngine(params, cfg, **kw), _sched_prompts())
+    eng = ContinuousBatchingEngine(params, cfg, **kw)   # kernels built
+    calls = _no_sync(eng)
+    _serve(eng, _sched_prompts())
+    assert calls["prefill_dispatch"] and calls["decode_dispatch"]
+    if spec_k:
+        assert calls["spec_dispatch"] and eng.forwards["verify"]
+
+
+def test_planted_pageable_copy_fails_the_sync_check(cuda):
+    """The check has teeth: a dispatch that uploads through a pageable
+    ``.to(device)`` copy raises under the sync debug mode."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, page_size=8,
+                                   max_len=48, fused=True, device=cuda)
+    req = eng.submit(_sched_prompts()[0], max_new_tokens=4)
+    eng.step()
+    assert req.tokens
+    eng._up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    _no_sync(eng)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        eng.decode_dispatch(eng.ready_mask())
+
+
+def test_uploads_behind_a_busy_stream_keep_their_values(cuda):
+    """Uploads queued behind a ~10 ms sleep, from one host array that
+    changes between them, each keep the value they were given, with no
+    synchronizing operation: every upload goes through a pinned block
+    that is not reused before its copy has run."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, page_size=8,
+                                   max_len=48, device=cuda)
+    host = np.zeros((4096,), np.int32)
+    eng._up(host)                       # the allocator's first block
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ups = []
+        for i in range(8):
+            host[:] = i
+            ups.append(eng._up(host))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert [(int(t.min()), int(t.max())) for t in ups] == [
+        (i, i) for i in range(8)]
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_overlap_equals_sync_on_the_card(cuda, kv):
+    """No budget: the overlapped pipeline gives the synchronous one's
+    tokens on the card (same chunk widths and decode rows in both)."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+    outs = []
+    for overlap in (False, True):
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_batch=2, page_size=8, max_len=48,
+            prefill_chunk=8, fused=True, kv_cache_dtype=kv,
+            overlap=overlap, device=cuda)
+        outs.append(_serve(eng, _sched_prompts(), budget=None, new=8))
+        assert not eng.has_inflight() and eng.idle
+    assert outs[0] == outs[1]
+
+
+def test_freed_pages_refilled_while_decode_in_flight(cuda):
+    """The victim's decode is queued behind a ~10 ms sleep when its
+    pages go back to the pool and the next tenant's prefill is
+    dispatched into them: stream order lands the tenant's writes last,
+    so its tokens equal those of a run without the race."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(2),
+                            device="cpu")
+    kw = dict(max_batch=1, page_size=8, max_len=48, fused=True,
+              enable_prefix_cache=False, device=cuda)
+    pa, pb = _sched_prompts()[:2]
+    want = ContinuousBatchingEngine(params, cfg, **kw).generate(
+        [pb], max_new_tokens=6)[0]
+    eng = ContinuousBatchingEngine(params, cfg, **kw)
+    a = eng.create_request(pa, max_new_tokens=8)
+    assert eng.admit_request(a)
+    eng.prefill_step()
+    torch.cuda._sleep(20_000_000)
+    assert eng.decode_dispatch(eng.ready_mask()) is not None
+    old = set(eng.cache.pages_held(0))
+    eng.preempt_request(a)
+    b = eng.create_request(pb, max_new_tokens=6)
+    assert eng.admit_request(b)
+    assert old & set(eng.cache.pages_held(0))
+    assert eng.prefill_dispatch() > 0
+    eng.commit_inflight()               # the victim's token is dropped
+    assert len(a.tokens) == 1
+    eng.run()
+    np.testing.assert_array_equal(b.output, want)

@@ -580,7 +580,7 @@ def test_options_the_port_leaves_out_raise(model):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatchingEngine(tp, tcfg, device="cpu", **ENG, **kw)
     eng = ContinuousBatchingEngine(tp, tcfg, device="cpu", spec_k=2, **ENG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.spec_plan_widths(np.ones(3, bool))
+    # ported with the SLO scheduler: no seated request, no width
+    assert eng.spec_plan_widths(np.ones(3, bool)) == {}
     st = eng.stats()
     assert st["spec_verify_steps"] == 0 and "draft_layers" not in st
