@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path (plain, speculative and
-under the SLO scheduler), dense decoding, Paddle fused-op decoder and
-training step on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path (plain, speculative,
+under the SLO scheduler and grammar-constrained), dense decoding, Paddle
+fused-op decoder and training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -121,7 +121,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Last, ``torch.profiler`` traces a few draft-tree steps and splits
    them into proposal and verify on the host clock.
 3e. The SLO scheduler (``ServingScheduler``) over the engine at the
-   same width and depth, fresh weights from phase 3's seed, budget 384:
+   same width and half the depth (16 layers; the script's time limit
+   holds phase 3f at all 32), fresh weights from phase 3's seed, budget
+   384:
    phase 3's 16 requests as alternating NORMAL and LOW, then after 8
    steps four HIGH requests of 512 prompt tokens and 32 new, each
    admitted by preempting a LOW one; KV bf16 and int8 with the fused
@@ -138,10 +140,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fused prefill chunk and verify); ms a step, tokens/s,
    ``host_frac_ema``, the host split into dispatch, commit and the
    scheduler's own work, and the greedy-token agreement of each burst
-   run with its synchronous twin and with phase 3's uninterrupted tier,
-   beside phase 3's fused-vs-unfused yardstick (``run_scheduler``).
+   run with its synchronous twin (bf16 fused also with the no-budget
+   run, the same requests uninterrupted), beside phase 3's
+   fused-vs-unfused yardstick (``run_scheduler``).
+3f. Grammar-constrained serving under the scheduler at the engine's
+   width and depth (32 layers), fresh weights from phase 3's seed, eos
+   id 2: over a seeded synthetic table of 32,000 token strings
+   (``synthetic_vocab``; there is no tokenizer), a tool-call JSON schema
+   (``json_schema_dfa``), a menu of 16 token sequences
+   (``dfa_from_sequences``) and a comma-list regex (``dfa_from_regex``),
+   each with its compile seconds and table MB (``grammar ...`` lines).
+   Phase 3's 16 prompts with 64 new tokens each, 8 carrying the JSON
+   grammar, 4 the menu, 4 free, as alternating NORMAL and LOW. An
+   identity gate without budget or burst, in turns: a free run on a
+   ``constraints=False`` engine; each request under a DFA of its own
+   free-run tokens, synchronous and overlapped; all requests free on a
+   ``constraints=True`` engine; the free run overlapped: all
+   token-identical. Burst runs (budget 384, phase 3e's HIGH burst) for
+   KV bf16 and int8 fused, synchronous and overlapped, and bf16 unfused
+   synchronous. An overlapped run of 8 requests (4 JSON with 256 new
+   tokens, 2 list, a menu, a free one), sampled at temperature 0.9, with
+   every dispatch, the mask upload included, under the sync debug mode.
+   ``torch.profiler`` windows of 8 decoding rows, free and
+   JSON-constrained. Per run: every constrained request's tokens walk
+   its DFA on the host (``walk``), eos-ended JSON decodes through the
+   table to an object with the schema's keys and types (at least one in
+   the sync-checked run), an eos-ended menu request emitted one menu
+   sequence, a burst run preempts (and resumes) a constrained request,
+   the allocator balances, launches equal the counted forwards; ms a
+   step, tokens/s, the host ms a step of the DFA work and of the mask
+   upload, mask uploads against decode steps (``constrained ...`` lines,
+   ``run_constrained``).
 3c. Dense decoding (``generate``, ``beam_search``,
-   ``precompute_prompt_cache``) at the same width and depth, fresh
+   ``precompute_prompt_cache``) at the same width and half the depth
+   (16 layers; the script's time limit holds phase 3f at all 32), fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
    long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
@@ -155,19 +187,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    int8-weight decode steps into B7, matmuls, dequantization and the
    rest (``run_dense``).
 3d. The Paddle fused-op decoder (``paddle_decoder``): a Llama-2-7B
-   decoder written against ``paddle_tpu_torch.incubate.nn.functional``
-   (``fused_rms_norm``, ``fused_rotary_position_embedding``,
-   ``block_multihead_attention``, ``swiglu``) around ``torch.matmul``
-   projections, fresh seeded weights, B = 8 prompts of 1024 tokens, one
-   batched prefill, 64 greedy new tokens, pages of 64, KV bf16 and int8
-   (dynamic (B, HK) scales from the prefill's amax). Per tier the launch
-   counters are zeroed after the prefill and read after the decode:
-   per layer and step B6 twice, B8 once, B4a twice (and once for the
-   final norm), B5a once; each step's logits within 0.25 of
-   ``generate``'s cached forward on the same tokens; decode tokens/s,
-   ms a step, peak memory, the share of greedy tokens that forward
-   picks; then a ``torch.profiler`` split of a few decode steps into
-   B6, B8, B4a/B5a, matmuls and the rest (``run_paddle_decoder``).
+   decoder at half its depth (16 layers, as phase 3c) written against
+   ``paddle_tpu_torch.incubate.nn.functional`` (``fused_rms_norm``,
+   ``fused_rotary_position_embedding``, ``block_multihead_attention``,
+   ``swiglu``) around ``torch.matmul`` projections, fresh seeded
+   weights, B = 8 prompts of 1024 tokens, one batched prefill, 64 greedy
+   new tokens, pages of 64, KV bf16 and int8 (dynamic (B, HK) scales
+   from the prefill's amax). Per tier the launch counters are zeroed
+   after the prefill and read after the decode: per layer and step B6
+   twice, B8 once, B4a twice (and once for the final norm), B5a once;
+   each step's logits within 0.25 of ``generate``'s cached forward on
+   the same tokens; decode tokens/s, ms a step, peak memory, the share
+   of greedy tokens that forward picks; then a ``torch.profiler`` split
+   of a few decode steps into B6, B8, B4a/B5a, matmuls and the rest
+   (``run_paddle_decoder``).
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -1690,7 +1723,8 @@ def instrument_engine(torch, eng, no_sync: bool):
 
 def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
               reqs, highs, name, kv=None, fused=True, overlap=False,
-              budget=SCHED_BUDGET, sync_check=False, **spec):
+              budget=SCHED_BUDGET, sync_check=False, grammars=None,
+              eos=None, **spec):
     """One scheduler run at the engine's serving shape: ``reqs``
     submitted as alternating NORMAL and LOW, the ``highs`` (if any)
     submitted as HIGH after ``BURST_AT`` steps, then driven as
@@ -1702,16 +1736,36 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
     all 8 slots busy preempts and resumes at least once. The host time
     of a step splits into dispatch, commit and the rest (the
     scheduler's admission and planning); ``sync_check`` runs every
-    dispatch under the sync debug mode (``instrument_engine``)."""
+    dispatch under the sync debug mode (``instrument_engine``).
+    ``grammars`` (one token DFA or None per request of ``reqs``) builds
+    the engine with ``constraints=True`` and submits each request with
+    its DFA; the host time of the DFA work (``ConstraintState.mask``
+    and ``advance``) and the mask uploads are then recorded, and the
+    handles returned under ``"handles"``. ``eos`` is the engine's eos
+    id."""
     eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
                  kv_cache_dtype=kv, prefill_chunk=256, fused=fused,
-                 overlap=overlap, **spec)
+                 overlap=overlap, eos_token_id=eos,
+                 constraints=grammars is not None, **spec)
     sched = Scheduler(eng, token_budget=budget)
     handles = [sched.submit(p, max_new_tokens=m,
                             priority=Priority.LOW if i % 2 else
-                            Priority.NORMAL)
+                            Priority.NORMAL,
+                            constraint=grammars[i] if grammars else None)
                for i, (p, m) in enumerate(reqs)]
     tally = instrument_engine(torch, eng, sync_check)
+    dfa = None
+    if grammars is not None:
+        dfa = time_dfa_work()
+        upload = eng._cmask_device
+
+        def timed_upload():
+            t0 = time.perf_counter()
+            try:
+                return upload()
+            finally:
+                dfa["upload_s"] += time.perf_counter() - t0
+        eng._cmask_device = timed_upload
     plans, steps = [], 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1736,6 +1790,8 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
             sched._idle_fence()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if dfa is not None:
+        dfa["restore"]()
     counts = kernels.launch_counts()
     for h in handles:
         if not h.done or (len(h.tokens) != h.max_new_tokens
@@ -1788,6 +1844,17 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
                                      - rec["commit_ms_per_step"])
     if sync_check:
         rec["dispatch_calls_without_sync"] = tally["calls"]
+    if dfa is not None:
+        rec.update(
+            constrained=sum(g is not None for g in grammars),
+            dfa_host_ms_per_step=dfa["s"] * 1e3 / steps,
+            mask_upload_host_ms_per_step=dfa["upload_s"] * 1e3 / steps,
+            dfa_mask_calls=dfa["mask"], dfa_advance_calls=dfa["advance"],
+            mask_uploads=eng.cmask_uploads, decode_steps=f["decode"],
+            constrained_preempted=sum(
+                h.preemptions for h, g in zip(handles, grammars)
+                if g is not None))
+        rec["handles"] = handles
     rec["tokens"] = [list(h.tokens) for h in handles]
     del eng, sched, handles
     gc.collect()
@@ -1796,18 +1863,20 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
 
 
 def profile_sched(torch, Engine, Scheduler, params, cfg, reqs,
-                  overlap: bool, steps: int = 8):
+                  overlap: bool, steps: int = 8, grammar=None):
     """Where a scheduler step's time goes (bf16 KV, fused, no budget):
     submit 8 requests, drive until every prefill is done, then trace
     ``steps`` scheduler steps of the 8 decoding rows with
-    ``torch.profiler``, synchronous or overlapped. Launches made here
-    are not counted on the main path."""
+    ``torch.profiler``, synchronous or overlapped; with ``grammar`` (a
+    token DFA) every request carries it on a ``constraints=True``
+    engine. Launches made here are not counted on the main path."""
     from torch.profiler import ProfilerActivity, profile
     eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
-                 prefill_chunk=256, fused=True, overlap=overlap)
+                 prefill_chunk=256, fused=True, overlap=overlap,
+                 constraints=grammar is not None)
     sched = Scheduler(eng)
     for p, _ in reqs[:8]:
-        sched.submit(p, max_new_tokens=128)
+        sched.submit(p, max_new_tokens=128, constraint=grammar)
     while eng.pending_prefills() or any(sched._queues.values()):
         sched.step()
     sched.step()                          # warm
@@ -1822,17 +1891,18 @@ def profile_sched(torch, Engine, Scheduler, params, cfg, reqs,
         wall = (time.perf_counter() - t0) * 1e3 / steps
     rec = device_breakdown(torch, prof, steps, wall)
     rec.update(overlap=overlap, rows=int(eng.cache.active.sum()),
-               host_frac_ema=sched.host_frac_ema)
+               host_frac_ema=sched.host_frac_ema,
+               constrained=grammar is not None)
     del eng, sched
     gc.collect()
     torch.cuda.empty_cache()
     return rec
 
 
-def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
-    """Phase 3e: the SLO scheduler over the engine at Llama-2-7B width,
-    on fresh weights from phase 3's seed (phase 3's before its draft
-    tiers damp them). Burst runs (``SCHED_BUDGET``, the HIGH burst) for
+def run_scheduler(torch, kernels, cfg, seed: int, reqs, yardstick):
+    """Phase 3e: the SLO scheduler over the engine at ``cfg``'s width
+    and depth, on fresh weights from phase 3's seed. Burst runs
+    (``SCHED_BUDGET``, the HIGH burst) for
     KV bf16 and int8 with the fused kernels and bf16 without, each
     synchronous and overlapped (bf16 fused in turns: sync, overlap,
     overlap, sync, so that the spread of one mode is seen beside the
@@ -1840,15 +1910,15 @@ def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
     must be token-identical; an overlapped n-gram run and a short plain
     one with every dispatch under the sync debug mode; profiled windows
     in the same turns. Greedy-token agreement of each burst run with
-    its synchronous twin and with phase 3's uninterrupted tier is
-    reported beside phase 3's fused-vs-unfused yardstick."""
+    its synchronous twin, and of the bf16 fused ones with the no-budget
+    run (the same requests uninterrupted), is reported beside phase 3's
+    fused-vs-unfused yardstick."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
     from paddle_tpu_torch.models.llama import init_params
     from paddle_tpu_torch.serving import Priority, ServingScheduler as S
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         seed), device="cuda")
     highs = burst_requests(4, cfg.vocab_size, seed + 7)
-    plain = {(t["kv"], t["fused"]): t for t in tiers[:4]}
     turns = (False, True, True, False)
     runs, agreement = [], {}
 
@@ -1869,13 +1939,10 @@ def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
         pair = in_turns(f"burst-{tag}",
                         turns if (kv, fused) == (None, True)
                         else (False, True), reqs, highs, kv=kv, fused=fused)
-        n = len(reqs)
-        ref = plain[(kv or "bf16", fused)]["tokens"]
         sync, ov = pair[False][0]["tokens"], pair[True][0]["tokens"]
-        agreement[tag] = {
-            "overlap_vs_sync": token_agreement(ov, sync),
-            "sync_vs_uninterrupted": token_agreement(sync[:n], ref),
-            "overlap_vs_uninterrupted": token_agreement(ov[:n], ref)}
+        agreement[tag] = {"overlap_vs_sync": token_agreement(ov, sync)}
+        if tag == "bf16-fused":
+            burst = (sync, ov)
     pair = in_turns("nobudget-bf16-fused", turns, reqs, None, budget=None)
     toks = [r["tokens"] for rs in pair.values() for r in rs]
     if any(t != toks[0] for t in toks):
@@ -1883,6 +1950,10 @@ def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
              f"{[token_agreement(t, toks[0]) for t in toks]}")
     agreement["nobudget_overlap_vs_sync"] = token_agreement(toks[-1],
                                                             toks[0])
+    n = len(reqs)
+    agreement["bf16-fused"].update(
+        sync_vs_uninterrupted=token_agreement(burst[0][:n], toks[0]),
+        overlap_vs_uninterrupted=token_agreement(burst[1][:n], toks[0]))
     # every dispatch under the sync debug mode: an overlapped n-gram run
     # (verify and prefill dispatches) and a short plain one (decode)
     for name, sub, spec, kinds in (
@@ -1910,6 +1981,278 @@ def run_scheduler(torch, kernels, cfg, seed: int, reqs, tiers, yardstick):
     gc.collect()
     torch.cuda.empty_cache()
     return {"runs": runs, "agreement": agreement, "profiles": profiles}
+
+
+# --------------------------------------------------------------- phase 3f
+#: the tool call the JSON requests must emit: an enum, a string, an
+#: integer and a boolean (``json_schema_dfa``'s subset), keys in order
+TOOL_SCHEMA = {"type": "object", "properties": {
+    "tool": {"enum": ["search", "book", "cancel"]},
+    "city": {"type": "string"}, "days": {"type": "integer"},
+    "metric": {"type": "boolean"}}}
+LIST_REGEX = "[a-z]+(,[a-z]+)*"
+CONSTRAINED_NEW = 64    # new tokens of every phase 3f request
+# the JSON requests of the sync-checked run, which samples: a string
+# field closes with a token that holds a quote, ~2% of the tokens it
+# admits, so 64 tokens rarely reach the closing brace (and greedy
+# decoding of random weights repeats one token inside the string)
+LONG_JSON_NEW = 256
+CONSTRAINED_EOS = 2
+
+
+def synthetic_vocab(vocab: int, seed: int) -> list:
+    """Token strings for the grammar lift (there is no tokenizer in the
+    repository): ids 0-2 empty (pad, bos, eos: never admitted by a
+    regex), ids 3-97 the 95 printable ASCII characters, the rest seeded
+    strings of 2-6 characters drawn from letters, digits and
+    ``{}":,_-`` and space."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    alphabet = list("abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                    '0123456789{}":,_- ')
+    toks = ["", "", ""] + [chr(c) for c in range(32, 127)]
+    while len(toks) < vocab:
+        toks.append("".join(rs.choice(alphabet, int(rs.randint(2, 7)))))
+    return toks[:vocab]
+
+
+def walk(dfa, tokens, eos):
+    """Hold ``tokens`` to ``dfa`` from its table alone: each token before
+    the last has a live transition from the state the ones before it
+    reached; an eos comes only as the last token, from an accepting
+    state, a dead end (no live transition) or a live eos transition.
+    With no eos id, a state with no live transition ends the grammar
+    (the rest runs free). Returns (state reached, ended in eos)."""
+    s = dfa.start
+    for i, t in enumerate(int(t) for t in tokens):
+        live = dfa.next[s] >= 0
+        if eos is not None and t == eos:
+            if not (dfa.accepting[s] or not live.any() or live[eos]):
+                fail(f"eos at position {i} from state {s}, which is "
+                     f"neither accepting nor a dead end")
+            if i != len(tokens) - 1:
+                fail(f"tokens after eos at position {i}")
+            return s, True
+        if eos is None and not live.any():
+            return s, False
+        if not live[t]:
+            fail(f"token {t} at position {i} is not admitted from state "
+                 f"{s}: {list(tokens)}")
+        s = int(dfa.next[s, t])
+    return s, False
+
+
+def check_tool_call(text: str):
+    """``text`` is a JSON object with ``TOOL_SCHEMA``'s keys, in order,
+    and types."""
+    try:
+        obj = json.loads(text)
+    except ValueError as e:
+        fail(f"an eos-ended JSON request does not parse ({e}): {text!r}")
+    props = TOOL_SCHEMA["properties"]
+    ok = (isinstance(obj, dict) and list(obj) == list(props)
+          and obj["tool"] in props["tool"]["enum"]
+          and isinstance(obj["city"], str)
+          and type(obj["days"]) is int and type(obj["metric"]) is bool)
+    if not ok:
+        fail(f"an eos-ended JSON request breaks the schema: {text!r}")
+    return obj
+
+
+def build_grammars(serving, toks, vocab: int, seed: int):
+    """The phase's three grammars over the synthetic table: the tool
+    call (``json_schema_dfa``), a menu of 16 seeded sequences of 4-12
+    tokens (``dfa_from_sequences``) and a comma list
+    (``dfa_from_regex``); each with its compile seconds and table MB."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    menu = [rs.randint(3, vocab, (int(rs.randint(4, 13)),)).tolist()
+            for _ in range(16)]
+    out, info = {}, {}
+    for name, build in (
+            ("json", lambda: serving.json_schema_dfa(TOOL_SCHEMA, toks)),
+            ("menu", lambda: serving.dfa_from_sequences(menu, vocab)),
+            ("list", lambda: serving.dfa_from_regex(LIST_REGEX, toks))):
+        t0 = time.perf_counter()
+        out[name] = build()
+        info[name] = dict(compile_s=time.perf_counter() - t0,
+                          states=out[name].num_states,
+                          table_mb=out[name].next.nbytes / 2**20)
+    return out, menu, info
+
+
+def time_dfa_work():
+    """Time ``ConstraintState.mask`` and ``advance`` (the engine's DFA
+    work: building mask rows, advancing states) on the host clock until
+    ``tally["restore"]()`` puts the methods back."""
+    from paddle_tpu_torch.serving.constraints import ConstraintState as C
+    tally = {"s": 0.0, "mask": 0, "advance": 0, "upload_s": 0.0}
+    orig = {n: getattr(C, n) for n in ("mask", "advance")}
+
+    def timed(name, fn):
+        def wrapper(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                tally["s"] += time.perf_counter() - t0
+                tally[name] += 1
+        return wrapper
+
+    for n, fn in orig.items():
+        setattr(C, n, timed(n, fn))
+    tally["restore"] = lambda: [setattr(C, n, fn) for n, fn in orig.items()]
+    return tally
+
+
+def check_constrained(rec, grammars, kinds, toks, menu):
+    """A phase 3f run's outputs: every constrained request walks its
+    DFA (``walk``); an eos-ended JSON request decodes through the
+    synthetic table to a tool call (``check_tool_call``); an eos-ended
+    menu request emitted exactly one menu sequence. Returns the counts
+    of eos-ended requests by grammar."""
+    ended = {}
+    for h, g, k in zip(rec.pop("handles"), grammars, kinds):
+        if g is None:
+            continue
+        _, eos = walk(g, h.tokens, CONSTRAINED_EOS)
+        ended[k] = ended.get(k, 0) + int(eos)
+        body = [int(t) for t in h.tokens[:-1]] if eos else None
+        if eos and k == "json":
+            check_tool_call("".join(toks[t] for t in body))
+        if eos and k == "menu" and body not in menu:
+            fail(f"an eos-ended menu request emitted {body}, no menu "
+                 f"sequence")
+    return ended
+
+
+def run_constrained(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3f: grammar-constrained serving under the SLO scheduler at
+    Llama-2-7B width and depth, on fresh weights from phase 3's seed,
+    with eos id 2.
+
+    Grammars over a seeded synthetic table of ``cfg.vocab_size`` token
+    strings (``synthetic_vocab``, ``build_grammars``). Phase 3's
+    prompts, 64 new tokens each: requests with ``i % 4`` in (0, 1)
+    carry the tool-call JSON grammar, 2 the menu, 3 none; submitted as
+    alternating NORMAL and LOW, so that phase 3e's HIGH burst preempts
+    JSON requests (and free ones).
+
+    1. The identity gate (bf16 fused, no budget, no burst), in turns: a
+       free run on a ``constraints=False`` engine, then each request
+       under ``dfa_from_sequences([its own free-run tokens])``,
+       synchronous and overlapped, then all requests free on a
+       ``constraints=True`` engine, then the free run overlapped: all
+       token-identical (masking only excludes; the batches are the
+       same). The step ms and tokens/s of these runs compare the cost
+       of the constraints at equal work.
+    2. Burst runs (budget 384, the HIGH burst after 8 steps): KV bf16
+       and int8 fused, synchronous and overlapped, and bf16 unfused
+       (B9) synchronous. Each: every constrained request walks its DFA,
+       eos-ended JSON parses to the schema, eos-ended menu requests
+       emitted one sequence, a constrained request was preempted (and
+       so resumed: every request finishes), the allocator balances and
+       launches equal the counted forwards (``run_sched``).
+    3. An overlapped, sampled (temperature 0.9) run of 8 requests
+       (4 JSON, 2 list, a menu and a free one; the JSON ones with
+       ``LONG_JSON_NEW`` new tokens, room for the string field to
+       close, and at least one must end in eos and parse) with every
+       ``decode_dispatch`` and ``prefill_dispatch`` under
+       ``set_sync_debug_mode("error")``, the mask uploads included.
+    4. ``torch.profiler`` windows of 8 decoding rows (``profile_sched``,
+       synchronous), free and then all under the JSON grammar."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving import Priority, ServingScheduler as S
+    V = cfg.vocab_size
+    toks = synthetic_vocab(V, seed + 11)
+    grammars, menu, info = build_grammars(serving, toks, V, seed + 12)
+    for name, rec in info.items():
+        print(f"grammar {name}: " + json.dumps(rec))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    highs = burst_requests(4, V, seed + 7)
+    creqs = [(p, CONSTRAINED_NEW) for p, _ in reqs]
+    kinds = [("json", "json", "menu", "free")[i % 4]
+             for i in range(len(creqs))]
+    mixed = [grammars[k] if k != "free" else None for k in kinds]
+    runs, out = [], {"grammars": info}
+
+    def one(name, rqs, hs, **kw):
+        rec = run_sched(torch, kernels, E, S, Priority, params, cfg, rqs,
+                        hs, name, eos=CONSTRAINED_EOS, **kw)
+        runs.append(rec)
+        return rec
+
+    # 1. the identity gate, in turns
+    free = one("free-sync", creqs, None, budget=None)
+    print("constrained " + show(free))
+    own = [serving.dfa_from_sequences([t], V) for t in free["tokens"]]
+    gate = [("own-sync", own, False), ("own-overlap", own, True),
+            ("allfree-sync", [None] * len(creqs), False)]
+    for name, g, overlap in gate:
+        rec = one(name, creqs, None, budget=None, grammars=g,
+                  overlap=overlap)
+        if g is own:
+            check_constrained(rec, own, ["own"] * len(own), toks, menu)
+        else:
+            rec.pop("handles")
+        print("constrained " + show(rec))
+        if rec["tokens"] != free["tokens"]:
+            fail(f"constrained {name}: not token-identical to the free "
+                 f"run, {token_agreement(rec['tokens'], free['tokens'])}")
+    rec = one("free-overlap", creqs, None, budget=None, overlap=True)
+    print("constrained " + show(rec))
+    if rec["tokens"] != free["tokens"]:
+        fail("constrained free-overlap: not token-identical to free-sync")
+    # 2. burst runs under the budget
+    ended = {}
+    for kv, fused, overlap in ((None, True, False), (None, True, True),
+                               ("int8", True, False), ("int8", True, True),
+                               (None, False, False)):
+        name = (f"burst-{'int8' if kv else 'bf16'}-"
+                f"{'fused' if fused else 'unfused'}-"
+                f"{'overlap' if overlap else 'sync'}")
+        rec = one(name, creqs, highs, kv=kv, fused=fused, overlap=overlap,
+                  grammars=mixed)
+        ended[name] = check_constrained(rec, mixed, kinds, toks, menu)
+        rec["eos_ended"] = ended[name]
+        print("constrained " + show(rec))
+        if len(creqs) >= 8 and not rec["constrained_preempted"]:
+            fail(f"constrained {name}: no constrained request was "
+                 f"preempted by the HIGH burst")
+    # 3. every dispatch under the sync debug mode
+    k8 = ["json", "list", "json", "menu", "json", "free", "json", "list"]
+    r8 = [(p, LONG_JSON_NEW if k == "json" else CONSTRAINED_NEW)
+          for (p, _), k in zip(creqs[:8], k8)]
+    g8 = [grammars[k] if k != "free" else None for k in k8[:len(r8)]]
+    rec = one("nosync-overlap", r8, None, overlap=True, sync_check=True,
+              grammars=g8, temperature=0.9)
+    rec["eos_ended"] = check_constrained(rec, g8, k8, toks, menu)
+    ended["nosync-overlap"] = rec["eos_ended"]
+    if len(r8) == 8 and not rec["eos_ended"].get("json"):
+        fail("constrained nosync-overlap: no JSON request ended in eos "
+             f"within {LONG_JSON_NEW} tokens, so none was parsed")
+    calls = rec["dispatch_calls_without_sync"]
+    if not (calls["decode_dispatch"] and calls["prefill_dispatch"]
+            and rec["mask_uploads"]):
+        fail(f"constrained nosync-overlap: a dispatch kind or the mask "
+             f"upload did not run under the sync check ({calls}, "
+             f"{rec['mask_uploads']} uploads)")
+    print("constrained " + show(rec))
+    # 4. profiled windows, free and constrained
+    profiles = []
+    for g in (None, grammars["json"]):
+        prof = profile_sched(torch, E, S, params, cfg, creqs, False,
+                             grammar=g)
+        print("constrained profile " + json.dumps(prof))
+        profiles.append(prof)
+    out.update(runs=runs, profiles=profiles, eos_ended=ended)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- phase 3c
@@ -2040,7 +2383,7 @@ def profile_dense(torch, tl, gen, params, cfg, prompt, steps: int = 8):
 
 
 def run_dense(torch, np, kernels, tl, gen, cfg, seed: int):
-    """Phase 3c: dense decoding at the engine's width and depth from
+    """Phase 3c: dense decoding at ``cfg``'s width and depth from
     seeded random weights. The JAX bench's decode tier (B = 8, prompt
     128, 64 new, greedy) for weights {bf16, int8, int4} x KV {bf16,
     int8}, each with its decode-step logits check; a long tier (prompt
@@ -2246,7 +2589,7 @@ def run_paddle_decoder(torch, np, kernels, IF, tl, gen, cfg, seed: int,
                        batch: int = 8, prompt_len: int = 1024,
                        new: int = 64, block_size: int = 64):
     """Phase 3d: the Paddle fused-op decoder (``paddle_decoder``) at
-    the engine's width and depth from fresh seeded weights, KV bf16 and
+    ``cfg``'s width and depth from fresh seeded weights, KV bf16 and
     int8. Per tier: the launch counters zeroed just before the decode
     steps (after the prefill) and read just after, which must equal what
     the path implies per layer and step (B6 twice, B8 once, B4a twice
@@ -2619,7 +2962,15 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    record = {"card": card, "kind": kind}
+    record = {"card": card, "kind": kind, "phase_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(phase):
+        """Print and record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        record["phase_s"][phase] = now - t_lap[0]
+        print(f"phase {phase}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -2679,6 +3030,7 @@ def main(argv=None) -> int:
     if len(b11) != 32 or any("registers" not in r for r in b11):
         fail(f"expected ptxas's report of 32 B11 kernels, got {b11}")
     record["b11_ptxas"] = b11
+    lap("1")
 
     # ---- phase 2: kernels vs plain
     results = {}
@@ -2887,6 +3239,7 @@ def main(argv=None) -> int:
     record["fused_phase"] = fused
     record["rope_phase"] = rope
     record["paged_hm_phase"] = paged_hm
+    lap("2")
 
     # ---- phase 3: the engine
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
@@ -2947,20 +3300,31 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    lap("3")
 
-    # ---- phase 3e: the SLO scheduler over the engine, sync and overlap
-    sched = run_scheduler(torch, kernels, cfg, args.seed, reqs, tiers,
+    # ---- phase 3e: the SLO scheduler over the engine, sync and overlap,
+    # at the engine's width and half its depth (phase 3f runs all 32)
+    half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
+    sched = run_scheduler(torch, kernels, half, args.seed, reqs,
                           record["plain_fused_vs_unfused"])
     record["scheduler"] = sched
+    lap("3e")
 
-    # ---- phase 3c: dense generate / beam_search at the engine's width
-    dense = run_dense(torch, np, kernels, tl, gen, cfg, args.seed)
+    # ---- phase 3f: grammar-constrained serving under the scheduler
+    constrained = run_constrained(torch, kernels, cfg, args.seed, reqs)
+    record["constrained"] = constrained
+    lap("3f")
+
+    # ---- phase 3c: dense generate / beam_search at the same size
+    dense = run_dense(torch, np, kernels, tl, gen, half, args.seed)
     record["dense"] = dense
+    lap("3c")
 
-    # ---- phase 3d: the Paddle fused-op decoder at the engine's width
-    decoder = run_paddle_decoder(torch, np, kernels, IF, tl, gen, cfg,
+    # ---- phase 3d: the Paddle fused-op decoder at the same size
+    decoder = run_paddle_decoder(torch, np, kernels, IF, tl, gen, half,
                                  args.seed)
     record["paddle_decoder"] = decoder
+    lap("3d")
 
     # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
     train = {}
@@ -2982,13 +3346,14 @@ def main(argv=None) -> int:
         print(f"train {mode} slice "
               + json.dumps(train[mode]["slice_check"]))
     record["train"] = train
+    lap("3b")
 
     # ---- phase 4: the kernel line
     launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
-    for rec in (tiers + sched["runs"] + dense["tiers"]
-                + decoder["tiers"]):
+    for rec in (tiers + sched["runs"] + constrained["runs"]
+                + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:

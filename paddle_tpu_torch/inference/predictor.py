@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/inference/predictor.py``'s
-``ContinuousBatchingEngine`` on one device: no mesh, adapters,
-constraints or host tier (ROADMAP.md, queue A). ``weight_bits``
+``ContinuousBatchingEngine`` on one device: no mesh, adapters or host
+tier (ROADMAP.md, queue A). ``weight_bits``
 quantizes the weights once at construction (int8 per channel or int4
 per group, ``generate.quantize_weights``), and every forward
 dequantizes them at each use. Each :meth:`step` admits queued requests
@@ -23,6 +23,18 @@ on, by a verified run of drafted tokens:
   accepted root path commits.
 
 Greedy speculation is token-identical to plain greedy decode.
+
+``constraints=True`` serves grammar-constrained requests
+(:mod:`..serving.constraints`): a request carries a token-level DFA
+(``constraint=``), the engine keeps one ``(max_batch, vocab)``
+allowed-token mask on the host, each row rebuilt from its request's DFA
+state whenever the state moves, and applies the device copy to the
+logits before sampling, in every decode step and in the first token of
+a fresh admission's prefill. The state advances at commit with the
+token that landed; a preempted request keeps its state on the handle
+and its row is rebuilt when it is seated again. Speculation is refused
+with constraints (a verify commits tokens no mask saw), as the JAX
+engine refuses it.
 
 The SLO control plane (:class:`~..serving.scheduler.ServingScheduler`)
 composes the same lifecycle pieces — :meth:`admit_request`,
@@ -55,6 +67,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import generate as _gen
+from ..serving.constraints import ConstraintState, TokenDFA
 from ..serving.paged_cache import PagedKVCache, PoolExhausted
 from ..serving.speculative import (Speculator, TreeDraft, build_comb_tree,
                                    longest_accepted_path,
@@ -82,11 +95,15 @@ class GenerationRequest:
     ``submitted_at`` / ``enqueued_at`` (scheduler-clock seconds; the
     last resets on every requeue) and ``preemptions`` are
     scheduler-facing metadata; the engine's own FIFO path ignores them.
+
+    ``constraint``: the request's live
+    :class:`~..serving.constraints.ConstraintState` (None = free); it
+    rides the handle through preemption and resume.
     """
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
                  "tokens", "done", "finish_reason", "slot", "priority",
                  "deadline_at", "submitted_at", "enqueued_at",
-                 "preemptions")
+                 "preemptions", "constraint")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id):
         self.rid = rid
@@ -102,6 +119,7 @@ class GenerationRequest:
         self.submitted_at: Optional[float] = None
         self.enqueued_at: Optional[float] = None   # latest (re)queue time
         self.preemptions = 0
+        self.constraint = None
 
     def resume_sequence(self) -> np.ndarray:
         """The tokens whose KV must be in the pool before this request
@@ -197,6 +215,10 @@ class ContinuousBatchingEngine:
     double-buffered pipeline; the engine's own :meth:`step` stays
     synchronous (each dispatch followed by its commit), the reference
     the pipeline is held to.
+
+    ``constraints``: accept grammar-constrained requests (module
+    docstring); the mask costs ``max_batch * vocab`` bools on the host
+    and on the device, so only a constrained engine holds it.
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -217,8 +239,6 @@ class ContinuousBatchingEngine:
             _not_ported("mesh (tp / tp x dp serving)", "1.9")
         if adapters is not None:
             _not_ported("adapters (the multi-LoRA pool)", "1.6")
-        if constraints:
-            _not_ported("constraints (grammar-constrained decoding)", "1.4")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
@@ -264,6 +284,17 @@ class ContinuousBatchingEngine:
         self._inflight: Optional[InFlightStep] = None
         self._inflight_chunks: List[Dict] = []
         self._fence_ns = 0
+        # grammar constraints: the host mask (one row per slot, all True
+        # for a free or empty slot) and its device copy, uploaded again
+        # only after a host-side change (the dirty flag)
+        self.constraints = bool(constraints)
+        self._cmask = (np.ones((max_batch, cfg.vocab_size), bool)
+                       if self.constraints else None)
+        self._cmask_dev: Optional[torch.Tensor] = None
+        self._cmask_dirty = True
+        #: uploads of the mask so far (one per dispatch that found it
+        #: changed)
+        self.cmask_uploads = 0
         self._init_spec(spec_k, spec_ngram, speculator, draft_layers,
                         draft_pages, spec_tree, max_len or cfg.max_seq_len,
                         page_size, kv_cache_dtype)
@@ -305,6 +336,13 @@ class ContinuousBatchingEngine:
                 "draft_layers requires spec_k >= 1: the draft model "
                 "proposes spec_k tokens per step")
         self.spec_k = int(spec_k)
+        if self.spec_k and self.constraints:
+            raise ValueError(
+                "spec_k > 0 cannot combine with constraints=True: "
+                "a verify batch commits tokens the per-row grammar "
+                "mask never saw — run constrained requests on a "
+                "plain-decode engine (the scenarios compose at the "
+                "cluster tier, one engine per workload class)")
         self.spec = None
         if self.spec_k:
             self.spec = (speculator if speculator is not None
@@ -336,8 +374,21 @@ class ContinuousBatchingEngine:
 
     # ---- request intake ----
     def create_request(self, prompt, max_new_tokens: int = 16,
-                       eos_token_id=None) -> GenerationRequest:
-        """Validate and build a request without queueing it."""
+                       eos_token_id=None,
+                       constraint=None) -> GenerationRequest:
+        """Validate and build a request without queueing it.
+
+        ``constraint``: a :class:`~..serving.constraints.TokenDFA`
+        (wrapped in a fresh :class:`~..serving.constraints.
+        ConstraintState` with the request's eos) or a live
+        ``ConstraintState``; needs ``constraints=True``. The JAX
+        engine's ``adapter_id=`` waits for the adapter pool (ROADMAP.md,
+        queue A step 1.6)."""
+        if constraint is not None and not self.constraints:
+            raise ValueError(
+                "create_request: a grammar constraint needs an engine "
+                "built with constraints=True (the sampling step applies "
+                "the per-row mask only there)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("submit: empty prompt")
@@ -354,26 +405,54 @@ class ContinuousBatchingEngine:
         req = GenerationRequest(
             self._next_rid, prompt, max_new_tokens,
             self.eos_token_id if eos_token_id is None else eos_token_id)
+        if isinstance(constraint, TokenDFA):
+            constraint = ConstraintState(constraint,
+                                         eos_token_id=req.eos_token_id)
+        req.constraint = constraint
         self._next_rid += 1
         return req
 
+    def attach_constraint(self, req: GenerationRequest,
+                          constraint) -> GenerationRequest:
+        """Attach a live :class:`~..serving.constraints.ConstraintState`
+        to an existing request handle (a restored session's grammar
+        state, rebuilt outside :meth:`create_request`). An engine built
+        without ``constraints=True`` refuses: it would decode the
+        session unconstrained."""
+        if constraint is None:
+            return req
+        if not self.constraints:
+            raise ValueError(
+                "attach_constraint: this engine was built without "
+                "constraints=True — a grammar-constrained session in it "
+                "would decode unconstrained; rebuild the engine with "
+                "constraints=True")
+        req.constraint = constraint
+        return req
+
     def submit(self, prompt, max_new_tokens: int = 16,
-               eos_token_id=None) -> GenerationRequest:
+               eos_token_id=None, constraint=None) -> GenerationRequest:
         """Queue a prompt (1-D int sequence); returns the request handle
-        (``.done`` / ``.tokens`` / ``.output`` fill in as steps run)."""
+        (``.done`` / ``.tokens`` / ``.output`` fill in as steps run).
+        ``constraint`` as in :meth:`create_request`."""
         req = self.create_request(prompt, max_new_tokens=max_new_tokens,
-                                  eos_token_id=eos_token_id)
+                                  eos_token_id=eos_token_id,
+                                  constraint=constraint)
         self._queue.append(req)
         return req
 
     # ---- slots ----
     def _install_slot(self, slot: int, req: GenerationRequest):
         """Seat ``req`` in ``slot`` and mirror what the commit guard
-        reads: rid and seating generation."""
+        reads (rid and seating generation) and, with constraints, the
+        slot's mask row from the DFA state the request has reached (all
+        True for a free request)."""
         req.slot = slot
         self._slots[slot] = req
         self._rids[slot] = req.rid
         self._seat[slot] += 1
+        if self.constraints:
+            self._mask_row(slot, req)
 
     def _clear_slot(self, slot: int):
         self._slots[slot] = None
@@ -387,6 +466,17 @@ class ContinuousBatchingEngine:
             self._draft_chain.pop(slot, None)
             self._draft_q.pop(slot, None)
             self._draft_base[slot] = 0
+        if self.constraints:
+            self._mask_row(slot, None)
+
+    def _mask_row(self, slot: int, req: Optional[GenerationRequest]):
+        """Rebuild ``slot``'s row of the host mask from ``req``'s DFA
+        state (``ConstraintState.mask``, which counts), all True for a
+        free request or an empty slot, and mark the mask for upload."""
+        self._cmask[slot] = (req.constraint.mask(self.cfg.vocab_size)
+                             if req is not None and req.constraint is not None
+                             else True)
+        self._cmask_dirty = True
 
     def admit_request(self, req: GenerationRequest) -> bool:
         """Place ``req`` into a free slot, reserving its pages (prefix-
@@ -492,6 +582,17 @@ class ContinuousBatchingEngine:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _cmask_device(self) -> torch.Tensor:
+        """The ``(max_batch, vocab)`` allowed-token mask on the device:
+        uploaded through :meth:`_up` (no fence) only when a seating,
+        a clear or a commit changed the host mask since the last
+        upload."""
+        if self._cmask_dirty:
+            self._cmask_dev = self._up(self._cmask)
+            self._cmask_dirty = False
+            self.cmask_uploads += 1
+        return self._cmask_dev
+
     def _fetch(self, t: torch.Tensor, commit: bool = True) -> np.ndarray:
         """The device-to-host fetch: waits for the stream, and counts the
         wait as fence time when it is a commit's (:meth:`take_fence_ns`)."""
@@ -510,8 +611,10 @@ class ContinuousBatchingEngine:
         ``cache.lengths``) waits for :meth:`commit_prefills`. On the
         final chunk of a fresh admission the first token is sampled on
         the device here, so both pipelines draw from the generator in
-        the same order; its fetch waits for the commit. A resume
-        replay's final chunk samples nothing. ``max_tokens`` caps the
+        the same order; its fetch waits for the commit. A constrained
+        request's first token is drawn under its slot's mask row (the
+        DFA's start state). A resume replay's final chunk samples
+        nothing. ``max_tokens`` caps the
         width, floored to a page multiple (0 below one page). Returns
         the width scheduled (0 when nothing was)."""
         if not self._pending:
@@ -546,7 +649,11 @@ class ContinuousBatchingEngine:
         self.forwards["prefill"] += 1
         samp = None
         if done + take >= S and not req.tokens:
-            samp = self._sample(logits[0])
+            lg = logits[0]
+            if self.constraints and req.constraint is not None:
+                lg = lg.masked_fill(~self._cmask_device()[slot],
+                                    float("-inf"))
+            samp = self._sample(lg)
         self._inflight_chunks.append(
             {"slot": slot, "req": req, "seat": int(self._seat[slot]),
              "take": take, "samp": samp})
@@ -557,7 +664,9 @@ class ContinuousBatchingEngine:
         cursor; on the last chunk publish the prompt to the prefix trie,
         set the slot's length and seed decode — with the fetched first
         token, or on a resume with the request's last token (the
-        resumed request must not fork). A chunk whose slot was
+        resumed request must not fork). A constrained request's DFA
+        advances with the first token, and its mask row is rebuilt
+        unless that token finished it. A chunk whose slot was
         cancelled, or preempted and re-seated, since its dispatch
         commits nothing: the new seating replays the span itself."""
         slot, req, take = h["slot"], h["req"], h["take"]
@@ -579,6 +688,10 @@ class ContinuousBatchingEngine:
             first = int(self._fetch(h["samp"]))
             self._last[slot] = first
             self._record_token(req, first)
+            if self.constraints and req.constraint is not None:
+                req.constraint.advance(first)
+                if not req.done:
+                    self._mask_row(slot, req)
         return take
 
     def commit_prefills(self) -> int:
@@ -647,7 +760,9 @@ class ContinuousBatchingEngine:
         """Run the ragged decode forward for the ``mask`` slots over all
         ``max_batch`` rows (inactive rows write to the trash page) and
         sample, leaving the tokens on the device; None when no slot is
-        masked. :meth:`commit_inflight` commits it."""
+        masked. With constraints every row's logits pass through its
+        mask row first (all True for a free row, which leaves it as it
+        was). :meth:`commit_inflight` commits it."""
         cache = self.cache
         mask = np.asarray(mask, bool)
         if not mask.any():
@@ -658,6 +773,9 @@ class ContinuousBatchingEngine:
             self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, active=self._up(mask), fused=self.fused)
         self.forwards["decode"] += 1
+        if self.constraints:
+            logits = logits.masked_fill(~self._cmask_device(),
+                                        float("-inf"))
         return self._handle("decode", mask, self._sample(logits))
 
     def _guard(self, h: InFlightStep) -> np.ndarray:
@@ -669,14 +787,24 @@ class ContinuousBatchingEngine:
     def _decode_commit(self, h: InFlightStep) -> int:
         """Commit half of :meth:`decode_step`: the one fetch, then the
         guarded slots' lengths and last tokens, and each one's token
-        through :meth:`_record_token` (eos / max_len). Returns the slots
-        advanced."""
+        through :meth:`_record_token` (eos / max_len). A constrained
+        row's DFA advances with its token and its mask row is rebuilt
+        first, before a retirement clears the slot, as the JAX engine
+        does. Returns the slots advanced.
+
+        The JAX engine also fetches the unmasked argmax and reports
+        the violations it avoided through its observability hooks; both
+        wait for those hooks (ROADMAP.md, queue A step 1.8)."""
         nxt = self._fetch(h.out)
         slots = np.flatnonzero(self._guard(h))
         self.cache.lengths[slots] += 1
         self._last[slots] = nxt[slots]
         for s in slots.tolist():
-            self._record_token(self._slots[s], int(nxt[s]))
+            req, tok = self._slots[s], int(nxt[s])
+            if self.constraints and req.constraint is not None:
+                req.constraint.advance(tok)
+                self._mask_row(s, req)
+            self._record_token(req, tok)
         self._steps += 1
         return int(slots.size)
 

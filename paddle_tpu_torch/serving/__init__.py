@@ -1,6 +1,9 @@
 """Serving layer of the port: the paged KV cache and its allocator, the
-host side of speculative decoding, and the SLO-aware scheduler with its
-policy."""
+host side of speculative decoding, grammar constraints (token DFAs),
+and the SLO-aware scheduler with its policy."""
+from .constraints import (ConstraintState, TokenDFA,  # noqa: F401
+                          dfa_from_regex, dfa_from_sequences,
+                          json_schema_dfa, json_schema_pattern_dfa)
 from .paged_cache import (TRASH_PAGE, BlockAllocator, PagedKVCache,  # noqa: F401
                           PoolExhausted, PrefixCache)
 from .policy import (FinishReason, PreemptionPolicy, Priority,  # noqa: F401

@@ -29,12 +29,18 @@ preemption):
 - **Overlap** — with ``overlap=True`` each step plans step N+1 while
   step N's forwards run on the card, commits N at the one fence just
   before N+1's dispatch, and returns with N+1 in flight.
+- **Grammar constraints** — ``submit(constraint=...)`` passes a DFA
+  through to the engine's intake (an engine built with
+  ``constraints=True``). The DFA state advances at the engine's commit,
+  and an overlapped decode dispatch runs only after the previous
+  step's commit (it reads the tokens that commit lands), so the mask it
+  uploads is the one for the current state.
 
 Left out until their steps of ROADMAP.md's queue A: the observability
 hooks and the resilience fault points (1.8 and 6; the reference's hooks
-are no-ops with metrics off, so no output changes), the adapter pool's
-feasibility check and ``AdapterPoolExhausted`` (1.6), the host tier's
-swap-in debt (1.7), and ``mesh=`` (7).
+are no-ops with metrics off, so no output changes), ``adapter_id=``,
+the adapter pool's feasibility check and ``AdapterPoolExhausted``
+(1.6), the host tier's swap-in debt (1.7), and ``mesh=`` (7).
 """
 from __future__ import annotations
 
@@ -111,15 +117,17 @@ class ServingScheduler:
     # ---- intake ----
     def submit(self, prompt, max_new_tokens: int = 16, *,
                priority=Priority.NORMAL,
-               deadline_s: Optional[float] = None, eos_token_id=None):
+               deadline_s: Optional[float] = None, eos_token_id=None,
+               constraint=None):
         """Queue a prompt with a priority class and an optional deadline
         (seconds from now; a request that has produced no token when it
         lapses is cancelled with ``deadline_exceeded``). Returns the
         request handle (``.done`` / ``.tokens`` / ``.output`` /
-        ``.finish_reason`` fill in as steps run)."""
+        ``.finish_reason`` fill in as steps run). ``constraint`` passes
+        through to the engine's ``create_request``."""
         req = self.engine.create_request(
             prompt, max_new_tokens=max_new_tokens,
-            eos_token_id=eos_token_id)
+            eos_token_id=eos_token_id, constraint=constraint)
         req.priority = int(priority)
         req.submitted_at = req.enqueued_at = self.clock()
         if deadline_s is not None:

@@ -42,7 +42,12 @@ dispatches under ``torch.cuda.set_sync_debug_mode("error")`` (a planted
 pageable copy must raise there), uploads queued behind a busy stream
 from a host array that changes between them, overlapped against
 synchronous scheduling without a budget, and a preempted slot's pages
-refilled by the next tenant while the victim's decode is still queued.
+refilled by the next tenant while the victim's decode is still queued;
+grammar-constrained decoding: a mixed batch of JSON, regex, menu and
+free requests under the overlapped scheduler with every dispatch (the
+mask upload included) under the sync debug mode, each constrained
+request's tokens walking its DFA (``chip_smoke.walk``), the same tokens
+as the synchronous run.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -54,10 +59,15 @@ delta, as the autograd op hands them over. B4a-B5b round one f32 result
 once, as their plain versions do, so their bf16 rows are held within
 2^-7 * |plain row| (at most one bf16 ulp an element) + 1e-4 * rms.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the synthetic table and the DFA walk)
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import generate as gen
@@ -1205,3 +1215,40 @@ def test_freed_pages_refilled_while_decode_in_flight(cuda):
     assert len(a.tokens) == 1
     eng.run()
     np.testing.assert_array_equal(b.output, want)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["B9", "B10"])
+def test_constrained_batch_on_the_card(cuda, fused):
+    """A mixed batch of tool-call JSON, comma-list regex, menu and free
+    requests under the overlapped scheduler, every decode and prefill
+    dispatch (the mask upload included) under the sync debug mode: each
+    constrained request's tokens walk its DFA, and the tokens equal the
+    synchronous run's."""
+    from paddle_tpu_torch import serving
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    toks = chip_smoke.synthetic_vocab(cfg.vocab_size, seed=5)
+    menu = [[40, 41, 42], [40, 43], [50, 51, 52, 53]]
+    dfas = [serving.json_schema_dfa(chip_smoke.TOOL_SCHEMA, toks),
+            serving.dfa_from_regex(chip_smoke.LIST_REGEX, toks),
+            serving.dfa_from_sequences(menu, cfg.vocab_size), None]
+    outs = []
+    for overlap in (False, True, True):
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_batch=2, page_size=8, max_len=48,
+            prefill_chunk=8, fused=fused, overlap=overlap, constraints=True,
+            eos_token_id=2, device=cuda)
+        sched = serving.ServingScheduler(eng, token_budget=16)
+        if len(outs) == 2:              # kernels built, allocator warm
+            calls = _no_sync(eng)
+        reqs = [sched.submit(p, max_new_tokens=12, constraint=d)
+                for p, d in zip(_sched_prompts(), dfas)]
+        sched.run()
+        assert all(r.done for r in reqs) and eng.idle
+        for r, d in zip(reqs, dfas):
+            if d is not None:
+                chip_smoke.walk(d, r.tokens, 2)
+        outs.append([r.tokens for r in reqs])
+    assert calls["decode_dispatch"] and calls["prefill_dispatch"]
+    assert outs[0] == outs[1] == outs[2]

@@ -561,9 +561,11 @@ def test_sampled_spec_runs_to_max_new_tokens(engines, kw):
                                 dict(draft_layers=1, spec_tree=(8, 4)),
                                 dict(draft_layers=1, spec_k=5,
                                      spec_tree=(2, 2)),
-                                dict(draft_layers=1)],
+                                dict(draft_layers=1),
+                                dict(spec_k=2, constraints=True)],
                          ids=["tree-needs-draft", "node-cap",
-                              "depth-conflict", "draft-needs-k"])
+                              "depth-conflict", "draft-needs-k",
+                              "spec-with-constraints"])
 def test_constructor_errors_match_jax(model, kw):
     jcfg, jp, tcfg, tp = model
     with pytest.raises(ValueError) as want:
@@ -575,8 +577,7 @@ def test_constructor_errors_match_jax(model, kw):
 
 def test_options_the_port_leaves_out_raise(model):
     _, _, tcfg, tp = model
-    for kw in (dict(mesh=object()), dict(adapters=object()),
-               dict(constraints=True)):
+    for kw in (dict(mesh=object()), dict(adapters=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatchingEngine(tp, tcfg, device="cpu", **ENG, **kw)
     eng = ContinuousBatchingEngine(tp, tcfg, device="cpu", spec_k=2, **ENG)
