@@ -93,10 +93,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (each held to the row rule, each timed), and at the two splitting
    shapes the rule's choice fails unless it is 10% faster than one
    split (``check_paged_hm``).
-3. The engine at Llama-2-7B width (random weights from a seeded
-   generator): ``max_batch=8, page_size=16, max_len=2048,
-   prefill_chunk=256`` serving the request set in four tiers, KV {bf16,
-   int8} x fused {off, on}. Per tier the launch counters are zeroed just
+3. The engine at Llama-2-7B width and a quarter of its depth (8
+   layers; the script's time limit holds phase 3g at all 32), random
+   weights from a seeded generator: ``max_batch=8, page_size=16,
+   max_len=2048, prefill_chunk=256`` serving the request set in four
+   tiers, KV {bf16, int8} x fused {off, on}. Per tier the launch
+   counters are zeroed just
    before ``run()`` and read just after, and must equal the counts the
    tier's path implies; every request must finish with its token count;
    one request's prompt and output are fed back through the kernel-free
@@ -121,9 +123,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Last, ``torch.profiler`` traces a few draft-tree steps and splits
    them into proposal and verify on the host clock.
 3e. The SLO scheduler (``ServingScheduler``) over the engine at the
-   same width and half the depth (16 layers; the script's time limit
-   holds phase 3f at all 32), fresh weights from phase 3's seed, budget
-   384:
+   same width and a quarter of the depth (8 layers; the script's time
+   limit holds phase 3g at all 32), fresh weights from phase 3's seed,
+   budget 384:
    phase 3's 16 requests as alternating NORMAL and LOW, then after 8
    steps four HIGH requests of 512 prompt tokens and 32 new, each
    admitted by preempting a LOW one; KV bf16 and int8 with the fused
@@ -144,9 +146,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    run, the same requests uninterrupted), beside phase 3's
    fused-vs-unfused yardstick (``run_scheduler``).
 3f. Grammar-constrained serving under the scheduler at the engine's
-   width and depth (32 layers), fresh weights from phase 3's seed, eos
-   id 2: over a seeded synthetic table of 32,000 token strings
-   (``synthetic_vocab``; there is no tokenizer), a tool-call JSON schema
+   width and a quarter of its depth (8 layers), fresh weights from
+   phase 3's seed, eos id 2: over a seeded synthetic table of 32,000
+   token strings (``synthetic_vocab``; there is no tokenizer), a
+   tool-call JSON schema
    (``json_schema_dfa``), a menu of 16 token sequences
    (``dfa_from_sequences``) and a comma-list regex (``dfa_from_regex``),
    each with its compile seconds and table MB (``grammar ...`` lines).
@@ -171,9 +174,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step, tokens/s, the host ms a step of the DFA work and of the mask
    upload, mask uploads against decode steps (``constrained ...`` lines,
    ``run_constrained``).
+3g. Supervised serving (``EngineSupervisor`` over the engine) at
+   Llama-2-7B's full width and depth (32 layers), fresh weights from
+   phase 3's seed, phase 3e's 16 requests and HIGH burst, budget 384:
+   an uninterrupted run; one run per engine site the port has with a
+   ``raise`` fault at the middle of that site's calls in the
+   uninterrupted run of the same engine (alloc, free, decode_step,
+   prefill_chunk, transfer, sched_tick; dispatch and commit
+   overlapped; verify_step under n-gram ``spec_k=4``; draft_propose
+   and tree_verify on phase 3's damped draft-tree engine,
+   ``draft_layers = 16, spec_tree=(2, 4)``, each engine after its own
+   uninterrupted run); ``corrupt`` at transfer; a stall past a 5 s
+   watchdog at decode_step; a drain to a file at the middle of the run
+   and a restore, then a new request on the shared system prompt. Per
+   run: every request finishes, launches equal the forwards of every
+   engine the run built, the allocator balances (the drained engine's
+   too), one recovery per armed fault counted under its site label
+   (``serving_fault_injected_total``), each request's tokens committed
+   before the fault a prefix of what the journal restored and that a
+   prefix of its final tokens (``check_recovery``), and after the
+   restore the new request hits the restored prefix trie (192 tokens
+   or more). A run whose recovery's journal drops one committed token
+   must be rejected by that check. Reported, not gated: each run's
+   share of tokens that agree with its engine's uninterrupted run
+   (bf16 replays rebuild the KV through B11 where the uninterrupted
+   run wrote it through B10, so a near-tie may split), recovery ms and
+   replayed tokens. Then eight requests overlapped with every dispatch
+   under the sync debug mode, observability hooks (metrics and request
+   tracing) off, on, on, off, with ms a step and the host ms of the
+   dispatch and commit halves (``supervised ...`` lines,
+   ``run_supervised``).
 3c. Dense decoding (``generate``, ``beam_search``,
    ``precompute_prompt_cache``) at the same width and half the depth
-   (16 layers; the script's time limit holds phase 3f at all 32), fresh
+   (16 layers; the script's time limit holds phase 3g at all 32), fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
    long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
@@ -2128,7 +2161,7 @@ def check_constrained(rec, grammars, kinds, toks, menu):
 
 def run_constrained(torch, kernels, cfg, seed: int, reqs):
     """Phase 3f: grammar-constrained serving under the SLO scheduler at
-    Llama-2-7B width and depth, on fresh weights from phase 3's seed,
+    ``cfg``'s width and depth, on fresh weights from phase 3's seed,
     with eos id 2.
 
     Grammars over a seeded synthetic table of ``cfg.vocab_size`` token
@@ -2253,6 +2286,387 @@ def run_constrained(torch, kernels, cfg, seed: int, reqs):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------- phase 3g
+#: the watchdog of the stall run, and how long its injected stall sleeps
+#: (past the watchdog, so the supervisor abandons the step thread)
+WATCHDOG_S = 5.0
+STALL_S = 6.0
+
+
+def check_recovery(name, before, journal, final):
+    """A recovery's gate, per request: the tokens it had committed when
+    the faulted step began (``before``) are a prefix of what the journal
+    restored it with (``journal``: a request the failing step committed
+    more tokens to before the fault keeps them), and those are a prefix
+    of its final tokens. A recovery whose journal lost a committed token
+    fails the first half. ``before`` / ``final`` map rid -> tokens;
+    ``journal`` maps the live rids to their restored tokens."""
+    for rid, toks in journal.items():
+        b, f = before.get(rid, []), final[rid]
+        if list(toks[:len(b)]) != list(b):
+            fail(f"supervised {name}: request {rid}'s journal restored "
+                 f"{len(toks)} tokens that do not start with the {len(b)} "
+                 f"it had committed before the fault")
+        if list(f[:len(toks)]) != list(toks):
+            fail(f"supervised {name}: request {rid}'s final tokens do not "
+                 f"start with the {len(toks)} its journal restored")
+
+
+def supervised_run(torch, kernels, serving, obs, Engine, params, cfg, reqs,
+                   highs, name, site=None, mode="raise", nth=None,
+                   watchdog_s=None, stall_s=None, drain_at=None,
+                   sync_check=False, hooks=False, plant_drop=False,
+                   count_calls=False, **engine_kw):
+    """One ``EngineSupervisor`` run over the serving engine (8 slots,
+    pages of 16, 2,048 tokens, 256-token chunks, the fused kernels):
+    ``reqs`` submitted as alternating NORMAL and LOW, the ``highs`` (if
+    any) as HIGH after ``BURST_AT`` steps, stepped to the end. ``site``
+    arms one ``mode`` fault at that site's ``nth`` call (the middle of
+    its calls in the uninterrupted run); ``drain_at`` drains to a file
+    after that many steps and goes on in a restored supervisor, then
+    submits one more request on the shared system prompt, which must
+    hit the restored prefix trie. Metrics are on in a fault or drain
+    run (the fault must count under its site label), ``hooks`` turns
+    metrics and request tracing on for the whole run, ``sync_check``
+    runs every dispatch under the sync debug mode
+    (``instrument_engine``), ``plant_drop`` makes the recovery's
+    journal lose one committed token (``check_recovery`` must reject
+    it). The launch counters are zeroed before the first step and read
+    after the last; they must equal what the forwards of every engine
+    the run built imply. Every request finishes with its count, and
+    every engine's allocator balances at the end. ``count_calls``
+    records each site's calls over the run (``rec["calls"]``), from
+    which a later run picks the middle call to fault."""
+    import numpy as np
+    engines = []
+
+    def factory():
+        eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                     prefill_chunk=256, fused=True, **engine_kw)
+        engines.append(eng)
+        if sync_check:
+            tallies.append(instrument_engine(torch, eng, True))
+        return eng
+
+    tallies = []
+    P = serving.Priority
+    inj = serving.FaultInjector(
+        stall_s=stall_s if stall_s is not None else 0.1)
+    if site is not None:
+        inj.arm(site, mode, nth=nth)
+    metrics = hooks or site is not None or drain_at is not None
+    obs.REGISTRY.clear()
+    if metrics:
+        obs.enable()
+    if hooks:
+        obs.tracing.enable()
+    sup = serving.EngineSupervisor(factory, token_budget=SCHED_BUDGET,
+                                   watchdog_s=watchdog_s,
+                                   sleep=lambda s: None)
+    recoveries = []
+    state = {"before": None}
+
+    def watch(sup):
+        orig = sup._recover
+
+        def recover(sync=True):
+            if plant_drop:
+                # the planted fault: the journal loses the last token a
+                # live request had committed before the faulted step
+                sup._sync_journal()
+                for e in sup.journal.live_entries():
+                    b = state["before"].get(e.rid, [])
+                    if b:
+                        e.tokens = e.tokens[:len(b) - 1] + e.tokens[len(b):]
+                        break
+                sync = False
+            t0 = time.perf_counter()
+            orig(sync=sync)
+            torch.cuda.synchronize()
+            live = sup.journal.live_entries()
+            recoveries.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                sessions=len(live),
+                replayed_tokens=int(sum(
+                    e.prompt.size + max(0, len(e.tokens) - 1)
+                    for e in live if e.admitted)),
+                journal={e.rid: list(e.tokens) for e in live},
+                before=dict(state["before"])))
+        sup._recover = recover
+
+    watch(sup)
+    handles = [sup.submit(p, max_new_tokens=m,
+                          priority=P.LOW if i % 2 else P.NORMAL)
+               for i, (p, m) in enumerate(reqs)]
+    drained = None
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    with inj:
+        while True:
+            if highs and steps == BURST_AT:
+                handles += [sup.submit(p, max_new_tokens=m,
+                                       priority=P.HIGH) for p, m in highs]
+            if drain_at is not None and steps == drain_at:
+                # the drain file holds the trie's page bytes (GBs at 32
+                # layers): a git-ignored scratch directory of the
+                # checkout, removed again, not the run's record dir
+                tmp = os.path.join(REPO, "chip_smoke_tmp")
+                os.makedirs(tmp, exist_ok=True)
+                path = os.path.join(tmp, "drain.npz")
+                t_d = time.perf_counter()
+                summary = sup.drain(path)
+                drain_ms = (time.perf_counter() - t_d) * 1e3
+                committed = {h.rid: list(h.tokens) for h in handles}
+                old = sup.engine
+                t_r = time.perf_counter()
+                sup = serving.EngineSupervisor.restore(
+                    factory, path, token_budget=SCHED_BUDGET,
+                    sleep=lambda s: None)
+                torch.cuda.synchronize()
+                restore_ms = (time.perf_counter() - t_r) * 1e3
+                watch(sup)
+                handles = [sup.restored.get(h.rid, h) for h in handles]
+                # a fresh HIGH request on the system prompt of reqs[0],
+                # admitted before the restored sessions' replays claim
+                # pages (the trie's pages could be evicted for them)
+                sys_p = np.concatenate([reqs[0][0][:200],
+                                        reqs[1][0][:56]])
+                hits0 = _metric(obs, "serving_prefix_hit_tokens_total")
+                handles.append(sup.submit(sys_p, max_new_tokens=16,
+                                          priority=P.HIGH))
+                drained = dict(summary, drain_ms=drain_ms,
+                               restore_ms=restore_ms, committed=committed,
+                               old_engine=old, hits0=hits0)
+                os.remove(path)
+            state["before"] = {h.rid: list(h.tokens) for h in handles}
+            more = sup.step()
+            steps += 1
+            if not more:
+                break
+            if steps > 5000:
+                fail(f"supervised {name}: no end after {steps} steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    prefix_hits = _metric(obs, "serving_prefix_hit_tokens_total")
+    fault_count = (_metric(obs, "serving_fault_injected_total",
+                           f"site={site},kind={mode}") if site else 0)
+    obs.disable()
+    obs.tracing.disable()
+    obs.REGISTRY.clear()
+    final = {h.rid: list(h.tokens) for h in handles}
+    for h in handles:
+        if not h.done or (len(h.tokens) != h.max_new_tokens
+                          and h.finish_reason != "eos"):
+            fail(f"supervised {name}: request {h.rid} finished "
+                 f"{h.finish_reason} with {len(h.tokens)}/"
+                 f"{h.max_new_tokens} tokens")
+    f = dict.fromkeys(engines[0].forwards, 0)
+    for eng in engines:
+        for k, v in eng.forwards.items():
+            f[k] += v
+    L = cfg.num_layers
+    e0 = engines[0]
+    Ld = e0.draft_cfg.num_layers if e0.draft_cfg is not None else 0
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update(B10=L * f["decode"] + Ld * f["draft_decode"],
+                B11=L * (f["prefill"] + f["verify"])
+                + Ld * f["draft_catchup"], **{"B11-tree": L * f["tree"]})
+    if counts != want:
+        fail(f"supervised {name}: launches {counts} != {want} "
+             f"(forwards {f})")
+    eng = sup.engine
+    eng.cache.prefix.drop_all(eng.cache.allocator)
+    alloc = eng.cache.allocator
+    if (alloc.num_used or alloc.allocs_total != alloc.frees_total
+            or eng.has_inflight()):
+        fail(f"supervised {name}: allocator not balanced "
+             f"({alloc.stats()})")
+    if site is not None:
+        if not (inj.fired[site] == 1 and inj.fired_total == 1
+                and sup.recoveries == 1 == len(recoveries)
+                and sup.injected_faults == 1 and fault_count == 1):
+            fail(f"supervised {name}: expected one {mode} fault at {site} "
+                 f"and one recovery, got {inj.stats()}, "
+                 f"{sup.recoveries} recoveries, counter {fault_count}")
+        r = recoveries[0]
+        check_recovery(name, r["before"], r["journal"], final)
+    st = sup.stats()
+    gen_tokens = sum(len(h.tokens) for h in handles)
+    rec = dict(run=name, kv="bf16", site=site, mode=mode if site else None,
+               spec={k: list(v) if isinstance(v, tuple) else v
+                     for k, v in engine_kw.items()},
+               requests=len(handles), generated_tokens=gen_tokens,
+               wall_s=wall, steps=steps, step_ms_mean=wall * 1e3 / steps,
+               tokens_per_s=gen_tokens / wall, forwards=f, launches=counts,
+               recoveries=sup.recoveries, engines_built=len(engines),
+               degraded_level=sup.degraded_level,
+               supervised_steps=st["supervised_steps"])
+    if recoveries:
+        r = recoveries[0]
+        rec.update(recovery_ms=r["ms"], recovered_sessions=r["sessions"],
+                   replayed_tokens=r["replayed_tokens"])
+    if site is not None and mode == "stall":
+        rec["abandoned_engines_held"] = len(sup._abandoned)
+    if tallies:
+        calls_ = {}
+        for t in tallies:
+            for k, v in t["calls"].items():
+                calls_[k] = calls_.get(k, 0) + v
+        rec["dispatch_calls_without_sync"] = calls_
+        rec["dispatch_ms_per_step"] = sum(
+            t["dispatch_s"] for t in tallies) * 1e3 / steps
+        rec["commit_ms_per_step"] = sum(
+            t["commit_s"] for t in tallies) * 1e3 / steps
+        rec["other_host_ms_per_step"] = (rec["step_ms_mean"]
+                                         - rec["dispatch_ms_per_step"]
+                                         - rec["commit_ms_per_step"])
+    if drained is not None:
+        check_recovery(name, drained["committed"],
+                       {rid: t for rid, t in drained["committed"].items()
+                        if rid in sup.restored}, final)
+        if not prefix_hits - drained["hits0"] >= 192:
+            fail(f"supervised {name}: the request on the restored system "
+                 f"prompt hit {prefix_hits - drained['hits0']} prefix "
+                 f"tokens, not 192 or more")
+        old = drained.pop("old_engine")
+        old.cache.prefix.drop_all(old.cache.allocator)
+        for s in range(old.max_batch):
+            if old.cache.active[s]:
+                old.cache.release(s)
+        oa = old.cache.allocator
+        if oa.num_used or oa.allocs_total != oa.frees_total:
+            fail(f"supervised {name}: the drained engine's allocator is "
+                 f"not balanced ({oa.stats()})")
+        drained.pop("committed")
+        drained.pop("hits0")
+        rec.update(drain=drained, restored_sessions=len(sup.restored),
+                   restored_prefix_hit_tokens=prefix_hits)
+    rec["tokens"] = [final[h.rid] for h in handles]
+    if count_calls:
+        rec["calls"] = dict(inj.calls)
+    del sup, engines, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _metric(obs, name, labels=""):
+    m = obs.REGISTRY.to_json().get(name)
+    return 0 if m is None else m["values"].get(labels, 0)
+
+
+def run_supervised(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3g: supervised serving (``EngineSupervisor``) at ``cfg``'s
+    width and depth, on fresh weights from phase 3's seed, phase 3e's
+    requests and HIGH burst, budget 384. An uninterrupted run; one run
+    per engine site with a ``raise`` fault at the middle of that site's
+    calls in the uninterrupted run of the same engine (``dispatch`` and
+    ``commit`` overlapped, ``verify_step`` under n-gram ``spec_k=4``,
+    ``draft_propose`` and ``tree_verify`` on the damped draft-tree
+    engine of phase 3, after their own uninterrupted runs); ``corrupt``
+    at ``transfer``; a stall past the watchdog at ``decode_step``; a
+    drain to a file at the middle of the run and a restore; a run whose
+    recovery's journal drops one committed token, which the check must
+    reject. Then eight requests overlapped with every dispatch under the
+    sync debug mode, hooks off, on, on, off. Each run's share of tokens
+    that agree with its engine's uninterrupted run, recovery ms and
+    replayed tokens are reported, not gated."""
+    import numpy as np  # noqa: F401
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    highs = burst_requests(4, cfg.vocab_size, seed + 7)
+    runs = []
+
+    def go(name, base=None, **kw):
+        rec = supervised_run(torch, kernels, serving, obs, E, params, cfg,
+                             kw.pop("reqs", reqs), kw.pop("highs", highs),
+                             name, **kw)
+        if base is not None:
+            rec.update(token_agreement(rec["tokens"], base["tokens"]))
+        print("supervised " + show(rec))
+        runs.append(rec)
+        return rec
+
+    def mid(base, site):
+        n = base["calls"].get(site, 0)
+        if n < 2:
+            fail(f"supervised: site {site} was called {n} times in "
+                 f"{base['run']}; a fault cannot go in its middle")
+        return n // 2
+
+    plain = go("uninterrupted", count_calls=True)
+    for site, kw in (("alloc", {}), ("free", {}), ("decode_step", {}),
+                     ("prefill_chunk", {}), ("transfer", {}),
+                     ("sched_tick", {}), ("dispatch", {"overlap": True}),
+                     ("commit", {"overlap": True})):
+        go(f"fault-{site}", plain, site=site, nth=mid(plain, site), **kw)
+    go("corrupt-transfer", plain, site="transfer", mode="corrupt",
+       nth=mid(plain, "transfer"))
+    go("stall-decode_step", plain, site="decode_step", mode="stall",
+       nth=mid(plain, "decode_step"), watchdog_s=WATCHDOG_S,
+       stall_s=STALL_S)
+    go("drain-restore", plain, drain_at=plain["steps"] // 2)
+    ngram = go("uninterrupted-ngram", plain, count_calls=True, spec_k=4)
+    go("fault-verify_step", ngram, site="verify_step",
+       nth=mid(ngram, "verify_step"), spec_k=4)
+    # the planted fault: the check must reject a recovery whose journal
+    # lost a committed token
+    try:
+        supervised_run(torch, kernels, serving, obs, E, params, cfg,
+                       reqs[:8], None, "planted-drop", site="decode_step",
+                       nth=40, plant_drop=True)
+    except SystemExit as e:
+        if "journal restored" not in str(e):
+            raise
+        print(f"supervised planted-drop: rejected, as it must be ({e})")
+    else:
+        fail("supervised: a recovery whose journal dropped a committed "
+             "token passed the check")
+    obs.disable()
+    obs.REGISTRY.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # hooks off and on in turns, every dispatch under the sync check
+    hooks = []
+    for on in (False, True, True, False):
+        hooks.append(go(f"hooks-{'on' if on else 'off'}", reqs=reqs[:8],
+                        highs=None, hooks=on, sync_check=True,
+                        overlap=True))
+        if not all(hooks[-1]["dispatch_calls_without_sync"][k] for k in
+                   ("decode_dispatch", "prefill_dispatch")):
+            fail(f"supervised hooks: a dispatch kind did not run under "
+                 f"the sync check ({hooks[-1]})")
+    hooks_ms = {k: [r["step_ms_mean"] for r in hooks
+                    if r["run"] == f"hooks-{k}"] for k in ("off", "on")}
+    hooks_host = {k: [r["dispatch_ms_per_step"] + r["commit_ms_per_step"]
+                      for r in hooks if r["run"] == f"hooks-{k}"]
+                  for k in ("off", "on")}
+    print("supervised hooks " + json.dumps(
+        {"step_ms": hooks_ms, "dispatch_plus_commit_ms": hooks_host}))
+    # the draft-tree engine of phase 3, on the damped weights
+    draft_layers = max(1, cfg.num_layers // 2)
+    damp_draft_tail(params, draft_layers)
+    tree_kw = dict(draft_layers=draft_layers, spec_tree=(2, 4))
+    tree = go("uninterrupted-tree", None, count_calls=True, **tree_kw)
+    for site in ("draft_propose", "tree_verify"):
+        go(f"fault-{site}", tree, site=site, nth=mid(tree, site),
+           **tree_kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs:
+        r.pop("calls", None)
+    return {"runs": runs, "hooks_step_ms": hooks_ms,
+            "hooks_dispatch_plus_commit_ms": hooks_host}
 
 
 # --------------------------------------------------------------- phase 3c
@@ -3241,26 +3655,32 @@ def main(argv=None) -> int:
     record["paged_hm_phase"] = paged_hm
     lap("2")
 
-    # ---- phase 3: the engine
+    # ---- phase 3: the engine, at the engine's width and a quarter of
+    # its depth (phase 3g runs all 32 layers; the script's time limit
+    # holds phases 3, 3e and 3f at 8, 3c and 3d at 16)
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
+    half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
+    quarter = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 4))
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        args.seed), device="cuda")
+    params = init_params(quarter, torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
     torch.cuda.synchronize()
-    print(f"params: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+    print(f"params: {quarter.num_layers} layers, hidden "
+          f"{quarter.hidden_size}, "
           f"{time.perf_counter() - t0:.1f} s to init")
     reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
     tiers = []
     for kv in (None, "int8"):
         for fused in (False, True):
             rec = run_tier(torch, kernels, gen, ContinuousBatchingEngine,
-                           params, cfg, reqs,
+                           params, quarter, reqs,
                            f"{'int8' if kv else 'bf16'}-"
                            f"{'fused' if fused else 'unfused'}", kv,
                            fused, check_logits=True)
             tiers.append(rec)
             print("tier " + show(rec))
-    prof = profile_tier(torch, ContinuousBatchingEngine, params, cfg, reqs)
+    prof = profile_tier(torch, ContinuousBatchingEngine, params, quarter,
+                        reqs)
     print("profile " + json.dumps(prof))
     record["profile"] = prof
     # speculation: n-gram on the same weights and requests, compared
@@ -3268,7 +3688,7 @@ def main(argv=None) -> int:
     # and non-repetitive prompts, compared with a plain tier on both
     def spec_tier(name, tier_reqs, kv, ref, **spec):
         rec = run_tier(torch, kernels, gen, ContinuousBatchingEngine,
-                       params, cfg, tier_reqs, name, kv, **spec)
+                       params, quarter, tier_reqs, name, kv, **spec)
         if ref is not None:
             rec.update(token_agreement(rec["tokens"], ref["tokens"]))
         print("tier " + show(rec))
@@ -3276,7 +3696,7 @@ def main(argv=None) -> int:
         return rec
 
     spec_tier("ngram", reqs, None, tiers[1], spec_k=4)
-    draft_layers = max(1, cfg.num_layers // 2)
+    draft_layers = max(1, quarter.num_layers // 2)
     damp_draft_tail(params, draft_layers)
     dreqs = make_distinct_requests(args.requests, cfg.vocab_size,
                                    args.seed + 1)
@@ -3292,8 +3712,8 @@ def main(argv=None) -> int:
         t0["kv"]: token_agreement(t1["tokens"], t0["tokens"])
         for t0, t1 in ((tiers[0], tiers[1]), (tiers[2], tiers[3]))}
     print("agreement " + json.dumps(record["plain_fused_vs_unfused"]))
-    sprof = profile_spec_tier(torch, ContinuousBatchingEngine, params, cfg,
-                              dreqs, draft_layers)
+    sprof = profile_spec_tier(torch, ContinuousBatchingEngine, params,
+                              quarter, dreqs, draft_layers)
     print("profile " + json.dumps(sprof))
     record["profile_spec"] = sprof
     record["tiers"] = tiers
@@ -3303,17 +3723,22 @@ def main(argv=None) -> int:
     lap("3")
 
     # ---- phase 3e: the SLO scheduler over the engine, sync and overlap,
-    # at the engine's width and half its depth (phase 3f runs all 32)
-    half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
-    sched = run_scheduler(torch, kernels, half, args.seed, reqs,
+    # at the engine's width and a quarter of its depth
+    sched = run_scheduler(torch, kernels, quarter, args.seed, reqs,
                           record["plain_fused_vs_unfused"])
     record["scheduler"] = sched
     lap("3e")
 
     # ---- phase 3f: grammar-constrained serving under the scheduler
-    constrained = run_constrained(torch, kernels, cfg, args.seed, reqs)
+    constrained = run_constrained(torch, kernels, quarter, args.seed,
+                                  reqs)
     record["constrained"] = constrained
     lap("3f")
+
+    # ---- phase 3g: supervised serving with faults, drain and restore
+    supervised = run_supervised(torch, kernels, cfg, args.seed, reqs)
+    record["supervised"] = supervised
+    lap("3g")
 
     # ---- phase 3c: dense generate / beam_search at the same size
     dense = run_dense(torch, np, kernels, tl, gen, half, args.seed)
@@ -3353,7 +3778,7 @@ def main(argv=None) -> int:
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
-                + dense["tiers"] + decoder["tiers"]):
+                + supervised["runs"] + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:

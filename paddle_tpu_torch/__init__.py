@@ -18,6 +18,12 @@ its counterpart for an NVIDIA H100, module for module:
   prefix trie and the device page pools;
 - ``serving/speculative.py``: n-gram drafting, the acceptance rules
   and token trees (host numpy);
+- ``serving/resilience.py``: fault points, the fault injector, the
+  request journal and ``EngineSupervisor`` (supervised recovery,
+  drain/restore);
+- ``observability/``: the metrics registry, the hot-path hooks, request
+  tracing and the flight recorder; ``profiler/``: the host-span
+  collector the hooks feed;
 - ``inference/predictor.py``: the continuous-batching engine, with
   n-gram, draft-model and tree speculation and weight-only int8/int4
   (``weight_bits``);

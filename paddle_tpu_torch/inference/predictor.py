@@ -49,6 +49,20 @@ plans step N+1 while step N runs. Dispatch never waits on the card: its
 host inputs go up through pinned host memory with non-blocking copies
 on the one CUDA stream (:meth:`ContinuousBatchingEngine._up`).
 
+Observability and faults: every lifecycle edge and commit feeds the
+hooks of :mod:`~paddle_tpu_torch.observability.hooks` (admissions,
+prefix hits, preemptions, resumes, retirements, per-step occupancy,
+speculation and grammar counters, request traces), and the fault points
+of :mod:`~paddle_tpu_torch.serving.resilience` sit where the JAX
+engine has them, in the same order relative to launch and commit:
+``prefill_chunk``, ``decode_step``, ``verify_step``, ``tree_verify``
+and ``draft_propose`` before their forwards launch, ``dispatch`` after
+a decode or verify launch, ``commit`` and ``transfer`` at the top of
+its commit half, before the fetch. A fault at any of them commits
+nothing, so an :class:`~..serving.resilience.EngineSupervisor` recovers
+by replaying its journal. A timing hook waits for the card only in a
+commit half.
+
 Greedy decoding is token-identical to the JAX engine's on the same
 parameters; temperature sampling draws from a ``torch.Generator`` (the
 JAX engine's ``jax.random`` key), so sampled tokens differ from JAX's.
@@ -67,6 +81,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models import generate as _gen
+from ..observability import hooks as _obs
+from ..serving.resilience import fault_point as _fault_point
 from ..serving.constraints import ConstraintState, TokenDFA
 from ..serving.paged_cache import PagedKVCache, PoolExhausted
 from ..serving.speculative import (Speculator, TreeDraft, build_comb_tree,
@@ -98,12 +114,14 @@ class GenerationRequest:
 
     ``constraint``: the request's live
     :class:`~..serving.constraints.ConstraintState` (None = free); it
-    rides the handle through preemption and resume.
+    rides the handle through preemption and resume. ``trace``: its
+    :class:`~..observability.tracing.RequestTrace` while request tracing
+    is on.
     """
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
                  "tokens", "done", "finish_reason", "slot", "priority",
                  "deadline_at", "submitted_at", "enqueued_at",
-                 "preemptions", "constraint")
+                 "preemptions", "constraint", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id):
         self.rid = rid
@@ -120,6 +138,7 @@ class GenerationRequest:
         self.enqueued_at: Optional[float] = None   # latest (re)queue time
         self.preemptions = 0
         self.constraint = None
+        self.trace = None
 
     def resume_sequence(self) -> np.ndarray:
         """The tokens whose KV must be in the pool before this request
@@ -148,12 +167,15 @@ class InFlightStep:
     slot only while it still holds the same seating of the same
     request: a slot preempted and re-admitted between dispatch and
     commit (even by the same request) gets nothing, and the victim
-    re-decodes the dropped token on resume."""
+    re-decodes the dropped token on resume. ``t0`` / ``t0f`` / ``ttr``
+    are the observability anchors taken at dispatch (0 when off) and
+    ``raw`` a constrained decode's unmasked argmax."""
     __slots__ = ("kind", "mask", "rids", "seats", "out", "drafts", "dlen",
-                 "qs", "rows")
+                 "qs", "rows", "t0", "t0f", "ttr", "raw")
 
     def __init__(self, kind, mask, rids, seats, out, drafts=None,
-                 dlen=None, qs=None, rows=None):
+                 dlen=None, qs=None, rows=None, t0=0, t0f=0, ttr=0,
+                 raw=None):
         self.kind = kind
         self.mask = mask
         self.rids = rids                # per-slot rid snapshot
@@ -163,6 +185,10 @@ class InFlightStep:
         self.dlen = dlen                # (B,) linear draft counts
         self.qs = qs                    # slot -> (j, V) draft-model q
         self.rows = rows                # tree verify's un-placed KV rows
+        self.t0 = t0
+        self.t0f = t0f
+        self.ttr = ttr
+        self.raw = raw
 
 
 def _not_ported(what: str, where: str):
@@ -261,6 +287,9 @@ class ContinuousBatchingEngine:
                 max(1, int(prefill_chunk))) * self.cache.page_size
         self.prefill_chunk = prefill_chunk
         self.max_batch = max_batch
+        #: replica index carried by trace spans (-1 = standalone; a
+        #: supervisor stamps it)
+        self.replica_id = -1
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         self.generator = generator
@@ -492,10 +521,28 @@ class ContinuousBatchingEngine:
             return False
         slot = free[0]
         seq = req.resume_sequence()
+        # trace: queue_wait closes at the admission instant
+        t_adm = _obs.serving_trace_now()
         _, shared = self.cache.admit_prompt(
             slot, seq, req.prompt.shape[1] + req.max_new_tokens)
         self._install_slot(slot, req)
         self._pending[slot] = [req, seq, int(shared)]
+        _obs.serving_trace_admitted(
+            req, replica=self.replica_id, slot=slot, t_ns=t_adm,
+            meta={"shared": int(shared)} if t_adm else None)
+        if req.preemptions > 0:
+            if t_adm:
+                _obs.serving_trace_mark(
+                    req, "resume_replay", replica=self.replica_id,
+                    slot=slot,
+                    meta={"replay": int(seq.size) - int(shared)})
+            # a resume has its own counters: counted as an admission it
+            # would break admissions - evictions == 0 after a drain, and
+            # its generated-token replay is not a prompt prefix miss
+            _obs.serving_resumed(1, seq.size - int(shared))
+        else:
+            _obs.serving_admitted(1, seq.size)
+            _obs.serving_prefix(int(shared), seq.size - int(shared))
         return True
 
     def preempt_request(self, req: GenerationRequest) -> int:
@@ -513,11 +560,17 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"preempt_request: request {req.rid} is not running")
         self._pending.pop(slot, None)
+        t_tr = _obs.serving_trace_now()
         freed = self.cache.evict_for_preempt(slot)
+        if t_tr:
+            _obs.serving_trace_mark(
+                req, "preempt", replica=self.replica_id, slot=slot,
+                seq=len(req.tokens), meta={"swap": False})
         self._clear_slot(slot)
         req.slot = None
         req.preemptions += 1
         req.finish_reason = "preempted"
+        _obs.serving_preempted(1, freed)
         return freed
 
     def cancel_request(self, req: GenerationRequest,
@@ -538,6 +591,15 @@ class ContinuousBatchingEngine:
             pass                        # a scheduler-owned queue entry
         req.done = True
         req.finish_reason = reason
+        _obs.serving_trace_finish(req, reason, replica=self.replica_id)
+        if req.preemptions > 0:
+            # preempted awaiting resume: it WAS admitted, so the cancel
+            # finalizes its retirement (admissions - evictions drains
+            # to zero)
+            _obs.serving_retired(1, reason)
+        else:
+            # never held a slot: a cancellation, not an eviction
+            _obs.serving_cancelled(1, reason)
 
     def _admit(self):
         """Fill free slots from the queue, FIFO: a head-of-line request
@@ -593,10 +655,13 @@ class ContinuousBatchingEngine:
             self.cmask_uploads += 1
         return self._cmask_dev
 
-    def _fetch(self, t: torch.Tensor, commit: bool = True) -> np.ndarray:
+    def _fetch(self, t: torch.Tensor, commit: bool = True,
+               since: Optional[int] = None) -> np.ndarray:
         """The device-to-host fetch: waits for the stream, and counts the
-        wait as fence time when it is a commit's (:meth:`take_fence_ns`)."""
-        t0 = time.perf_counter_ns()
+        wait as fence time when it is a commit's (:meth:`take_fence_ns`),
+        from ``since`` when the commit's device wait opened earlier (a
+        timing hook that waited first)."""
+        t0 = time.perf_counter_ns() if since is None else since
         out = t.cpu().numpy()
         if commit:
             self._fence_ns += time.perf_counter_ns() - t0
@@ -642,21 +707,29 @@ class ContinuousBatchingEngine:
         ctx_cap = cache.ctx_cap_pages(cache.pages_for(done)) * page
         chunk = np.zeros((1, width), np.int32)
         chunk[0, :take] = seq[done:done + take]
+        # resilience site: before the chunk forward, so a fault commits
+        # nothing (neither ``done`` nor a sampled token)
+        _fault_point("prefill_chunk")
+        t0 = _obs.generate_begin()
         logits, _ = _gen.paged_prefill_chunk(
             self.params, self._up(chunk), cache.pool,
             self._up(cache.block_tables[slot]), self.cfg,
             ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=self.fused)
         self.forwards["prefill"] += 1
-        samp = None
+        samp = rawmax = None
         if done + take >= S and not req.tokens:
             lg = logits[0]
             if self.constraints and req.constraint is not None:
+                # the unmasked argmax rides along for the
+                # violation-avoided counter
+                rawmax = torch.argmax(lg)
                 lg = lg.masked_fill(~self._cmask_device()[slot],
                                     float("-inf"))
             samp = self._sample(lg)
         self._inflight_chunks.append(
             {"slot": slot, "req": req, "seat": int(self._seat[slot]),
-             "take": take, "samp": samp})
+             "take": take, "samp": samp, "rawmax": rawmax, "t0": t0,
+             "logits": logits, "ttr": _obs.serving_trace_now()})
         return width
 
     def _commit_chunk(self, h: Dict) -> int:
@@ -670,11 +743,24 @@ class ContinuousBatchingEngine:
         cancelled, or preempted and re-seated, since its dispatch
         commits nothing: the new seating replays the span itself."""
         slot, req, take = h["slot"], h["req"], h["take"]
+        # both hooks wait for the chunk's logits when a sink is on:
+        # that wait is device time, counted as fence time
+        t_f0 = time.perf_counter_ns()
+        if self.fused:
+            _obs.serving_fused_latency("chunk_flash_attn", h["t0"],
+                                       h["logits"])
+        _obs.serving_prefill_chunk(h["t0"], h["logits"], take)
+        self._fence_ns += time.perf_counter_ns() - t_f0
         ent = self._pending.get(slot)
         if (ent is None or ent[0] is not req
                 or int(self._seat[slot]) != h["seat"]):
             return 0
         done = ent[2] + take
+        _obs.serving_trace_span(
+            req, "prefill_chunk", h["ttr"], replica=self.replica_id,
+            slot=slot, seq=len(req.tokens),
+            meta={"take": int(take), "done": int(done)} if h["ttr"]
+            else None)
         if done < ent[1].size:
             ent[2] = done
             return take
@@ -685,13 +771,25 @@ class ContinuousBatchingEngine:
         if req.tokens:
             self._last[slot] = np.int32(req.tokens[-1])
         else:
-            first = int(self._fetch(h["samp"]))
+            viol = 0
+            if h["rawmax"] is not None:
+                # one fetch for the sample and the unmasked argmax; the
+                # violation reads the PRE-advance row, before
+                # _record_token can retire the slot and clear it
+                first, raw = self._fetch(
+                    torch.stack((h["samp"], h["rawmax"]))).tolist()
+                viol = int(not self._cmask[slot, raw])
+            else:
+                first = int(self._fetch(h["samp"]))
             self._last[slot] = first
             self._record_token(req, first)
             if self.constraints and req.constraint is not None:
+                t0m = time.perf_counter_ns()
                 req.constraint.advance(first)
                 if not req.done:
                     self._mask_row(slot, req)
+                _obs.serving_constrain(
+                    time.perf_counter_ns() - t0m, viol, 1)
         return take
 
     def commit_prefills(self) -> int:
@@ -715,6 +813,8 @@ class ContinuousBatchingEngine:
 
     def _record_token(self, req: GenerationRequest, tok: int):
         req.tokens.append(int(tok))
+        if len(req.tokens) == 1:
+            _obs.serving_trace_first_token(req)
         if req.eos_token_id is not None and tok == req.eos_token_id:
             self._retire(req, "eos")
         elif len(req.tokens) >= req.max_new_tokens:
@@ -723,8 +823,10 @@ class ContinuousBatchingEngine:
     def _retire(self, req: GenerationRequest, reason: str):
         req.done = True
         req.finish_reason = reason
+        _obs.serving_trace_finish(req, reason, replica=self.replica_id)
         self.cache.release(req.slot)
         self._clear_slot(req.slot)
+        _obs.serving_retired(1, reason)
 
     def ready_mask(self) -> np.ndarray:
         """(max_batch,) bool — slots whose sequence is fully in the pool
@@ -768,15 +870,24 @@ class ContinuousBatchingEngine:
         if not mask.any():
             return None
         self._check_idle()
+        # resilience sites: step execution (before the launch), then the
+        # dispatch seam (after it); neither commits host state
+        _fault_point("decode_step")
+        t0f = _obs.generate_begin() if self.fused else 0
         logits, _ = _gen.paged_decode_forward(
             self.params, self._up(self._last), cache.pool,
             self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, active=self._up(mask), fused=self.fused)
         self.forwards["decode"] += 1
+        raw = None
         if self.constraints:
+            raw = torch.argmax(logits, dim=-1)
             logits = logits.masked_fill(~self._cmask_device(),
                                         float("-inf"))
-        return self._handle("decode", mask, self._sample(logits))
+        out = self._sample(logits)
+        _fault_point("dispatch")
+        return self._handle("decode", mask, out, t0f=t0f, raw=raw,
+                            ttr=_obs.serving_trace_now())
 
     def _guard(self, h: InFlightStep) -> np.ndarray:
         """(max_batch,) bool: the masked slots that still hold the
@@ -790,22 +901,50 @@ class ContinuousBatchingEngine:
         through :meth:`_record_token` (eos / max_len). A constrained
         row's DFA advances with its token and its mask row is rebuilt
         first, before a retirement clears the slot, as the JAX engine
-        does. Returns the slots advanced.
-
-        The JAX engine also fetches the unmasked argmax and reports
-        the violations it avoided through its observability hooks; both
-        wait for those hooks (ROADMAP.md, queue A step 1.8)."""
-        nxt = self._fetch(h.out)
+        does; the fetch brings the unmasked argmax too, and each step
+        where it was outside the grammar counts as a violation avoided
+        (``serving_constrain``). Returns the slots advanced."""
+        # resilience sites: the commit seam, then the device-to-host
+        # transfer; host state commits only after both
+        _fault_point("commit")
+        # the device-wait window opens before the timing hook, which
+        # waits for h.out when a sink is on
+        t_f = time.perf_counter_ns()
+        _obs.serving_fused_latency("decode_rope_attn", h.t0f, h.out)
+        _fault_point("transfer")
+        raw = None
+        if h.raw is not None:
+            nxt, raw = self._fetch(torch.stack((h.out, h.raw)), since=t_f)
+        else:
+            nxt = self._fetch(h.out, since=t_f)
         slots = np.flatnonzero(self._guard(h))
         self.cache.lengths[slots] += 1
         self._last[slots] = nxt[slots]
+        t1 = _obs.serving_trace_now()
+        mask_ns = viol = crows = 0
         for s in slots.tolist():
             req, tok = self._slots[s], int(nxt[s])
             if self.constraints and req.constraint is not None:
+                t0m = time.perf_counter_ns()
+                crows += 1
+                viol += int(not self._cmask[s, int(raw[s])])
                 req.constraint.advance(tok)
                 self._mask_row(s, req)
+                mask_ns += time.perf_counter_ns() - t0m
+            if h.ttr:
+                # one decode_step span per committed row, closed here
+                _obs.serving_trace_span(
+                    req, "decode_step", h.ttr, t1,
+                    replica=self.replica_id, slot=s,
+                    seq=len(req.tokens) + 1)
             self._record_token(req, tok)
+        if crows:
+            _obs.serving_constrain(mask_ns, viol, crows)
         self._steps += 1
+        alloc = self.cache.allocator
+        # occupancy reports the rows the dispatched forward computed
+        _obs.serving_step(int(h.mask.sum()), self.max_batch,
+                          alloc.num_used, alloc.num_usable)
         return int(slots.size)
 
     def commit_inflight(self) -> int:
@@ -883,6 +1022,7 @@ class ContinuousBatchingEngine:
         that match the fed chain."""
         mask = np.asarray(mask, bool)
         dc = self.draft_cache
+        _fault_point("draft_propose")
         rows: Dict[int, np.ndarray] = {}
         rooms: Dict[int, int] = {}
         for slot, req in enumerate(self._slots):
@@ -907,6 +1047,7 @@ class ContinuousBatchingEngine:
         B, k, temp = self.max_batch, self.spec_k, self.temperature
         # catch-up: page-bucketed verify chunks over the draft model
         # until every row's pool covers its context but the last token
+        catchup = 0
         while True:
             need = {s: rows[s].size - 1 - int(dc.lengths[s]) for s in rows}
             cmax = max(need.values())
@@ -926,6 +1067,7 @@ class ContinuousBatchingEngine:
                 chunk[s, :c] = rows[s][st:st + c]
                 cmask[s] = True
                 adv[s] = c
+                catchup += c
             ctx_cap = dc.ctx_cap_pages(dc.pages_for(
                 int(dc.lengths[cmask].max()))) * dc.page_size
             _gen.paged_verify_forward(
@@ -978,6 +1120,7 @@ class ContinuousBatchingEngine:
                     fed[s].append(nxt)
                 x[s] = nxt
         out: Dict = {}
+        drafted = 0
         for s in rows:
             self._draft_chain[s] = np.asarray(fed[s], np.int32)
             if tree_w:
@@ -987,12 +1130,17 @@ class ContinuousBatchingEngine:
                 t = t[:min(t.size, rooms[s])]
                 if t.size:
                     out[s] = t
+                    drafted += t.size
             else:
                 d = np.asarray(chains[s], np.int32)
                 if qs is not None:
                     self._draft_q[s] = np.stack(qs[s])[:d.size]
                 if d.size:
                     out[s] = d
+                    drafted += d.size
+        _obs.serving_draft_propose(len(rows), drafted, catchup)
+        _obs.serving_draft_pool(dc.allocator.num_used,
+                                dc.allocator.num_usable)
         return out
 
     def spec_step(self, mask, drafts: Optional[Dict] = None) -> int:
@@ -1080,14 +1228,19 @@ class ContinuousBatchingEngine:
         for s, d in drafts.items():
             chunk[s, 1:1 + d.size] = d
             dlen[s] = d.size
+        ctx_cap = self._ctx_cap(mask)
+        _fault_point("verify_step")
+        t0 = _obs.generate_begin()
         logits, _ = _gen.paged_verify_forward(
             self.params, self._up(chunk), cache.pool,
             self._up(cache.block_tables), self._up(cache.lengths),
-            self.cfg, ctx_cap=self._ctx_cap(mask),
+            self.cfg, ctx_cap=ctx_cap,
             active=self._up(mask), fused=self.fused)
         self.forwards["verify"] += 1
-        return self._handle("spec", mask, self._targets(logits),
-                            drafts=drafts, dlen=dlen, qs=qs)
+        out = self._targets(logits)
+        _fault_point("dispatch")
+        return self._handle("spec", mask, out, drafts=drafts, dlen=dlen,
+                            qs=qs, t0=t0, ttr=_obs.serving_trace_now())
 
     def _advance_draft(self, slot: int, toks, a: int):
         """Move the draft pool's valid prefix past the accepted tokens
@@ -1120,11 +1273,19 @@ class ContinuousBatchingEngine:
         prefix plus the bonus token (rejection sampling at temperature
         > 0, against the draft model's q when it has one). Slots whose
         seating changed since the dispatch are skipped."""
-        out = self._fetch(h.out)   # (B, T) targets, or (B, T, V) logits
+        _fault_point("commit")
+        t_f = time.perf_counter_ns()
+        if self.fused:
+            _obs.serving_fused_latency("verify_flash_attn", h.t0, h.out)
+        _fault_point("transfer")
+        # (B, T) targets, or (B, T, V) logits when sampling
+        out = self._fetch(h.out, since=t_f)
+        t1 = time.perf_counter_ns()        # device fence: verify done
         sampled = self.temperature != 0.0
         valid = self._guard(h)
-        committed = 0
-        for slot in np.flatnonzero(valid).tolist():
+        committed = drafted = accepted = 0
+        slots = np.flatnonzero(valid).tolist()
+        for slot in slots:
             req = self._slots[slot]
             j = int(h.dlen[slot])
             d = h.drafts.get(slot)
@@ -1141,8 +1302,22 @@ class ContinuousBatchingEngine:
             self._advance_draft(slot, toks, a)
             committed += self._commit_tokens(slot, req, toks, a)
             if j:
+                drafted += j
+                accepted += a
                 self.spec.observe(slot, req.rid, j, a)
+            if h.ttr:
+                _obs.serving_trace_span(
+                    req, "spec_verify", h.ttr, replica=self.replica_id,
+                    slot=slot, seq=len(req.tokens),
+                    meta={"drafted": j, "accepted": int(a)})
+        if sampled and drafted:
+            _obs.serving_sample_accept(drafted, accepted)
         self._steps += 1
+        _obs.serving_spec_verify(h.t0, out, len(slots), drafted, accepted,
+                                 t1_ns=t1)
+        alloc = self.cache.allocator
+        _obs.serving_step(len(slots), self.max_batch, alloc.num_used,
+                          alloc.num_usable)
         return committed
 
     def _tree_dispatch(self, mask, trees) -> Optional[InFlightStep]:
@@ -1169,15 +1344,20 @@ class ContinuousBatchingEngine:
             chunk[s, :n] = t.tokens
             depths[s, :n] = tree_depths(t.parents)
             anc[s, :n, :n] = tree_ancestor_matrix(t.parents)
+        ctx_cap = self._ctx_cap(mask)
+        _fault_point("tree_verify")
+        t0 = _obs.generate_begin()
         logits, rows = _gen.paged_verify_forward(
             self.params, self._up(chunk), cache.pool,
             self._up(cache.block_tables), self._up(cache.lengths),
-            self.cfg, ctx_cap=self._ctx_cap(mask),
+            self.cfg, ctx_cap=ctx_cap,
             active=self._up(mask), fused=self.fused,
             tree_depth=self._up(depths), tree_mask=self._up(anc))
         self.forwards["tree"] += 1
-        return self._handle("tree", mask, self._targets(logits),
-                            drafts=trees, rows=rows)
+        out = self._targets(logits)
+        _fault_point("dispatch")
+        return self._handle("tree", mask, out, drafts=trees, rows=rows,
+                            t0=t0, ttr=_obs.serving_trace_now())
 
     def _tree_commit(self, h: InFlightStep) -> int:
         """Commit half of the tree step: each row's longest accepted
@@ -1188,7 +1368,14 @@ class ContinuousBatchingEngine:
         seating changed since the dispatch place nothing (path length
         0) and commit nothing."""
         cache = self.cache
-        out = self._fetch(h.out)   # (B, T) targets, or (B, T, V) logits
+        _fault_point("commit")
+        t_f = time.perf_counter_ns()
+        if self.fused:
+            _obs.serving_fused_latency("verify_flash_attn", h.t0, h.out)
+        _fault_point("transfer")
+        # (B, T) targets, or (B, T, V) logits when sampling
+        out = self._fetch(h.out, since=t_f)
+        t1 = time.perf_counter_ns()
         sampled = self.temperature != 0.0
         B, T = self.max_batch, self._tree_T
         path_nodes = np.zeros((B, T), np.int32)
@@ -1224,13 +1411,30 @@ class ContinuousBatchingEngine:
         _gen.paged_tree_commit(
             cache.pool, h.rows, self._up(cache.block_tables),
             self._up(base_len), self._up(path_nodes), self._up(path_len))
-        committed = 0
+        committed = drafted = accepted = 0
+        paths = []
         for slot, req, t, toks, a in plans:
             self._advance_draft(slot, toks, a)
             committed += self._commit_tokens(slot, req, toks, a)
             if t is not None:
+                drafted += t.size
+                accepted += a
+                paths.append(a + 1)
                 self.spec.observe(slot, req.rid, t.size, a)
+            if h.ttr:
+                _obs.serving_trace_span(
+                    req, "tree_verify", h.ttr, replica=self.replica_id,
+                    slot=slot, seq=len(req.tokens),
+                    meta={"nodes": t.size if t is not None else 0,
+                          "accepted": int(a)})
+        if sampled and drafted:
+            _obs.serving_sample_accept(drafted, accepted)
         self._steps += 1
+        _obs.serving_tree_verify(h.t0, out, len(plans), drafted, accepted,
+                                 paths, t1_ns=t1)
+        alloc = cache.allocator
+        _obs.serving_step(len(plans), self.max_batch, alloc.num_used,
+                          alloc.num_usable)
         return committed
 
     def step(self) -> bool:

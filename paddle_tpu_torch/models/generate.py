@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..observability import hooks as _obs
 from ..ops.kernels import fused as _fz
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import serving_fused as _sf
@@ -393,6 +394,9 @@ def generate(params, prompt, cfg: LlamaConfig, *,
     dev = params["embed"].device
     prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int32)
     B, S = prompt.shape
+    # observability anchor: prefill and decode latency histograms, token
+    # counters, host spans; 0 (and no wait on the card) when disabled
+    t_obs = _obs.generate_begin()
     P = 0
     if prompt_cache is not None:
         if pad_token_id is not None or prompt_lengths is not None:
@@ -424,6 +428,7 @@ def generate(params, prompt, cfg: LlamaConfig, *,
                            - kstart[:, None].long(), min=0)
     logits = _forward_cached(params, prompt, cache, P, cfg, max_len,
                              rpos=rpos, kstart=kstart)
+    t_obs = _obs.generate_phase("prefill", t_obs, logits, B * S)
     tok = _sample(logits, temperature, top_k, top_p, generator)
     eos = eos_token_id
     done = (tok == eos) if eos is not None else None
@@ -439,7 +444,9 @@ def generate(params, prompt, cfg: LlamaConfig, *,
             tok = torch.where(done, torch.full_like(tok, eos), tok)
             done |= tok == eos
         out.append(tok)
-    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+    out = torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+    _obs.generate_phase("decode", t_obs, out, B * max_new_tokens)
+    return out
 
 
 def beam_search(params, prompt, cfg: LlamaConfig, *, num_beams: int = 4,

@@ -1,6 +1,8 @@
 """Serving layer of the port: the paged KV cache and its allocator, the
 host side of speculative decoding, grammar constraints (token DFAs),
-and the SLO-aware scheduler with its policy."""
+the SLO-aware scheduler with its policy, and supervised fault recovery
+(fault injection, the request journal, ``EngineSupervisor``,
+drain/restore)."""
 from .constraints import (ConstraintState, TokenDFA,  # noqa: F401
                           dfa_from_regex, dfa_from_sequences,
                           json_schema_dfa, json_schema_pattern_dfa)
@@ -8,7 +10,15 @@ from .paged_cache import (TRASH_PAGE, BlockAllocator, PagedKVCache,  # noqa: F40
                           PoolExhausted, PrefixCache)
 from .policy import (FinishReason, PreemptionPolicy, Priority,  # noqa: F401
                      StepPlan, TokenBudgetPlanner)
-from .scheduler import DEGRADED_MODES, ServingScheduler  # noqa: F401
+from .resilience import (CLUSTER_SITES, DEGRADED_MODES,  # noqa: F401
+                         ENGINE_SITES, SITES, CorruptionDetected,
+                         EngineDead, EngineSupervisor, FaultInjector,
+                         InjectedFault, JournalEntry, RequestJournal,
+                         StepStalled, fault_point, install,
+                         load_drain_checkpoint, payload_checksums,
+                         run_with_deadline, tamper_point, uninstall,
+                         verify_checksums)
+from .scheduler import ServingScheduler  # noqa: F401
 from .speculative import (NgramProposer, Speculator, TreeDraft,  # noqa: F401
                           build_comb_tree, longest_accepted_path,
                           longest_accepted_prefix, rejection_sample_tokens,

@@ -13,7 +13,11 @@ write. Page id 0 is the trash page that inactive decode rows write to.
 
 The allocator, trie and block tables are plain numpy, as in the JAX
 package. Where JAX ran a donated jitted program to update the pools,
-the port writes the pool tensors in place.
+the port writes the pool tensors in place. The allocator's ``alloc``
+and ``free`` are fault-injection sites (:mod:`.resilience`), and the
+trie with its pages' KV bytes checkpoints and restores for a drain
+(:meth:`PagedKVCache.checkpoint_prefix` / :meth:`PagedKVCache.
+restore_prefix`).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .resilience import fault_point
 
 #: page id never handed out by the allocator — the write target for
 #: inactive rows of the static-shape decode step
@@ -96,8 +101,15 @@ class BlockAllocator:
         return holes / len(self._free)
 
     def alloc(self, n: int) -> List[int]:
+        """Hand out ``n`` pages at refcount 1; raises
+        :class:`PoolExhausted` (and counts the failure) when the free
+        list is short."""
         if n < 0:
             raise ValueError(f"alloc of negative page count {n}")
+        # resilience site: fires BEFORE any free-list mutation, so an
+        # injected allocator fault leaves the books consistent (the
+        # supervisor discards the whole pool on recovery regardless)
+        fault_point("alloc")
         if n > len(self._free):
             self.alloc_failures += 1
             raise PoolExhausted(
@@ -122,6 +134,10 @@ class BlockAllocator:
         self.shares_total += len(pages)
 
     def free(self, pages: Sequence[int]):
+        """Drop one reference per entry; a page recycles into the free
+        list when its count reaches zero. The whole call is validated
+        before any state changes."""
+        fault_point("free")
         drops: Dict[int, int] = {}
         for p in pages:
             if not (self.reserved <= p < self.num_pages):
@@ -292,6 +308,76 @@ class PrefixCache:
         self.evict(allocator, allocator.num_pages)
         return allocator.num_free - start
 
+    def pages(self) -> List[int]:
+        """Every page id the trie holds a reference on."""
+        out = []
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            if node.page is not None:
+                out.append(node.page)
+            if node.tail is not None:
+                out.append(node.tail[0])
+            stack.extend(node.children.values())
+        return out
+
+    def to_records(self) -> Dict:
+        """Serialize the trie STRUCTURE for a drain checkpoint:
+        ``nodes`` is a parent-before-child list of ``[parent_index,
+        page_tokens, page_id]`` (parent ``-1`` = the root), ``tails`` a
+        list of ``[node_index, tail_tokens, page_id]`` (node ``-1`` = a
+        root tail). Page ids are the OLD pool's — :meth:`restore_records`
+        remaps them into the restored pool. Pure host data, JSON-able,
+        and equal to the JAX package's records for the same inserts."""
+        nodes: List[list] = []
+        tails: List[list] = []
+        stack = [(self.root, -1)]
+        while stack:
+            node, idx = stack.pop()
+            if node.tail is not None:
+                tails.append([idx, node.tail[1].tolist(),
+                              int(node.tail[0])])
+            for key, child in node.children.items():
+                nodes.append([idx,
+                              np.frombuffer(key, np.int32).tolist(),
+                              int(child.page)])
+                stack.append((child, len(nodes) - 1))
+        return {"nodes": nodes, "tails": tails}
+
+    def restore_records(self, records: Dict, page_map: Dict[int, int],
+                        allocator: BlockAllocator):
+        """Rebuild the trie from :meth:`to_records` output under
+        remapped page ids, taking ONE allocator reference per restored
+        page reference (the ownership :meth:`register` establishes).
+        Restores into an EMPTY trie only — merging two tries would
+        double-count references."""
+        if self.root.children or self.root.tail is not None:
+            raise ValueError("restore_records: the trie is not empty")
+        built: List[_TrieNode] = []
+        for parent, tokens, page in records["nodes"]:
+            node = _TrieNode(page=page_map[int(page)])
+            allocator.share([node.page])
+            owner = self.root if parent < 0 else built[parent]
+            owner.children[
+                np.asarray(tokens, np.int32).tobytes()] = node
+            built.append(node)
+        for idx, tokens, page in records["tails"]:
+            owner = self.root if idx < 0 else built[idx]
+            owner.tail = (page_map[int(page)],
+                          np.asarray(tokens, np.int32))
+            allocator.share([owner.tail[0]])
+
+    def remap_pages(self, remap: np.ndarray):
+        """Rewrite held page ids after a compaction moved pages."""
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            if node.page is not None:
+                node.page = int(remap[node.page])
+            if node.tail is not None:
+                node.tail = (int(remap[node.tail[0]]), node.tail[1])
+            stack.extend(node.children.values())
+
 
 class PagedKVCache:
     """Device page pools + per-slot block tables + the allocator.
@@ -322,6 +408,7 @@ class PagedKVCache:
         self.pool = _gen.init_paged_cache(cfg, num_pages, page_size,
                                           kv_dtype=kv_dtype,
                                           device=self.device)
+        self.kv_dtype = kv_dtype
         self.allocator = BlockAllocator(num_pages)
         self.prefix = PrefixCache(page_size) if enable_prefix_cache else None
         self.cow_copies = 0
@@ -463,3 +550,82 @@ class PagedKVCache:
     def pages_held(self, slot: int) -> List[int]:
         """The page ids ``slot``'s block table references (a copy)."""
         return list(self._slot_pages[slot])
+
+    @property
+    def kv_dtype_name(self) -> Optional[str]:
+        """The KV tier as a drain checkpoint names it: ``"int8"``, or
+        None for the model dtype (the JAX package's names)."""
+        return None if self.kv_dtype is None else "int8"
+
+    def page_payload_bytes(self, k: int) -> int:
+        """Device bytes of ``k`` pages across every pool array."""
+        return sum(int(np.prod(a.shape[2:])) * a.shape[0] * k
+                   * a.element_size() for a in self.pool.values())
+
+    # ---- drain/restore: prefix-trie persistence ----
+    def checkpoint_prefix(self) -> Optional[Dict]:
+        """Checkpoint the prefix-cache trie for an engine drain: the trie
+        structure (:meth:`PrefixCache.to_records`) plus the KV BYTES of
+        every page the trie references, gathered on the device and
+        fetched to the host as numpy in one copy per pool array. A bf16
+        pool's pages come as their uint16 bit patterns (numpy has no
+        bf16). Returns None when the prefix cache is disabled or
+        empty."""
+        if self.prefix is None:
+            return None
+        ids = sorted(set(self.prefix.pages()))
+        if not ids:
+            return None
+        sel = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        arrays = {}
+        for name, arr in self.pool.items():
+            pages = arr.index_select(1, sel)
+            if pages.dtype == torch.bfloat16:
+                arrays[name] = (pages.view(torch.int16).cpu().numpy()
+                                .view(np.uint16))
+            else:
+                arrays[name] = pages.cpu().numpy()
+        return {"page_ids": [int(p) for p in ids],
+                "records": self.prefix.to_records(),
+                "arrays": arrays}
+
+    def restore_prefix(self, ckpt: Dict) -> int:
+        """Restore a :meth:`checkpoint_prefix` into THIS (fresh) cache:
+        allocate pages, write the saved KV bytes into the pool at the
+        remapped ids (:meth:`_scatter_pages`), and rebuild the trie so
+        future admissions prefix-HIT the restored pages. The bootstrap
+        allocation references are dropped once the trie holds its own,
+        so the trie ends up owning exactly one reference per page, as
+        :meth:`register_prefix` would leave it. Returns the number of
+        pages restored."""
+        if self.prefix is None:
+            raise ValueError(
+                "restore_prefix into a cache with prefix caching "
+                "disabled (enable_prefix_cache=False)")
+        old_ids = [int(p) for p in ckpt["page_ids"]]
+        fresh = self.allocator.alloc(len(old_ids))
+        page_map = dict(zip(old_ids, fresh))
+        self._scatter_pages(ckpt["arrays"], fresh)
+        self.prefix.restore_records(ckpt["records"], page_map,
+                                    self.allocator)
+        self.allocator.free(fresh)      # the trie owns the pages now
+        return len(fresh)
+
+    def _scatter_pages(self, arrays: Dict, dst: Sequence[int]):
+        """Write per-array page payloads (numpy, ``(L, k, page, ...)``)
+        into the pool at page ids ``dst``: each goes up through pinned
+        memory with a non-blocking copy and lands with one in-place
+        ``index_copy_``. uint16 payloads into a bf16 pool are bit
+        patterns (:meth:`checkpoint_prefix`)."""
+        idx = torch.as_tensor(np.asarray(dst, np.int64),
+                              device=self.device)
+        for name, arr in self.pool.items():
+            a = np.array(arrays[name], copy=True, order="C")
+            if arr.dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+                    and a.dtype.kind in "ui":
+                t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(a).to(arr.dtype)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            arr.index_copy_(1, idx, t)

@@ -36,9 +36,13 @@ preemption):
   step's commit (it reads the tokens that commit lands), so the mask it
   uploads is the one for the current state.
 
-Left out until their steps of ROADMAP.md's queue A: the observability
-hooks and the resilience fault points (1.8 and 6; the reference's hooks
-are no-ops with metrics off, so no output changes), ``adapter_id=``,
+- **Observability and faults** — each step feeds the scheduler hooks
+  (queue depths, budget use, the host share, time in queue, idle
+  fences; :mod:`~paddle_tpu_torch.observability.hooks`) and opens with
+  the ``sched_tick`` fault point (:mod:`.resilience`), which an
+  :class:`~.resilience.EngineSupervisor` recovers from.
+
+Left out until their steps of ROADMAP.md's queue A: ``adapter_id=``,
 the adapter pool's feasibility check and ``AdapterPoolExhausted``
 (1.6), the host tier's swap-in debt (1.7), and ``mesh=`` (7).
 """
@@ -50,13 +54,11 @@ from typing import Callable, Deque, Dict, Optional
 
 import numpy as np
 
+from ..observability import hooks as _obs
 from .paged_cache import PoolExhausted
 from .policy import (FinishReason, PreemptionPolicy, Priority, StepPlan,
                      TokenBudgetPlanner)
-
-#: the degraded-mode ladder a supervisor walks (index == level); the
-#: port keeps its own copy of the reference's ``resilience`` tuple
-DEGRADED_MODES = ("healthy", "no_spec", "small_chunks", "shed_low")
+from .resilience import DEGRADED_MODES, fault_point
 
 
 class ServingScheduler:
@@ -114,6 +116,17 @@ class ServingScheduler:
         self.host_frac_ema: Optional[float] = None
         self.idle_fences_total = 0
 
+    # ---- identity ----
+    @property
+    def replica_id(self) -> int:
+        """The replica id trace spans carry — one source of truth (the
+        engine's), stamped by a supervisor; -1 = unplaced."""
+        return getattr(self.engine, "replica_id", -1)
+
+    @replica_id.setter
+    def replica_id(self, value: int) -> None:
+        self.engine.replica_id = int(value)
+
     # ---- intake ----
     def submit(self, prompt, max_new_tokens: int = 16, *,
                priority=Priority.NORMAL,
@@ -133,17 +146,25 @@ class ServingScheduler:
         if deadline_s is not None:
             req.deadline_at = req.submitted_at + float(deadline_s)
             self._deadlines_live += 1
+        # the trace is minted here and rides the handle from now on
+        _obs.serving_trace_submit(req, replica=self.replica_id)
+        _obs.serving_trace_enqueued(req)
         self._queues.setdefault(int(priority), deque()).append(req)
         return req
 
     def requeue(self, req, *, front: bool = False):
         """Re-enqueue an EXISTING request handle into its priority class
-        (``front``: ahead of the class, as a preemption requeues)."""
+        (``front``: ahead of the class, as a preemption requeues) — the
+        supervisor's recovery and restore path."""
         req.enqueued_at = self.clock()
         if req.submitted_at is None:
             req.submitted_at = req.enqueued_at
         if req.deadline_at is not None:
             self._deadlines_live += 1
+        # attach is idempotent: a handle that already rides a trace keeps
+        # it; a handle rebuilt from a checkpoint gets one here
+        _obs.serving_trace_submit(req, replica=self.replica_id)
+        _obs.serving_trace_enqueued(req)
         q = self._queues.setdefault(int(req.priority), deque())
         if front:
             q.appendleft(req)
@@ -197,6 +218,7 @@ class ServingScheduler:
         self.engine.preempt_request(victim)
         self.preemptions_total += 1
         victim.enqueued_at = self.clock()   # queue wait restarts here
+        _obs.serving_trace_enqueued(victim)
         self._queues.setdefault(int(victim.priority),
                                 deque()).appendleft(victim)
         return True
@@ -235,11 +257,12 @@ class ServingScheduler:
                         and self._preempt_for(req)):
                     return False
 
-    def _admit(self):
+    def _admit(self, now: float):
         """Admit strictly by class (FIFO within a class). A blocked head
         of class blocks everything below it: admitting a smaller
         lower-class request around a starved higher-class one would be
-        priority inversion by another name."""
+        priority inversion by another name. ``now`` (the step's clock
+        reading) dates each admission's time in queue."""
         for prio in sorted(self._queues):
             q = self._queues[prio]
             while q:
@@ -254,6 +277,10 @@ class ServingScheduler:
                 q.popleft()
                 if req.preemptions > 0:
                     self.resumes_total += 1
+                # time in queue since the LATEST enqueue; a victim
+                # preempted and re-admitted within this pass waited 0
+                _obs.serving_queue_wait(
+                    max(0.0, now - req.enqueued_at), prio)
 
     def _plan(self) -> StepPlan:
         eng = self.engine
@@ -362,6 +389,7 @@ class ServingScheduler:
         Returns False when no work remains (the overlapped path drains
         its last step first). ``last_plan`` holds the step's
         :class:`~.policy.StepPlan`."""
+        fault_point("sched_tick")
         eng = self.engine
         if eng.queued_requests():
             raise ValueError(
@@ -374,8 +402,9 @@ class ServingScheduler:
         # card idle it is exposed (all of the synchronous path's)
         hidden = self.overlap and eng.has_inflight()
         eng.take_fence_ns()                 # reset the device-wait tally
-        self._expire_deadlines(self.clock())
-        self._admit()
+        now = self.clock()
+        self._expire_deadlines(now)
+        self._admit(now)
         plan = self._plan()
         t_planned = time.perf_counter_ns()
         if self.overlap:
@@ -396,6 +425,10 @@ class ServingScheduler:
         self.last_host_frac = frac
         self.host_frac_ema = (frac if self.host_frac_ema is None
                               else 0.9 * self.host_frac_ema + 0.1 * frac)
+        _obs.serving_sched_step(
+            {p: len(q) for p, q in self._queues.items()},
+            plan.scheduled_tokens + plan.reserved_tokens, plan.budget)
+        _obs.serving_overlap_step(exposed, wall, committed, self.overlap)
         return (any(self._queues.values()) or not eng.idle
                 or eng.has_inflight())
 
@@ -406,10 +439,12 @@ class ServingScheduler:
         re-planning empty steps, else yield the thread."""
         eng = self.engine
         self.idle_fences_total += 1
-        if eng.has_inflight():
+        fenced = eng.has_inflight()
+        if fenced:
             self.last_committed = eng.commit_inflight()
         else:
             time.sleep(0)
+        _obs.serving_sched_idle(fenced)
 
     def run(self) -> None:
         """Drive steps until every submitted request finished (or was

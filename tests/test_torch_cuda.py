@@ -47,7 +47,10 @@ grammar-constrained decoding: a mixed batch of JSON, regex, menu and
 free requests under the overlapped scheduler with every dispatch (the
 mask upload included) under the sync debug mode, each constrained
 request's tokens walking its DFA (``chip_smoke.walk``), the same tokens
-as the synchronous run.
+as the synchronous run; supervised recovery: a fault at an engine site
+recovers token-identically on the card, a watchdog's step thread
+launches on the caller's stream, and with the observability hooks on
+every dispatch still runs under the sync debug mode.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -1252,3 +1255,106 @@ def test_constrained_batch_on_the_card(cuda, fused):
         outs.append([r.tokens for r in reqs])
     assert calls["decode_dispatch"] and calls["prefill_dispatch"]
     assert outs[0] == outs[1] == outs[2]
+
+
+def _supervised(cuda, params, cfg, prompts, site=None, stream=None,
+                watchdog_s=None, **kw):
+    """Prompts under an ``EngineSupervisor`` of fused engines on the
+    card, one ``raise`` fault armed at ``site``'s 4th call; returns the
+    outputs, the supervisor and the current streams the decode
+    dispatches saw."""
+    from paddle_tpu_torch.serving import EngineSupervisor, FaultInjector
+    seen = []
+
+    def factory():
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_batch=2, page_size=8, max_len=48,
+            prefill_chunk=8, fused=True, device=cuda, **kw)
+        orig = eng.decode_dispatch
+
+        def dispatch(mask):
+            seen.append(torch.cuda.current_stream())
+            return orig(mask)
+        eng.decode_dispatch = dispatch
+        return eng
+    inj = FaultInjector()
+    if site is not None:
+        inj.arm(site, nth=4)
+    sup = EngineSupervisor(factory, token_budget=16, watchdog_s=watchdog_s,
+                           sleep=lambda s: None)
+    with inj, torch.cuda.stream(stream or torch.cuda.current_stream()):
+        reqs = [sup.submit(p, max_new_tokens=6) for p in prompts]
+        sup.run()
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+    assert inj.fired_total == (site is not None) == sup.recoveries
+    return [r.output.tolist() for r in reqs], sup, seen
+
+
+@pytest.mark.parametrize("site,overlap", [("decode_step", False),
+                                          ("prefill_chunk", False),
+                                          ("dispatch", True),
+                                          ("transfer", True)])
+def test_supervised_recovery_on_the_card(cuda, site, overlap):
+    """A fault at an engine site recovers token-identically on the card
+    (f32: the replay's B11 prefill and the uninterrupted run's B10
+    decode differ only in summation order), and the rebuilt engine's
+    allocator balances."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    want, _, _ = _supervised(cuda, params, cfg, _sched_prompts(),
+                             overlap=overlap)
+    got, sup, _ = _supervised(cuda, params, cfg, _sched_prompts(), site,
+                              overlap=overlap)
+    assert got == want
+    cache = sup.engine.cache
+    cache.prefix.drop_all(cache.allocator)
+    assert cache.allocator.num_used == 0
+
+
+def test_watchdog_steps_run_on_the_callers_stream(cuda):
+    """With a watchdog each step runs on a worker thread; its launches
+    still land on the stream the caller was on (PyTorch's current stream
+    is per thread), so the outputs equal a run on the default stream."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    want, _, _ = _supervised(cuda, params, cfg, _sched_prompts())
+    side = torch.cuda.Stream()
+    got, _, seen = _supervised(cuda, params, cfg, _sched_prompts(),
+                               "decode_step", stream=side, watchdog_s=60.0)
+    assert got == want
+    assert seen and all(s == side for s in seen)
+
+
+def test_hooks_on_keep_dispatches_sync_free(cuda):
+    """Metrics and request tracing on: every dispatch of an overlapped
+    engine still runs under the sync debug mode, and the hooks that wait
+    for the card (the fused step latency, the prefill chunk) wait in the
+    commit halves and record."""
+    import paddle_tpu_torch.observability as obs
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    kw = dict(max_batch=2, page_size=8, max_len=48, prefill_chunk=8,
+              fused=True, overlap=True, device=cuda)
+    want = _serve(ContinuousBatchingEngine(params, cfg, **kw),
+                  _sched_prompts())
+    obs.REGISTRY.clear()
+    obs.enable()
+    obs.tracing.enable()
+    try:
+        eng = ContinuousBatchingEngine(params, cfg, **kw)
+        calls = _no_sync(eng)
+        got = _serve(eng, _sched_prompts())
+        snap = obs.REGISTRY.to_json()
+    finally:
+        obs.disable()
+        obs.tracing.disable()
+        obs.REGISTRY.clear()
+    assert got == want
+    assert calls["decode_dispatch"] and calls["prefill_dispatch"]
+    lat = snap["serving_fused_step_ms"]["values"]["kernel=decode_rope_attn"]
+    assert lat["count"] == eng.forwards["decode"] and lat["sum"] > 0
+    assert snap["serving_decode_steps_total"]["values"][""] == \
+        eng.forwards["decode"]

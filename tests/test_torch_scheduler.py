@@ -28,9 +28,18 @@ the port's allocator must be balanced after the drain:
 
 Prompt lengths stay within two page buckets so that the JAX programs
 compile few shapes; one JAX run per workload is cached for the module.
+An overlapped JAX engine steps with ``jnp.asarray`` copying its host
+arrays first (``_CopyingJnp``): on the CPU backend a 64-byte-aligned
+numpy array is aliased, not copied, and the overlapped scheduler
+rewrites the engine's block tables (a preemption and re-admission)
+while the decode that read them is still in flight, so an aliased run
+may decode from the rewritten table. Whether a buffer is aligned
+depends on the process's heap, so the race shows only in some
+processes.
 The planner and the preemption policy are held to the reference's on
 randomized inputs.
 """
+import contextlib
 import types
 
 import numpy as np
@@ -39,6 +48,7 @@ import pytest
 import torch
 
 from paddle_tpu.inference import ContinuousBatchingEngine as JaxEngine
+from paddle_tpu.inference import predictor as jpred
 from paddle_tpu.models import llama as jl
 from paddle_tpu.serving import PreemptionPolicy as JaxPolicy
 from paddle_tpu.serving import Priority as JaxPriority
@@ -50,6 +60,7 @@ from paddle_tpu_torch.models import params_from_jax
 from paddle_tpu_torch.serving import (FinishReason, PreemptionPolicy,
                                       Priority, ServingScheduler, StepPlan,
                                       TokenBudgetPlanner)
+from test_torch_spec import _CopyingJnp
 
 torch.set_num_threads(1)
 ENGINE_KW = dict(max_batch=2, page_size=8, max_len=48)
@@ -74,8 +85,21 @@ def _prompts(lens, seed):
     return [rs.randint(3, 256, (n,)).astype(np.int32) for n in lens]
 
 
+@contextlib.contextmanager
+def _copying_jnp(on):
+    """Step the JAX engine with a ``jnp`` whose ``asarray`` copies (the
+    module docstring's aliasing), when ``on``."""
+    if not on:
+        yield
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpred, "jnp", _CopyingJnp())
+        yield
+
+
 class _Run:
-    """One side's engine and scheduler, with the per-step plan log."""
+    """One side's engine and scheduler, with the per-step plan log. An
+    overlapped JAX run steps under :func:`_copying_jnp`."""
 
     def __init__(self, side, budget=None, clock=None, overlap=False,
                  **engine_kw):
@@ -86,6 +110,7 @@ class _Run:
         self.sched = Sched(self.eng, token_budget=budget, overlap=overlap,
                            **skw)
         assert self.sched.overlap is overlap
+        self.copying = side == "jax" and overlap
         self.plans = []
         self.widths = []
         self.reqs = []
@@ -97,6 +122,10 @@ class _Run:
         return r
 
     def step(self, n=1):
+        with _copying_jnp(self.copying):
+            return self._step(n)
+
+    def _step(self, n):
         more = True
         for _ in range(n):
             if getattr(self.eng, "spec", None) is not None:
