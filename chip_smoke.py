@@ -6,6 +6,7 @@ fused-op decoder and training step on one NVIDIA card.
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
         --train-steps 2                        # short check
+    python3 chip_smoke.py --only 3h            # build, then phase 3h alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -94,7 +95,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes the rule's choice fails unless it is 10% faster than one
    split (``check_paged_hm``).
 3. The engine at Llama-2-7B width and a quarter of its depth (8
-   layers; the script's time limit holds phase 3g at all 32), random
+   layers; the script's time limit holds phases 3g and 3h at all 32), random
    weights from a seeded generator: ``max_batch=8, page_size=16,
    max_len=2048, prefill_chunk=256`` serving the request set in four
    tiers, KV {bf16, int8} x fused {off, on}. Per tier the launch
@@ -124,7 +125,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    them into proposal and verify on the host clock.
 3e. The SLO scheduler (``ServingScheduler``) over the engine at the
    same width and a quarter of the depth (8 layers; the script's time
-   limit holds phase 3g at all 32), fresh weights from phase 3's seed,
+   limit holds phases 3g and 3h at all 32), fresh weights from phase 3's seed,
    budget 384:
    phase 3's 16 requests as alternating NORMAL and LOW, then after 8
    steps four HIGH requests of 512 prompt tokens and 32 new, each
@@ -203,10 +204,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    under the sync debug mode, observability hooks (metrics and request
    tracing) off, on, on, off, with ms a step and the host ms of the
    dispatch and commit halves (``supervised ...`` lines,
-   ``run_supervised``).
+   ``run_supervised``). The drain's restore reports the host ms of its
+   page scatter by part (read, pin, copy).
+3h. The host KV tier (``host_tier=True``) at Llama-2-7B's full width
+   and depth (32 layers), fresh weights from phase 3's seed. Resume
+   turns: eight requests decoding, the one nearest 600 tokens preempted
+   and resumed by replay, swap, swap, replay, KV bf16 and int8, each
+   turn timed between card synchronizations (swap-out and swap-in ms
+   and bytes, the swap-in's host time by part, replay ms and tokens);
+   the swapped-in pages must be byte-equal to the swapped-out ones.
+   Phase 3e's burst runs (16 requests, four HIGH, budget 384, fused)
+   without and with the host tier in turns (bf16 off, on, on, off;
+   int8 off, on), with metrics on: every swap counted once (by the
+   cache, the hooks and a wrapper), every swapped victim resumed once,
+   the first two swap-ins byte-equal, launches equal the counted
+   forwards, the allocator balanced; one overlapped with every dispatch
+   and every ``preempt_request`` (where the swap-out is queued) under
+   the sync debug mode; one whose first swap-in finds a planted corrupt
+   payload, which must end in a counted ``corrupt`` fallback to replay.
+   Demote / promote on an 80-page pool (the system prompt's 192 tokens
+   hit again after their pages were demoted), a restart on a standing
+   store on local disk (12 pages promoted, 192 tokens hit), a request
+   handed from a prefill engine to a decode engine on the same weights,
+   host-staged and page to page (pages byte-equal, tokens equal to
+   in-place decode), and ``defrag`` (live pages byte-equal,
+   fragmentation 0, tokens equal to the same script without it)
+   (``host_tier ...`` lines, ``run_host_tier``).
 3c. Dense decoding (``generate``, ``beam_search``,
    ``precompute_prompt_cache``) at the same width and half the depth
-   (16 layers; the script's time limit holds phase 3g at all 32), fresh
+   (16 layers; the script's time limit holds phases 3g and 3h at all 32), fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
    long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
@@ -1714,28 +1740,31 @@ def burst_requests(n: int, vocab: int, seed: int):
             for _ in range(n)]
 
 
-def instrument_engine(torch, eng, no_sync: bool):
+def instrument_engine(torch, eng, no_sync: bool, extra=()):
     """Time ``eng``'s dispatch halves (``decode_dispatch``,
     ``spec_dispatch``, ``prefill_dispatch``) and commit halves
     (``commit_inflight``, ``commit_prefills``: the fetch and the host
     bookkeeping) on the host clock, outermost calls only, and count the
-    dispatch calls. With ``no_sync`` every dispatch runs under
-    ``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing
-    operation inside one raises. Returns the live tallies."""
+    dispatch calls. With ``no_sync`` every dispatch, and every call of
+    the ``extra`` methods (counted under ``calls``, not timed), runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    synchronizing operation inside one raises. Returns the live
+    tallies."""
     kinds = {"decode_dispatch": "dispatch", "spec_dispatch": "dispatch",
              "prefill_dispatch": "dispatch", "commit_inflight": "commit",
              "commit_prefills": "commit"}
-    tally = {"calls": {k: 0 for k, v in kinds.items() if v == "dispatch"},
-             "dispatch_s": 0.0, "commit_s": 0.0}
-    depth = {"dispatch": 0, "commit": 0}
+    kinds.update(dict.fromkeys(extra, "checked"))
+    tally = {"calls": {k: 0 for k, v in kinds.items() if v != "commit"},
+             "dispatch_s": 0.0, "commit_s": 0.0, "checked_s": 0.0}
+    depth = {"dispatch": 0, "commit": 0, "checked": 0}
 
     def wrap(name, kind, fn):
         def wrapper(*a, **k):
-            if kind == "dispatch":
+            if kind != "commit":
                 tally["calls"][name] += 1
             outer = depth[kind] == 0
             if outer:
-                if no_sync and kind == "dispatch":
+                if no_sync and kind != "commit":
                     torch.cuda.set_sync_debug_mode("error")
                 t0 = time.perf_counter()
             depth[kind] += 1
@@ -1745,7 +1774,7 @@ def instrument_engine(torch, eng, no_sync: bool):
                 depth[kind] -= 1
                 if outer:
                     tally[f"{kind}_s"] += time.perf_counter() - t0
-                    if no_sync and kind == "dispatch":
+                    if no_sync and kind != "commit":
                         torch.cuda.set_sync_debug_mode(0)
         return wrapper
 
@@ -1757,7 +1786,7 @@ def instrument_engine(torch, eng, no_sync: bool):
 def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
               reqs, highs, name, kv=None, fused=True, overlap=False,
               budget=SCHED_BUDGET, sync_check=False, grammars=None,
-              eos=None, **spec):
+              eos=None, setup=None, sync_extra=(), **spec):
     """One scheduler run at the engine's serving shape: ``reqs``
     submitted as alternating NORMAL and LOW, the ``highs`` (if any)
     submitted as HIGH after ``BURST_AT`` steps, then driven as
@@ -1775,18 +1804,23 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
     its DFA; the host time of the DFA work (``ConstraintState.mask``
     and ``advance``) and the mask uploads are then recorded, and the
     handles returned under ``"handles"``. ``eos`` is the engine's eos
-    id."""
+    id. ``setup(eng)`` runs on the fresh engine before the first step;
+    ``sync_extra`` names more engine methods held to the sync check.
+    On a host-tier engine (``host_tier=True`` in ``spec``) the record
+    carries the tier's counters (``tier``)."""
     eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
                  kv_cache_dtype=kv, prefill_chunk=256, fused=fused,
                  overlap=overlap, eos_token_id=eos,
                  constraints=grammars is not None, **spec)
+    if setup is not None:
+        setup(eng)
     sched = Scheduler(eng, token_budget=budget)
     handles = [sched.submit(p, max_new_tokens=m,
                             priority=Priority.LOW if i % 2 else
                             Priority.NORMAL,
                             constraint=grammars[i] if grammars else None)
                for i, (p, m) in enumerate(reqs)]
-    tally = instrument_engine(torch, eng, sync_check)
+    tally = instrument_engine(torch, eng, sync_check, sync_extra)
     dfa = None
     if grammars is not None:
         dfa = time_dfa_work()
@@ -1847,6 +1881,8 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
                                          and sched.resumes_total >= 1):
         fail(f"sched {name}: {sched.preemptions_total} preemptions, "
              f"{sched.resumes_total} resumes under the HIGH burst")
+    tier = (eng.cache.tier_stats()
+            if getattr(eng.cache, "host", None) is not None else None)
     eng.cache.prefix.drop_all(eng.cache.allocator)
     alloc = eng.cache.allocator
     if (alloc.num_used or alloc.allocs_total != alloc.frees_total
@@ -1877,6 +1913,10 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
                                      - rec["commit_ms_per_step"])
     if sync_check:
         rec["dispatch_calls_without_sync"] = tally["calls"]
+    if tier is not None:
+        rec["tier"] = tier
+        rec["scatter_host_ms"] = {k: v * 1e3 for k, v in
+                                  eng.cache.scatter_host_s.items()}
     if dfa is not None:
         rec.update(
             constrained=sum(g is not None for g in grammars),
@@ -2389,9 +2429,10 @@ def supervised_run(torch, kernels, serving, obs, Engine, params, cfg, reqs,
             recoveries.append(dict(
                 ms=(time.perf_counter() - t0) * 1e3,
                 sessions=len(live),
+                swapped_sessions=sum(e.swapped for e in live),
                 replayed_tokens=int(sum(
                     e.prompt.size + max(0, len(e.tokens) - 1)
-                    for e in live if e.admitted)),
+                    for e in live if e.admitted and not e.swapped)),
                 journal={e.rid: list(e.tokens) for e in live},
                 before=dict(state["before"])))
         sup._recover = recover
@@ -2428,6 +2469,10 @@ def supervised_run(torch, kernels, serving, obs, Engine, params, cfg, reqs,
                     sleep=lambda s: None)
                 torch.cuda.synchronize()
                 restore_ms = (time.perf_counter() - t_r) * 1e3
+                # the restore's page scatter, host ms by part: read (the
+                # file's arrays into tensors), pin, copy (queued)
+                restore_split = {k: v * 1e3 for k, v in
+                                 sup.engine.cache.scatter_host_s.items()}
                 watch(sup)
                 handles = [sup.restored.get(h.rid, h) for h in handles]
                 # a fresh HIGH request on the system prompt of reqs[0],
@@ -2439,8 +2484,10 @@ def supervised_run(torch, kernels, serving, obs, Engine, params, cfg, reqs,
                 handles.append(sup.submit(sys_p, max_new_tokens=16,
                                           priority=P.HIGH))
                 drained = dict(summary, drain_ms=drain_ms,
-                               restore_ms=restore_ms, committed=committed,
-                               old_engine=old, hits0=hits0)
+                               restore_ms=restore_ms,
+                               restore_scatter_host_ms=restore_split,
+                               committed=committed, old_engine=old,
+                               hits0=hits0)
                 os.remove(path)
             state["before"] = {h.rid: list(h.tokens) for h in handles}
             more = sup.step()
@@ -2509,6 +2556,7 @@ def supervised_run(torch, kernels, serving, obs, Engine, params, cfg, reqs,
     if recoveries:
         r = recoveries[0]
         rec.update(recovery_ms=r["ms"], recovered_sessions=r["sessions"],
+                   swapped_sessions=r["swapped_sessions"],
                    replayed_tokens=r["replayed_tokens"])
     if site is not None and mode == "stall":
         rec["abandoned_engines_held"] = len(sup._abandoned)
@@ -2667,6 +2715,506 @@ def run_supervised(torch, kernels, cfg, seed: int, reqs):
         r.pop("calls", None)
     return {"runs": runs, "hooks_step_ms": hooks_ms,
             "hooks_dispatch_plus_commit_ms": hooks_host}
+
+
+# --------------------------------------------------------------- phase 3h
+RESUME_TOKENS = 600     # the resume turns' victim: about this many tokens
+STORE_PREFIX = 192      # system-prompt tokens in full pages of 16
+
+
+def page_copy(torch, cache, slot, k=None):
+    """Device copies of the first ``k`` pages of ``slot`` (all of them
+    when None), one tensor per pool array; queued without a sync (the
+    ids go up as the cache sends its own)."""
+    ids = cache.pages_held(slot)
+    idx = cache._ids(ids[:len(ids) if k is None else k])
+    return {n: a.index_select(1, idx) for n, a in cache.pool.items()}
+
+
+def pages_equal(torch, got, want) -> bool:
+    """Byte equality of two page copies (``page_copy``)."""
+    return set(got) == set(want) and all(
+        got[n].shape == want[n].shape
+        and torch.equal(got[n].view(torch.uint8), want[n].view(torch.uint8))
+        for n in got)
+
+
+def timed(torch, fn, *a, **k):
+    """``fn(*a, **k)`` between two card synchronizations; returns
+    (result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def balanced(eng, what):
+    """The engine's allocator after a drain: every page back, every
+    reference dropped once (the prefix trie's dropped first)."""
+    if eng.cache.prefix is not None:
+        eng.cache.prefix.drop_all(eng.cache.allocator)
+    alloc = eng.cache.allocator
+    if (alloc.num_used or alloc.allocs_total != alloc.frees_total
+            or eng.has_inflight() or eng.cache.active.any()):
+        fail(f"{what}: allocator not balanced ({alloc.stats()})")
+
+
+def resume_turns(torch, Engine, params, cfg, reqs, kv):
+    """One decode-phase victim of about ``RESUME_TOKENS`` tokens among
+    eight decoding requests, preempted and resumed in turns: replay,
+    swap, swap, replay. A replay turn evicts the pages and resumes
+    through the prefill chunks (B11); a swap turn swaps them out to
+    pinned host memory and back in by one scatter, and its pages must
+    come back byte-equal. Each turn is timed between card
+    synchronizations, with the bytes moved, the replayed tokens and
+    the swap-in's host time split into read, pin and copy. The prefix
+    cache is off, so that a replay resumes every token it held: with
+    the trie on, the prompt's pages survive the eviction under the
+    trie's references and only the rest replays (the burst runs' case).
+    """
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 kv_cache_dtype=kv, prefill_chunk=256, fused=True,
+                 enable_prefix_cache=False, host_tier=True)
+    cands = sorted(reqs, key=lambda r: abs(r[0].size - RESUME_TOKENS))
+    hs = [eng.submit(p, max_new_tokens=m) for p, m in cands[:8]]
+    victim = hs[0]
+    while not all(len(h.tokens) >= 2 for h in hs):
+        eng.step()
+    cache = eng.cache
+    turns = []
+    for mode in ("replay", "swap", "swap", "replay"):
+        if victim.done or victim.max_new_tokens - len(victim.tokens) < 2:
+            fail(f"host tier resume turns: the victim ran out of tokens "
+                 f"({len(victim.tokens)}/{victim.max_new_tokens})")
+        k = cache.pages_for(int(cache.lengths[victim.slot]))
+        before = page_copy(torch, cache, victim.slot, k)
+        out0 = cache.swap_out_bytes_total
+        split0 = dict(cache.scatter_host_s)
+        if mode == "replay":
+            eng.swap_candidate = lambda r: False
+        try:
+            _, out_ms = timed(torch, eng.preempt_request, victim)
+        finally:
+            eng.__dict__.pop("swap_candidate", None)
+        if (mode == "swap") != victim.swapped:
+            fail(f"host tier resume turns: a {mode} turn left swapped="
+                 f"{victim.swapped}")
+
+        def resume():
+            if not eng.admit_request(victim):
+                fail("host tier resume turns: no free slot to resume in")
+            ent = eng._pending.get(victim.slot)
+            if ent is None:
+                return 0
+            replay = ent[1].size - ent[2]
+            while victim.slot in eng._pending:
+                eng.prefill_step(victim.slot)
+            return replay
+        replayed, in_ms = timed(torch, resume)
+        turn = dict(mode=mode, tokens=int(cache.lengths[victim.slot]),
+                    pages=k, out_ms=out_ms, in_ms=in_ms,
+                    replayed_tokens=int(replayed))
+        if mode == "swap":
+            if replayed or not pages_equal(
+                    torch, page_copy(torch, cache, victim.slot, k), before):
+                fail("host tier resume turns: the swapped-in pages are not "
+                     "byte-equal to the swapped-out ones")
+            turn.update(
+                bytes=cache.swap_out_bytes_total - out0,
+                in_host_ms=cache.swap_in_ms[-1],
+                in_scatter_host_ms={
+                    n: (cache.scatter_host_s[n] - split0[n]) * 1e3
+                    for n in split0})
+        elif not replayed:
+            fail("host tier resume turns: a replay turn replayed nothing")
+        turns.append(turn)
+        print(f"host_tier resume {kv or 'bf16'} " + json.dumps(turn))
+        eng.step()
+    eng.run()
+    if not all(h.done for h in hs):
+        fail("host tier resume turns: a request did not finish")
+    tier = cache.tier_stats()
+    if not (tier["swap_outs_total"] == tier["swap_ins_total"] == 2
+            and tier["swap_replay_fallbacks"] == 0):
+        fail(f"host tier resume turns: swaps not counted once each: {tier}")
+    balanced(eng, "host tier resume turns")
+    del eng, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return turns
+
+
+def swap_counting(torch, calls):
+    """``run_sched`` setup for a host-tier run: count and time the
+    cache's swap-outs and swap-ins (``calls``), and keep the first two
+    swap-outs' pages on the card to hold their swap-ins against."""
+    def setup(eng):
+        cache = eng.cache
+        out, inn = cache.swap_out, cache.swap_in
+
+        def swap_out(slot, rid, nonblocking=False):
+            if len(calls["kept"]) < 2:
+                calls["kept"][rid] = page_copy(
+                    torch, cache, slot,
+                    cache.pages_for(int(cache.lengths[slot])))
+            t0 = time.perf_counter()
+            freed = out(slot, rid, nonblocking=nonblocking)
+            calls["out"] += 1
+            calls["out_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            return freed
+
+        def swap_in(slot, rid, total_tokens, expect_tokens):
+            n = inn(slot, rid, total_tokens, expect_tokens)
+            calls["in"] += 1
+            kept = calls["kept"].pop(rid, None)
+            if n is not None and kept is not None:
+                calls["checked"] += 1
+                if not pages_equal(torch, page_copy(
+                        torch, cache, slot, cache.pages_for(n)), kept):
+                    fail(f"host tier: request {rid}'s swapped-in pages are "
+                         f"not byte-equal to its swapped-out ones")
+            return n
+        cache.swap_out, cache.swap_in = swap_out, swap_in
+    return setup
+
+
+def host_sched_run(torch, kernels, obs, serving, E, params, cfg, reqs,
+                   highs, name, host, **kw):
+    """One phase-3e burst run (``run_sched``), on a host-tier engine
+    when ``host``, with metrics on: every swap-out counted once by the
+    cache, the hooks and the wrapper, every swapped victim resumed once
+    (by swap-in or a counted fallback), the first swap-ins byte-equal."""
+    calls = {"out": 0, "in": 0, "checked": 0, "kept": {},
+             "out_host_ms": []}
+    spec = dict(host_tier=True, host_tier_kw={"persist_prefix": False},
+                setup=swap_counting(torch, calls)) if host else {}
+    obs.REGISTRY.clear()
+    obs.enable()
+    try:
+        rec = run_sched(torch, kernels, E, serving.ServingScheduler,
+                        serving.Priority, params, cfg, reqs, highs, name,
+                        **kw, **spec)
+        metric = {n: _metric(obs, f"serving_{n}_total")
+                  for n in ("swap_outs", "swap_ins",
+                            "swap_replay_fallbacks",
+                            "resume_replay_tokens")}
+        snap = obs.REGISTRY.to_json()
+    finally:
+        obs.disable()
+        obs.REGISTRY.clear()
+    rec["host_tier"] = bool(host)
+    if host:
+        t = rec["tier"]
+        if not (t["swap_outs_total"] == metric["swap_outs"] == calls["out"]
+                and t["swap_ins_total"] == metric["swap_ins"]
+                and t["swap_outs_total"] >= 1
+                and t["swap_ins_total"] + t["swap_replay_fallbacks"]
+                == t["swap_outs_total"] == calls["in"]
+                and calls["checked"] >= 1):
+            fail(f"host tier {name}: swaps not counted once each: tier "
+                 f"{t}, hooks {metric}, calls {calls}")
+        for d in ("out", "in"):
+            h = snap.get(f"serving_swap_{d}_ms")
+            if h is not None:
+                v = next(iter(h["values"].values()))
+                rec[f"swap_{d}_ms_mean"] = v["sum"] / max(1, v["count"])
+        rec["swap_out_host_ms"] = calls["out_host_ms"]
+        rec["swap_in_checked_byte_equal"] = calls["checked"]
+    rec["replayed_tokens"] = metric["resume_replay_tokens"]
+    print(f"host_tier sched {name}: " + show(rec))
+    return rec
+
+
+def promote_timer(torch, cache, ms):
+    """Time every prefix promotion of ``cache`` between card
+    synchronizations into ``ms``."""
+    promote = cache._promote_prefix
+
+    def timed_promote(prompt):
+        n, t = timed(torch, promote, prompt)
+        ms.append(t)
+        return n
+    cache._promote_prefix = timed_promote
+
+
+def demote_promote(torch, obs, E, params, cfg, reqs, system):
+    """Prefix demote and promote on a small pool: the system prompt's
+    request registers its chain, then the longest request takes all but
+    three of the pool's usable pages (the longest that does not share
+    the system prompt), so the chain's pages past its first three are
+    evicted under pool pressure (demoted to host), and a new request on
+    the system prompt promotes them back and hits its 192 tokens."""
+    import numpy as np
+    long_p = max((r[0] for r in reqs
+                  if not np.array_equal(r[0][:system.size], system)),
+                 key=lambda p: p.size)
+    pages = -(-(long_p.size + 32) // 16)
+    eng = E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+            prefill_chunk=256, fused=True, num_pages=pages + 4,
+            host_tier=True, host_tier_kw={"persist_prefix": False})
+    rs = np.random.RandomState(5)
+    p1, p2 = (np.concatenate([system, rs.randint(
+        3, cfg.vocab_size, (100,)).astype(np.int32)]) for _ in range(2))
+    eng.generate([p1], max_new_tokens=16)
+    eng.generate([long_p], max_new_tokens=32)
+    demoted = eng.cache.demotions_total
+    ms = []
+    promote_timer(torch, eng.cache, ms)
+    obs.REGISTRY.clear()
+    obs.enable()
+    try:
+        eng.generate([p2], max_new_tokens=16)
+        hit = _metric(obs, "serving_prefix_hit_tokens_total")
+    finally:
+        obs.disable()
+        obs.REGISTRY.clear()
+    rec = dict(pool_pages=pages + 4, demoted_pages=demoted,
+               promoted_pages=eng.cache.promote_hits_total, hit_tokens=hit,
+               promote_ms=ms, host_pages=eng.cache.host.pages_resident)
+    if not (demoted >= 1 and eng.cache.promote_hits_total >= 1
+            and hit >= STORE_PREFIX):
+        fail(f"host tier demote/promote: {rec}")
+    balanced(eng, "host tier demote/promote")
+    print("host_tier demote_promote " + json.dumps(rec))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def standing_store(torch, obs, E, params, cfg, system):
+    """A restart on a standing prefix store on local disk: one engine
+    serves a request on the system prompt and writes its chain through
+    to the store; a second engine on the same directory serves another
+    request on it, which must promote the system prompt's 12 full pages
+    and hit its 192 tokens."""
+    import numpy as np
+    import shutil
+    d = os.path.join(REPO, "chip_smoke_tmp", "store")
+    shutil.rmtree(d, ignore_errors=True)
+    rs = np.random.RandomState(6)
+    p1, p2 = (np.concatenate([system, rs.randint(
+        3, cfg.vocab_size, (100,)).astype(np.int32)]) for _ in range(2))
+    kw = dict(max_batch=8, page_size=16, max_len=2048, prefill_chunk=256,
+              fused=True, host_tier=True,
+              host_tier_kw={"prefix_store_dir": d})
+    first = E(params, cfg, **kw)
+    _, first_ms = timed(torch, first.generate, [p1], max_new_tokens=16)
+    files = len(os.listdir(d))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    del first
+    gc.collect()
+    eng = E(params, cfg, **kw)
+    ms = []
+    promote_timer(torch, eng.cache, ms)
+    obs.REGISTRY.clear()
+    obs.enable()
+    try:
+        eng.generate([p2], max_new_tokens=16)
+        hit = _metric(obs, "serving_prefix_hit_tokens_total")
+    finally:
+        obs.disable()
+        obs.REGISTRY.clear()
+    rec = dict(files=files, store_bytes=nbytes, first_run_ms=first_ms,
+               promoted_pages=eng.cache.promote_hits_total, hit_tokens=hit,
+               promote_ms=ms, quarantined=eng.cache.host.quarantined_total)
+    if not (eng.cache.promote_hits_total == STORE_PREFIX // 16
+            and hit >= STORE_PREFIX and rec["quarantined"] == 0):
+        fail(f"host tier standing store: {rec}")
+    balanced(eng, "host tier standing store")
+    shutil.rmtree(d, ignore_errors=True)
+    print("host_tier standing_store " + json.dumps(rec))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def handoff_and_defrag(torch, E, params, cfg, reqs):
+    """The prefill→decode handoff between two engines on the same
+    weights: one request prefilled on the first, handed to the second
+    host-staged (``export_prefilled`` → ``import_prefilled``) and page
+    to page (``src_engine``); its pages must land byte-equal and its
+    tokens equal in-place decode on one engine. Then ``defrag`` on the
+    decode engine after cancelling every other of six prefilled
+    requests: every live page moves byte-equal, fragmentation goes to
+    0, and the requests finish with the tokens of the same script
+    without the defrag."""
+    p, new = min(reqs, key=lambda r: abs(r[0].size - RESUME_TOKENS))
+    kw = dict(max_batch=8, page_size=16, max_len=2048, prefill_chunk=256,
+              fused=True)
+    ref = E(params, cfg, **kw)
+    want = ref.generate([p], max_new_tokens=new)[0].tolist()
+    del ref
+    src, dst = E(params, cfg, **kw), E(params, cfg, **kw)
+    rec = {}
+    for direct in (False, True):
+        name = "direct" if direct else "staged"
+        # the prefill engine's trie from the last round dropped, so that
+        # the prompt prefills whole, in the reference's chunks
+        balanced(src, "host tier handoff (prefill engine)")
+        req = src.submit(p, max_new_tokens=new)
+        src._admit()
+        while src.pending_prefills():
+            src.prefill_step()
+        slot = req.slot
+        k = src.cache.pages_for(int(src.cache.lengths[slot]))
+        before = page_copy(torch, src.cache, slot, k)
+        payload, ex_ms = timed(torch, src.export_prefilled, req,
+                               with_kv=not direct)
+        ok, im_ms = timed(torch, dst.import_prefilled, req, payload,
+                          src_engine=src if direct else None)
+        if not ok:
+            fail("host tier handoff: no free slot on the decode engine")
+        src.finish_handoff(req, slot)
+        if not pages_equal(torch, page_copy(torch, dst.cache, req.slot, k),
+                           before):
+            fail(f"host tier handoff ({name}): the imported pages are not "
+                 f"byte-equal to the source's")
+        dst.run()
+        if req.output.tolist() != want:
+            fail(f"host tier handoff ({name}): tokens differ from "
+                 f"in-place decode")
+        rec[name] = dict(export_ms=ex_ms, import_ms=im_ms, pages=k,
+                         bytes=src.cache.page_payload_bytes(k))
+        print(f"host_tier handoff {name} " + json.dumps(rec[name]))
+    balanced(src, "host tier handoff (prefill engine)")
+    del src
+    six = sorted(reqs, key=lambda r: r[0].size)[:6]
+    outs = []
+    for do_defrag in (False, True):
+        balanced(dst, "host tier defrag")
+        hs = [dst.submit(q, max_new_tokens=m) for q, m in six]
+        dst._admit()
+        while dst.pending_prefills():
+            dst.prefill_step()
+        for h in hs[::2]:
+            dst.cancel_request(h)
+        if do_defrag:
+            live = {h.slot: page_copy(torch, dst.cache, h.slot)
+                    for h in hs[1::2]}
+            frag = dst.cache.allocator.fragmentation()
+            moves0 = dst.cache.direct_moves_total
+            _, ms = timed(torch, dst.cache.defrag)
+            if not (frag > 0 and dst.cache.allocator.fragmentation() == 0
+                    and dst.cache.direct_moves_total == moves0 + 1):
+                fail(f"host tier defrag: fragmentation {frag} -> "
+                     f"{dst.cache.allocator.fragmentation()}")
+            for slot, pages in live.items():
+                if not pages_equal(torch, page_copy(torch, dst.cache, slot),
+                                   pages):
+                    fail("host tier defrag: a live page moved with other "
+                         "bytes")
+            rec["defrag"] = dict(ms=ms, fragmentation_before=frag,
+                                 live_pages=dst.cache.allocator.num_used)
+            print("host_tier defrag " + json.dumps(rec["defrag"]))
+        dst.run()
+        outs.append([h.output.tolist() for h in hs[1::2]])
+    if outs[0] != outs[1]:
+        fail("host tier defrag: tokens after the defrag differ from the "
+             "same script without it")
+    balanced(dst, "host tier defrag")
+    del dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_host_tier(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3h: the host KV tier at ``cfg``'s width and depth, on fresh
+    weights from phase 3's seed. Resume turns (``resume_turns``, bf16
+    and int8 KV); phase 3e's burst runs (16 requests, four HIGH, budget
+    384, fused) without and with the host tier in turns (bf16 off, on,
+    on, off; int8 off, on), the host tier overlapped with every dispatch
+    and every ``preempt_request`` (where the swap-out is queued) under
+    the sync debug mode, and a run whose first swap-in finds a planted
+    corrupt payload, which must end in a counted ``corrupt`` fallback to
+    replay; demote / promote on a small pool; a restart on a standing
+    store; the handoff and ``defrag`` (``handoff_and_defrag``)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    import numpy as np
+    import zlib
+    from paddle_tpu_torch.serving.resilience import payload_checksums
+    # the host's CRC32 rate, which a swap pays twice (stamp, check)
+    buf = np.random.RandomState(seed).randint(0, 256, 300 << 20).astype(
+        np.uint8)
+    crc = {}
+    for name, fn in (("threaded", lambda: payload_checksums({"a": buf})),
+                     ("one_thread", lambda: zlib.crc32(buf))):
+        t0 = time.perf_counter()
+        fn()
+        crc[name] = (time.perf_counter() - t0) * 1e3
+    del buf
+    print("host_tier crc32_300MiB_ms " + json.dumps(crc))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    highs = burst_requests(4, cfg.vocab_size, seed + 7)
+    out = {"resume": {}, "crc32_300MiB_ms": crc}
+    for kv in (None, "int8"):
+        out["resume"][kv or "bf16"] = resume_turns(torch, E, params, cfg,
+                                                   reqs, kv)
+    runs = []
+
+    def go(name, host, base=None, **kw):
+        rec = host_sched_run(torch, kernels, obs, serving, E, params, cfg,
+                             reqs, highs, name, host, **kw)
+        if base is not None:
+            rec.update(token_agreement(rec["tokens"], base["tokens"]))
+            print(f"host_tier agreement {name} vs {base['run']}: "
+                  + json.dumps(token_agreement(rec["tokens"],
+                                               base["tokens"])))
+        runs.append(rec)
+        return rec
+
+    base = go("bf16-replay", False)
+    for name, host in (("bf16-swap", True), ("bf16-swap-2", True),
+                       ("bf16-replay-2", False)):
+        go(name, host, base)
+    i8 = go("int8-replay", False, kv="int8")
+    go("int8-swap", True, i8, kv="int8")
+    ov = go("bf16-swap-overlap", True, base, overlap=True, sync_check=True,
+            sync_extra=("preempt_request",))
+    calls_ = ov["dispatch_calls_without_sync"]
+    if not (calls_["preempt_request"] >= 1 and calls_["decode_dispatch"]
+            and calls_["prefill_dispatch"]
+            and ov["tier"]["swap_outs_total"] >= 1):
+        fail(f"host tier overlap: the sync check saw no swap-out or no "
+             f"dispatch ({calls_}, {ov['tier']})")
+    with serving.FaultInjector() as inj:
+        inj.arm_tamper("swap_in", nth=1)
+        bad = go("bf16-swap-corrupt", True, base)
+    t = bad["tier"]
+    if not (inj.fired["swap_in"] == 1
+            and t["corruptions_detected_total"] == 1
+            and t["swap_replay_fallbacks"] >= 1
+            and t["host_quarantined_total"] == 1):
+        fail(f"host tier: the planted corrupt payload was not caught and "
+             f"replayed ({t}, fired {inj.fired['swap_in']})")
+    # supervised recovery on the host tier: a decode fault soon after the
+    # burst, while swapped-out victims wait; recovery swaps them in
+    # instead of replaying them
+    sup = supervised_run(torch, kernels, serving, obs, E, params, cfg, reqs,
+                         highs, "host-fault-decode_step", site="decode_step",
+                         nth=2 * BURST_AT, host_tier=True,
+                         host_tier_kw={"persist_prefix": False})
+    sup.update(token_agreement(sup["tokens"], base["tokens"]))
+    print("host_tier supervised " + show(sup))
+    runs.append(sup)
+    out["runs"] = runs
+    system = reqs[0][0][:200]
+    out["demote_promote"] = demote_promote(torch, obs, E, params, cfg, reqs,
+                                           system)
+    out["standing_store"] = standing_store(torch, obs, E, params, cfg,
+                                           system)
+    out.update(handoff_and_defrag(torch, E, params, cfg, reqs))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- phase 3c
@@ -3348,6 +3896,9 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("3h",),
+                    help="build, then run this phase alone (at --layers) "
+                         "and write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3445,6 +3996,19 @@ def main(argv=None) -> int:
         fail(f"expected ptxas's report of 32 B11 kernels, got {b11}")
     record["b11_ptxas"] = b11
     lap("1")
+    if args.only == "3h":
+        cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
+        reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
+        record["host_tier"] = run_host_tier(torch, kernels, cfg, args.seed,
+                                            reqs)
+        lap("3h")
+        for r in record["host_tier"]["runs"]:
+            r.pop("tokens", None)
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_3h.json"),
+                  "w") as f:
+            json.dump(record, f, indent=1)
+        return 0
 
     # ---- phase 2: kernels vs plain
     results = {}
@@ -3656,8 +4220,8 @@ def main(argv=None) -> int:
     lap("2")
 
     # ---- phase 3: the engine, at the engine's width and a quarter of
-    # its depth (phase 3g runs all 32 layers; the script's time limit
-    # holds phases 3, 3e and 3f at 8, 3c and 3d at 16)
+    # its depth (phases 3g and 3h run all 32 layers; the script's time
+    # limit holds phases 3, 3e and 3f at 8, 3c and 3d at 16)
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
     half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
     quarter = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 4))
@@ -3740,6 +4304,12 @@ def main(argv=None) -> int:
     record["supervised"] = supervised
     lap("3g")
 
+    # ---- phase 3h: the host KV tier (swap, demote / promote, standing
+    # store, handoff, defrag) at the engine's full width and depth
+    hosttier = run_host_tier(torch, kernels, cfg, args.seed, reqs)
+    record["host_tier"] = hosttier
+    lap("3h")
+
     # ---- phase 3c: dense generate / beam_search at the same size
     dense = run_dense(torch, np, kernels, tl, gen, half, args.seed)
     record["dense"] = dense
@@ -3778,7 +4348,8 @@ def main(argv=None) -> int:
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
-                + supervised["runs"] + dense["tiers"] + decoder["tiers"]):
+                + supervised["runs"] + hosttier["runs"] + dense["tiers"]
+                + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:

@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/inference/predictor.py``'s
-``ContinuousBatchingEngine`` on one device: no mesh, adapters or host
-tier (ROADMAP.md, queue A). ``weight_bits``
+``ContinuousBatchingEngine`` on one device: no mesh or adapters yet
+(ROADMAP.md, queue A). ``weight_bits``
 quantizes the weights once at construction (int8 per channel or int4
 per group, ``generate.quantize_weights``), and every forward
 dequantizes them at each use. Each :meth:`step` admits queued requests
@@ -49,6 +49,21 @@ plans step N+1 while step N runs. Dispatch never waits on the card: its
 host inputs go up through pinned host memory with non-blocking copies
 on the one CUDA stream (:meth:`ContinuousBatchingEngine._up`).
 
+``host_tier=True`` puts the host tier of :mod:`..serving.host_tier`
+under the pool: a preempted decode-phase request's pages SWAP OUT to
+host memory (non-blocking on an ``overlap`` engine, fenced at the next
+commit) and come back by one scatter when it is admitted again, with
+the replay prefill as the fallback when the payload was dropped, went
+stale or fails its checksum; prefix chains evicted under pool pressure
+demote to the host and promote back; registered prompts write through
+to a standing store (``host_tier_kw``: ``host_capacity_pages``,
+``prefix_store_dir``, ``persist_prefix``, ``store``,
+``swap_in_retries``). :meth:`ContinuousBatchingEngine.export_prefilled`
+/ :meth:`~ContinuousBatchingEngine.import_prefilled` /
+:meth:`~ContinuousBatchingEngine.finish_handoff` hand a prefilled
+request from one engine to another, through host memory or, with
+``src_engine``, page to page on the device.
+
 Observability and faults: every lifecycle edge and commit feeds the
 hooks of :mod:`~paddle_tpu_torch.observability.hooks` (admissions,
 prefix hits, preemptions, resumes, retirements, per-step occupancy,
@@ -58,7 +73,8 @@ engine has them, in the same order relative to launch and commit:
 ``prefill_chunk``, ``decode_step``, ``verify_step``, ``tree_verify``
 and ``draft_propose`` before their forwards launch, ``dispatch`` after
 a decode or verify launch, ``commit`` and ``transfer`` at the top of
-its commit half, before the fetch. A fault at any of them commits
+its commit half, before the fetch, ``swap_out`` and ``swap_in`` in the
+host tier before their page moves. A fault at any of them commits
 nothing, so an :class:`~..serving.resilience.EngineSupervisor` recovers
 by replaying its journal. A timing hook waits for the card only in a
 commit half.
@@ -84,6 +100,7 @@ from ..models import generate as _gen
 from ..observability import hooks as _obs
 from ..serving.resilience import fault_point as _fault_point
 from ..serving.constraints import ConstraintState, TokenDFA
+from ..serving.host_tier import TieredKVCache
 from ..serving.paged_cache import PagedKVCache, PoolExhausted
 from ..serving.speculative import (Speculator, TreeDraft, build_comb_tree,
                                    longest_accepted_path,
@@ -112,16 +129,18 @@ class GenerationRequest:
     last resets on every requeue) and ``preemptions`` are
     scheduler-facing metadata; the engine's own FIFO path ignores them.
 
-    ``constraint``: the request's live
-    :class:`~..serving.constraints.ConstraintState` (None = free); it
-    rides the handle through preemption and resume. ``trace``: its
+    ``swapped``: its KV is in the host tier (a swap-out payload exists
+    for its rid) while it waits to resume. ``constraint``: the
+    request's live :class:`~..serving.constraints.ConstraintState`
+    (None = free); it rides the handle through preemption and resume.
+    ``trace``: its
     :class:`~..observability.tracing.RequestTrace` while request tracing
     is on.
     """
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
                  "tokens", "done", "finish_reason", "slot", "priority",
                  "deadline_at", "submitted_at", "enqueued_at",
-                 "preemptions", "constraint", "trace")
+                 "preemptions", "swapped", "constraint", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id):
         self.rid = rid
@@ -137,6 +156,7 @@ class GenerationRequest:
         self.submitted_at: Optional[float] = None
         self.enqueued_at: Optional[float] = None   # latest (re)queue time
         self.preemptions = 0
+        self.swapped = False    # KV currently host-resident
         self.constraint = None
         self.trace = None
 
@@ -245,6 +265,10 @@ class ContinuousBatchingEngine:
     ``constraints``: accept grammar-constrained requests (module
     docstring); the mask costs ``max_batch * vocab`` bools on the host
     and on the device, so only a constrained engine holds it.
+
+    ``host_tier``: build the cache as a
+    :class:`~..serving.host_tier.TieredKVCache` (module docstring), with
+    ``host_tier_kw`` passed to it.
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -260,6 +284,8 @@ class ContinuousBatchingEngine:
                  spec_tree: Optional[Tuple[int, int]] = None,
                  weight_bits: Optional[int] = None, overlap: bool = False,
                  mesh=None, adapters=None, constraints: bool = False,
+                 host_tier: bool = False,
+                 host_tier_kw: Optional[Dict] = None,
                  device: DeviceLike = None):
         if mesh is not None:
             _not_ported("mesh (tp / tp x dp serving)", "1.9")
@@ -276,11 +302,17 @@ class ContinuousBatchingEngine:
         self.eos_token_id = eos_token_id
         self.fused = bool(fused)
         self.overlap = bool(overlap)
-        self.cache = PagedKVCache(
-            cfg, max_batch, max_len or cfg.max_seq_len,
-            page_size=page_size, num_pages=num_pages,
-            kv_dtype=kv_cache_dtype,
-            enable_prefix_cache=enable_prefix_cache, device=self.device)
+        cache_kw = dict(page_size=page_size, num_pages=num_pages,
+                        kv_dtype=kv_cache_dtype,
+                        enable_prefix_cache=enable_prefix_cache,
+                        device=self.device)
+        if host_tier:
+            self.cache = TieredKVCache(
+                cfg, max_batch, max_len or cfg.max_seq_len,
+                **cache_kw, **(host_tier_kw or {}))
+        else:
+            self.cache = PagedKVCache(
+                cfg, max_batch, max_len or cfg.max_seq_len, **cache_kw)
         if prefill_chunk is not None:
             # page-rounded, so chunk boundaries stay page-aligned
             prefill_chunk = self.cache.pages_for(
@@ -487,9 +519,9 @@ class ContinuousBatchingEngine:
         self._slots[slot] = None
         self._rids[slot] = -1
         if self.draft_cache is not None:
-            # the draft pool's state is disposable: retire, preempt and
-            # cancel just drop the slot's draft pages (a new tenant or a
-            # resume catches up cold)
+            # the draft pool's state is disposable: retire, preempt,
+            # swap and cancel just drop the slot's draft pages (a new
+            # tenant or a resume catches up cold)
             if self.draft_cache.active[slot]:
                 self.draft_cache.release(slot)
             self._draft_chain.pop(slot, None)
@@ -515,14 +547,49 @@ class ContinuousBatchingEngine:
         :meth:`prefill_step`. A preempted request re-enters the same
         way: its :meth:`~GenerationRequest.resume_sequence` (prompt plus
         every generated token but the last) replays through the
-        continuation prefill, and decode goes on from its last token."""
-        free = self.cache.free_slots()
+        continuation prefill, and decode goes on from its last token.
+        Under the host tier a request that was SWAPPED OUT comes back by
+        one scatter of its pages instead, decode-ready at once; a
+        payload that was dropped, went stale or fails its checksum falls
+        back to the replay."""
+        cache = self.cache
+        free = cache.free_slots()
         if not free:
             return False
         slot = free[0]
         seq = req.resume_sequence()
-        # trace: queue_wait closes at the admission instant
+        # trace: queue_wait closes at the admission instant, so the
+        # swap-in below lands in its own span
         t_adm = _obs.serving_trace_now()
+        if (req.swapped and req.tokens
+                and getattr(cache, "host", None) is not None):
+            # a raised swap_in (injected fault, PoolExhausted) leaves the
+            # flag set: the payload committed nothing and survives for
+            # the admission retried after recovery or back-pressure
+            length = cache.swap_in(
+                slot, req.rid, req.prompt.shape[1] + req.max_new_tokens,
+                expect_tokens=seq.size)
+            req.swapped = False
+            if length is not None:
+                self._install_slot(slot, req)
+                # decode goes on from the last sampled token, as after
+                # the replay's final chunk
+                self._last[slot] = np.int32(req.tokens[-1])
+                req.finish_reason = None    # clears transient "preempted"
+                _obs.serving_resumed(1, 0)  # no replayed tokens
+                _obs.serving_trace_admitted(
+                    req, replica=self.replica_id, slot=slot, t_ns=t_adm)
+                _obs.serving_trace_span(
+                    req, "swap_in", t_adm, replica=self.replica_id,
+                    slot=slot, seq=len(req.tokens),
+                    meta={"tokens": int(length)})
+                return True
+            # payload gone (swap_in counted the fallback): replay below
+            if t_adm:
+                _obs.serving_trace_mark(
+                    req, "swap_fallback", replica=self.replica_id,
+                    slot=slot, meta={"why": getattr(
+                        cache, "last_swap_fallback", None)})
         _, shared = self.cache.admit_prompt(
             slot, seq, req.prompt.shape[1] + req.max_new_tokens)
         self._install_slot(slot, req)
@@ -545,27 +612,53 @@ class ContinuousBatchingEngine:
             _obs.serving_prefix(int(shared), seq.size - int(shared))
         return True
 
+    def swap_candidate(self, req: GenerationRequest) -> bool:
+        """True when preempting ``req`` would SWAP its KV to the host
+        tier rather than evict it for a replay: the cache is tiered and
+        the request is past its prefill (it has committed KV). The
+        :class:`~..serving.policy.PreemptionPolicy` prefers such victims
+        when the scheduler passes this predicate."""
+        return (getattr(self.cache, "host", None) is not None
+                and req.slot is not None
+                and req.slot not in self._pending
+                and int(self.cache.lengths[req.slot]) > 0)
+
     def preempt_request(self, req: GenerationRequest) -> int:
         """Evict a RUNNING request's pages back to the pool
         (:meth:`PagedKVCache.evict_for_preempt`: pages the prefix trie
         or another table shares survive under those references) and
         reset it for a token-identical resume through
-        :meth:`admit_request`. ``finish_reason`` reads the transient
-        ``"preempted"`` until the resume's replay completes; ``done``
-        stays False. Returns the number of pages returned to the free
-        list. A decode step in flight for the slot is dropped at its
-        commit (the seat guard)."""
+        :meth:`admit_request`. Under the host tier a decode-phase
+        victim's live pages SWAP OUT first (:meth:`swap_candidate`;
+        non-blocking on an ``overlap`` engine), so that its resume is
+        a scatter. ``finish_reason`` reads the transient
+        ``"preempted"`` until the resume completes; ``done`` stays
+        False. Returns the number of pages returned to the free list. A
+        decode step in flight for the slot is dropped at its commit
+        (the seat guard)."""
         slot = req.slot
         if slot is None or self._slots[slot] is not req:
             raise ValueError(
                 f"preempt_request: request {req.rid} is not running")
+        swap = self.swap_candidate(req)
         self._pending.pop(slot, None)
         t_tr = _obs.serving_trace_now()
-        freed = self.cache.evict_for_preempt(slot)
+        if swap:
+            freed = self.cache.swap_out(slot, req.rid,
+                                        nonblocking=self.overlap)
+            req.swapped = True
+            if t_tr:
+                _obs.serving_trace_span(
+                    req, "swap_out", t_tr, replica=self.replica_id,
+                    slot=slot, seq=len(req.tokens),
+                    meta={"pages": int(freed),
+                          "nonblocking": bool(self.overlap)})
+        else:
+            freed = self.cache.evict_for_preempt(slot)
         if t_tr:
             _obs.serving_trace_mark(
                 req, "preempt", replica=self.replica_id, slot=slot,
-                seq=len(req.tokens), meta={"swap": False})
+                seq=len(req.tokens), meta={"swap": bool(swap)})
         self._clear_slot(slot)
         req.slot = None
         req.preemptions += 1
@@ -592,6 +685,10 @@ class ContinuousBatchingEngine:
         req.done = True
         req.finish_reason = reason
         _obs.serving_trace_finish(req, reason, replica=self.replica_id)
+        if getattr(self.cache, "host", None) is not None:
+            # a victim cancelled while swapped out retires its payload
+            # with it (nothing will ever swap it in)
+            self.cache.drop_swapped(req.rid)
         if req.preemptions > 0:
             # preempted awaiting resume: it WAS admitted, so the cancel
             # finalizes its retirement (admissions - evictions drains
@@ -828,6 +925,89 @@ class ContinuousBatchingEngine:
         self._clear_slot(req.slot)
         _obs.serving_retired(1, reason)
 
+    # ---- prefill→decode KV handoff ----
+    def export_prefilled(self, req: GenerationRequest,
+                         with_kv: bool = True) -> Dict:
+        """Export a decode-ready request as a handoff payload: its
+        slot, committed length, already-sampled last token and (unless
+        ``with_kv=False``, the page-to-page path of
+        :meth:`import_prefilled` with ``src_engine``) its live pages'
+        bytes (:meth:`~..serving.paged_cache.PagedKVCache.
+        export_request`). A pure read: the request keeps running here
+        until :meth:`finish_handoff`, so a failed import loses nothing.
+        The port has no serving cluster yet, so the engine itself
+        closes the ``serving_handoff_export`` hook the JAX package's
+        cluster closes around this call."""
+        slot = req.slot
+        if slot is None or self._slots[slot] is not req:
+            raise ValueError(
+                f"export_prefilled: request {req.rid} is not running")
+        if slot in self._pending:
+            raise ValueError(
+                f"export_prefilled: request {req.rid} is still "
+                f"mid-prefill — hand off only decode-ready slots")
+        t0 = _obs.generate_begin()
+        out = {"rid": req.rid, "slot": slot,
+               "length": int(self.cache.lengths[slot]),
+               "last": int(self._last[slot])}
+        pages = self.cache.pages_for(out["length"])
+        if with_kv:
+            out["kv"] = self.cache.export_request(slot)
+            nbytes = sum(a.nbytes for a in out["kv"]["arrays"].values())
+        else:
+            nbytes = self.cache.page_payload_bytes(pages)
+        _obs.serving_handoff_export(t0, nbytes, pages)
+        return out
+
+    def import_prefilled(self, req: GenerationRequest, payload: Dict,
+                         src_engine=None) -> bool:
+        """Install an exported request directly into a decode slot: the
+        payload's pages scatter into fresh pages (:meth:`~..serving.
+        paged_cache.PagedKVCache.import_request`), or, with
+        ``src_engine`` (the exporting engine, on the same device), copy
+        page to page from its pool (:meth:`~..serving.paged_cache.
+        PagedKVCache.import_request_direct`; the payload then needs no
+        ``"kv"``). Block table, length and last token end as an in-place
+        prefill would leave them, and the prompt's pages publish to THIS
+        engine's prefix trie. False when no slot is free; raises
+        :class:`PoolExhausted` (nothing changed) when the pool cannot
+        cover it. Decode from here is token-identical to having
+        prefilled in place."""
+        free = self.cache.free_slots()
+        if not free:
+            return False
+        slot = free[0]
+        t0 = _obs.generate_begin()
+        if src_engine is not None:
+            self.cache.import_request_direct(
+                slot, src_engine.cache, payload["slot"],
+                req.prompt.shape[1] + req.max_new_tokens)
+        else:
+            self.cache.import_request(
+                slot, payload["kv"],
+                req.prompt.shape[1] + req.max_new_tokens)
+        self.cache.lengths[slot] = np.int32(payload["length"])
+        self._last[slot] = np.int32(payload["last"])
+        self._install_slot(slot, req)
+        self.cache.register_prefix(slot, req.prompt[0])
+        _obs.serving_handoff_import(t0)
+        return True
+
+    def finish_handoff(self, req: GenerationRequest, slot: int):
+        """Detach a handed-off request from THIS engine after its import
+        elsewhere: the slot entry clears first (no two engines ever
+        decode the same request), then the pages release; the ones the
+        prefix trie shares survive under its references. ``slot`` is
+        the ORIGINAL slot from the export payload (``req.slot`` already
+        names the importing engine's)."""
+        if self._slots[slot] is not req:
+            raise ValueError(
+                f"finish_handoff: slot {slot} does not hold request "
+                f"{req.rid}")
+        self._clear_slot(slot)
+        self._pending.pop(slot, None)
+        self.cache.release(slot)
+
     def ready_mask(self) -> np.ndarray:
         """(max_batch,) bool — slots whose sequence is fully in the pool
         and can decode this step."""
@@ -949,14 +1129,19 @@ class ContinuousBatchingEngine:
 
     def commit_inflight(self) -> int:
         """Commit everything in flight in dispatch order: prefill chunks
-        first, then the decode or verify forward. Returns the committed
-        units (prompt tokens plus decode slots or verify tokens)."""
+        first, then the decode or verify forward; last, fence the
+        pending non-blocking swap-outs into the host store. Returns the
+        committed units (prompt tokens plus decode slots or verify
+        tokens)."""
         n = self.commit_prefills()
         h, self._inflight = self._inflight, None
         if h is not None:
             n += (self._decode_commit(h) if h.kind == "decode"
                   else self._tree_commit(h) if h.kind == "tree"
                   else self._spec_commit(h))
+        fence = getattr(self.cache, "fence_swaps", None)
+        if fence is not None:
+            fence()
         return n
 
     def decode_step(self, mask) -> int:
@@ -1499,6 +1684,8 @@ class ContinuousBatchingEngine:
         if self.fused:
             s["fused_kernels"] = True
         s["cow_copies"] = self.cache.cow_copies
+        if getattr(self.cache, "host", None) is not None:
+            s.update(self.cache.tier_stats())
         if self.cache.prefix is not None:
             s["prefix_evictions_total"] = self.cache.prefix.evictions_total
         s["forwards"] = dict(self.forwards)

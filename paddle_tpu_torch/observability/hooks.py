@@ -21,10 +21,12 @@ Three independent switches feed three sinks:
 Device waits: a timing hook closes on a tensor the card computes
 (:func:`_block`), and its callers only ever pass one from a COMMIT half,
 where the fetch that follows waits for the same work anyway, so no
-dispatch waits on the card with the hooks on. The tp, dp, MoE,
-pipeline, host-tier swap, adapter, write-ahead-log, handoff, router,
-RPC and fabric hooks come with the modules that call them (ROADMAP.md,
-queue A).
+dispatch waits on the card with the hooks on. The host tier's page
+moves (``serving_fused_latency("pool_move", ...)``) may wait too: they
+run at admission, at a handoff or at a defrag, never in a dispatch.
+The tp, dp, MoE, pipeline, adapter, write-ahead-log, router, RPC and
+fabric hooks come with the modules that call them (ROADMAP.md, queue
+A).
 """
 from __future__ import annotations
 
@@ -689,6 +691,192 @@ def serving_fused_latency(kernel: str, t0_ns: int, out):
                  buckets=(0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100,
                           250, 1000)).labels(kernel).observe(
         (now - t0_ns) / 1e6)
+
+# ---------------- hierarchical KV tier ----------------
+
+def serving_swap_out(t0_ns: int, nbytes: int, pages: int):
+    """Close one preemption SWAP-OUT opened at ``t0_ns``: the victim's
+    live KV pages gathered device to host before its device pages freed
+    (for a non-blocking swap-out, issue to fence). Latency histogram +
+    bytes / pages counters."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.swap_out", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_swap_out_ms",
+                 "wall milliseconds per preemption swap-out gather",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_swap_outs_total",
+               "preemption victims swapped out to the host tier").inc()
+    _m.counter("serving_swap_out_bytes_total",
+               "KV bytes moved device→host by swap-outs").inc(nbytes)
+    _m.counter("serving_swap_pages_total",
+               "KV pages moved through the host tier",
+               ("direction",)).labels("out").inc(pages)
+
+
+def serving_swap_in(t0_ns: int, nbytes: int, pages: int):
+    """Close one resume SWAP-IN opened at ``t0_ns``: fresh pages
+    allocated and the host payload scattered back, the resume that
+    replaces the replay prefill. Latency histogram + bytes / pages
+    counters. The scatter is queued, not waited for: the histogram
+    holds host time."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.swap_in", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_swap_in_ms",
+                 "wall milliseconds per resume swap-in scatter",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_swap_ins_total",
+               "preempted requests resumed by host-tier swap-in").inc()
+    _m.counter("serving_swap_in_bytes_total",
+               "KV bytes moved host→device by swap-ins").inc(nbytes)
+    _m.counter("serving_swap_pages_total",
+               "KV pages moved through the host tier",
+               ("direction",)).labels("in").inc(pages)
+
+
+def serving_swap_fallback():
+    """A resume found no valid host payload (dropped by the capacity
+    bound, stale or corrupt) and fell back to the replay prefill."""
+    if not enabled:
+        return
+    _m.counter("serving_swap_replay_fallbacks_total",
+               "swap-in resumes that fell back to replay prefill "
+               "(payload dropped or stale)").inc()
+
+
+def serving_host_pool(pages: int, nbytes: int, capacity):
+    """Host-tier residency gauges after a store mutation: pages / bytes
+    resident in host RAM, and occupancy against the configured page
+    capacity (skipped when unbounded)."""
+    if not enabled:
+        return
+    _m.gauge("serving_host_pool_pages",
+             "KV pages resident in the host-RAM tier").set(pages)
+    _m.gauge("serving_host_pool_bytes",
+             "KV bytes resident in the host-RAM tier").set(nbytes)
+    if capacity:
+        _m.gauge("serving_host_pool_utilization",
+                 "host-tier page residency over its configured "
+                 "capacity").set(pages / capacity)
+
+
+def serving_host_disk_pruned(files: int, bytes_total: int):
+    """Standing-store files removed by the ``max_disk_bytes`` bound
+    (oldest modification time first): pruned-file counter + lifetime
+    pruned-bytes gauge, apart from the quarantine counter."""
+    if not enabled:
+        return
+    _m.counter("serving_host_disk_pruned_total",
+               "standing-store files pruned by the disk byte bound"
+               ).inc(files)
+    _m.gauge("serving_host_disk_pruned_bytes",
+             "lifetime bytes pruned from the standing disk store"
+             ).set(bytes_total)
+
+
+def serving_prefix_demoted(pages: int):
+    """Prefix-trie pages DEMOTED to the host tier under pool pressure
+    instead of dying with their eviction."""
+    if not enabled:
+        return
+    _m.counter("serving_prefix_demoted_pages_total",
+               "prefix-trie pages demoted to the host tier on "
+               "eviction").inc(pages)
+
+
+def serving_prefix_promoted(t0_ns: int, pages: int):
+    """Close one prefix PROMOTION opened at ``t0_ns``: demoted or
+    standing-store chain pages scattered back into the pool and
+    re-registered, so that the admission hits instead of prefilling."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.prefix_promote", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_prefix_promote_ms",
+                 "wall milliseconds per host→pool prefix promotion",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_prefix_promoted_pages_total",
+               "prefix pages promoted back from the host tier "
+               "(demote/persist hits)").inc(pages)
+
+
+def serving_handoff_export(t0_ns: int, nbytes: int, pages: int):
+    """Close one prefill→decode KV export opened at ``t0_ns`` (a
+    :func:`generate_begin` anchor): latency histogram + bytes / pages
+    counters."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.handoff_export", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_handoff_export_ms",
+                 "wall milliseconds per prefill-side KV export",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_handoff_exports_total",
+               "prefill→decode KV handoffs exported").inc()
+    _m.counter("serving_handoff_bytes_total",
+               "KV bytes moved by prefill→decode handoffs").inc(nbytes)
+    _m.counter("serving_handoff_pages_total",
+               "KV pages moved by prefill→decode handoffs").inc(pages)
+
+
+def serving_handoff_import(t0_ns: int):
+    """Close one decode-side KV import (allocate + scatter or page
+    move) opened at ``t0_ns``. Bytes and pages are counted once, at
+    export."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.handoff_import", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_handoff_import_ms",
+                 "wall milliseconds per decode-side KV import scatter",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_handoff_imports_total",
+               "prefill→decode KV handoffs imported").inc()
+
+
+# ---------------- payload integrity ----------------
+
+def serving_integrity(site: str, action: str):
+    """One payload-integrity event at a byte-moving site (``swap_in``,
+    ``prefix_promote``, ``disk_store``): ``detected`` — a checksum
+    caught a corrupt or torn payload before install; ``quarantined`` —
+    the entry was removed so it is never served again; ``replayed`` —
+    the request recovered through the replay path."""
+    if not enabled:
+        return
+    _m.counter("serving_integrity_events_total",
+               "payload-integrity events at byte-moving sites",
+               ("site", "action")).labels(site, action).inc()
+
+
+def serving_integrity_retry(site: str):
+    """One bounded-backoff retry of a byte-moving operation (``swap_in``)
+    after a transient fault; a failed attempt frees what it allocated
+    before re-raising, so the retry is idempotent."""
+    if not enabled:
+        return
+    _m.counter("serving_integrity_retries_total",
+               "bounded retries of byte-moving operations after "
+               "transient faults", ("site",)).labels(site).inc()
+
 
 # ------- request tracing + flight recorder -------
 #

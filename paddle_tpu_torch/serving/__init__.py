@@ -1,11 +1,14 @@
 """Serving layer of the port: the paged KV cache and its allocator, the
 host side of speculative decoding, grammar constraints (token DFAs),
-the SLO-aware scheduler with its policy, and supervised fault recovery
+the SLO-aware scheduler with its policy, supervised fault recovery
 (fault injection, the request journal, ``EngineSupervisor``,
-drain/restore)."""
+drain/restore), and the host KV tier (``HostPageStore``,
+``TieredKVCache``: swap-out / swap-in, prefix demote / promote, the
+standing prefix store)."""
 from .constraints import (ConstraintState, TokenDFA,  # noqa: F401
                           dfa_from_regex, dfa_from_sequences,
                           json_schema_dfa, json_schema_pattern_dfa)
+from .host_tier import HostPageStore, TieredKVCache  # noqa: F401
 from .paged_cache import (TRASH_PAGE, BlockAllocator, PagedKVCache,  # noqa: F401
                           PoolExhausted, PrefixCache)
 from .policy import (FinishReason, PreemptionPolicy, Priority,  # noqa: F401

@@ -13,25 +13,79 @@ write. Page id 0 is the trash page that inactive decode rows write to.
 
 The allocator, trie and block tables are plain numpy, as in the JAX
 package. Where JAX ran a donated jitted program to update the pools,
-the port writes the pool tensors in place. The allocator's ``alloc``
-and ``free`` are fault-injection sites (:mod:`.resilience`), and the
-trie with its pages' KV bytes checkpoints and restores for a drain
-(:meth:`PagedKVCache.checkpoint_prefix` / :meth:`PagedKVCache.
+the port writes the pool tensors in place: a page move
+(:func:`_pool_move`) is an ``index_select`` into a fresh tensor, then
+an ``index_copy_``, so a move within one pool whose source and
+destination ids overlap (:meth:`PagedKVCache.defrag`) reads every
+source page before it writes one. The JAX package pads the id vectors
+to a power of two to bound its compile count; the port compiles
+nothing and moves exactly the pages asked for. The allocator's
+``alloc`` and ``free`` are fault-injection sites (:mod:`.resilience`),
+and the trie with its pages' KV bytes checkpoints and restores for a
+drain (:meth:`PagedKVCache.checkpoint_prefix` / :meth:`PagedKVCache.
 restore_prefix`).
+
+A request's pages also leave the pool as a byte payload
+(:meth:`PagedKVCache.export_request`, the prefill→decode handoff) and
+come back (:meth:`PagedKVCache.import_request`), or move between two
+engines' pools on the device (:meth:`PagedKVCache.
+import_request_direct`). A payload holds each pool array's raw bytes
+(``uint8``) with its dtype name and shape, the JAX package's
+convention, so a bf16 pool round-trips through numpy, which has no
+bf16.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .resilience import fault_point
+from ..observability import hooks as _obs
+from .resilience import fault_point, payload_checksums, verify_checksums
 
 #: page id never handed out by the allocator — the write target for
 #: inactive rows of the static-shape decode step
 TRASH_PAGE = 0
+
+
+def _pool_move(pool: Dict, src_ids: torch.Tensor, dst_ids: torch.Tensor,
+               src_pool: Optional[Dict] = None):
+    """Copy pages ``src_ids`` into pages ``dst_ids`` of every pool
+    array, in place: each array's source pages are gathered into a
+    fresh tensor (``index_select``) before any destination page is
+    written (``index_copy_``), so ids that overlap within one pool are
+    safe. ``src_pool`` (another cache's pool of the same geometry) moves
+    pages ACROSS pools, its pages read-only."""
+    src = pool if src_pool is None else src_pool
+    for name, arr in pool.items():
+        arr.index_copy_(1, dst_ids, src[name].index_select(1, src_ids))
+
+
+def dtype_name(dtype) -> str:
+    """A pool dtype as payload metadata names it: numpy's name, which is
+    what the JAX package writes (``"bfloat16"``, ``"float32"``,
+    ``"int8"``)."""
+    return str(dtype).replace("torch.", "")
+
+
+def raw_bytes(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's bytes as a flat ``uint8`` numpy array that shares
+    its memory (no copy)."""
+    return t.contiguous().view(torch.uint8).reshape(-1).numpy()
+
+
+def typed_tensor(raw: np.ndarray, meta: Dict) -> torch.Tensor:
+    """The CPU tensor a payload array's raw bytes hold, typed and shaped
+    by its ``{"shape", "dtype"}`` metadata (a bf16 array without
+    numpy's help; the callers have checked the dtype name against the
+    pool's). Copies only a read-only buffer."""
+    raw = np.require(np.asarray(raw).reshape(-1).view(np.uint8),
+                     requirements=("C", "W"))
+    return torch.from_numpy(raw).view(getattr(torch, meta["dtype"])).reshape(
+        meta["shape"])
 
 
 class PoolExhausted(RuntimeError):
@@ -63,6 +117,7 @@ class BlockAllocator:
         self.frees_total = 0
         self.shares_total = 0
         self.alloc_failures = 0
+        self.defrags_total = 0
         self.peak_in_use = 0
 
     @property
@@ -169,6 +224,7 @@ class BlockAllocator:
             "frees_total": self.frees_total,
             "shares_total": self.shares_total,
             "alloc_failures": self.alloc_failures,
+            "defrags_total": self.defrags_total,
             "peak_in_use": self.peak_in_use,
         }
 
@@ -266,34 +322,41 @@ class PrefixCache:
 
     def _candidates(self):
         """Evictable references: every tail, plus leaf nodes with no
-        tail."""
+        tail, each with its chain's tokens from the root (the host
+        tier's demotion key)."""
         out = []
-        stack = [(self.root, None, None)]
+        stack = [(self.root, None, None, b"")]
         while stack:
-            node, parent, key = stack.pop()
+            node, parent, key, path = stack.pop()
             if node.tail is not None:
-                out.append((node.tick, 0, node, parent, key, True))
+                out.append((node.tick, 0, node, parent, key, True, path))
             elif parent is not None and not node.children:
-                out.append((node.tick, 1, node, parent, key, False))
+                out.append((node.tick, 1, node, parent, key, False, path))
             for k, c in node.children.items():
-                stack.append((c, node, k))
+                stack.append((c, node, k, path + k))
         return out
 
-    def evict(self, allocator: BlockAllocator, need: int) -> int:
+    def evict(self, allocator: BlockAllocator, need: int,
+              on_evict=None) -> int:
         """Drop trie references LRU-first until ``need`` pages returned
         to the free list or nothing evictable remains; returns pages
-        freed."""
+        freed. ``on_evict(chain_tokens, page_id)`` fires for every FULL
+        page before its reference drops (the host tier's demotion: the
+        page's bytes are still live then); tails never fire it."""
         start = allocator.num_free
         progressed = True
         while allocator.num_free - start < need and progressed:
             cands = self._candidates()
             cands.sort(key=lambda c: (c[0], c[1]))
             progressed = False
-            for _, _, node, parent, key, is_tail in cands:
+            for _, _, node, parent, key, is_tail, path in cands:
                 if is_tail:
                     allocator.free([node.tail[0]])
                     node.tail = None
                 else:
+                    if on_evict is not None:
+                        on_evict(np.frombuffer(path, np.int32),
+                                 int(node.page))
                     allocator.free([node.page])
                     del parent.children[key]
                 self.evictions_total += 1
@@ -409,9 +472,18 @@ class PagedKVCache:
                                           kv_dtype=kv_dtype,
                                           device=self.device)
         self.kv_dtype = kv_dtype
+        self.num_pages = num_pages
         self.allocator = BlockAllocator(num_pages)
         self.prefix = PrefixCache(page_size) if enable_prefix_cache else None
         self.cow_copies = 0
+        self.direct_moves_total = 0
+        #: host seconds of :meth:`_scatter_pages` by part: ``read`` (a
+        #: payload array into a typed CPU tensor), ``pin`` (into pinned
+        #: memory), ``copy`` (the upload and the scatter, queued)
+        self.scatter_host_s = {"read": 0.0, "pin": 0.0, "copy": 0.0}
+        # host tensors whose uploads may not have run yet, each with an
+        # event recorded after its copy (:meth:`_hold`)
+        self._held: List[Tuple] = []
         self.block_tables = np.full((max_batch, self.pages_per_seq),
                                     TRASH_PAGE, np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
@@ -452,11 +524,17 @@ class PagedKVCache:
             return self.allocator.alloc(n)
         except PoolExhausted:
             if self.prefix is not None:
-                self.prefix.evict(self.allocator,
-                                  n - self.allocator.num_free)
+                self._evict_prefix(n - self.allocator.num_free)
             if n > self.allocator.num_free:
                 raise
             return self.allocator.alloc(n)
+
+    def _evict_prefix(self, need: int) -> int:
+        """Reclaim ``need`` pages of prefix-trie references under pool
+        pressure. The host tier (:class:`~.host_tier.TieredKVCache`)
+        overrides this to DEMOTE each dropped full page's bytes to host
+        RAM first; here they die and prefill again on the next miss."""
+        return self.prefix.evict(self.allocator, need)
 
     def _install(self, slot: int, pages: List[int]) -> np.ndarray:
         self._slot_pages[slot] = pages
@@ -611,21 +689,280 @@ class PagedKVCache:
         self.allocator.free(fresh)      # the trie owns the pages now
         return len(fresh)
 
+    def _ids(self, ids: Sequence[int]) -> torch.Tensor:
+        """Page ids as an int64 tensor on the pool's device, sent the
+        way the engine's ``_up`` sends its inputs: through pinned memory
+        with a non-blocking copy, so building it never waits for the
+        card."""
+        t = torch.from_numpy(np.asarray(ids, np.int64).reshape(-1))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _hold(self, tensors) -> None:
+        """Keep host tensors alive until the uploads queued from them
+        have run: an event is recorded after the copies, and entries
+        whose events completed are let go. A tensor that aliases pinned
+        memory PyTorch's caching host allocator does not know (a numpy
+        view of a payload) gets no event of its own from ``copy_``;
+        holding it keeps that memory from being freed, and reused by a
+        host write, under a copy still in flight."""
+        self._release_held()
+        ev = torch.cuda.Event()
+        ev.record()
+        self._held.append((ev, tensors))
+
+    def _release_held(self) -> None:
+        """Let go of the held host tensors whose uploads have run, so
+        that their pinned blocks go back to the caching host allocator
+        before a gather asks it for more."""
+        if self._held:
+            self._held = [h for h in self._held if not h[0].query()]
+
     def _scatter_pages(self, arrays: Dict, dst: Sequence[int]):
-        """Write per-array page payloads (numpy, ``(L, k, page, ...)``)
-        into the pool at page ids ``dst``: each goes up through pinned
-        memory with a non-blocking copy and lands with one in-place
-        ``index_copy_``. uint16 payloads into a bf16 pool are bit
-        patterns (:meth:`checkpoint_prefix`)."""
-        idx = torch.as_tensor(np.asarray(dst, np.int64),
-                              device=self.device)
+        """Write per-array page payloads ``(L, k, page, ...)`` into the
+        pool at page ids ``dst``: numpy arrays (uint16 into a bf16 pool
+        are bit patterns, :meth:`checkpoint_prefix`) or typed CPU
+        tensors. Each goes up through pinned memory with a non-blocking
+        copy and lands with one in-place ``index_copy_``; nothing waits
+        for the card. The host time of each part accumulates in
+        ``scatter_host_s``."""
+        idx = self._ids(dst)
+        cuda = self.device.type == "cuda"
+        acc = self.scatter_host_s
         for name, arr in self.pool.items():
-            a = np.array(arrays[name], copy=True, order="C")
-            if arr.dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
-                    and a.dtype.kind in "ui":
-                t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            t0 = time.perf_counter()
+            a = arrays[name]
+            if isinstance(a, torch.Tensor):
+                t = a if a.dtype == arr.dtype else a.to(arr.dtype)
             else:
-                t = torch.from_numpy(a).to(arr.dtype)
+                a = np.array(a, copy=True, order="C")
+                if arr.dtype == torch.bfloat16 and a.dtype.itemsize == 2 \
+                        and a.dtype.kind in "ui":
+                    t = torch.from_numpy(a.view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    t = torch.from_numpy(a).to(arr.dtype)
+            t1 = time.perf_counter()
+            if cuda and not t.is_pinned():
+                t = t.pin_memory()
+            t2 = time.perf_counter()
+            if cuda:
+                src = t.to(self.device, non_blocking=True)
+                self._hold(t)
+            else:
+                src = t
+            arr.index_copy_(1, idx, src)
+            acc["read"] += t1 - t0
+            acc["pin"] += t2 - t1
+            acc["copy"] += time.perf_counter() - t2
+
+    def _fetch_pages(self, ids: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """The pages at ``ids`` of every pool array as typed CPU tensors
+        ``(L, k, page, ...)``: one ``index_select`` on the device, then
+        one copy into pinned host memory (PyTorch's caching host
+        allocator) per array, waited for here."""
+        self._release_held()
+        idx = self._ids(ids)
+        out = {}
+        for name, arr in self.pool.items():
+            g = arr.index_select(1, idx)
             if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            arr.index_copy_(1, idx, t)
+                h = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+                h.copy_(g, non_blocking=True)
+                g = h
+            out[name] = g
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _move_pages(self, src_ids: Sequence[int], dst_ids: Sequence[int],
+                    src_cache: Optional["PagedKVCache"] = None):
+        """Copy pages ``src_ids`` (of this pool, or of ``src_cache``'s)
+        into this pool's pages ``dst_ids`` on the device
+        (:func:`_pool_move`): no host staging, nothing re-materialized,
+        nothing waited for unless a timing sink is on."""
+        t0 = _obs.generate_begin()
+        src = self._ids(src_ids)
+        dst = self._ids(dst_ids)
+        _pool_move(self.pool, src, dst,
+                   None if src_cache is None else src_cache.pool)
+        self.direct_moves_total += 1
+        _obs.serving_fused_latency("pool_move", t0,
+                                   next(iter(self.pool.values())))
+
+    def import_request_direct(self, slot: int,
+                              src_cache: "PagedKVCache", src_slot: int,
+                              total_tokens: int) -> np.ndarray:
+        """The in-process fast path of the prefill→decode handoff: admit
+        ``slot`` and copy the source slot's live pages straight from
+        ``src_cache``'s pool into freshly allocated pages
+        (:meth:`_move_pages`), instead of the :meth:`export_request` →
+        :meth:`import_request` pair through host memory. Byte-identical
+        to the host-staged handoff; geometry and dtype are validated as
+        loudly. The source slot is read-only — the exporting engine owns
+        it until its ``finish_handoff``."""
+        if not src_cache.active[src_slot]:
+            raise ValueError(
+                f"import_request_direct: source slot {src_slot} is "
+                f"inactive")
+        length = int(src_cache.lengths[src_slot])
+        if length <= 0:
+            raise ValueError(
+                f"import_request_direct: source slot {src_slot} has no "
+                f"committed tokens — hand off only after prefill "
+                f"completes")
+        if src_cache.page_size != self.page_size:
+            raise ValueError(
+                f"import_request_direct: source page_size="
+                f"{src_cache.page_size} != pool page_size="
+                f"{self.page_size} — prefill and decode replicas must "
+                f"share page geometry")
+        if set(src_cache.pool) != set(self.pool):
+            raise ValueError(
+                f"import_request_direct: source arrays "
+                f"{sorted(src_cache.pool)} != pool arrays "
+                f"{sorted(self.pool)} — kv-dtype tiers of the two "
+                f"replicas differ")
+        for name, arr in self.pool.items():
+            other = src_cache.pool[name]
+            if (other.dtype != arr.dtype or other.device != arr.device
+                    or other.shape[0] != arr.shape[0]
+                    or other.shape[2:] != arr.shape[2:]):
+                raise ValueError(
+                    f"import_request_direct: source {name} "
+                    f"{dtype_name(other.dtype)}{tuple(other.shape)} on "
+                    f"{other.device} does not match pool page geometry "
+                    f"{dtype_name(arr.dtype)}{tuple(arr.shape)} on "
+                    f"{arr.device}")
+        n = self._check_admit(slot, total_tokens)
+        k = src_cache.pages_for(length)
+        if k > n:
+            raise ValueError(
+                f"import_request_direct: source holds {k} pages but "
+                f"total_tokens={total_tokens} only budgets {n}")
+        src_ids = src_cache._slot_pages[src_slot][:k]
+        pages = self._alloc_with_evict(n)
+        try:
+            self._move_pages(src_ids, pages[:k], src_cache=src_cache)
+        except Exception:
+            self.allocator.free(pages)
+            raise
+        return self._install(slot, pages)
+
+    # ---- KV handoff: per-request page export / import ----
+    def export_request(self, slot: int) -> Dict:
+        """Export one ACTIVE slot's live KV pages as a handoff payload:
+        only the pages covering ``lengths[slot]`` tokens travel (the
+        tail reservation holds no KV yet), each pool array as raw
+        ``uint8`` bytes with its dtype name and shape, stamped with
+        per-array CRCs that :meth:`import_request` verifies first. Pure
+        read: the slot's pages, tables and refcounts are untouched."""
+        if not self.active[slot]:
+            raise ValueError(f"export_request of inactive slot {slot}")
+        length = int(self.lengths[slot])
+        if length <= 0:
+            raise ValueError(
+                f"export_request of slot {slot} with no committed "
+                f"tokens — hand off only after prefill completes")
+        k = self.pages_for(length)
+        pages = self._fetch_pages(self._slot_pages[slot][:k])
+        arrays = {n: raw_bytes(t) for n, t in pages.items()}
+        meta = {n: {"shape": list(t.shape), "dtype": dtype_name(t.dtype)}
+                for n, t in pages.items()}
+        return {"page_size": self.page_size, "num_pages": k,
+                "length": length, "arrays": arrays, "meta": meta,
+                "checksums": payload_checksums(arrays)}
+
+    def import_request(self, slot: int, payload: Dict,
+                       total_tokens: int) -> np.ndarray:
+        """Admit ``slot`` with the full ``total_tokens`` page budget and
+        scatter an :meth:`export_request` payload's KV bytes into its
+        leading pages (:meth:`_scatter_pages`): byte-identical to having
+        prefilled in place. The payload's checksums are verified, and
+        its geometry and dtypes validated, before any allocation: a
+        corrupt payload raises :class:`~.resilience.CorruptionDetected`
+        and a foreign one ``ValueError``, with nothing committed.
+        Returns the slot's block-table row; callers set
+        ``lengths[slot]`` from the payload."""
+        verify_checksums(payload["arrays"], payload.get("checksums"),
+                         "handoff_import")
+        n = self._check_admit(slot, total_tokens)
+        k = int(payload["num_pages"])
+        if payload["page_size"] != self.page_size:
+            raise ValueError(
+                f"import_request: payload page_size="
+                f"{payload['page_size']} != pool page_size="
+                f"{self.page_size} — prefill and decode replicas must "
+                f"share page geometry")
+        if k > n:
+            raise ValueError(
+                f"import_request: payload holds {k} pages but "
+                f"total_tokens={total_tokens} only budgets {n}")
+        if set(payload["meta"]) != set(self.pool):
+            raise ValueError(
+                f"import_request: payload arrays "
+                f"{sorted(payload['meta'])} != pool arrays "
+                f"{sorted(self.pool)} — kv-dtype tiers of the two "
+                f"replicas differ")
+        arrays = {}
+        for name, m in payload["meta"].items():
+            want = self.pool[name]
+            if m["dtype"] != dtype_name(want.dtype):
+                raise ValueError(
+                    f"import_request: payload {name} dtype "
+                    f"{m['dtype']} != pool dtype "
+                    f"{dtype_name(want.dtype)} — a silent cast would "
+                    f"break the handoff's byte identity")
+            got = tuple(m["shape"])
+            if (got[0] != want.shape[0] or got[1] != k
+                    or got[2:] != tuple(want.shape[2:])):
+                raise ValueError(
+                    f"import_request: payload {name} shape {got} does "
+                    f"not match pool page shape "
+                    f"{(want.shape[0], k) + tuple(want.shape[2:])}")
+            arrays[name] = typed_tensor(payload["arrays"][name], m)
+        pages = self._alloc_with_evict(n)
+        try:
+            self._scatter_pages(arrays, pages[:k])
+        except Exception:
+            self.allocator.free(pages)
+            raise
+        return self._install(slot, pages)
+
+    def defrag(self):
+        """Compact used pages to the front of the pool: the LIVE pages
+        move in place in one :func:`_pool_move` (every source page read
+        before any is written), block tables, ``_slot_pages`` and the
+        prefix trie's held pages are remapped on the host, and the free
+        list becomes the contiguous tail. Shared pages move like any
+        other. The trash page stays where it is: table entries that
+        point at it keep pointing at it. Unused destination pages keep
+        their dead contents."""
+        used = {p for pages in self._slot_pages for p in pages}
+        if self.prefix is not None:
+            used |= set(self.prefix.pages())
+        used = sorted(used)
+        remap = np.arange(self.num_pages, dtype=np.int32)
+        moves = []                      # (src, dst) for pages that move
+        for new_id, old_id in enumerate(used, start=self.allocator.reserved):
+            remap[old_id] = new_id
+            if old_id != new_id:
+                moves.append((old_id, new_id))
+        if moves:
+            self._move_pages([m[0] for m in moves], [m[1] for m in moves])
+        self.block_tables = np.where(
+            self.block_tables == TRASH_PAGE, TRASH_PAGE,
+            remap[self.block_tables]).astype(np.int32)
+        self._slot_pages = [[int(remap[p]) for p in pages]
+                            for pages in self._slot_pages]
+        alloc = self.allocator
+        new_rc = np.zeros_like(alloc._refcount)
+        for old_id in used:
+            new_rc[remap[old_id]] = alloc._refcount[old_id]
+        alloc._refcount = new_rc
+        if self.prefix is not None:
+            self.prefix.remap_pages(remap)
+        first_free = alloc.reserved + len(used)
+        alloc._free = list(range(self.num_pages - 1, first_free - 1, -1))
+        alloc.defrags_total += 1

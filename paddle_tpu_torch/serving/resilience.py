@@ -72,8 +72,13 @@ when it wakes and never launches at all.
 Not ported yet (ROADMAP.md, queue A): the durable write-ahead log
 (``wal_dir``, ``wal_fsync``, ``wal_kw``, ``checkpoint_every``,
 ``checkpoint_prefix``, :meth:`EngineSupervisor.checkpoint_now`,
-:meth:`EngineSupervisor.recover_from_disk`; step 6.2), the host tier's
-swap-in recovery (1.7) and the adapter pool's re-pinning (1.6).
+:meth:`EngineSupervisor.recover_from_disk`; step 6.2) and the adapter
+pool's re-pinning (1.6).
+
+Under the host tier (``host_tier=True``) a rebuilt engine adopts the
+poisoned one's host store (:meth:`~.host_tier.TieredKVCache.
+adopt_host_tier`): the journal marks sessions whose KV sits there
+(``swapped``), and recovery swaps them in instead of replaying them.
 """
 from __future__ import annotations
 
@@ -95,11 +100,13 @@ from .policy import FinishReason, Priority
 #: the named injection sites threaded through the serving hot path; the
 #: site lint (tests/test_torch_resilience.py) holds every name here to
 #: exactly one ``fault_point("<site>")`` call in the port, except the
-#: sites whose modules are not ported yet (swap_out / swap_in: the host
-#: tier; adapter_*: the adapter pool; wal_* / checkpoint_write: the
-#: write-ahead log). "dispatch" fires AFTER a decode / verify forward
-#: launches (the in-flight handle is lost with the fault — nothing
-#: committed, the journal replays); "commit" fires at the top of the
+#: sites whose modules are not ported yet (adapter_*: the adapter pool;
+#: wal_* / checkpoint_write: the write-ahead log). "swap_out" fires in
+#: the host tier before a swap-out's gather, "swap_in" before a
+#: swap-in's allocation (a bounded retry absorbs a transient fault).
+#: "dispatch" fires AFTER a decode / verify forward launches (the
+#: in-flight handle is lost with the fault — nothing committed, the
+#: journal replays); "commit" fires at the top of the
 #: commit half, before the device-to-host fetch ("transfer"): the two
 #: seams the overlapped runtime opens between launch and commit.
 #: "draft_propose" fires before the draft model's catch-up and propose
@@ -123,7 +130,7 @@ SITES = ENGINE_SITES + CLUSTER_SITES
 
 #: engine sites whose modules are not ported yet (they have no
 #: ``fault_point`` call in the port)
-WAITING_SITES = ("swap_out", "swap_in", "adapter_load", "adapter_promote",
+WAITING_SITES = ("adapter_load", "adapter_promote",
                  "wal_append", "wal_fsync", "checkpoint_write")
 
 #: the pressure-ordered degraded-mode ladder (index == level): each
@@ -405,8 +412,10 @@ class FaultInjector:
 
 class JournalEntry:
     """One request's journaled state (the supervisor's recovery unit).
-    ``swapped`` and ``adapter_id`` keep the reference's record layout
-    (the port has no host tier and no adapters yet: always False / 0).
+    ``swapped``: the request's KV lives in the host tier (a swap-out
+    payload exists for its rid), so it recovers by swap-in, not replay.
+    ``adapter_id`` keeps the reference's record layout (the port has no
+    adapters yet: always 0).
     """
     __slots__ = ("req", "rid", "prompt", "max_new_tokens",
                  "eos_token_id", "priority", "deadline_at",
@@ -529,13 +538,78 @@ class RequestJournal:
                    for e in self._entries.values())
 
 
+_CRC_POLY = 0xEDB88320
+_CRC_CHUNK = 16 << 20           # bytes a worker checksums at a time
+_crc_workers = None
+_crc_ops: Dict[int, int] = {}
+
+
+def _multmodp(a: int, b: int) -> int:
+    """``a * b`` modulo the CRC-32 polynomial, bit-reflected (zlib's
+    ``multmodp``)."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                return p
+        m >>= 1
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+
+
+def _x8nmodp(n: int) -> int:
+    """``x ** (8 n)`` modulo the polynomial: the operator that shifts a
+    CRC past ``n`` zero bytes (zlib's ``x2nmodp(n, 3)``)."""
+    p, sq, k = 1 << 31, 1 << 30, 0
+    while n or k < 3:
+        if k >= 3:
+            if n & 1:
+                p = _multmodp(sq, p)
+            n >>= 1
+        sq = _multmodp(sq, sq)
+        k += 1
+    return p
+
+
+def _crc32(a) -> int:
+    """``zlib.crc32`` of an array's bytes, without copying them. A large
+    buffer is checksummed in 16 MiB pieces on worker threads
+    (``zlib.crc32`` releases the GIL) and the pieces' CRCs are combined
+    as zlib's ``crc32_combine`` does, so the value is the one-pass
+    CRC: a swapped-out request's hundreds of MB cost milliseconds, not
+    the ~0.1 s a second of one core's CRC rate takes."""
+    buf = memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+    n = len(buf)
+    if n <= 2 * _CRC_CHUNK:
+        return zlib.crc32(buf) & 0xFFFFFFFF
+    global _crc_workers
+    if _crc_workers is None:
+        from concurrent.futures import ThreadPoolExecutor
+        _crc_workers = ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="crc32")
+    head = n % _CRC_CHUNK or _CRC_CHUNK
+    spans = [(0, head)] + [(s, s + _CRC_CHUNK)
+                           for s in range(head, n, _CRC_CHUNK)]
+    crcs = list(_crc_workers.map(lambda se: zlib.crc32(buf[se[0]:se[1]]),
+                                 spans))
+    op = _crc_ops.get(_CRC_CHUNK)
+    if op is None:
+        op = _crc_ops[_CRC_CHUNK] = _x8nmodp(_CRC_CHUNK)
+    crc = crcs[0]
+    for c in crcs[1:]:
+        crc = _multmodp(op, crc) ^ c
+    return crc & 0xFFFFFFFF
+
+
 def payload_checksums(arrays: Dict[str, np.ndarray]) -> Dict[str, int]:
     """Per-array CRC32s of a byte payload, computed where KV bytes are
     materialized and verified by :func:`verify_checksums` before any
     install, so a corrupt or torn payload becomes a
-    :class:`CorruptionDetected` at the door, never a wrong KV page."""
-    return {n: zlib.crc32(np.ascontiguousarray(a).tobytes()) & 0xFFFFFFFF
-            for n, a in arrays.items()}
+    :class:`CorruptionDetected` at the door, never a wrong KV page. The
+    values are ``zlib.crc32`` of each array's bytes, as the JAX
+    package's are, so either package verifies the other's payloads."""
+    return {n: _crc32(a) for n, a in arrays.items()}
 
 
 def verify_checksums(arrays: Dict[str, np.ndarray],
@@ -560,7 +634,7 @@ def verify_checksums(arrays: Dict[str, np.ndarray],
             raise CorruptionDetected(
                 site, f"payload array {name!r} has no checksum — "
                 f"truncated or foreign payload")
-        got = zlib.crc32(np.ascontiguousarray(a).tobytes()) & 0xFFFFFFFF
+        got = _crc32(a)
         if got != int(want):
             raise CorruptionDetected(
                 site, f"payload array {name!r} checksum mismatch "
@@ -618,6 +692,10 @@ def _session_from_record(sup: "EngineSupervisor", rec: Dict,
         # re-anchor the SLO on THIS process's clock
         req.deadline_at = sup.clock() + rec["deadline_remaining_s"]
     req.tokens = list(rec.get("tokens") or ())
+    # a swapped-out session's payload may have died with its process or
+    # survived in a shared store: the swap-in at admission falls back to
+    # the replay either way, so the flag carries verbatim
+    req.swapped = bool(rec.get("swapped"))
     if rec.get("admitted"):
         req.preemptions = int(rec.get("preemptions", 0)) + 1
         req.finish_reason = FinishReason.PREEMPTED.value
@@ -780,14 +858,21 @@ class EngineSupervisor:
     def _build(self):
         """(Re)build the engine + scheduler pair from scratch: pools,
         allocator, trie and slots all start empty; the generator takes
-        the last committed step's state."""
+        the last committed step's state, and a host tier carries over
+        from the old engine (its store is host state, committed only
+        after gathers that completed)."""
         from .scheduler import ServingScheduler
+        old = self.engine
         eng = self._factory()
         if not eng.idle:
             raise ValueError(
                 "engine_factory must return a FRESH engine (no queued "
                 "or running requests)")
         eng._next_rid = max(eng._next_rid, self._next_rid)
+        if (old is not None
+                and hasattr(eng.cache, "adopt_host_tier")
+                and hasattr(old.cache, "adopt_host_tier")):
+            eng.cache.adopt_host_tier(old.cache)
         if self._key_data is not None:
             eng.generator.set_state(torch.from_numpy(self._key_data))
         self.engine = eng

@@ -21,7 +21,12 @@ preemption):
   the trie's references) and the victim requeues at the FRONT of its
   class. Resume replays ``prompt + tokens[:-1]`` through the
   continuation prefill and decodes on from the last sampled token,
-  token-identical to an uninterrupted run.
+  token-identical to an uninterrupted run. On an engine with the host
+  tier (``host_tier=True``) the policy prefers victims whose pages swap
+  out to host memory, and their resume is one scatter; the tokens of
+  pages a swap-in writes are charged against the next steps' budgets
+  at the prefill rate (the swap-in debt), so the budget stays a hard
+  ceiling on each step's KV writes.
 - **Deadlines** — a queued request whose ``deadline_s`` lapses before
   it produced a token is cancelled with ``deadline_exceeded``. A request
   admitted in time and later preempted already met it, so preempted
@@ -44,7 +49,7 @@ preemption):
 
 Left out until their steps of ROADMAP.md's queue A: ``adapter_id=``,
 the adapter pool's feasibility check and ``AdapterPoolExhausted``
-(1.6), the host tier's swap-in debt (1.7), and ``mesh=`` (7).
+(1.6), and ``mesh=`` (7).
 """
 from __future__ import annotations
 
@@ -100,6 +105,7 @@ class ServingScheduler:
         self.preemptions_total = 0
         self.resumes_total = 0
         self.deadline_cancels_total = 0
+        self._swap_debt = 0     # host-tier swap-in tokens not yet charged
         #: the engine's degraded-mode rung, set by whoever owns the
         #: ladder; read by :meth:`load_stats`
         self.degraded_level = 0
@@ -208,11 +214,14 @@ class ServingScheduler:
     def _preempt_for(self, req) -> bool:
         """Evict one strictly-lower-class running request to make room
         for ``req``; the victim requeues at the FRONT of its class (it
-        already waited its turn once). False when no victim exists."""
+        already waited its turn once). Under the host tier the policy
+        prefers victims whose eviction swaps to host memory. False when
+        no victim exists."""
         if self.preemption is None:
             return False
         victim = self.preemption.pick_victim(
-            self.engine.running_requests(), req.priority)
+            self.engine.running_requests(), req.priority,
+            swappable=getattr(self.engine, "swap_candidate", None))
         if victim is None:
             return False
         self.engine.preempt_request(victim)
@@ -282,7 +291,7 @@ class ServingScheduler:
                 _obs.serving_queue_wait(
                     max(0.0, now - req.enqueued_at), prio)
 
-    def _plan(self) -> StepPlan:
+    def _plan(self, reserved: int = 0) -> StepPlan:
         eng = self.engine
         ready = eng.ready_mask()
         decode = [(r.priority, r.rid, r.slot)
@@ -307,7 +316,8 @@ class ServingScheduler:
             widths = {s: d.size for s, d in self._drafts.items()} or None
         return self.planner.plan(decode, pending,
                                  chunk_cap=eng.prefill_chunk,
-                                 spec_drafts=widths)
+                                 spec_drafts=widths,
+                                 reserved_tokens=reserved)
 
     def _trim_plan(self, plan: StepPlan) -> StepPlan:
         """Reconcile an overlapped plan with the commit that just
@@ -405,7 +415,18 @@ class ServingScheduler:
         now = self.clock()
         self._expire_deadlines(now)
         self._admit(now)
-        plan = self._plan()
+        # swap-ins during _admit already wrote KV this step: charge them
+        # at the prefill rate (page_size tokens a page). A swap-in larger
+        # than the budget carries over as debt into later steps'
+        # reserves, so every step's planned + reserved stays under it
+        consume = getattr(eng.cache, "consume_swap_charge", None)
+        if consume is not None:
+            self._swap_debt += consume()
+        budget = self.planner.token_budget
+        reserved = (min(self._swap_debt, budget) if budget
+                    else self._swap_debt)
+        self._swap_debt -= reserved
+        plan = self._plan(reserved)
         t_planned = time.perf_counter_ns()
         if self.overlap:
             # the one commit fence: step N's tokens seed N+1's inputs
@@ -436,14 +457,20 @@ class ServingScheduler:
         """A step that planned and committed nothing means every
         remaining obligation waits on the card: commit what is in flight
         (the blocked work becomes plannable next step) instead of
-        re-planning empty steps, else yield the thread."""
+        re-planning empty steps, else fence the pending non-blocking
+        swap-outs, else yield the thread."""
         eng = self.engine
         self.idle_fences_total += 1
-        fenced = eng.has_inflight()
-        if fenced:
+        fenced = False
+        if eng.has_inflight():
             self.last_committed = eng.commit_inflight()
+            fenced = True
         else:
-            time.sleep(0)
+            fence = getattr(eng.cache, "fence_swaps", None)
+            if fence is not None and fence():
+                fenced = True
+            else:
+                time.sleep(0)
         _obs.serving_sched_idle(fenced)
 
     def run(self) -> None:
@@ -486,7 +513,7 @@ class ServingScheduler:
             r.max_new_tokens - len(r.tokens)
             for r in eng.running_requests() if not r.done))
         level = self.degraded_level
-        return {
+        s = {
             "queue_depths": depths,
             "queued_total": sum(depths.values()),
             "queued_tokens": int(queued_tokens),
@@ -501,6 +528,12 @@ class ServingScheduler:
             "degraded_mode": (DEGRADED_MODES[level]
                               if level < len(DEGRADED_MODES) else "dead"),
         }
+        host = getattr(eng.cache, "host", None)
+        if host is not None:
+            # the host tier's residency is part of the load picture
+            s["host_pool_pages"] = host.pages_resident
+            s["host_pool_bytes"] = host.bytes_resident
+        return s
 
     def stats(self) -> Dict:
         s = self.engine.stats()

@@ -50,7 +50,12 @@ request's tokens walking its DFA (``chip_smoke.walk``), the same tokens
 as the synchronous run; supervised recovery: a fault at an engine site
 recovers token-identically on the card, a watchdog's step thread
 launches on the caller's stream, and with the observability hooks on
-every dispatch still runs under the sync debug mode.
+every dispatch still runs under the sync debug mode; the host KV tier:
+a swap round trip through pinned host memory byte-equal for bf16 and
+int8 pools, a non-blocking swap-out queued behind a busy stream without
+a synchronization and fenced before its payload is read, and page moves
+across two pools (the direct handoff) and within one (``defrag``)
+byte-equal.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -1358,3 +1363,115 @@ def test_hooks_on_keep_dispatches_sync_free(cuda):
     assert lat["count"] == eng.forwards["decode"] and lat["sum"] > 0
     assert snap["serving_decode_steps_total"]["values"][""] == \
         eng.forwards["decode"]
+
+
+# ---------------------------------------------------------- the host tier
+
+def _tier_cache(cuda, kv, max_batch=3):
+    """A host-tier cache on the card, its pool filled with random
+    bytes, and slot 0 holding 20 committed tokens."""
+    from paddle_tpu_torch.serving import TieredKVCache
+    cfg = tl.LlamaConfig.tiny(num_layers=2, max_seq_len=64,
+                              dtype=torch.bfloat16)
+    cache = TieredKVCache(cfg, max_batch, 48, page_size=8, kv_dtype=kv,
+                          persist_prefix=False, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for arr in cache.pool.values():
+        if arr.dtype == torch.int8:
+            arr.copy_(torch.randint(-127, 128, arr.shape, generator=g,
+                                    device=cuda))
+        else:
+            arr.copy_(torch.randn(arr.shape, generator=g, device=cuda))
+    cache.admit(0, 20)
+    cache.lengths[0] = 20
+    return cache
+
+
+def _slot_bytes(cache, slot, k):
+    idx = torch.as_tensor(cache.pages_held(slot)[:k], device=cache.device)
+    return {n: a.index_select(1, idx).view(torch.uint8)
+            for n, a in cache.pool.items()}
+
+
+def _zero_pages(cache, slot):
+    """Write zeros into ``slot``'s pages, page by page (no index upload,
+    so nothing synchronizes)."""
+    for a in cache.pool.values():
+        for p in cache.pages_held(slot):
+            a[:, p].zero_()
+
+
+def _same(a, b):
+    return set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16", "int8"])
+def test_swap_round_trip_is_byte_equal_on_the_card(cuda, kv):
+    """A swap-out to pinned host memory and the swap-in scatter give back
+    the pages' bytes (elsewhere in the pool), bf16 and int8 with its f32
+    scales; the payload rests in pinned memory."""
+    cache = _tier_cache(cuda, kv)
+    cache.admit(1, 40)
+    cache.lengths[1] = 27
+    want = _slot_bytes(cache, 1, 4)
+    cache.swap_out(1, rid=7)
+    entry = cache.host.get(("swap", 7), touch=False)
+    assert all(t.is_pinned() for t in entry["tensors"].values())
+    cache.admit(2, 16)                  # a new tenant on the freed pages
+    _zero_pages(cache, 2)
+    assert cache.swap_in(1, 7, 40, expect_tokens=27) == 27
+    torch.cuda.synchronize()
+    assert _same(_slot_bytes(cache, 1, 4), want)
+    assert cache.swap_outs_total == cache.swap_ins_total == 1
+
+
+def test_nonblocking_swap_out_is_fenced_before_any_read(cuda):
+    """A non-blocking swap-out queued behind a busy stream synchronizes
+    nothing; the freed pages' next tenant writes them at once (queued
+    after the gather), and the payload that ``fence_swaps`` puts in the
+    store holds the victim's bytes, not the tenant's."""
+    cache = _tier_cache(cuda, None, max_batch=2)
+    want = {n: t.clone() for n, t in _slot_bytes(cache, 0, 3).items()}
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cache.swap_out(0, rid=3, nonblocking=True)
+        cache.admit(1, 24)
+        _zero_pages(cache, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cache.swap_outs_total == 0 and cache.has_swapped(3)
+    assert cache.fence_swaps() == 1 and cache.swap_outs_total == 1
+    got = type(cache.host).decode(cache.host.get(("swap", 3),
+                                                 touch=False))
+    assert _same({n: t.to(cuda).view(torch.uint8) for n, t in got.items()},
+                 want)
+    cache.release(1)
+    assert cache.swap_in(0, 3, 24, expect_tokens=20) == 20
+    torch.cuda.synchronize()
+    assert _same(_slot_bytes(cache, 0, 3), want)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16", "int8"])
+def test_move_pages_across_pools_and_defrag_are_byte_equal(cuda, kv):
+    """``_move_pages`` from another pool lands the source pages
+    byte-equal; ``defrag`` within one pool, whose source and destination
+    ids overlap, moves every live page byte-equal."""
+    src = _tier_cache(cuda, kv)
+    dst = _tier_cache(cuda, kv)
+    src.admit(1, 40)
+    src.lengths[1] = 33
+    want = _slot_bytes(src, 1, 5)
+    dst.import_request_direct(1, src, 1, 40)
+    torch.cuda.synchronize()
+    assert _same(_slot_bytes(dst, 1, 5), want)
+    assert dst.direct_moves_total == 1
+    live = _slot_bytes(dst, 1, 5)
+    live = {n: t.clone() for n, t in live.items()}
+    dst.release(0)                      # holes below slot 1's pages
+    assert dst.allocator.fragmentation() > 0
+    dst.defrag()
+    torch.cuda.synchronize()
+    assert dst.allocator.fragmentation() == 0
+    assert dst.pages_held(1)[:5] == [1, 2, 3, 4, 5]
+    assert _same(_slot_bytes(dst, 1, 5), live)

@@ -229,11 +229,11 @@ def test_run_fences_instead_of_spinning():
     sched.step()                         # admit + first dispatch
     real_plan, holes = sched._plan, [3]
 
-    def empty_plan():
+    def empty_plan(*args):
         if holes[0] > 0:
             holes[0] -= 1
             return StepPlan(budget=sched.planner.token_budget)
-        return real_plan()
+        return real_plan(*args)
 
     sched._plan = empty_plan
     sched.run()

@@ -11,7 +11,9 @@ the engine, the scheduler and the allocator).
   with JAX ``test_torch_scheduler`` holds). Each site runs on an engine
   that reaches it: n-gram ``spec_k`` for ``verify_step``, a draft model
   for ``draft_propose``, a draft tree for ``tree_verify``, the
-  overlapped pipeline for ``dispatch``, ``commit`` and ``transfer``.
+  overlapped pipeline for ``dispatch``, ``commit`` and ``transfer``,
+  the host tier for ``swap_out`` and ``swap_in`` (whose bounded retry
+  absorbs two shots, so the third one recovers).
   Also ``corrupt`` at ``transfer``, a watchdog stall and several faults
   in one run;
 - one supervised fault run, the degraded ladder and the circuit
@@ -109,7 +111,12 @@ SITE_KW = {"verify_step": dict(spec_k=2, repeat_last=True),
            "draft_propose": dict(spec_k=2, draft_layers=1),
            "tree_verify": dict(draft_layers=1, spec_tree=(2, 2)),
            "dispatch": dict(overlap=True), "commit": dict(overlap=True),
-           "transfer": dict(overlap=True)}
+           "transfer": dict(overlap=True),
+           "swap_out": dict(host_tier=True), "swap_in": dict(host_tier=True)}
+#: (nth call, shots) per site where the default (3rd call, one shot)
+#: does not reach a recovery: the one swap-out and swap-in of the run,
+#: and swap_in's bounded retry absorbs two shots
+SITE_SHOTS = {"swap_out": (1, 1), "swap_in": (1, 3)}
 
 
 def _base(kw):
@@ -325,12 +332,14 @@ def test_recovery_at_each_site_is_token_identical(metrics, site, kv):
     kw = dict(SITE_KW.get(site, {}), kv_cache_dtype=kv)
     want = _base(kw)
     inj = tserving.FaultInjector()
-    inj.arm(site, "raise", nth=3)
+    nth, shots = SITE_SHOTS.get(site, (3, 1))
+    for _ in range(shots):
+        inj.arm(site, "raise", nth=nth)
     sup, reqs, inj, _ = _serve("port", kw, inj)
-    assert inj.fired[site] == 1, inj.stats()
+    assert inj.fired[site] == shots, inj.stats()
     assert sup.recoveries == 1 and sup.injected_faults == 1
     assert _counter(metrics, "serving_fault_injected_total",
-                    f"site={site},kind=raise") == 1
+                    f"site={site},kind=raise") == shots
     assert _counter(metrics, "serving_fault_recoveries_total") == 1
     assert _tokens(reqs) == want
     assert all(r.done for r in reqs)
@@ -487,7 +496,7 @@ def test_site_lint():
     calls = _fault_calls((ROOT / "paddle_tpu_torch").rglob("*.py"))
     ref = _fault_calls(ROOT / "paddle_tpu" / rel for rel in (
         "inference/predictor.py", "serving/paged_cache.py",
-        "serving/scheduler.py"))
+        "serving/scheduler.py", "serving/host_tier.py"))
     for site in tres.ENGINE_SITES:
         if site in tres.WAITING_SITES:
             assert site not in calls, site
@@ -497,7 +506,7 @@ def test_site_lint():
             3 if site in ("dispatch", "commit", "transfer") else 1), site
     assert set(calls) <= set(tres.SITES)
     assert set(tres.WAITING_SITES) == {
-        "swap_out", "swap_in", "adapter_load", "adapter_promote",
+        "adapter_load", "adapter_promote",
         "wal_append", "wal_fsync", "checkpoint_write"}
 
 
