@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (plain, speculative,
-under the SLO scheduler and grammar-constrained), dense decoding, Paddle
-fused-op decoder and training step on one NVIDIA card.
+under the SLO scheduler, grammar-constrained, multi-tenant LoRA,
+supervised, on the host KV tier), dense decoding, Paddle fused-op
+decoder and training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
         --train-steps 2                        # short check
     python3 chip_smoke.py --only 3h            # build, then phase 3h alone
+    python3 chip_smoke.py --only 3i            # build, then phase 3i alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -175,6 +177,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step, tokens/s, the host ms a step of the DFA work and of the mask
    upload, mask uploads against decode steps (``constrained ...`` lines,
    ``run_constrained``).
+3i. The multi-tenant adapter pool (``adapters=``: 4 slots of rank 16,
+   six random q/o adapters from phase 3's seed, ``init_lora`` at scale
+   0.04) on the engine at the same width and a quarter of the depth (8
+   layers), fresh weights from phase 3's seed, fused, KV bf16 and int8.
+   Gates: (a) phase 3's first 8 requests (48 new tokens at most) served
+   as base rows on an engine with the pool are token-identical to an
+   engine without it; (b) four rows on adapters 1-4 prefill through B11
+   and decode one step through B10 with the pool's LoRA term, each
+   row's prefill and decode logits within 0.25 of the plain chunk
+   composition on weights with that adapter dense-merged
+   (``merge_lora``), and the same decode with rows 0 and 1's slots
+   swapped (a planted fault) must fail it; (c) the 8 requests on
+   adapters 1-4 differ from the base rows' tokens in at least 25% of
+   positions; (d) phase 3e's requests and HIGH burst on adapters 0-6
+   under the scheduler (budget 384, a RAM host store below the pool),
+   bf16 and int8: LRU reclaim demotes and promotes, each promotion's
+   CRC checked; the same run with the first promoted payload corrupted
+   falls back once, counted, with the same tokens; four NORMAL rows
+   pinning every slot beside four LOW base rows make a NORMAL request
+   on a fifth adapter wait, with no preemption; (e) launches equal the
+   counted forwards (B10 per decode, B11 per prefill chunk and, under
+   n-gram ``spec_k=4``, per verify); (f) pins and allocators balance
+   after every drain, and an overlapped run holds every dispatch and
+   every pool install to the sync debug mode. Reported: ms a decode step
+   of 8 rows (4 on adapters) without a pool, with one (the factor
+   gather once a forward) and with the gather per layer, in turns
+   (none, forward, layer, twice), the first three profiled; install,
+   demote and promote ms and bytes, from RAM and from a standing store
+   on local disk (``adapters ...`` lines, ``run_adapters``).
 3g. Supervised serving (``EngineSupervisor`` over the engine) at
    Llama-2-7B's full width and depth (32 layers), fresh weights from
    phase 3's seed, phase 3e's 16 requests and HIGH burst, budget 384:
@@ -287,6 +318,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1376,10 +1408,17 @@ def make_requests(n: int, vocab: int, seed: int):
     return reqs
 
 
-def chunked_prefill(torch, gen, eng, slot, seq, fused):
+def chunked_prefill(torch, gen, eng, slot, seq, fused, params=None,
+                    adapter_slot=None):
     """Prefill ``seq`` into ``slot``'s pages in the engine's chunk
-    widths and context buckets; returns the last chunk's logits."""
+    widths and context buckets; returns the last chunk's logits.
+    ``params`` replaces the engine's weights; ``adapter_slot`` adds the
+    LoRA term of that slot of the engine's adapter pool."""
     cache = eng.cache
+    ad = {}
+    if adapter_slot is not None:
+        ad = dict(adapters=eng.adapters.arrays,
+                  adapter_slot=torch.tensor([adapter_slot]).cuda())
     page = cache.page_size
     bt = torch.from_numpy(cache.block_tables[slot].copy()).cuda()
     done, logits = 0, None
@@ -1391,8 +1430,9 @@ def chunked_prefill(torch, gen, eng, slot, seq, fused):
         chunk = torch.zeros((1, width), dtype=torch.int32)
         chunk[0, :take] = torch.from_numpy(seq[done:done + take])
         logits, _ = gen.paged_prefill_chunk(
-            eng.params, chunk.cuda(), cache.pool, bt, eng.cfg,
-            ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=fused)
+            eng.params if params is None else params, chunk.cuda(),
+            cache.pool, bt, eng.cfg, ctx_cap=ctx_cap, ctx_len=done,
+            chunk_len=take, fused=fused, **ad)
         done += take
     return logits
 
@@ -1786,7 +1826,8 @@ def instrument_engine(torch, eng, no_sync: bool, extra=()):
 def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
               reqs, highs, name, kv=None, fused=True, overlap=False,
               budget=SCHED_BUDGET, sync_check=False, grammars=None,
-              eos=None, setup=None, sync_extra=(), **spec):
+              eos=None, setup=None, sync_extra=(), adapters=None,
+              adapter_ids=None, **spec):
     """One scheduler run at the engine's serving shape: ``reqs``
     submitted as alternating NORMAL and LOW, the ``highs`` (if any)
     submitted as HIGH after ``BURST_AT`` steps, then driven as
@@ -1807,17 +1848,23 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
     id. ``setup(eng)`` runs on the fresh engine before the first step;
     ``sync_extra`` names more engine methods held to the sync check.
     On a host-tier engine (``host_tier=True`` in ``spec``) the record
-    carries the tier's counters (``tier``)."""
+    carries the tier's counters (``tier``). ``adapters`` (an adapter
+    pool or its keyword dict) builds the engine with it, and
+    ``adapter_ids`` gives the adapter of each request of ``reqs`` and
+    then of ``highs``; every pin must be dropped after the drain, and
+    the record carries the pool's counters (``adapters``)."""
     eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
                  kv_cache_dtype=kv, prefill_chunk=256, fused=fused,
                  overlap=overlap, eos_token_id=eos,
-                 constraints=grammars is not None, **spec)
+                 constraints=grammars is not None, adapters=adapters,
+                 **spec)
     if setup is not None:
         setup(eng)
     sched = Scheduler(eng, token_budget=budget)
+    ids = list(adapter_ids or [0] * (len(reqs) + len(highs or ())))
     handles = [sched.submit(p, max_new_tokens=m,
                             priority=Priority.LOW if i % 2 else
-                            Priority.NORMAL,
+                            Priority.NORMAL, adapter_id=ids[i],
                             constraint=grammars[i] if grammars else None)
                for i, (p, m) in enumerate(reqs)]
     tally = instrument_engine(torch, eng, sync_check, sync_extra)
@@ -1841,8 +1888,9 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
     while True:
         if highs and steps == BURST_AT:
             handles += [sched.submit(p, max_new_tokens=m,
-                                     priority=Priority.HIGH)
-                        for p, m in highs]
+                                     priority=Priority.HIGH,
+                                     adapter_id=ids[len(reqs) + j])
+                        for j, (p, m) in enumerate(highs)]
         more = sched.step()
         steps += 1
         plan = sched.last_plan
@@ -1888,6 +1936,10 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
     if (alloc.num_used or alloc.allocs_total != alloc.frees_total
             or eng.has_inflight()):
         fail(f"sched {name}: allocator not balanced ({alloc.stats()})")
+    pool = eng.adapters
+    if pool is not None and any(pool._pins.values()):
+        fail(f"sched {name}: adapter pins left after the drain "
+             f"({pool._pins})")
     gen_tokens = sum(len(h.tokens) for h in handles)
     rec = dict(run=name, kv=kv or "bf16", fused=fused, overlap=overlap,
                budget=budget, spec={k: v for k, v in spec.items()},
@@ -1917,6 +1969,9 @@ def run_sched(torch, kernels, Engine, Scheduler, Priority, params, cfg,
         rec["tier"] = tier
         rec["scatter_host_ms"] = {k: v * 1e3 for k, v in
                                   eng.cache.scatter_host_s.items()}
+    if pool is not None:
+        rec["adapters"] = pool.stats()
+        rec["adapter_rows"] = sum(1 for i in ids if i)
     if dfa is not None:
         rec.update(
             constrained=sum(g is not None for g in grammars),
@@ -3217,6 +3272,545 @@ def run_host_tier(torch, kernels, cfg, seed: int, reqs):
     return out
 
 
+# --------------------------------------------------------------- phase 3i
+ADAPTER_SLOTS, ADAPTER_RANK, ADAPTERS = 4, 16, 6
+#: init scale of the random adapters: A and B ~ N(0, 0.04^2) at rank 16
+#: and alpha 16 give dW ~ N(0, 0.0064^2) a weight, 41% of a projection's
+#: N(0, 1/4096), so an adapter row's tokens part from the base row's and
+#: a swapped slot moves the logits past LOGITS_ATOL
+ADAPTER_INIT_SCALE = 0.04
+ADAPTER_NEW = 48        # new tokens a request in the identity checks
+#: gate (c): at least this share of the adapter rows' generated tokens
+#: differ from the same prompts' base-row tokens
+ADAPTER_DIFFER_SHARE = 0.25
+DECODE_TURNS, DECODE_WINDOW = 4, 32     # decode_turns' windows a mode
+
+
+def adapter_registry(serving, cfg, seed: int):
+    """``ADAPTERS`` random q/o adapters of rank ``ADAPTER_RANK`` from
+    ``seed`` (``init_lora``, numpy's ``RandomState``)."""
+    reg = serving.AdapterRegistry(cfg)
+    for aid in range(1, ADAPTERS + 1):
+        reg.register(aid, serving.init_lora(
+            cfg, ADAPTER_RANK, seed=seed * 100 + aid,
+            scale=ADAPTER_INIT_SCALE))
+    return reg
+
+
+def adapter_engine_run(torch, kernels, E, params, cfg, reqs, ids, name, kv,
+                       adapters=None):
+    """The engine's own FIFO loop over ``reqs`` with the adapter ids
+    ``ids`` (fused, bf16 or int8 KV, pool ``adapters`` or none): every
+    request finishes, launches equal the counted forwards (B10 per
+    decode, B11 per prefill chunk), the allocator and the pins balance
+    after the drain."""
+    eng = E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+            kv_cache_dtype=kv, prefill_chunk=256, fused=True,
+            adapters=adapters)
+    handles = [eng.submit(p, max_new_tokens=m, adapter_id=a)
+               for (p, m), a in zip(reqs, ids)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    f, L = dict(eng.forwards), cfg.num_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update(B10=L * f["decode"], B11=L * f["prefill"])
+    if counts != want:
+        fail(f"adapters {name}: launches {counts} != {want} (forwards {f})")
+    for h in handles:
+        if not h.done or len(h.tokens) != h.max_new_tokens:
+            fail(f"adapters {name}: request {h.rid} finished "
+                 f"{h.finish_reason} with {len(h.tokens)} tokens")
+    balanced(eng, f"adapters {name}")
+    pool = eng.adapters
+    if pool is not None and any(pool._pins.values()):
+        fail(f"adapters {name}: pins left after the drain ({pool._pins})")
+    rec = dict(run=name, kv=kv or "bf16", wall_s=wall, forwards=f,
+               launches=counts, adapter_rows=sum(1 for a in ids if a),
+               tokens=[list(h.tokens) for h in handles])
+    if pool is not None:
+        rec["adapters"] = pool.stats()
+    del eng, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def differ_share(got, base) -> float:
+    """Share of the generated positions of ``got`` whose token is not
+    ``base``'s at the same position."""
+    n = sum(len(a) for a in got)
+    same = sum(x == y for a, b in zip(got, base) for x, y in zip(a, b))
+    return 1.0 - same / max(1, n)
+
+
+def adapter_logits_check(torch, gen, serving, E, params, cfg, reqs, reg,
+                         kv):
+    """Gate (b): four rows on adapters 1-4 prefill through B11 with the
+    pool's LoRA term (their prompts in the engine's chunks), then take
+    one decode step together through B10; each row's prefill logits and
+    decode logits must be within LOGITS_ATOL of a kernel-free forward
+    (the plain chunk composition) of the same tokens on weights with
+    that adapter dense-merged (``merge_lora``). Then the decode step
+    again with rows 0 and 1's pool slots swapped, a planted fault both
+    rows must fail."""
+    eng = E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+            kv_cache_dtype=kv, prefill_chunk=256, fused=True,
+            adapters=dict(slots=ADAPTER_SLOTS, rank=ADAPTER_RANK,
+                          registry=reg))
+    cache, pool = eng.cache, eng.adapters
+    rows = [(reqs[i][0], i + 1) for i in range(4)]
+    slots, pre, first = [], [], []
+    for i, (p, aid) in enumerate(rows):
+        slots.append(pool.acquire(aid))
+        cache.admit(i, p.size + 1)
+        lg = chunked_prefill(torch, gen, eng, i, p, True,
+                             adapter_slot=slots[-1])[0].float()
+        pre.append(lg)
+        first.append(int(lg.argmax()))
+    B = eng.max_batch
+    lengths = torch.zeros(B, dtype=torch.int32)
+    last = torch.zeros(B, dtype=torch.int32)
+    active = torch.zeros(B, dtype=torch.bool)
+    aslot = torch.zeros(B, dtype=torch.int32)
+    for i, (p, _) in enumerate(rows):
+        lengths[i], last[i], active[i], aslot[i] = p.size, first[i], True, \
+            slots[i]
+    tables = torch.from_numpy(cache.block_tables.copy()).cuda()
+
+    def decode(slot_ids):
+        dec, _ = gen.paged_decode_forward(
+            eng.params, last.cuda(), cache.pool, tables, lengths.cuda(),
+            cfg, active=active.cuda(), fused=True,
+            adapters=pool.arrays, adapter_slots=slot_ids.cuda())
+        return dec.float()
+
+    dec = decode(aslot)
+    swapped = aslot.clone()
+    swapped[0], swapped[1] = aslot[1], aslot[0]
+    bad = decode(swapped)
+    import numpy as np
+    errs = []
+    for i, (p, aid) in enumerate(rows):
+        merged = serving.merge_lora(params, cfg, reg.get(aid))
+        cache.admit(4, p.size + 1)
+        ref_pre = chunked_prefill(torch, gen, eng, 4, p, False,
+                                  params=merged)[0].float()
+        cache.release(4)
+        seq = np.concatenate([p, np.asarray([first[i]], np.int32)])
+        cache.admit(4, seq.size)
+        ref_dec = chunked_prefill(torch, gen, eng, 4, seq, False,
+                                  params=merged)[0].float()
+        cache.release(4)
+        del merged
+        errs.append(dict(
+            adapter=aid, prefill_err=(pre[i] - ref_pre).abs().max().item(),
+            decode_err=(dec[i] - ref_dec).abs().max().item(),
+            swapped_decode_err=(bad[i] - ref_dec).abs().max().item(),
+            logits_max_abs=ref_dec.abs().max().item()))
+    for i in range(4):
+        cache.release(i)
+        pool.release(rows[i][1])
+    rec = dict(kv=kv or "bf16", rows=errs, atol=LOGITS_ATOL)
+    for e in errs:
+        if not (e["prefill_err"] <= LOGITS_ATOL
+                and e["decode_err"] <= LOGITS_ATOL):
+            fail(f"adapters logits {kv or 'bf16'}: row off its merged "
+                 f"reference: {e}")
+    if not all(errs[i]["swapped_decode_err"] > LOGITS_ATOL for i in (0, 1)):
+        fail(f"adapters logits {kv or 'bf16'}: the planted fault (rows 0 "
+             f"and 1's slots swapped) passed the check: {errs}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_turns(torch, E, params, cfg, reqs, reg):
+    """ms a decode step of 8 rows (bf16 KV, fused) in three modes: no
+    pool ("none"), a pool with 4 rows on adapters and the port's factor
+    gather once a forward ("forward"), and the same with the gather per
+    layer, as the JAX scan does ("layer": ``_adapter_prep`` swapped for
+    one that gathers the same values a layer at a time). One engine a
+    mode, all prefilled
+    first; then ``DECODE_TURNS`` turns of a ``DECODE_WINDOW``-step
+    window each, the modes in alternating order (none, forward, layer,
+    then layer, forward, none), each window between card
+    synchronizations; then a ``torch.profiler`` window of 8 steps a mode
+    (``device_breakdown``). Also the adapter term alone
+    (``_adapter_prep`` and the 2 x L ``_lora_delta`` of one forward at
+    the decode shape), 100 forwards between two synchronizations, in µs
+    a forward (and the host's enqueue alone), in both gather modes.
+    Each window also reports the host ms of the steps' dispatch
+    halves."""
+    from paddle_tpu_torch.models import generate as gen
+    from torch.profiler import ProfilerActivity, profile
+    once = gen._adapter_prep
+
+    def per_layer(adapters, adapter_slots, cfg):
+        """``_adapter_prep`` gathering each layer's factors when the
+        layer runs, as the JAX scan does: the same values."""
+        aslot = adapter_slots.to(device=adapters["scale"].device,
+                                 dtype=torch.long).reshape(-1)
+        asc = adapters["scale"].index_select(0, aslot).to(cfg.dtype)
+        return lambda l: tuple(adapters[n][l].index_select(0, aslot)
+                               for n in ("aq", "bq", "ao", "bo")) + (asc,)
+
+    def gather(mode):
+        gen._adapter_prep = per_layer if mode == "layer" else once
+    modes = ("none", "forward", "layer")
+    engines = {}
+    for mode in modes:
+        ids = [0] * 8 if mode == "none" else [1, 0, 2, 0, 3, 0, 4, 0]
+        kw = {} if mode == "none" else {"adapters": dict(
+            slots=ADAPTER_SLOTS, rank=ADAPTER_RANK, registry=reg)}
+        eng = E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                prefill_chunk=256, fused=True, **kw)
+        for (p, _), a in zip(reqs[:8], ids):
+            eng.submit(p, max_new_tokens=DECODE_TURNS * DECODE_WINDOW + 24,
+                       adapter_id=a)
+        while eng._queue or eng.pending_prefills():
+            eng.step()
+        engines[mode] = eng
+
+    def window(mode, n):
+        """ms a step and host ms of its dispatch half, over ``n``
+        steps."""
+        gather(mode)
+        eng = engines[mode]
+        disp = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t1 = time.perf_counter()
+            eng.decode_dispatch(eng.ready_mask())
+            disp += time.perf_counter() - t1
+            eng.commit_inflight()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / n, disp * 1e3 / n)
+
+    out = {m: {"step_ms": [], "dispatch_ms": []} for m in modes}
+    try:
+        for mode in modes:
+            window(mode, 4)                 # warm
+        for t in range(DECODE_TURNS):
+            for mode in (modes if t % 2 == 0 else modes[::-1]):
+                step, disp = window(mode, DECODE_WINDOW)
+                out[mode]["step_ms"].append(step)
+                out[mode]["dispatch_ms"].append(disp)
+        for mode in modes:
+            gather(mode)
+            eng = engines[mode]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    eng.decode_step(eng.ready_mask())
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 8
+            out[mode]["profile"] = device_breakdown(torch, prof, 8, wall)
+            out[mode]["rows"] = int(eng.ready_mask().sum())
+        pool = engines["forward"].adapters
+        aslot = torch.from_numpy(engines["forward"]._aslot.copy()).cuda()
+        x = torch.randn((8, 1, cfg.hidden_size), dtype=cfg.dtype).cuda()
+        for mode in ("forward", "layer"):
+            gather(mode)
+
+            def term():
+                ad = gen._adapter_prep(pool.arrays, aslot, cfg)
+                for l in range(cfg.num_layers):
+                    a = ad(l)
+                    gen._lora_delta(x, a[0], a[1], a[4])
+                    gen._lora_delta(x, a[2], a[3], a[4])
+            for _ in range(5):              # warm
+                term()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                term()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out[mode]["term_us_per_forward"] = (
+                (time.perf_counter() - t0) * 1e6 / 100)
+            out[mode]["term_enqueue_us_per_forward"] = (t1 - t0) * 1e6 / 100
+    finally:
+        gen._adapter_prep = once
+    for mode in modes:
+        ms = out[mode]["step_ms"]
+        out[mode].update(median_ms=statistics.median(ms),
+                         spread_ms=max(ms) - min(ms))
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def install_and_promote(torch, serving, cfg, reg):
+    """Install, demote and promote timings on a one-slot pool on the
+    card: a registry load into the slot, a load that first demotes the
+    resident adapter (into a host store with a standing directory),
+    the promotion of the demoted one from RAM, and, in a fresh pool and
+    store on the same directory with an empty registry, its promotion
+    from the standing store (a warm read). Each between card
+    synchronizations; the promoted factors must equal the installed
+    ones."""
+    import shutil
+    d = os.path.join(REPO, "chip_smoke_tmp", "adapters")
+    shutil.rmtree(d, ignore_errors=True)
+    pool = serving.AdapterPool(cfg, slots=1, rank=ADAPTER_RANK,
+                               registry=reg, store=serving.HostPageStore(
+                                   page_size=16, path=d))
+    rec = {}
+    _, rec["install_ms"] = timed(torch, pool.acquire, 1)
+    rec["install_bytes"] = pool.load_bytes_total
+    want = {n: pool.arrays[n][:, 1].clone() for n in
+            serving.FACTOR_NAMES}
+    pool.release(1)
+    _, rec["demote_and_install_ms"] = timed(torch, pool.acquire, 2)
+    rec["demote_bytes"] = pool.demote_bytes_total
+    pool.release(2)
+    _, rec["promote_ram_ms"] = timed(torch, pool.acquire, 1)
+    pool2 = serving.AdapterPool(
+        cfg, slots=1, rank=ADAPTER_RANK,
+        registry=serving.AdapterRegistry(cfg),
+        store=serving.HostPageStore(page_size=16, path=d))
+    _, rec["promote_store_ms"] = timed(torch, pool2.acquire, 1)
+    for p in (pool, pool2):
+        if not (p.promotions_total == 1 and p.fallbacks_total == 0
+                and all(torch.equal(p.arrays[n][:, 1], want[n])
+                        for n in serving.FACTOR_NAMES)):
+            fail(f"adapters promote: {p.stats()}")
+    rec["store_files"] = len(os.listdir(d))
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def pinned_defer(torch, serving, E, params, cfg, reqs, reg):
+    """Gate (d)'s all-pinned case: four NORMAL rows pin the pool's four
+    slots (adapters 1-4) beside four LOW base rows, then a NORMAL
+    request on adapter 5 arrives. It must wait for a retirement with no
+    preemption: a base row's eviction frees no adapter slot."""
+    eng = E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+            prefill_chunk=256, fused=True,
+            adapters=dict(slots=ADAPTER_SLOTS, rank=ADAPTER_RANK,
+                          registry=reg))
+    sched = serving.ServingScheduler(eng, token_budget=SCHED_BUDGET)
+    P = serving.Priority
+    hs = [sched.submit(p, max_new_tokens=24 + 8 * (i % 2),
+                       priority=P.LOW if i % 2 else P.NORMAL,
+                       adapter_id=0 if i % 2 else i // 2 + 1)
+          for i, (p, _) in enumerate(reqs[:8])]
+    while eng.pending_prefills() or any(sched._queues.values()):
+        sched.step()
+    late = sched.submit(reqs[8][0], max_new_tokens=8, priority=P.NORMAL,
+                        adapter_id=5)
+    sched.step()
+    waited = late.slot is None and not late.tokens
+    sched.run()
+    rec = dict(waited=waited, preemptions=sched.preemptions_total,
+               adapters=eng.adapters.stats())
+    if not (waited and sched.preemptions_total == 0 and late.done
+            and all(h.done for h in hs)
+            and not any(eng.adapters._pins.values())):
+        fail(f"adapters all-pinned: {rec}")
+    balanced(eng, "adapters all-pinned")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def corrupt_first_promotion(counter):
+    """A ``setup`` for ``run_sched``: the first demoted adapter payload
+    the engine pool's store hands out gets one byte flipped after its
+    CRC was stamped (in a copy: the payload's arrays view the
+    registry's), and every CRC check of a promotion is counted into
+    ``counter``."""
+    def setup(eng):
+        store = eng.adapters.store
+        get = store.get
+
+        def bad_get(key, *a, **k):
+            entry = get(key, *a, **k)
+            if entry is not None and not counter["planted"]:
+                arr = entry["arrays"]["bq"].copy()
+                arr.reshape(-1)[7] ^= 0xFF
+                entry["arrays"]["bq"] = arr
+                counter["planted"] = 1
+            return entry
+        store.get = bad_get
+        count_crc(counter)(eng)
+    return setup
+
+
+def count_crc(counter):
+    """A ``setup`` for ``run_sched`` that counts the CRC checks of the
+    pool's promotions into ``counter["crc_checks"]``."""
+    from paddle_tpu_torch.serving import adapters as ad_mod
+
+    def setup(eng):
+        verify = ad_mod.verify_checksums
+
+        def counted(*a, **k):
+            counter["crc_checks"] += 1
+            return verify(*a, **k)
+        ad_mod.verify_checksums = counted
+        counter["restore"] = lambda: setattr(ad_mod, "verify_checksums",
+                                             verify)
+    return setup
+
+
+def sync_checked_installs(torch, counter):
+    """A ``setup`` for ``run_sched``: every install into the engine's
+    pool runs under ``torch.cuda.set_sync_debug_mode("error")`` and is
+    counted into ``counter["installs"]``."""
+    def setup(eng):
+        pool = eng.adapters
+        install = pool._install
+
+        def checked(*a, **k):
+            counter["installs"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return install(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        pool._install = checked
+    return setup
+
+
+def run_adapters(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3i: the multi-tenant adapter pool (slots 4, rank 16, six
+    adapters from ``seed``) on the engine at ``cfg``'s width and depth,
+    fresh weights from phase 3's seed, KV bf16 and int8, fused. Gates:
+    (a) base requests served with the pool are token-identical to the
+    same requests without it; (b) adapter rows' prefill and decode
+    logits within LOGITS_ATOL of a kernel-free forward on merged
+    weights, a swapped slot rejected (``adapter_logits_check``); (c)
+    adapter rows' tokens differ from the base rows' in at least
+    ``ADAPTER_DIFFER_SHARE`` of positions; (d) under the scheduler
+    (phase 3e's requests and HIGH burst, on adapters 0-6) LRU reclaim
+    demotes and promotes, every promotion CRC-checked, a planted
+    corrupt payload falls back once, counted, with the same tokens, and
+    an all-pinned pool defers with no base-row victim; (e) launches
+    equal the counted forwards (B10, B11 prefill, B11 verify under
+    n-gram ``spec_k=4``); (f) pins and allocators balance, and an
+    overlapped run's dispatches and pool installs never sync. Reported:
+    ms a decode step of 8 rows without a pool, with one (gather a
+    forward) and gathered per layer, in turns, with a profile of the
+    card's busy time; install, demote and promote ms and bytes."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models import generate as gen
+    from paddle_tpu_torch.models.llama import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    reg = adapter_registry(serving, cfg, seed)
+    pool_kw = dict(slots=ADAPTER_SLOTS, rank=ADAPTER_RANK, registry=reg)
+    out = {"identity": {}, "logits": {}}
+    runs = []
+    sub = [(p, min(m, ADAPTER_NEW)) for p, m in reqs[:8]]
+    for kv in (None, "int8"):
+        kvn = kv or "bf16"
+        plain = adapter_engine_run(torch, kernels, E, params, cfg, sub,
+                                   [0] * 8, f"plain-{kvn}", kv)
+        base = adapter_engine_run(torch, kernels, E, params, cfg, sub,
+                                  [0] * 8, f"pool-base-{kvn}", kv,
+                                  dict(pool_kw))
+        if base["tokens"] != plain["tokens"]:
+            fail(f"adapters (a) {kvn}: base rows with the pool are not "
+                 f"token-identical to the engine without it: "
+                 f"{token_agreement(base['tokens'], plain['tokens'])}")
+        ids = [1, 2, 3, 4, 1, 2, 3, 4]
+        mixed = adapter_engine_run(torch, kernels, E, params, cfg, sub,
+                                   ids, f"pool-adapters-{kvn}", kv,
+                                   dict(pool_kw))
+        share = differ_share(mixed["tokens"], plain["tokens"])
+        if share < ADAPTER_DIFFER_SHARE:
+            fail(f"adapters (c) {kvn}: only {share:.3f} of the adapter "
+                 f"rows' tokens differ from the base rows'")
+        out["identity"][kvn] = dict(base_identical=True,
+                                    adapter_tokens_differ_share=share)
+        for r in (plain, base, mixed):
+            print("adapters " + show(r))
+        runs += [plain, base, mixed]
+        out["logits"][kvn] = adapter_logits_check(
+            torch, gen, serving, E, params, cfg, reqs, reg, kv)
+        print("adapters logits " + json.dumps(out["logits"][kvn]))
+    highs = burst_requests(4, cfg.vocab_size, seed + 7)
+    ids = [i % (ADAPTERS + 1) for i in range(len(reqs))] + [5, 6, 0, 3]
+
+    def sched(name, kv=None, setup=None, **kw):
+        rec = run_sched(torch, kernels, E, serving.ServingScheduler,
+                        serving.Priority, params, cfg, reqs, highs, name,
+                        kv=kv, setup=setup, adapter_ids=ids,
+                        adapters=dict(pool_kw, store=serving.HostPageStore(
+                            page_size=16)), **kw)
+        print("adapters sched " + show(rec))
+        runs.append(rec)
+        return rec
+
+    crc = {"crc_checks": 0, "planted": 0}
+    lru = sched("lru-bf16", setup=count_crc(crc))
+    crc["restore"]()
+    st = lru["adapters"]
+    if not (st["adapter_demotions_total"] >= 1
+            and st["adapter_promotions_total"] >= 1
+            and st["adapter_fallbacks_total"] == 0
+            and crc["crc_checks"] == st["adapter_promotions_total"]):
+        fail(f"adapters (d): LRU reclaim did not demote and promote with "
+             f"the CRC checked ({st}, {crc['crc_checks']} checks)")
+    lru["crc_checks"] = crc["crc_checks"]
+    print(f"adapters lru-bf16 crc_checks {crc['crc_checks']}")
+    i8 = sched("lru-int8", kv="int8")
+    if i8["adapters"]["adapter_promotions_total"] < 1:
+        fail(f"adapters (d) int8: no promotion ({i8['adapters']})")
+    bad = {"crc_checks": 0, "planted": 0}
+    cor = sched("lru-corrupt-bf16", setup=corrupt_first_promotion(bad))
+    bad["restore"]()
+    st = cor["adapters"]
+    if not (bad["planted"] and st["adapter_fallbacks_total"] == 1
+            and cor["tokens"] == lru["tokens"]):
+        fail(f"adapters (d): the planted corrupt payload did not fall "
+             f"back once with the same tokens ({st}, "
+             f"{token_agreement(cor['tokens'], lru['tokens'])})")
+    ngram = sched("ngram-bf16", spec_k=4)
+    if not ngram["forwards"]["verify"]:
+        fail(f"adapters (e): the n-gram run verified nothing "
+             f"({ngram['forwards']})")
+    checked = {"installs": 0}
+    ov = run_sched(torch, kernels, E, serving.ServingScheduler,
+                   serving.Priority, params, cfg, reqs[:8], None,
+                   "overlap-nosync-bf16", overlap=True, sync_check=True,
+                   setup=sync_checked_installs(torch, checked),
+                   adapters=dict(pool_kw), adapter_ids=ids[:8])
+    calls = ov["dispatch_calls_without_sync"]
+    if not (calls["decode_dispatch"] and calls["prefill_dispatch"]
+            and checked["installs"] >= 4):
+        fail(f"adapters (f): a dispatch kind or no install ran under the "
+             f"sync check ({calls}, {checked})")
+    ov["installs_without_sync"] = checked["installs"]
+    print("adapters sched " + show(ov))
+    runs.append(ov)
+    out["pinned_defer"] = pinned_defer(torch, serving, E, params, cfg, reqs,
+                                       reg)
+    print("adapters pinned " + json.dumps(out["pinned_defer"]))
+    out["install"] = install_and_promote(torch, serving, cfg, reg)
+    print("adapters install " + json.dumps(out["install"]))
+    out["decode"] = decode_turns(torch, E, params, cfg, reqs, reg)
+    for mode, t in out["decode"].items():
+        print(f"adapters decode {mode} " + json.dumps(t))
+    out["runs"] = runs
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------- phase 3c
 def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
                new: int, fn: str = "generate", b7: bool = True,
@@ -3896,9 +4490,10 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h",),
-                    help="build, then run this phase alone (at --layers) "
-                         "and write its record; no kernel line")
+    ap.add_argument("--only", choices=("3h", "3i"),
+                    help="build, then run this phase alone (3h at "
+                         "--layers, 3i at a quarter of them) and write its "
+                         "record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3996,17 +4591,20 @@ def main(argv=None) -> int:
         fail(f"expected ptxas's report of 32 B11 kernels, got {b11}")
     record["b11_ptxas"] = b11
     lap("1")
-    if args.only == "3h":
-        cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
+    if args.only is not None:
+        depth = args.layers if args.only == "3h" else max(1,
+                                                          args.layers // 4)
+        cfg = LlamaConfig.llama2_7b(num_layers=depth)
         reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
-        record["host_tier"] = run_host_tier(torch, kernels, cfg, args.seed,
-                                            reqs)
-        lap("3h")
-        for r in record["host_tier"]["runs"]:
+        key, run = (("host_tier", run_host_tier) if args.only == "3h"
+                    else ("adapters", run_adapters))
+        record[key] = run(torch, kernels, cfg, args.seed, reqs)
+        lap(args.only)
+        for r in record[key]["runs"]:
             r.pop("tokens", None)
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_3h.json"),
-                  "w") as f:
+        with open(os.path.join(REPO, "chiprun_out",
+                               f"chip_smoke_{args.only}.json"), "w") as f:
             json.dump(record, f, indent=1)
         return 0
 
@@ -4299,6 +4897,12 @@ def main(argv=None) -> int:
     record["constrained"] = constrained
     lap("3f")
 
+    # ---- phase 3i: the multi-tenant adapter pool on the engine, under
+    # the scheduler, at the engine's width and a quarter of its depth
+    adapters = run_adapters(torch, kernels, quarter, args.seed, reqs)
+    record["adapters"] = adapters
+    lap("3i")
+
     # ---- phase 3g: supervised serving with faults, drain and restore
     supervised = run_supervised(torch, kernels, cfg, args.seed, reqs)
     record["supervised"] = supervised
@@ -4348,8 +4952,8 @@ def main(argv=None) -> int:
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
-                + supervised["runs"] + hosttier["runs"] + dense["tiers"]
-                + decoder["tiers"]):
+                + adapters["runs"] + supervised["runs"] + hosttier["runs"]
+                + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():
             if n:

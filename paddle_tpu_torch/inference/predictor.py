@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``paddle_tpu/inference/predictor.py``'s
-``ContinuousBatchingEngine`` on one device: no mesh or adapters yet
-(ROADMAP.md, queue A). ``weight_bits``
+``ContinuousBatchingEngine`` on one device: no mesh yet (ROADMAP.md,
+queue A). ``weight_bits``
 quantizes the weights once at construction (int8 per channel or int4
 per group, ``generate.quantize_weights``), and every forward
 dequantizes them at each use. Each :meth:`step` admits queued requests
@@ -64,6 +64,16 @@ to a standing store (``host_tier_kw``: ``host_capacity_pages``,
 request from one engine to another, through host memory or, with
 ``src_engine``, page to page on the device.
 
+``adapters=`` serves many LoRA variants of the base weights in one batch
+(:mod:`..serving.adapters`): a request's ``adapter_id`` pins a slot of
+the engine's :class:`~..serving.adapters.AdapterPool` at admission (a
+pin before any page work, dropped on a failed admission, at preemption,
+retirement and after a handoff), the engine mirrors each row's slot
+into a ``(max_batch,)`` array, uploaded with the other step inputs, and
+every prefill chunk, decode step and verify adds the rows' q/o LoRA
+term; the draft model's forwards take none. Slot 0 is the base model,
+an exact zero.
+
 Observability and faults: every lifecycle edge and commit feeds the
 hooks of :mod:`~paddle_tpu_torch.observability.hooks` (admissions,
 prefix hits, preemptions, resumes, retirements, per-step occupancy,
@@ -89,6 +99,7 @@ engine's, so the attention reductions run over the same widths.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -100,6 +111,7 @@ from ..models import generate as _gen
 from ..observability import hooks as _obs
 from ..serving.resilience import fault_point as _fault_point
 from ..serving.constraints import ConstraintState, TokenDFA
+from ..serving.adapters import AdapterPool
 from ..serving.host_tier import TieredKVCache
 from ..serving.paged_cache import PagedKVCache, PoolExhausted
 from ..serving.speculative import (Speculator, TreeDraft, build_comb_tree,
@@ -130,7 +142,8 @@ class GenerationRequest:
     scheduler-facing metadata; the engine's own FIFO path ignores them.
 
     ``swapped``: its KV is in the host tier (a swap-out payload exists
-    for its rid) while it waits to resume. ``constraint``: the
+    for its rid) while it waits to resume. ``adapter_id``: the LoRA
+    variant serving it (0 = the base model). ``constraint``: the
     request's live :class:`~..serving.constraints.ConstraintState`
     (None = free); it rides the handle through preemption and resume.
     ``trace``: its
@@ -140,7 +153,8 @@ class GenerationRequest:
     __slots__ = ("rid", "prompt", "max_new_tokens", "eos_token_id",
                  "tokens", "done", "finish_reason", "slot", "priority",
                  "deadline_at", "submitted_at", "enqueued_at",
-                 "preemptions", "swapped", "constraint", "trace")
+                 "preemptions", "swapped", "adapter_id", "constraint",
+                 "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id):
         self.rid = rid
@@ -157,6 +171,7 @@ class GenerationRequest:
         self.enqueued_at: Optional[float] = None   # latest (re)queue time
         self.preemptions = 0
         self.swapped = False    # KV currently host-resident
+        self.adapter_id = 0     # 0 = the base model
         self.constraint = None
         self.trace = None
 
@@ -269,6 +284,11 @@ class ContinuousBatchingEngine:
     ``host_tier``: build the cache as a
     :class:`~..serving.host_tier.TieredKVCache` (module docstring), with
     ``host_tier_kw`` passed to it.
+
+    ``adapters``: an :class:`~..serving.adapters.AdapterPool` on the
+    engine's device, or a dict of its keyword arguments (``slots``,
+    ``rank``, ``registry``, ``store``), built on the engine's device;
+    None leaves the LoRA term out of every forward (module docstring).
     """
 
     def __init__(self, params, cfg, *, max_batch: int = 4,
@@ -289,8 +309,6 @@ class ContinuousBatchingEngine:
                  device: DeviceLike = None):
         if mesh is not None:
             _not_ported("mesh (tp / tp x dp serving)", "1.9")
-        if adapters is not None:
-            _not_ported("adapters (the multi-LoRA pool)", "1.6")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = _to_device(params, self.device)
@@ -319,6 +337,16 @@ class ContinuousBatchingEngine:
                 max(1, int(prefill_chunk))) * self.cache.page_size
         self.prefill_chunk = prefill_chunk
         self.max_batch = max_batch
+        if isinstance(adapters, dict):
+            adapters = AdapterPool(cfg, device=self.device, **adapters)
+        if adapters is not None and adapters.device != self.device:
+            raise ValueError(
+                f"ContinuousBatchingEngine: the AdapterPool lives on "
+                f"{adapters.device}, the engine on {self.device} — build "
+                f"the pool on the engine's device")
+        self.adapters = adapters
+        # each row's pool slot, set at seating (the pin keeps it valid)
+        self._aslot = np.zeros((max_batch,), np.int32)
         #: replica index carried by trace spans (-1 = standalone; a
         #: supervisor stamps it)
         self.replica_id = -1
@@ -435,16 +463,26 @@ class ContinuousBatchingEngine:
 
     # ---- request intake ----
     def create_request(self, prompt, max_new_tokens: int = 16,
-                       eos_token_id=None,
+                       eos_token_id=None, adapter_id: int = 0,
                        constraint=None) -> GenerationRequest:
         """Validate and build a request without queueing it.
 
+        ``adapter_id``: the LoRA variant serving the request (0 = the
+        base model); needs an engine with an adapter pool, which must be
+        able to resolve it (``AdapterPool.validate_id``: an id that
+        cannot load is refused here, not at admission inside the serving
+        loop). Its slot is pinned at admission, not here.
         ``constraint``: a :class:`~..serving.constraints.TokenDFA`
         (wrapped in a fresh :class:`~..serving.constraints.
         ConstraintState` with the request's eos) or a live
-        ``ConstraintState``; needs ``constraints=True``. The JAX
-        engine's ``adapter_id=`` waits for the adapter pool (ROADMAP.md,
-        queue A step 1.6)."""
+        ``ConstraintState``; needs ``constraints=True``."""
+        if int(adapter_id) != 0:
+            if self.adapters is None:
+                raise ValueError(
+                    f"create_request: adapter_id={adapter_id} on an "
+                    f"engine without an adapter pool — pass adapters= "
+                    f"at construction")
+            self.adapters.validate_id(adapter_id)
         if constraint is not None and not self.constraints:
             raise ValueError(
                 "create_request: a grammar constraint needs an engine "
@@ -466,6 +504,7 @@ class ContinuousBatchingEngine:
         req = GenerationRequest(
             self._next_rid, prompt, max_new_tokens,
             self.eos_token_id if eos_token_id is None else eos_token_id)
+        req.adapter_id = int(adapter_id)
         if isinstance(constraint, TokenDFA):
             constraint = ConstraintState(constraint,
                                          eos_token_id=req.eos_token_id)
@@ -492,12 +531,14 @@ class ContinuousBatchingEngine:
         return req
 
     def submit(self, prompt, max_new_tokens: int = 16,
-               eos_token_id=None, constraint=None) -> GenerationRequest:
+               eos_token_id=None, adapter_id: int = 0,
+               constraint=None) -> GenerationRequest:
         """Queue a prompt (1-D int sequence); returns the request handle
         (``.done`` / ``.tokens`` / ``.output`` fill in as steps run).
-        ``constraint`` as in :meth:`create_request`."""
+        ``adapter_id`` and ``constraint`` as in :meth:`create_request`."""
         req = self.create_request(prompt, max_new_tokens=max_new_tokens,
                                   eos_token_id=eos_token_id,
+                                  adapter_id=adapter_id,
                                   constraint=constraint)
         self._queue.append(req)
         return req
@@ -505,19 +546,23 @@ class ContinuousBatchingEngine:
     # ---- slots ----
     def _install_slot(self, slot: int, req: GenerationRequest):
         """Seat ``req`` in ``slot`` and mirror what the commit guard
-        reads (rid and seating generation) and, with constraints, the
-        slot's mask row from the DFA state the request has reached (all
-        True for a free request)."""
+        reads (rid and seating generation), the row's adapter slot (the
+        pin taken at admission keeps it valid while seated) and, with
+        constraints, the slot's mask row from the DFA state the request
+        has reached (all True for a free request)."""
         req.slot = slot
         self._slots[slot] = req
         self._rids[slot] = req.rid
         self._seat[slot] += 1
+        self._aslot[slot] = (self.adapters.slot_of(req.adapter_id)
+                             if self.adapters is not None else 0)
         if self.constraints:
             self._mask_row(slot, req)
 
     def _clear_slot(self, slot: int):
         self._slots[slot] = None
         self._rids[slot] = -1
+        self._aslot[slot] = 0
         if self.draft_cache is not None:
             # the draft pool's state is disposable: retire, preempt,
             # swap and cancel just drop the slot's draft pages (a new
@@ -551,12 +596,41 @@ class ContinuousBatchingEngine:
         Under the host tier a request that was SWAPPED OUT comes back by
         one scatter of its pages instead, decode-ready at once; a
         payload that was dropped, went stale or fails its checksum falls
-        back to the replay."""
-        cache = self.cache
-        free = cache.free_slots()
+        back to the replay.
+
+        With an adapter pool the request's adapter is pinned FIRST
+        (``AdapterPool.acquire``, which may load, promote or raise
+        :class:`~..serving.adapters.AdapterPoolExhausted`, a
+        :class:`PoolExhausted`: back-pressure), and any failure after it
+        drops the pin again, so a deferred admission leaks nothing."""
+        free = self.cache.free_slots()
         if not free:
             return False
-        slot = free[0]
+        with self._adapter_pinned(req):
+            return self._admit_pinned(req, free[0])
+
+    @contextlib.contextmanager
+    def _adapter_pinned(self, req: GenerationRequest):
+        """Pin ``req``'s adapter (none for the base model) around a
+        seating; a seating that raises drops the pin again."""
+        if self.adapters is not None and req.adapter_id:
+            self.adapters.acquire(req.adapter_id)
+        try:
+            yield
+        except BaseException:
+            self._release_adapter(req)
+            raise
+
+    def _release_adapter(self, req: GenerationRequest):
+        """Drop ``req``'s adapter pin (a failed seating, preemption,
+        retirement, the exporting side of a handoff)."""
+        if self.adapters is not None and req.adapter_id:
+            self.adapters.release(req.adapter_id)
+
+    def _admit_pinned(self, req: GenerationRequest, slot: int) -> bool:
+        """The page side of :meth:`admit_request`, run with the
+        request's adapter pin (if any) held."""
+        cache = self.cache
         seq = req.resume_sequence()
         # trace: queue_wait closes at the admission instant, so the
         # swap-in below lands in its own span
@@ -663,6 +737,9 @@ class ContinuousBatchingEngine:
         req.slot = None
         req.preemptions += 1
         req.finish_reason = "preempted"
+        # a preempted request holds no device residency: its resume pins
+        # the adapter again (promoting it if the slot was reclaimed)
+        self._release_adapter(req)
         _obs.serving_preempted(1, freed)
         return freed
 
@@ -752,6 +829,16 @@ class ContinuousBatchingEngine:
             self.cmask_uploads += 1
         return self._cmask_dev
 
+    def _adapter_kw(self, rows=slice(None), key: str = "adapter_slots"
+                    ) -> Dict:
+        """The adapter pool's tensors and the ``rows``' slots, uploaded
+        through :meth:`_up`, as a target forward's ``adapters`` and
+        ``key`` arguments; empty without a pool."""
+        if self.adapters is None:
+            return {}
+        return {"adapters": self.adapters.arrays,
+                key: self._up(self._aslot[rows])}
+
     def _fetch(self, t: torch.Tensor, commit: bool = True,
                since: Optional[int] = None) -> np.ndarray:
         """The device-to-host fetch: waits for the stream, and counts the
@@ -811,7 +898,8 @@ class ContinuousBatchingEngine:
         logits, _ = _gen.paged_prefill_chunk(
             self.params, self._up(chunk), cache.pool,
             self._up(cache.block_tables[slot]), self.cfg,
-            ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=self.fused)
+            ctx_cap=ctx_cap, ctx_len=done, chunk_len=take, fused=self.fused,
+            **self._adapter_kw(slice(slot, slot + 1), "adapter_slot"))
         self.forwards["prefill"] += 1
         samp = rawmax = None
         if done + take >= S and not req.tokens:
@@ -923,6 +1011,7 @@ class ContinuousBatchingEngine:
         _obs.serving_trace_finish(req, reason, replica=self.replica_id)
         self.cache.release(req.slot)
         self._clear_slot(req.slot)
+        self._release_adapter(req)
         _obs.serving_retired(1, reason)
 
     # ---- prefill→decode KV handoff ----
@@ -972,20 +1061,23 @@ class ContinuousBatchingEngine:
         engine's prefix trie. False when no slot is free; raises
         :class:`PoolExhausted` (nothing changed) when the pool cannot
         cover it. Decode from here is token-identical to having
-        prefilled in place."""
+        prefilled in place. The request's adapter is pinned on THIS
+        engine's pool (the KV bytes are adapter-agnostic), and a failed
+        page install drops the pin."""
         free = self.cache.free_slots()
         if not free:
             return False
         slot = free[0]
         t0 = _obs.generate_begin()
-        if src_engine is not None:
-            self.cache.import_request_direct(
-                slot, src_engine.cache, payload["slot"],
-                req.prompt.shape[1] + req.max_new_tokens)
-        else:
-            self.cache.import_request(
-                slot, payload["kv"],
-                req.prompt.shape[1] + req.max_new_tokens)
+        with self._adapter_pinned(req):
+            if src_engine is not None:
+                self.cache.import_request_direct(
+                    slot, src_engine.cache, payload["slot"],
+                    req.prompt.shape[1] + req.max_new_tokens)
+            else:
+                self.cache.import_request(
+                    slot, payload["kv"],
+                    req.prompt.shape[1] + req.max_new_tokens)
         self.cache.lengths[slot] = np.int32(payload["length"])
         self._last[slot] = np.int32(payload["last"])
         self._install_slot(slot, req)
@@ -997,9 +1089,10 @@ class ContinuousBatchingEngine:
         """Detach a handed-off request from THIS engine after its import
         elsewhere: the slot entry clears first (no two engines ever
         decode the same request), then the pages release; the ones the
-        prefix trie shares survive under its references. ``slot`` is
-        the ORIGINAL slot from the export payload (``req.slot`` already
-        names the importing engine's)."""
+        prefix trie shares survive under its references, and the
+        request's adapter pin here drops. ``slot`` is the ORIGINAL slot
+        from the export payload (``req.slot`` already names the
+        importing engine's)."""
         if self._slots[slot] is not req:
             raise ValueError(
                 f"finish_handoff: slot {slot} does not hold request "
@@ -1007,6 +1100,8 @@ class ContinuousBatchingEngine:
         self._clear_slot(slot)
         self._pending.pop(slot, None)
         self.cache.release(slot)
+        # the importing engine took its own pin
+        self._release_adapter(req)
 
     def ready_mask(self) -> np.ndarray:
         """(max_batch,) bool — slots whose sequence is fully in the pool
@@ -1057,7 +1152,8 @@ class ContinuousBatchingEngine:
         logits, _ = _gen.paged_decode_forward(
             self.params, self._up(self._last), cache.pool,
             self._up(cache.block_tables), self._up(cache.lengths),
-            self.cfg, active=self._up(mask), fused=self.fused)
+            self.cfg, active=self._up(mask), fused=self.fused,
+            **self._adapter_kw())
         self.forwards["decode"] += 1
         raw = None
         if self.constraints:
@@ -1420,7 +1516,7 @@ class ContinuousBatchingEngine:
             self.params, self._up(chunk), cache.pool,
             self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, ctx_cap=ctx_cap,
-            active=self._up(mask), fused=self.fused)
+            active=self._up(mask), fused=self.fused, **self._adapter_kw())
         self.forwards["verify"] += 1
         out = self._targets(logits)
         _fault_point("dispatch")
@@ -1537,7 +1633,8 @@ class ContinuousBatchingEngine:
             self._up(cache.block_tables), self._up(cache.lengths),
             self.cfg, ctx_cap=ctx_cap,
             active=self._up(mask), fused=self.fused,
-            tree_depth=self._up(depths), tree_mask=self._up(anc))
+            tree_depth=self._up(depths), tree_mask=self._up(anc),
+            **self._adapter_kw())
         self.forwards["tree"] += 1
         out = self._targets(logits)
         _fault_point("dispatch")
@@ -1699,4 +1796,6 @@ class ContinuousBatchingEngine:
         if self.spec_tree is not None:
             s["tree_width"], s["tree_depth"] = self.spec_tree
             s["tree_nodes"] = self._tree_T - 1
+        if self.adapters is not None:
+            s.update(self.adapters.stats())
         return s

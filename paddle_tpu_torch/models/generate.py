@@ -21,8 +21,12 @@ cache and the ``(L, P, page, ...)`` pools) and returns the same dict, so
 a GB-scale cache is never copied. ``beam_search`` gathers the winning
 beams' cache rows into a new cache each step, as the JAX package does.
 
-Options of the JAX signatures that the port leaves out (tensor and
-data parallelism, MoE, adapters, the observability hooks) are not
+The paged forwards take the adapter pool's multi-LoRA term
+(``adapters=`` / ``adapter_slots=``, :func:`_lora_delta`): the q and o
+projections of every row add ``(x @ A_i) @ B_i * alpha/r`` of its slot's
+factors; slot 0's are exact zeros, and ``adapters=None`` leaves the term
+out. Options of the JAX signatures that the port leaves out (tensor and
+data parallelism, MoE, the trace-time observability hooks) are not
 taken; ROADMAP.md lists them in porting order.
 """
 from __future__ import annotations
@@ -216,9 +220,36 @@ def _attn_with_cache(q, ck, cv, length: int, kstart=None, k_rows=None,
                 tree_mask=tree_mask)
 
 
+def _lora_delta(x, a, b, scale):
+    """Per-row batched LoRA term, the JAX ``_lora_delta`` on factors
+    already gathered per row: ``(x @ A_i) @ B_i * alpha/r`` with ``x``
+    (B, T, in), ``a`` (B, in, r), ``b`` (B, r, out) and ``scale`` (B,)
+    the per-row alpha/r, all in the model dtype. Slot 0 holds exact
+    zeros (the base model), so a base row's term is an exact zero."""
+    return torch.bmm(torch.bmm(x, a), b) * scale[:, None, None]
+
+
+def _adapter_prep(adapters, adapter_slots, cfg: LlamaConfig):
+    """Per-forward adapter setup: every row's factors of every layer,
+    ``(L, B, ...)``, gathered out of the pool at once (4 gathers a
+    forward, where the JAX scan gathers 4 a layer: the same values;
+    chip_smoke.py's phase 3i times both), and the per-row alpha/r in
+    the model dtype. Returns a function of the layer index giving that
+    layer's ``(a_q, b_q, a_o, b_o, scale)`` for :func:`_lora_delta`, or
+    None without ``adapters``."""
+    if adapters is None:
+        return None
+    dev = adapters["scale"].device
+    aslot = adapter_slots.to(device=dev, dtype=torch.long).reshape(-1)
+    asc = adapters["scale"].index_select(0, aslot).to(cfg.dtype)
+    rows = [adapters[n].index_select(1, aslot)
+            for n in ("aq", "bq", "ao", "bo")]
+    return lambda l: tuple(r[l] for r in rows) + (asc,)
+
+
 def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                  cfg: LlamaConfig, rpos=None, kstart=None, fused=False,
-                 tree_mask=None, lengths=None):
+                 tree_mask=None, lengths=None, ad=None):
     """One decoder layer over T tokens written at cache index ``pos``
     (layer ``l`` of the dense ``cache``, updated in place). ``rpos``
     (B, T) are their rope positions where they differ from the cache
@@ -226,11 +257,16 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
     t``), ``kstart`` (B,) the first valid cache column, ``tree_mask`` an
     optional (B, T, T) ancestor matrix and ``lengths`` decode kernel
     B7's (B,) length tensor (:func:`_attn_with_cache`). Every weight goes
-    through :func:`~.llama._w`, so quantized weights dequantize here."""
+    through :func:`~.llama._w`, so quantized weights dequantize here.
+    ``ad``: this layer's adapter factors (:func:`_adapter_prep`), whose
+    term the q and o projections add."""
     B, T, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = (h1 @ _w(lp, "wq", x.dtype)).reshape(B, T, nh, hd)
+    q = h1 @ _w(lp, "wq", x.dtype)
+    if ad is not None:
+        q = q + _lora_delta(h1, ad[0], ad[1], ad[4])
+    q = q.reshape(B, T, nh, hd)
     k = (h1 @ _w(lp, "wk", x.dtype)).reshape(B, T, nkv, hd)
     v = (h1 @ _w(lp, "wv", x.dtype)).reshape(B, T, nkv, hd)
     if rpos is None:
@@ -247,15 +283,18 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                          k_rows=cache["ks"][l] if quant else None,
                          v_rows=cache["vs"][l] if quant else None,
                          fused=fused, tree_mask=tree_mask, lengths=lengths)
-    x = x + o.reshape(B, T, nh * hd) @ _w(lp, "wo", x.dtype)
-    return _mlp(x, lp, cfg)
+    o = o.reshape(B, T, nh * hd)
+    ow = o @ _w(lp, "wo", x.dtype)
+    if ad is not None:
+        ow = ow + _lora_delta(o, ad[2], ad[3], ad[4])
+    return _mlp(x + ow, lp, cfg)
 
 
 def _forward_cached(params, tokens, cache: Dict, pos: int,
                     cfg: LlamaConfig, max_len: int, rpos=None, kstart=None,
                     logits_at: Optional[int] = None, fused=False,
                     logits_all: bool = False, tree_mask=None,
-                    use_kernel=None):
+                    use_kernel=None, adapters=None, adapter_slots=None):
     """tokens (B, T) at cache positions [pos, pos+T) -> logits (B, V)
     f32 at row ``logits_at`` (default the last row), or (B, T, V) at
     every row with ``logits_all`` (the verify's targets); ``cache`` is
@@ -263,7 +302,9 @@ def _forward_cached(params, tokens, cache: Dict, pos: int,
     :func:`_block_infer`. A one-token forward without ``kstart`` runs
     decode kernel B7 unless ``use_kernel`` is False
     (:func:`_use_decode_kernel`), on one (B,) length tensor built here,
-    on the device, for every layer."""
+    on the device, for every layer. ``adapters`` / ``adapter_slots``:
+    the adapter pool's tensors and the (B,) slot of each row
+    (:func:`paged_decode_forward`)."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = rope_tables(max_len, cfg.hd, cfg.rope_theta,
                            device=x.device)
@@ -272,10 +313,12 @@ def _forward_cached(params, tokens, cache: Dict, pos: int,
     if T == 1 and kstart is None and _use_decode_kernel(x, use_kernel):
         lengths = torch.full((B,), pos + 1, dtype=torch.int32,
                              device=x.device)
+    ad = _adapter_prep(adapters, adapter_slots, cfg)
     for l in range(cfg.num_layers):
         x = _block_infer(x, layer_params(params, l), cache, l, pos, cos,
                          sin, cfg, rpos=rpos, kstart=kstart, fused=fused,
-                         tree_mask=tree_mask, lengths=lengths)
+                         tree_mask=tree_mask, lengths=lengths,
+                         ad=None if ad is None else ad(l))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if logits_all:
         return (x @ _lm_head(params, cfg, x.dtype)).float()
@@ -544,7 +587,8 @@ def beam_search(params, prompt, cfg: LlamaConfig, *, num_beams: int = 4,
 def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
                         block_table: torch.Tensor, cfg: LlamaConfig, *,
                         ctx_cap: int, ctx_len: int, chunk_len: int,
-                        fused: bool = False):
+                        fused: bool = False, adapters=None,
+                        adapter_slot=None):
     """Prefill ONE chunk of a request's prompt against the KV already in
     its pages (chunked prefill and the prefix-cache continuation).
 
@@ -563,7 +607,9 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
     ``[ctx_cap, ctx_cap + C)`` with rope positions ``ctx_len + i``, and
     the new rows scatter into the slot's pages (pad rows go to the trash
     page). ``fused`` runs the chunk's attention through the flash chunk
-    kernel (B11)."""
+    kernel (B11). ``adapters`` / ``adapter_slot`` ((1,), the request's
+    pool slot): its LoRA term, as in :func:`paged_decode_forward`; the
+    chunk's cached K/V stay adapter-agnostic (q/o adapters only)."""
     B, C = tokens.shape
     if B != 1:
         raise ValueError(
@@ -596,7 +642,8 @@ def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
     rpos = (ctx_len + torch.arange(C, device=dev))[None, :]
     logits = _forward_cached(params, tokens.to(dev), dense, ctx_cap, cfg,
                              W, rpos=rpos, kstart=kstart,
-                             logits_at=chunk_len - 1, fused=bool(fused))
+                             logits_at=chunk_len - 1, fused=bool(fused),
+                             adapters=adapters, adapter_slots=adapter_slot)
     pos = torch.arange(C, device=dev)
     logical = torch.clamp(ctx_len + pos, 0, ext - 1)
     dst = torch.where(pos < chunk_len,
@@ -619,7 +666,7 @@ def paged_verify_forward(params, tokens: torch.Tensor, paged: Dict,
                          block_tables: torch.Tensor, lengths: torch.Tensor,
                          cfg: LlamaConfig, *, ctx_cap: int, active=None,
                          fused: bool = False, tree_depth=None,
-                         tree_mask=None):
+                         tree_mask=None, adapters=None, adapter_slots=None):
     """Batched speculative VERIFY: score a ``T``-token chunk of EVERY
     row against its paged KV in one forward — the batched form of
     :func:`paged_prefill_chunk`.
@@ -653,6 +700,9 @@ def paged_verify_forward(params, tokens: torch.Tensor, paged: Dict,
     Same-depth nodes would share a page slot, so tree mode places
     nothing: it returns ``(logits, rows)`` with ``rows[name]`` the
     (L, B, T, ...) per-node new KV rows, for :func:`paged_tree_commit`.
+
+    ``adapters`` / ``adapter_slots``: the rows' LoRA term, as in
+    :func:`paged_decode_forward`.
     """
     B, T = tokens.shape
     tree = tree_depth is not None
@@ -695,7 +745,8 @@ def paged_verify_forward(params, tokens: torch.Tensor, paged: Dict,
     logits = _forward_cached(params, tokens.to(dev), dense, ctx_cap, cfg,
                              W, rpos=rpos, kstart=pad.to(torch.int32),
                              fused=bool(fused), logits_all=True,
-                             tree_mask=tree_mask if tree else None)
+                             tree_mask=tree_mask if tree else None,
+                             adapters=adapters, adapter_slots=adapter_slots)
     if tree:
         # no placement: same-depth nodes share a page slot, so the rows
         # wait for the host's accepted root path (paged_tree_commit)
@@ -775,7 +826,8 @@ def make_draft_params(params, cfg: LlamaConfig,
 def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
                          block_tables: torch.Tensor, lengths: torch.Tensor,
                          cfg: LlamaConfig, *, active=None,
-                         fused: bool = False):
+                         fused: bool = False, adapters=None,
+                         adapter_slots=None):
     """One continuous-batching decode step over the ragged batch.
 
     tokens:       (B,) int — each slot's previous token
@@ -789,7 +841,15 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
 
     Attention runs through the paged decode kernel (B9) or, with
     ``fused``, the fused RoPE + paged decode kernel (B10), which takes q
-    unrotated with its per-row cos/sin rows."""
+    unrotated with its per-row cos/sin rows.
+
+    ``adapters`` / ``adapter_slots``: the multi-LoRA term, the
+    :class:`~..serving.adapters.AdapterPool`'s tensors (per-layer packed
+    A/B factors, per-slot alpha/r) and the (B,) pool slot of each row;
+    the q and o projections add :func:`_lora_delta`. The q term goes in
+    before the rotation, which B10 does while staging q; the o term on
+    the projection's output. Slot 0 holds exact zeros, and
+    ``adapters=None`` leaves the term out."""
     fused = bool(fused)
     dev = paged["k"].device
     B = tokens.shape[0]
@@ -814,11 +874,16 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
                       block_tables[row, lpos // page].long() * page
                       + lpos % page, 0)
     x = params["embed"][tokens.to(dev).long()][:, None].to(cfg.dtype)
+    ad = _adapter_prep(adapters, adapter_slots, cfg)
     ksp = vsp = None
     for l in range(cfg.num_layers):
         lp = layer_params(params, l)
+        al = None if ad is None else ad(l)
         h1 = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-        q = (h1 @ _w(lp, "wq", x.dtype)).reshape(B, 1, nh, hd)
+        q = h1 @ _w(lp, "wq", x.dtype)
+        if al is not None:
+            q = q + _lora_delta(h1, al[0], al[1], al[4])
+        q = q.reshape(B, 1, nh, hd)
         k = (h1 @ _w(lp, "wk", x.dtype)).reshape(B, 1, nkv, hd)
         v = (h1 @ _w(lp, "wv", x.dtype)).reshape(B, 1, nkv, hd)
         if not fused:
@@ -837,8 +902,11 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
             o = _pa.paged_attention(
                 q[:, 0], kp, vp, block_tables, lengths + 1,
                 ks_pages=ksp, vs_pages=vsp)
-        x = x + o.reshape(B, 1, nh * hd) @ _w(lp, "wo", x.dtype)
-        x = _mlp(x, lp, cfg)
+        o = o.reshape(B, 1, nh * hd)
+        ow = o @ _w(lp, "wo", x.dtype)
+        if al is not None:
+            ow = ow + _lora_delta(o, al[2], al[3], al[4])
+        x = _mlp(x + ow, lp, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()
     return logits, paged

@@ -24,9 +24,8 @@ where the fetch that follows waits for the same work anyway, so no
 dispatch waits on the card with the hooks on. The host tier's page
 moves (``serving_fused_latency("pool_move", ...)``) may wait too: they
 run at admission, at a handoff or at a defrag, never in a dispatch.
-The tp, dp, MoE, pipeline, adapter, write-ahead-log, router, RPC and
-fabric hooks come with the modules that call them (ROADMAP.md, queue
-A).
+The tp, dp, MoE, pipeline, write-ahead-log, router, RPC and fabric
+hooks come with the modules that call them (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -876,6 +875,89 @@ def serving_integrity_retry(site: str):
     _m.counter("serving_integrity_retries_total",
                "bounded retries of byte-moving operations after "
                "transient faults", ("site",)).labels(site).inc()
+
+
+# ---------------- multi-tenant adapter pool ----------------
+
+def serving_adapter_slots(used: int, capacity: int, pinned: int):
+    """Adapter-pool residency gauges after a slot mutation: slots
+    holding a loaded adapter, the configured slot capacity, and how
+    many resident adapters running rows pin."""
+    if not enabled:
+        return
+    _m.gauge("serving_adapter_slots_used",
+             "adapter-pool slots holding a loaded adapter").set(used)
+    _m.gauge("serving_adapter_slots_capacity",
+             "configured adapter-pool slot capacity").set(capacity)
+    _m.gauge("serving_adapter_slots_pinned",
+             "resident adapters pinned by running requests").set(pinned)
+
+
+def serving_adapter_load(t0_ns: int, nbytes: int, promoted: bool):
+    """Close one adapter slot install opened at ``t0_ns``: packed
+    factors written into a pool slot. ``promoted`` splits host-store
+    promotions (the demoted or persisted copy came back) from fresh
+    registry loads. Host wall time: the install's copies are queued on
+    the card's stream, not waited for."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.adapter_load", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_adapter_load_ms",
+                 "wall milliseconds per adapter slot install",
+                 buckets=(0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.counter("serving_adapter_loads_total",
+               "adapter slot installs, by source",
+               ("source",)).labels(
+        "promote" if promoted else "load").inc()
+    _m.counter("serving_adapter_load_bytes_total",
+               "packed factor bytes installed into adapter slots"
+               ).inc(nbytes)
+
+
+def serving_adapter_demoted(nbytes: int):
+    """One cold adapter DEMOTED to the host tier on LRU slot reclaim
+    (CRC-stamped packed bytes; a later admission promotes it back
+    instead of reading the registry again)."""
+    if not enabled:
+        return
+    _m.counter("serving_adapter_demotions_total",
+               "adapters demoted to the host tier on slot reclaim"
+               ).inc()
+    _m.counter("serving_adapter_demote_bytes_total",
+               "packed factor bytes demoted to the host tier"
+               ).inc(nbytes)
+
+
+def serving_adapter_fallback(site: str):
+    """A corrupt or torn demoted adapter payload failed its CRC before
+    install: the entry was quarantined and the admission fell back to
+    a fresh registry load, counted."""
+    if not enabled:
+        return
+    _m.counter("serving_adapter_fallbacks_total",
+               "adapter promotions that fell back to a fresh load "
+               "(corrupt/torn payload quarantined)",
+               ("site",)).labels(site).inc()
+
+
+def serving_adapter_gather(nbytes: int):
+    """One adapter-augmented serving program with ``nbytes`` of per-row
+    factors gathered out of the pool a step. The JAX package calls it
+    at TRACE time (once per compiled program); the port compiles no
+    programs, so nothing in it calls this hook, as with
+    :func:`serving_fused_dispatch`."""
+    if not enabled:
+        return
+    _m.counter("serving_adapter_gather_calls_total",
+               "adapter factor gathers traced into serving programs"
+               ).inc()
+    _m.counter("serving_adapter_gather_bytes_total",
+               "per-step adapter factor bytes gathered by traced "
+               "serving programs").inc(int(nbytes))
 
 
 # ------- request tracing + flight recorder -------

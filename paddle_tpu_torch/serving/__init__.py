@@ -2,9 +2,13 @@
 host side of speculative decoding, grammar constraints (token DFAs),
 the SLO-aware scheduler with its policy, supervised fault recovery
 (fault injection, the request journal, ``EngineSupervisor``,
-drain/restore), and the host KV tier (``HostPageStore``,
+drain/restore), the host KV tier (``HostPageStore``,
 ``TieredKVCache``: swap-out / swap-in, prefix demote / promote, the
-standing prefix store)."""
+standing prefix store) and the multi-tenant LoRA adapter pool
+(``AdapterPool``, ``AdapterRegistry``)."""
+from .adapters import (FACTOR_NAMES, AdapterPool,  # noqa: F401
+                       AdapterPoolExhausted, AdapterRegistry, init_lora,
+                       merge_lora)
 from .constraints import (ConstraintState, TokenDFA,  # noqa: F401
                           dfa_from_regex, dfa_from_sequences,
                           json_schema_dfa, json_schema_pattern_dfa)

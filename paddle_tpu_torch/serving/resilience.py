@@ -72,8 +72,13 @@ when it wakes and never launches at all.
 Not ported yet (ROADMAP.md, queue A): the durable write-ahead log
 (``wal_dir``, ``wal_fsync``, ``wal_kw``, ``checkpoint_every``,
 ``checkpoint_prefix``, :meth:`EngineSupervisor.checkpoint_now`,
-:meth:`EngineSupervisor.recover_from_disk`; step 6.2) and the adapter
-pool's re-pinning (1.6).
+:meth:`EngineSupervisor.recover_from_disk`; step 6.2).
+
+An adapter pool the factory shares across rebuilds (the usual shape: it
+closes over one pool) rides through a recovery with its pins reset
+(:meth:`~.adapters.AdapterPool.reset_pins`): every journaled session
+re-admits through the pool's ``acquire``, which pins exactly the live
+set, and a restored session keeps its ``adapter_id``.
 
 Under the host tier (``host_tier=True``) a rebuilt engine adopts the
 poisoned one's host store (:meth:`~.host_tier.TieredKVCache.
@@ -100,10 +105,12 @@ from .policy import FinishReason, Priority
 #: the named injection sites threaded through the serving hot path; the
 #: site lint (tests/test_torch_resilience.py) holds every name here to
 #: exactly one ``fault_point("<site>")`` call in the port, except the
-#: sites whose modules are not ported yet (adapter_*: the adapter pool;
-#: wal_* / checkpoint_write: the write-ahead log). "swap_out" fires in
-#: the host tier before a swap-out's gather, "swap_in" before a
-#: swap-in's allocation (a bounded retry absorbs a transient fault).
+#: sites whose module is not ported yet (wal_* / checkpoint_write: the
+#: write-ahead log). "adapter_load" and "adapter_promote" fire in the
+#: adapter pool before a load or a promotion installs anything.
+#: "swap_out" fires in the host tier before a swap-out's gather,
+#: "swap_in" before a swap-in's allocation (a bounded retry absorbs a
+#: transient fault).
 #: "dispatch" fires AFTER a decode / verify forward launches (the
 #: in-flight handle is lost with the fault — nothing committed, the
 #: journal replays); "commit" fires at the top of the
@@ -130,8 +137,7 @@ SITES = ENGINE_SITES + CLUSTER_SITES
 
 #: engine sites whose modules are not ported yet (they have no
 #: ``fault_point`` call in the port)
-WAITING_SITES = ("adapter_load", "adapter_promote",
-                 "wal_append", "wal_fsync", "checkpoint_write")
+WAITING_SITES = ("wal_append", "wal_fsync", "checkpoint_write")
 
 #: the pressure-ordered degraded-mode ladder (index == level): each
 #: recovery escalates one rung, sustained healthy steps climb back down
@@ -414,8 +420,7 @@ class JournalEntry:
     """One request's journaled state (the supervisor's recovery unit).
     ``swapped``: the request's KV lives in the host tier (a swap-out
     payload exists for its rid), so it recovers by swap-in, not replay.
-    ``adapter_id`` keeps the reference's record layout (the port has no
-    adapters yet: always 0).
+    ``adapter_id``: its LoRA variant, pinned again at re-admission.
     """
     __slots__ = ("req", "rid", "prompt", "max_new_tokens",
                  "eos_token_id", "priority", "deadline_at",
@@ -679,8 +684,9 @@ def load_drain_checkpoint(path: str) -> Dict:
 def _session_from_record(sup: "EngineSupervisor", rec: Dict,
                          grammars: Optional[Dict] = None):
     """Rebuild one live request handle from a checkpoint session record:
-    admission params, committed tokens, re-anchored deadline and — when
-    the session was grammar-constrained — an equivalent
+    admission params, committed tokens, re-anchored deadline, adapter id
+    (pinned again at admission) and — when the session was
+    grammar-constrained — an equivalent
     :class:`~.constraints.ConstraintState` attached through the
     engine's validated surface."""
     from ..inference.predictor import GenerationRequest
@@ -688,6 +694,7 @@ def _session_from_record(sup: "EngineSupervisor", rec: Dict,
         rec["rid"], np.asarray(rec["prompt"], np.int32),
         rec["max_new_tokens"], rec.get("eos_token_id"))
     req.priority = rec.get("priority", 1)
+    req.adapter_id = int(rec.get("adapter_id", 0))
     if rec.get("deadline_remaining_s") is not None:
         # re-anchor the SLO on THIS process's clock
         req.deadline_at = sup.clock() + rec["deadline_remaining_s"]
@@ -860,7 +867,8 @@ class EngineSupervisor:
         allocator, trie and slots all start empty; the generator takes
         the last committed step's state, and a host tier carries over
         from the old engine (its store is host state, committed only
-        after gathers that completed)."""
+        after gathers that completed), as does an adapter pool the
+        factory shares, with its pins reset."""
         from .scheduler import ServingScheduler
         old = self.engine
         eng = self._factory()
@@ -873,6 +881,13 @@ class EngineSupervisor:
                 and hasattr(eng.cache, "adopt_host_tier")
                 and hasattr(old.cache, "adopt_host_tier")):
             eng.cache.adopt_host_tier(old.cache)
+        pool = eng.adapters
+        if (pool is not None and old is not None
+                and old.adapters is pool):
+            # stale pins of the poisoned engine's rows must not leak
+            # slots: recovery re-admits every journaled session through
+            # acquire(), which pins exactly the live set
+            pool.reset_pins()
         if self._key_data is not None:
             eng.generator.set_state(torch.from_numpy(self._key_data))
         self.engine = eng
@@ -945,16 +960,18 @@ class EngineSupervisor:
     def submit(self, prompt, max_new_tokens: int = 16, *,
                priority=Priority.NORMAL,
                deadline_s: Optional[float] = None, eos_token_id=None,
-               constraint=None):
+               adapter_id: int = 0, constraint=None):
         """Journaled submit (write-ahead: the admission params are on
         the journal before anything can execute). At degraded level 3
         (``shed_low``) LOW-priority requests are rejected at once with
         the ``rejected_overload`` finish reason instead of queueing
-        into an engine that keeps failing."""
+        into an engine that keeps failing. ``adapter_id`` as the
+        engine's ``create_request`` takes it."""
         self._check_alive()
         req = self.engine.create_request(
             prompt, max_new_tokens=max_new_tokens,
-            eos_token_id=eos_token_id, constraint=constraint)
+            eos_token_id=eos_token_id, adapter_id=adapter_id,
+            constraint=constraint)
         req.priority = int(priority)
         self._next_rid = self.engine._next_rid
         return self.submit_request(req, deadline_s=deadline_s)

@@ -40,6 +40,13 @@ preemption):
   and an overlapped decode dispatch runs only after the previous
   step's commit (it reads the tokens that commit lands), so the mask it
   uploads is the one for the current state.
+- **Adapters** — ``submit(adapter_id=...)`` passes the request's LoRA
+  variant to the engine's intake. An admission whose adapter needs a
+  slot when every slot is pinned defers
+  (:class:`~.adapters.AdapterPoolExhausted` is a
+  :class:`~.paged_cache.PoolExhausted`); it preempts only a
+  strictly-lower-class victim that itself pins a slot, never a base
+  row whose eviction frees none.
 
 - **Observability and faults** — each step feeds the scheduler hooks
   (queue depths, budget use, the host share, time in queue, idle
@@ -47,9 +54,7 @@ preemption):
   the ``sched_tick`` fault point (:mod:`.resilience`), which an
   :class:`~.resilience.EngineSupervisor` recovers from.
 
-Left out until their steps of ROADMAP.md's queue A: ``adapter_id=``,
-the adapter pool's feasibility check and ``AdapterPoolExhausted``
-(1.6), and ``mesh=`` (7).
+Left out until its step of ROADMAP.md's queue A: ``mesh=`` (7).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from typing import Callable, Deque, Dict, Optional
 import numpy as np
 
 from ..observability import hooks as _obs
+from .adapters import AdapterPoolExhausted
 from .paged_cache import PoolExhausted
 from .policy import (FinishReason, PreemptionPolicy, Priority, StepPlan,
                      TokenBudgetPlanner)
@@ -137,16 +143,17 @@ class ServingScheduler:
     def submit(self, prompt, max_new_tokens: int = 16, *,
                priority=Priority.NORMAL,
                deadline_s: Optional[float] = None, eos_token_id=None,
-               constraint=None):
+               adapter_id: int = 0, constraint=None):
         """Queue a prompt with a priority class and an optional deadline
         (seconds from now; a request that has produced no token when it
         lapses is cancelled with ``deadline_exceeded``). Returns the
         request handle (``.done`` / ``.tokens`` / ``.output`` /
-        ``.finish_reason`` fill in as steps run). ``constraint`` passes
-        through to the engine's ``create_request``."""
+        ``.finish_reason`` fill in as steps run). ``adapter_id`` and
+        ``constraint`` pass through to the engine's ``create_request``."""
         req = self.engine.create_request(
             prompt, max_new_tokens=max_new_tokens,
-            eos_token_id=eos_token_id, constraint=constraint)
+            eos_token_id=eos_token_id, adapter_id=adapter_id,
+            constraint=constraint)
         req.priority = int(priority)
         req.submitted_at = req.enqueued_at = self.clock()
         if deadline_s is not None:
@@ -211,16 +218,21 @@ class ServingScheduler:
                     req, FinishReason.DEADLINE_EXCEEDED.value)
                 self.deadline_cancels_total += 1
 
-    def _preempt_for(self, req) -> bool:
+    def _preempt_for(self, req, candidates=None) -> bool:
         """Evict one strictly-lower-class running request to make room
         for ``req``; the victim requeues at the FRONT of its class (it
         already waited its turn once). Under the host tier the policy
-        prefers victims whose eviction swaps to host memory. False when
-        no victim exists."""
+        prefers victims whose eviction swaps to host memory.
+        ``candidates`` restricts the victims (an adapter-slot shortfall:
+        only a victim that pins a slot can relieve it). False when no
+        victim exists."""
         if self.preemption is None:
             return False
+        running = self.engine.running_requests()
+        if candidates is not None:
+            running = [r for r in running if r in candidates]
         victim = self.preemption.pick_victim(
-            self.engine.running_requests(), req.priority,
+            running, req.priority,
             swappable=getattr(self.engine, "swap_candidate", None))
         if victim is None:
             return False
@@ -246,9 +258,26 @@ class ServingScheduler:
         need = cache.pages_for(req.prompt.shape[1] + req.max_new_tokens)
         return need <= cache.allocator.num_usable - len(pinned)
 
+    def _adapter_feasible(self, req) -> bool:
+        """Can ``req``'s adapter be seated at all now? False when it
+        needs a new slot, none is free or reclaimable, and no
+        strictly-lower-class running request pins one: then every
+        preemption would be pointless, and the admission defers with
+        no victim."""
+        pool = getattr(self.engine, "adapters", None)
+        if not req.adapter_id or pool is None or pool.resident(
+                req.adapter_id):
+            return True                 # base row, or a pin in place
+        if pool.slot_available():
+            return True
+        return any(r.adapter_id != 0 and int(r.priority) > int(req.priority)
+                   for r in self.engine.running_requests())
+
     def _admit_one(self, req) -> bool:
         eng = self.engine
         while True:
+            if not self._adapter_feasible(req):
+                return False
             if not eng.cache.free_slots():
                 # no slot: preempt only when the pool side can work out
                 # too, else the victim pays for nothing
@@ -258,6 +287,15 @@ class ServingScheduler:
                 continue                # a slot is free now; retry
             try:
                 return eng.admit_request(req)
+            except AdapterPoolExhausted:
+                # every adapter slot is pinned: page reclaim cannot help,
+                # so only a lower-class victim that pins a slot is worth
+                # evicting; with none, defer
+                pinning = [r for r in eng.running_requests()
+                           if r.adapter_id != 0]
+                if not (pinning
+                        and self._preempt_for(req, candidates=pinning)):
+                    return False
             except PoolExhausted:
                 # a slot is free but the pool can't cover the request:
                 # evict a lower-class victim's pages and retry. Each
@@ -533,6 +571,13 @@ class ServingScheduler:
             # the host tier's residency is part of the load picture
             s["host_pool_pages"] = host.pages_resident
             s["host_pool_bytes"] = host.bytes_resident
+        pool = getattr(eng, "adapters", None)
+        if pool is not None:
+            # slot headroom and residency: a router's adapter-affinity
+            # signal (a replica holding a tenant's adapter serves it
+            # with no load or promote)
+            s["adapter_slots_free"] = pool.slots - pool.used_slots
+            s["adapter_slots_used"] = pool.used_slots
         return s
 
     def stats(self) -> Dict:

@@ -385,7 +385,8 @@ def test_refusals():
     assert eng.attach_constraint(req, None) is req
     with pytest.raises(ValueError, match="constraints=True"):
         eng.attach_constraint(req, tserving.ConstraintState(dfa))
-    for bad, step in (({"adapters": {}}, "1.6"), ({"mesh": object()}, "1.9")):
+    for bad, step in (({"adapters": {"mesh": object()}}, "step 7"),
+                      ({"mesh": object()}, "1.9")):
         with pytest.raises(NotImplementedError, match=step):
             Engine(params, cfg, **bad, **kw)
     ok = Engine(params, cfg, constraints=True, **kw)

@@ -55,7 +55,11 @@ a swap round trip through pinned host memory byte-equal for bf16 and
 int8 pools, a non-blocking swap-out queued behind a busy stream without
 a synchronization and fenced before its payload is read, and page moves
 across two pools (the direct handoff) and within one (``defrag``)
-byte-equal.
+byte-equal; the adapter pool: installs queued behind a busy stream
+without a synchronization, landing each adapter's bf16 factors and
+scale exactly, and on an engine base rows token-identical to the engine
+without a pool and an overlapped run with adapter rows free of a
+synchronization in every dispatch.
 Tolerances: float32 1e-5 (same math, another summation order; 1e-4
 for the flash gradients, sums of up to 320 products, against autograd
 through the plain forward). bfloat16, ``chip_smoke.py``'s row check:
@@ -1475,3 +1479,73 @@ def test_move_pages_across_pools_and_defrag_are_byte_equal(cuda, kv):
     assert dst.allocator.fragmentation() == 0
     assert dst.pages_held(1)[:5] == [1, 2, 3, 4, 5]
     assert _same(_slot_bytes(dst, 1, 5), live)
+
+
+def _adapter_registry(cfg, n=3, rank=4):
+    from paddle_tpu_torch.serving import AdapterRegistry, init_lora
+    reg = AdapterRegistry(cfg)
+    for aid in range(1, n + 1):
+        reg.register(aid, init_lora(cfg, rank, seed=40 + aid))
+    return reg
+
+
+def test_adapter_install_queues_without_a_sync(cuda):
+    """Installs into a bf16 adapter pool on the card, queued behind a
+    ~10 ms sleep under the sync debug mode, synchronize nothing and land
+    each adapter's factors (zero-padded past its rank) and its scale
+    exactly as the host casts them; slot 0 stays zeros."""
+    from paddle_tpu_torch.serving import AdapterPool
+    cfg = tl.LlamaConfig.tiny(num_layers=2, max_seq_len=64,
+                              dtype=torch.bfloat16)
+    reg = _adapter_registry(cfg, rank=4)
+    pool = AdapterPool(cfg, slots=2, rank=8, registry=reg, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slots = [pool.acquire(1), pool.acquire(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for aid, s in zip((1, 2), slots):
+        src = reg.get(aid)
+        got = pool.arrays["aq"][:, s].cpu()
+        want = torch.from_numpy(src["aq"]).to(torch.bfloat16)
+        assert torch.equal(got[:, :, :4], want)
+        assert not got[:, :, 4:].any()
+        assert torch.equal(pool.arrays["bo"][:, s, :4].cpu(),
+                           torch.from_numpy(src["bo"]).to(torch.bfloat16))
+        assert float(pool.arrays["scale"][s]) == 1.0
+    assert not any(pool.arrays[n][:, 0].any() for n in ("aq", "bq", "ao",
+                                                          "bo"))
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_adapter_pool_on_the_card(cuda, kv):
+    """On the card (B10 and B11): base rows served by an engine with an
+    adapter pool are token-identical to the engine without one, and an
+    overlapped run with adapter rows keeps every dispatch free of a
+    synchronization and drops every pin."""
+    cfg = _sched_cfg()
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    kw = dict(max_batch=2, page_size=8, max_len=48, prefill_chunk=8,
+              fused=True, kv_cache_dtype=kv, device=cuda)
+    pool = dict(slots=2, rank=4, registry=_adapter_registry(cfg))
+    plain = _serve(ContinuousBatchingEngine(params, cfg, **kw),
+                   _sched_prompts(), budget=None)
+    based = _serve(ContinuousBatchingEngine(params, cfg, adapters=pool,
+                                            **kw), _sched_prompts(),
+                   budget=None)
+    assert based == plain
+    from paddle_tpu_torch.serving import ServingScheduler
+    eng = ContinuousBatchingEngine(params, cfg, adapters=pool,
+                                   overlap=True, **kw)
+    calls = _no_sync(eng)
+    sched = ServingScheduler(eng)
+    reqs = [sched.submit(p, max_new_tokens=6, adapter_id=aid)
+            for p, aid in zip(_sched_prompts(), (1, 2, 3, 0))]
+    sched.run()
+    assert all(r.done and len(r.tokens) == 6 for r in reqs)
+    assert calls["prefill_dispatch"] and calls["decode_dispatch"]
+    assert not any(eng.adapters._pins.values())
+    assert reqs[3].tokens == plain[3][-6:]      # the base row

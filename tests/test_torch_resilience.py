@@ -13,7 +13,9 @@ the engine, the scheduler and the allocator).
   for ``draft_propose``, a draft tree for ``tree_verify``, the
   overlapped pipeline for ``dispatch``, ``commit`` and ``transfer``,
   the host tier for ``swap_out`` and ``swap_in`` (whose bounded retry
-  absorbs two shots, so the third one recovers).
+  absorbs two shots, so the third one recovers), a one-slot adapter
+  pool shared by every engine of the run, its requests on adapters 1,
+  2, 1 and 3, for ``adapter_load`` and ``adapter_promote``.
   Also ``corrupt`` at ``transfer``, a watchdog stall and several faults
   in one run;
 - one supervised fault run, the degraded ladder and the circuit
@@ -72,7 +74,25 @@ def _repeat_last(mod, k):
     return _RepeatLast(k)
 
 
-def _factory(side, repeat_last=False, **kw):
+def _adapter_pool(side):
+    """A one-slot adapter pool over a host store, with three rank-4
+    adapters registered, so that ``_serve``'s adapter requests load,
+    demote and promote."""
+    mod = MODS[side]
+    cfg = ts._models()[side][4]
+    reg = mod.AdapterRegistry(cfg)
+    for aid in (1, 2, 3):
+        reg.register(aid, mod.init_lora(cfg, 4, seed=40 + aid))
+    return mod.AdapterPool(cfg, slots=1, rank=4, registry=reg,
+                           store=mod.HostPageStore(page_size=8),
+                           **({"device": "cpu"} if side == "port" else {}))
+
+
+def _factory(side, repeat_last=False, adapters=False, **kw):
+    if adapters:
+        # one pool for every engine the supervisor builds
+        pool = _adapter_pool(side)
+        return lambda: tc._engine(side, adapters=pool, **kw)
     if repeat_last:
         return lambda: tc._engine(side, speculator=_repeat_last(
             MODS[side], kw["spec_k"]), **kw)
@@ -81,22 +101,25 @@ def _factory(side, repeat_last=False, **kw):
 
 def _serve(side, kw, inj=None, new=6, **sup_kw):
     """A NORMAL, a repetitive LOW and a NORMAL request, then a HIGH one
-    after three steps (it preempts the LOW one), under a supervisor."""
+    after three steps (it preempts the LOW one), under a supervisor; on
+    adapters ``ADAPTER_IDS`` when ``kw`` asks for a pool."""
     sup_kw.setdefault("sleep", lambda s: None)
     sup_kw.setdefault("token_budget", 20)
     sup = MODS[side].EngineSupervisor(_factory(side, **kw), **sup_kw)
     P = MODS[side].Priority
     prios = (P.NORMAL, P.LOW, P.NORMAL, P.HIGH)
+    aids = ADAPTER_IDS if kw.get("adapters") else (0,) * 4
     inj = inj or MODS[side].FaultInjector()
     rungs = []
     with inj:
-        reqs = [sup.submit(p, max_new_tokens=new, priority=pr)
-                for p, pr in zip(_prompts()[:3], prios)]
+        reqs = [sup.submit(p, max_new_tokens=new, priority=pr,
+                           adapter_id=aid)
+                for p, pr, aid in zip(_prompts()[:3], prios, aids)]
         for _ in range(3):
             sup.step()
             rungs.append(sup.degraded_level)
         reqs.append(sup.submit(_prompts()[3], max_new_tokens=new,
-                               priority=prios[3]))
+                               priority=prios[3], adapter_id=aids[3]))
         while sup.step():
             rungs.append(sup.degraded_level)
             assert len(rungs) < 300
@@ -107,16 +130,21 @@ def _tokens(reqs):
     return [list(map(int, r.tokens)) for r in reqs]
 
 
+#: the adapter of each of ``_serve``'s requests on a one-slot pool
+ADAPTER_IDS = (1, 2, 1, 3)
 SITE_KW = {"verify_step": dict(spec_k=2, repeat_last=True),
            "draft_propose": dict(spec_k=2, draft_layers=1),
            "tree_verify": dict(draft_layers=1, spec_tree=(2, 2)),
            "dispatch": dict(overlap=True), "commit": dict(overlap=True),
            "transfer": dict(overlap=True),
-           "swap_out": dict(host_tier=True), "swap_in": dict(host_tier=True)}
+           "swap_out": dict(host_tier=True), "swap_in": dict(host_tier=True),
+           "adapter_load": dict(adapters=True),
+           "adapter_promote": dict(adapters=True)}
 #: (nth call, shots) per site where the default (3rd call, one shot)
-#: does not reach a recovery: the one swap-out and swap-in of the run,
-#: and swap_in's bounded retry absorbs two shots
-SITE_SHOTS = {"swap_out": (1, 1), "swap_in": (1, 3)}
+#: does not reach a recovery: the one swap-out, swap-in and adapter
+#: promotion of the run, and swap_in's bounded retry absorbs two shots
+SITE_SHOTS = {"swap_out": (1, 1), "swap_in": (1, 3),
+              "adapter_promote": (1, 1)}
 
 
 def _base(kw):
@@ -496,7 +524,8 @@ def test_site_lint():
     calls = _fault_calls((ROOT / "paddle_tpu_torch").rglob("*.py"))
     ref = _fault_calls(ROOT / "paddle_tpu" / rel for rel in (
         "inference/predictor.py", "serving/paged_cache.py",
-        "serving/scheduler.py", "serving/host_tier.py"))
+        "serving/scheduler.py", "serving/host_tier.py",
+        "serving/adapters.py"))
     for site in tres.ENGINE_SITES:
         if site in tres.WAITING_SITES:
             assert site not in calls, site
@@ -506,7 +535,6 @@ def test_site_lint():
             3 if site in ("dispatch", "commit", "transfer") else 1), site
     assert set(calls) <= set(tres.SITES)
     assert set(tres.WAITING_SITES) == {
-        "adapter_load", "adapter_promote",
         "wal_append", "wal_fsync", "checkpoint_write"}
 
 

@@ -577,7 +577,7 @@ def test_constructor_errors_match_jax(model, kw):
 
 def test_options_the_port_leaves_out_raise(model):
     _, _, tcfg, tp = model
-    for kw in (dict(mesh=object()), dict(adapters=object())):
+    for kw in (dict(mesh=object()), dict(adapters=dict(mesh=object()))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousBatchingEngine(tp, tcfg, device="cpu", **ENG, **kw)
     eng = ContinuousBatchingEngine(tp, tcfg, device="cpu", spec_k=2, **ENG)
