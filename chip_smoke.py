@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (plain, speculative,
 under the SLO scheduler, grammar-constrained, multi-tenant LoRA,
-supervised, on the host KV tier), dense decoding, Paddle fused-op
+supervised, with a write-ahead log and cold-restart recovery, on the
+host KV tier), dense decoding, Paddle fused-op
 decoder and training step on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
@@ -9,6 +10,7 @@ decoder and training step on one NVIDIA card.
         --train-steps 2                        # short check
     python3 chip_smoke.py --only 3h            # build, then phase 3h alone
     python3 chip_smoke.py --only 3i            # build, then phase 3i alone
+    python3 chip_smoke.py --only 3j            # build, then phase 3j alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -97,7 +99,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes the rule's choice fails unless it is 10% faster than one
    split (``check_paged_hm``).
 3. The engine at Llama-2-7B width and a quarter of its depth (8
-   layers; the script's time limit holds phases 3g and 3h at all 32), random
+   layers; the script's time limit holds phases 3g and 3h at 16), random
    weights from a seeded generator: ``max_batch=8, page_size=16,
    max_len=2048, prefill_chunk=256`` serving the request set in four
    tiers, KV {bf16, int8} x fused {off, on}. Per tier the launch
@@ -127,7 +129,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    them into proposal and verify on the host clock.
 3e. The SLO scheduler (``ServingScheduler``) over the engine at the
    same width and a quarter of the depth (8 layers; the script's time
-   limit holds phases 3g and 3h at all 32), fresh weights from phase 3's seed,
+   limit holds phases 3g and 3h at 16), fresh weights from phase 3's seed,
    budget 384:
    phase 3's 16 requests as alternating NORMAL and LOW, then after 8
    steps four HIGH requests of 512 prompt tokens and 32 new, each
@@ -206,8 +208,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (none, forward, layer, twice), the first three profiled; install,
    demote and promote ms and bytes, from RAM and from a standing store
    on local disk (``adapters ...`` lines, ``run_adapters``).
+3j. The write-ahead log (``EngineSupervisor(wal_dir=...)``) on phase
+   3e's engine with ``host_tier=True`` at the same width and a quarter
+   of the depth (8 layers), fresh weights from phase 3's seed, phase
+   3e's 16 requests and HIGH burst, fused, budget 384, the log in a
+   temporary directory on local disk. Gates: (a) the process dies (the
+   supervisor dropped without a drain) at decode_step, prefill_chunk,
+   commit, swap_in, wal_append (a torn write), wal_fsync and
+   checkpoint_write, each at the middle of the site's calls in an
+   uninterrupted run (bf16; int8 KV at decode_step and wal_append), and
+   ``recover_from_disk`` rebuilds it: no request lost or duplicated,
+   every token on disk at the death kept (``check_recovery``), the torn
+   tail counted, a flight dump a death, allocators balanced; (b) a
+   recovery whose journal drops one committed token is rejected; (c) a
+   bit flipped in a mid-log segment and a checkpoint claiming an lsn the
+   log never reached are quarantined and counted, and nothing past them
+   is installed; (d) a checkpoint every 16 steps prunes segments and
+   keeps the directory under 1 MiB; (e) ``checkpoint_prefix=True``:
+   after a cold restart every prompt's chain matches, its pages
+   byte-equal to the checkpointed ones, and the system prompt hits 192
+   tokens; (f) launches equal the counted forwards (B10 per decode, B11
+   per prefill chunk, replays included), and an overlapped run with the
+   log holds every dispatch to the sync debug mode. Reported: ms a step
+   with the journal off, ``"group"``, ``"commit"`` and ``"off"`` in turns
+   (twice), the supervisor's host ms after each step (journal and
+   log), the log's host ms, bytes and frames a step, fsync ms; each
+   recovery's scan, engine build, install and replay ms against resident
+   tokens and replayed records; checkpoint ms, bytes and the stall in
+   its step, with and without the trie's pages; token agreement with
+   the uninterrupted run (``wal ...`` lines, ``run_wal``).
 3g. Supervised serving (``EngineSupervisor`` over the engine) at
-   Llama-2-7B's full width and depth (32 layers), fresh weights from
+   Llama-2-7B's width and half its depth (16 layers), fresh weights from
    phase 3's seed, phase 3e's 16 requests and HIGH burst, budget 384:
    an uninterrupted run; one run per engine site the port has with a
    ``raise`` fault at the middle of that site's calls in the
@@ -237,8 +268,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    dispatch and commit halves (``supervised ...`` lines,
    ``run_supervised``). The drain's restore reports the host ms of its
    page scatter by part (read, pin, copy).
-3h. The host KV tier (``host_tier=True``) at Llama-2-7B's full width
-   and depth (32 layers), fresh weights from phase 3's seed. Resume
+3h. The host KV tier (``host_tier=True``) at Llama-2-7B's width and
+   half its depth (16 layers; ``--only 3h``: all 32), fresh weights from
+   phase 3's seed. Resume
    turns: eight requests decoding, the one nearest 600 tokens preempted
    and resumed by replay, swap, swap, replay, KV bf16 and int8, each
    turn timed between card synchronizations (swap-out and swap-in ms
@@ -263,7 +295,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``host_tier ...`` lines, ``run_host_tier``).
 3c. Dense decoding (``generate``, ``beam_search``,
    ``precompute_prompt_cache``) at the same width and half the depth
-   (16 layers; the script's time limit holds phases 3g and 3h at all 32), fresh
+   (16 layers, as phases 3g and 3h), fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
    long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
@@ -318,9 +350,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -3811,6 +3845,685 @@ def run_adapters(torch, kernels, cfg, seed: int, reqs):
     return out
 
 
+# --------------------------------------------------------------- phase 3j
+#: the engine sites phase 3j kills the process at (``wal_append`` as a
+#: torn write: half a frame reaches the file)
+WAL_DEATH_SITES = ("decode_step", "prefill_chunk", "commit", "swap_in",
+                   "wal_append", "wal_fsync", "checkpoint_write")
+WAL_CKPT_EVERY = 16             # gate (d): a checkpoint every 16 steps
+WAL_SEGMENT_BYTES = 16 << 10    # gate (d)'s segments: small, so they rotate
+WAL_SEGMENT_SMALL = 4 << 10     # gate (c)'s: a mid-log segment to flip
+WAL_DIR_BOUND = 1 << 20         # gate (d): the directory stays under 1 MiB
+WAL_TURNS = ("journal-off", "group", "commit", "fsync-off")
+WAL_TURN_ROUNDS = 2
+#: the supervisor's keywords a timing turn adds (None: no log)
+WAL_TURN_KW = {"journal-off": None, "group": {"wal_fsync": "group"},
+               "commit": {"wal_fsync": "commit"},
+               "fsync-off": {"wal_fsync": "off"}}
+
+
+class ProcessDied(RuntimeError):
+    """Phase 3j's simulated ``kill -9``: raised by a supervisor instead
+    of its in-process recovery; the object is then dropped without a
+    drain and ``recover_from_disk`` rebuilds from the directory."""
+
+
+def crashy(sup):
+    """Make ``sup`` die at its first failed step."""
+    def die(err):
+        raise ProcessDied(f"{type(err).__name__}: {err}") from err
+    sup._on_failure = die
+    return sup
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def wal_engine(E, params, cfg, **kw):
+    """Phase 3j's engine: phase 3e's geometry, fused, the host tier on."""
+    return E(params, cfg, max_batch=8, page_size=16, max_len=2048,
+             prefill_chunk=256, fused=True, host_tier=True, **kw)
+
+
+def wal_run(torch, kernels, serving, obs, E, params, cfg, reqs, highs,
+            name, kv=None, wal=True, site=None, nth=None, shots=1,
+            tamper=False, plant_drop=False, overlap=False,
+            sync_check=False, count_calls=False, stop_at=None,
+            watch_dir=False, sup_kw=None):
+    """One supervised run of phase 3e's engine (8 slots, pages of 16,
+    2,048 tokens, 256-token chunks, fused, ``host_tier=True``): ``reqs``
+    as alternating NORMAL and LOW, ``highs`` as HIGH after ``BURST_AT``
+    steps. ``wal`` puts a write-ahead log in a fresh temporary directory
+    (``sup_kw`` adds the supervisor's log keywords; without them every
+    step appends and fsyncs, and a checkpoint lands every
+    ``WAL_CKPT_EVERY`` steps). ``site`` makes the supervisor die at that
+    site's ``nth`` call (``shots`` consecutive calls, for a site behind
+    a retry; ``tamper``: a torn write at the ``nth`` append) and
+    recovers it with ``recover_from_disk``: its scan, engine build,
+    install and replay timed apart, the torn frames and quarantined
+    files of its report, a flight dump counted. ``plant_drop`` drops
+    one committed token from one recovered session, which
+    ``check_recovery`` must reject. ``stop_at`` abandons the run after
+    that many steps and returns its directory (kept); ``watch_dir``
+    tracks the
+    directory's size after every step. Launch counters are zeroed
+    before the first step and must equal the forwards of every engine
+    the run built, replays included; allocators balance; every request
+    ends with its count, none lost or duplicated."""
+    import numpy as np
+    from paddle_tpu_torch.serving import wal as wal_mod
+    builds, tallies, engines = [], [], []
+    dead_fw = dict.fromkeys(("prefill", "decode", "verify", "tree",
+                             "draft_catchup", "draft_decode"), 0)
+
+    def factory():
+        t = time.perf_counter()
+        eng = wal_engine(E, params, cfg, kv_cache_dtype=kv, overlap=overlap)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t) * 1e3)
+        engines.append(eng)
+        if sync_check:
+            tallies.append(instrument_engine(torch, eng, True))
+        return eng
+
+    wd = tempfile.mkdtemp(prefix="wal3j-") if wal else None
+    skw = dict(token_budget=SCHED_BUDGET, sleep=lambda s: None,
+               backoff_s=0.0, circuit_threshold=50)
+    if wal:
+        skw.update(sup_kw if sup_kw is not None
+                   else {"wal_kw": {"group_interval_s": 0.0},
+                         "checkpoint_every": WAL_CKPT_EVERY})
+    P = serving.Priority
+    sup = serving.EngineSupervisor(factory, wal_dir=wd, **skw)
+    if site is not None:
+        crashy(sup)
+    fsync_ms, ckpts, post_ms = [], [], []
+
+    def instrument(s):
+        """Time the supervisor's post-step bookkeeping (``_on_success``:
+        the journal, and with a log its appends, flush, fsyncs and
+        checkpoints), the log's fsyncs and its checkpoints."""
+        o0 = s._on_success
+
+        def on_success():
+            t = time.perf_counter()
+            o0()
+            post_ms.append((time.perf_counter() - t) * 1e3)
+        s._on_success = on_success
+        if s.wal is None:
+            return
+        w = s.wal
+        f0, c0 = w._fsync, w.checkpoint
+
+        def fsync():
+            t = time.perf_counter()
+            f0()
+            fsync_ms.append((time.perf_counter() - t) * 1e3)
+
+        def checkpoint(meta, arrays=None):
+            t = time.perf_counter()
+            path = c0(meta, arrays)
+            ckpts.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                              bytes=os.path.getsize(path),
+                              step=state["step"],
+                              prefix=meta.get("prefix") is not None))
+            return path
+        w._fsync, w.checkpoint = fsync, checkpoint
+
+    instrument(sup)
+    inj = serving.FaultInjector()
+    if site is not None:
+        if tamper:
+            inj.arm_tamper(site, nth=nth)
+        else:
+            for _ in range(shots):
+                inj.arm(site, "raise", nth=nth)
+    handles, recoveries = [], []
+    # the run's step index (the supervisors count their own steps)
+    state = {"sup": sup, "before": {}, "step": 0}
+    scans = []
+    real_scan = wal_mod.recover_state
+
+    def timed_scan(path, repair=True):
+        t = time.perf_counter()
+        st = real_scan(path, repair=repair)
+        scans.append(((time.perf_counter() - t) * 1e3, st["report"]))
+        return st
+
+    def recover():
+        old = state["sup"]
+        torch.cuda.synchronize()
+        for k, v in old.engine.forwards.items():
+            dead_fw[k] += v
+        engines.remove(old.engine)
+        committed = dict(state["before"])
+        del old
+        state["sup"] = None
+        gc.collect()
+        t0 = time.perf_counter()
+        n_builds = len(builds)
+        wal_mod.recover_state = timed_scan
+        try:
+            new = serving.EngineSupervisor.recover_from_disk(factory, wd,
+                                                             **skw)
+        finally:
+            wal_mod.recover_state = real_scan
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        crashy(new)
+        instrument(new)
+        if plant_drop:
+            # the planted fault: one recovered session resumes with one
+            # of its committed tokens dropped
+            for rid in sorted(new.restored):
+                r = new.restored[rid]
+                if len(r.tokens) >= 2:
+                    r.tokens = r.tokens[:-2] + r.tokens[-1:]
+                    new.journal._entries[rid].tokens = list(r.tokens)
+                    break
+        scan_ms, report = scans[-1]
+        build_ms = sum(builds[n_builds:])
+        live = list(new.restored.values())
+        recoveries.append(dict(
+            ms=total, scan_ms=scan_ms, build_ms=build_ms,
+            install_ms=total - scan_ms - build_ms, report=report,
+            sessions=len(live),
+            replayed_tokens=int(sum(
+                r.prompt.size + max(0, len(r.tokens) - 1) for r in live
+                if r.finish_reason == "preempted")),
+            journal={rid: list(r.tokens) for rid, r in new.restored.items()},
+            before=committed, t_replay=time.perf_counter(),
+            replay_rids={rid for rid, r in new.restored.items()
+                         if r.finish_reason == "preempted"}))
+        state["sup"] = new
+        for i, h in enumerate(handles):
+            handles[i] = new.restored.get(h.rid, h)
+
+    def submit(batch, prio):
+        for p, m in batch:
+            while True:
+                died = False
+                try:
+                    handles.append(state["sup"].submit(
+                        p, max_new_tokens=m, priority=prio(len(handles))))
+                    break
+                except (serving.InjectedFault, ProcessDied):
+                    died = True
+                if died:
+                    # the write-ahead append died before the ack: the
+                    # client got no handle and submits again (recovered
+                    # outside the handler, so that its traceback no
+                    # longer holds the dead supervisor)
+                    recover()
+
+    obs.REGISTRY.clear()
+    with inj:
+        submit(reqs, lambda i: P.LOW if i % 2 else P.NORMAL)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        steps, step_ms, max_dir = 0, [], 0
+        while True:
+            if highs and steps == BURST_AT:
+                submit(highs, lambda i: P.HIGH)
+            state["before"] = {h.rid: list(h.tokens) for h in handles}
+            state["step"] = steps
+            ts = time.perf_counter()
+            died = False
+            try:
+                more = state["sup"].step()
+            except ProcessDied:
+                died = True
+            if died:
+                recover()
+                more = True
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            steps += 1
+            if watch_dir:
+                max_dir = max(max_dir, dir_bytes(wd))
+            for rec in recoveries:
+                if "replay_ms" not in rec and all(
+                        state["sup"].restored[r].slot is not None
+                        or state["sup"].restored[r].done
+                        for r in rec["replay_rids"]) \
+                        and not state["sup"].engine.pending_prefills():
+                    rec["replay_ms"] = (time.perf_counter()
+                                        - rec.pop("t_replay")) * 1e3
+            if stop_at is not None and steps == stop_at:
+                break
+            if not more:
+                break
+            if steps > 5000:
+                fail(f"wal {name}: no end after {steps} steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    sup = state["sup"]
+    state.clear()
+    if stop_at is not None:
+        handles.clear()
+        del sup
+        gc.collect()
+        return wd
+    try:
+        rec = wal_checks(kernels, cfg, name, kv, site, tamper, inj, sup,
+                         handles, recoveries, reqs, highs, engines,
+                         dead_fw, counts, wd)
+    except SystemExit:
+        del sup
+        gc.collect()
+        shutil.rmtree(wd, ignore_errors=True)
+        raise
+    rec.update(steps=steps, wall_s=wall, step_ms_mean=wall * 1e3 / steps,
+               step_ms_median=float(np.median(step_ms)),
+               post_step_ms_per_step=sum(post_ms) / steps,
+               tokens_per_s=rec["generated_tokens"] / wall,
+               engines_built=len(builds), build_ms=builds)
+    if sup.wal is not None:
+        st = sup.wal.stats()
+        rec.update(wal=st, wal_host_ms_per_step=(
+            st["append_ms_total"] + st["fsync_ms_total"]) / steps,
+            wal_bytes_per_step=st["bytes_total"] / steps,
+            wal_frames_per_step=st["appends_total"] / steps,
+            fsync_ms_median=(float(np.median(fsync_ms)) if fsync_ms
+                             else None),
+            fsync_ms_max=max(fsync_ms) if fsync_ms else None,
+            checkpoints=ckpts)
+        for c in ckpts:
+            # the step a checkpoint landed in against the median step
+            c["step_ms"] = step_ms[c["step"]]
+            c["stall_ms"] = step_ms[c["step"]] - rec["step_ms_median"]
+    if watch_dir:
+        segs = [f for f in os.listdir(wd) if f.startswith("wal-")]
+        rec.update(max_dir_bytes=max_dir, final_dir_bytes=dir_bytes(wd),
+                   final_segments=len(segs))
+    if tallies:
+        calls = {}
+        for t in tallies:
+            for k, v in t["calls"].items():
+                calls[k] = calls.get(k, 0) + v
+        rec["dispatch_calls_without_sync"] = calls
+    if count_calls:
+        rec["calls"] = dict(inj.calls)
+        rec["tamper_calls"] = dict(inj.tamper_calls)
+    rec["_sup"] = sup
+    if wd is not None:
+        rec["_dir"] = wd
+    return rec
+
+
+def wal_checks(kernels, cfg, name, kv, site, tamper, inj, sup, handles,
+               recoveries, reqs, highs, engines, dead_fw, counts, wd):
+    """``wal_run``'s gates on a finished run; returns the start of its
+    record (tokens, forwards, launches, recoveries)."""
+    final = {h.rid: list(h.tokens) for h in handles}
+    if len(final) != len(handles) or len(handles) != len(reqs) + len(
+            highs or ()):
+        fail(f"wal {name}: {len(handles)} handles, {len(final)} rids for "
+             f"{len(reqs) + len(highs or ())} requests — one was lost or "
+             f"doubled")
+    for h in handles:
+        if not h.done or (len(h.tokens) != h.max_new_tokens
+                          and h.finish_reason != "eos"):
+            fail(f"wal {name}: request {h.rid} finished {h.finish_reason} "
+                 f"with {len(h.tokens)}/{h.max_new_tokens} tokens")
+    fw = dict(dead_fw)
+    for eng in engines:
+        for k, v in eng.forwards.items():
+            fw[k] += v
+    L = cfg.num_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update(B10=L * fw["decode"], B11=L * (fw["prefill"] + fw["verify"]))
+    if counts != want:
+        fail(f"wal {name}: launches {counts} != {want} (forwards {fw})")
+    balanced(sup.engine, f"wal {name}")
+    if site is not None:
+        if not (inj.fired[site] >= 1 and len(recoveries) >= 1):
+            fail(f"wal {name}: the death at {site} never happened "
+                 f"({inj.stats()}, {len(recoveries)} recoveries)")
+        for r in recoveries:
+            check_recovery(f"wal {name}", r["before"], r["journal"], final)
+        dumps = len([f for f in os.listdir(wd) if f.startswith("flight-")])
+        if dumps < len(recoveries):
+            fail(f"wal {name}: {len(recoveries)} deaths, {dumps} flight "
+                 f"dumps")
+        if tamper and not recoveries[0]["report"]["torn_tail_truncated"]:
+            fail(f"wal {name}: the torn write was not counted "
+                 f"({recoveries[0]['report']})")
+    rec = dict(run=name, kv=kv or "bf16", site=site, tamper=tamper,
+               requests=len(handles),
+               generated_tokens=sum(len(t) for t in final.values()),
+               forwards=fw, launches=counts)
+    if recoveries:
+        rec["recoveries"] = [{k: v for k, v in r.items()
+                              if k not in ("journal", "before",
+                                           "replay_rids")}
+                             for r in recoveries]
+    rec["tokens"] = [final[h.rid] for h in handles]
+    return rec
+
+
+def release(rec):
+    """Drop a run's supervisor and remove its directory."""
+    rec.pop("_sup", None)
+    wd = rec.pop("_dir", None)
+    if wd is not None:
+        shutil.rmtree(wd, ignore_errors=True)
+    gc.collect()
+
+
+def damaged_recovery(torch, serving, E, params, cfg, wd, clean_tokens):
+    """Gate (c): a copy of an abandoned run's directory with one bit
+    flipped in a mid-log segment and a checkpoint that claims an lsn the
+    log never reached. ``recover_from_disk`` must quarantine both,
+    count them, and install nothing past the flip: each restored
+    session's tokens a prefix of the undamaged recovery's, no session
+    of the planted checkpoint."""
+    import numpy as np
+    from paddle_tpu_torch.serving import wal as wal_mod
+    bad = wd + "-damaged"
+    shutil.copytree(wd, bad)
+    segs = sorted(f for f in os.listdir(bad) if f.startswith("wal-"))
+    if len(segs) < 3:
+        fail(f"wal (c): the abandoned log has {len(segs)} segments; a "
+             f"mid-log flip needs three")
+    seg = os.path.join(bad, segs[len(segs) // 2])
+    data = bytearray(open(seg, "rb").read())
+    data[len(data) // 2] ^= 0x10
+    open(seg, "wb").write(bytes(data))
+    last = wal_mod.scan_segments(wd, repair=False)[1]["last_lsn"]
+    meta = {"sessions": [{"rid": 999999, "prompt": [5],
+                          "max_new_tokens": 1, "tokens": [7],
+                          "admitted": True}],
+            "next_rid": 1000000, "wal_lsn": last + 1000, "checksums": {}}
+    with open(os.path.join(bad, wal_mod._ckpt_name(last + 1000)),
+              "wb") as f:
+        np.savez(f, meta=np.frombuffer(json.dumps(meta).encode(),
+                                       np.uint8))
+
+    def factory():
+        return wal_engine(E, params, cfg)
+
+    # the scan's report as the recovery meets the damage (no repair)
+    report = wal_mod.recover_state(bad, repair=False)["report"]
+    t0 = time.perf_counter()
+    sup = serving.EngineSupervisor.recover_from_disk(
+        factory, bad, token_budget=SCHED_BUDGET, sleep=lambda s: None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    files = os.listdir(bad)
+    got = {rid: list(r.tokens) for rid, r in sup.restored.items()}
+    del sup
+    gc.collect()
+    shutil.rmtree(bad, ignore_errors=True)
+    quarantined = sorted(f for f in files if f.endswith(".quarantined"))
+    if 999999 in got:
+        fail("wal (c): the planted checkpoint's session was installed")
+    if not (report["corrupt_quarantined"] >= 1
+            and report["ckpt_quarantined"] >= 1):
+        fail(f"wal (c): the flip and the planted checkpoint were not both "
+             f"counted ({report})")
+    if not (any(f.startswith("wal-") for f in quarantined)
+            and any(f.startswith("ckpt-") for f in quarantined)):
+        fail(f"wal (c): the flipped segment's suffix and the planted "
+             f"checkpoint were not both quarantined ({quarantined})")
+    for rid, toks in got.items():
+        if rid in clean_tokens and toks != clean_tokens[rid][:len(toks)]:
+            fail(f"wal (c): request {rid} was restored with tokens that "
+                 f"are not a prefix of the undamaged log's")
+    return dict(recovery_ms=ms, quarantined_files=quarantined,
+                restored=len(got), clean_restored=len(clean_tokens),
+                report=report)
+
+
+def prefix_checkpoint(torch, serving, obs, E, params, cfg, reqs):
+    """Gate (e): ``checkpoint_prefix=True``. Eight requests (two on the
+    shared system prompt) run to the end, a checkpoint of the trie's
+    pages lands inside one step midway (its ms, bytes and the stall it
+    adds to the step), a last one is written at the end, the supervisor
+    is dropped and recovered: every prompt's chain in the restored trie
+    matches the dead engine's, its pages byte-equal to the checkpointed
+    ones, and a new request on the system prompt hits 192 or more
+    prefix tokens."""
+    import numpy as np
+    from paddle_tpu_torch.serving import wal as wal_mod
+    wd = tempfile.mkdtemp(prefix="wal3j-prefix-")
+
+    def factory():
+        return wal_engine(E, params, cfg)
+
+    kw = dict(token_budget=SCHED_BUDGET, sleep=lambda s: None)
+    sup = serving.EngineSupervisor(factory, wal_dir=wd,
+                                   checkpoint_prefix=True, **kw)
+    P = serving.Priority
+    for i, (p, m) in enumerate(reqs):
+        sup.submit(p, max_new_tokens=m,
+                   priority=P.LOW if i % 2 else P.NORMAL)
+    step_ms, mid, steps = [], None, 0
+    while True:
+        land = steps == 24
+        if land:
+            sup.checkpoint_every = sup.steps_total + 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = sup.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if land:
+            sup.checkpoint_every = None
+            mid = step_ms[-1]
+        steps += 1
+        if not more:
+            break
+    median = float(np.median(step_ms))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = sup.checkpoint_now()
+    end_ms = (time.perf_counter() - t) * 1e3
+    end_bytes = os.path.getsize(path)
+    cache = sup.engine.cache
+    chains = {i: cache.prefix.match(p)[0] for i, (p, _) in enumerate(reqs)}
+    del sup, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    saved = wal_mod.recover_state(wd, repair=False)["prefix"]
+    obs.REGISTRY.clear()
+    obs.enable()
+    t = time.perf_counter()
+    sup = serving.EngineSupervisor.recover_from_disk(factory, wd, **kw)
+    torch.cuda.synchronize()
+    recover_ms = (time.perf_counter() - t) * 1e3
+    cache = sup.engine.cache
+    where = {p: i for i, p in enumerate(saved["page_ids"])}
+    pages = 0
+    for i, (p, _) in enumerate(reqs):
+        got = cache.prefix.match(p)[0]
+        if len(got) != len(chains[i]):
+            fail(f"wal (e): request {i}'s chain has {len(got)} pages after "
+                 f"the restart, {len(chains[i])} before")
+        if not got:
+            continue
+        sel = torch.as_tensor(got, dtype=torch.long, device=cache.device)
+        for name, arr in cache.pool.items():
+            now = arr.index_select(1, sel)
+            if now.dtype == torch.bfloat16:
+                now = now.view(torch.int16).cpu().numpy().view(np.uint16)
+            else:
+                now = now.cpu().numpy()
+            old = saved["arrays"][name][:, [where[q] for q in chains[i]]]
+            if not np.array_equal(now, old):
+                fail(f"wal (e): request {i}'s restored {name} pages differ "
+                     f"from the checkpointed bytes")
+        pages += len(got)
+    hits0 = _metric(obs, "serving_prefix_hit_tokens_total")
+    sys_p = np.concatenate([reqs[0][0][:200], reqs[1][0][:56]])
+    h = sup.submit(sys_p, max_new_tokens=16, priority=P.HIGH)
+    sup.run()
+    hits = _metric(obs, "serving_prefix_hit_tokens_total") - hits0
+    obs.disable()
+    obs.REGISTRY.clear()
+    if not (h.done and hits >= 192):
+        fail(f"wal (e): the request on the restored system prompt hit "
+             f"{hits} prefix tokens, not 192 or more")
+    balanced(sup.engine, "wal (e)")
+    del sup, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(wd, ignore_errors=True)
+    return dict(step_ms_median=median, checkpoint_step_ms=mid,
+                stall_ms=mid - median, end_checkpoint_ms=end_ms,
+                end_checkpoint_bytes=end_bytes,
+                trie_pages=len(saved["page_ids"]), pages_compared=pages,
+                recover_ms=recover_ms, prefix_hit_tokens=hits)
+
+
+def run_wal(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3j: the write-ahead log under the supervisor, phase 3e's
+    engine (fused, ``host_tier=True``) at ``cfg``'s width and depth on
+    fresh weights from phase 3's seed, phase 3e's 16 requests and HIGH
+    burst. Gates: (a) a simulated process death (the supervisor dropped
+    without a drain) at each of ``WAL_DEATH_SITES`` at the middle of
+    its calls in the uninterrupted run of the same KV (bf16: all seven;
+    int8: ``decode_step`` and the torn ``wal_append``), then
+    ``recover_from_disk``: no request lost or duplicated, every token
+    on disk at the death kept (``check_recovery``), the torn tail
+    counted, a flight dump a death, allocators balanced; (b) a recovery
+    whose journal drops a committed token is rejected; (c) a flipped
+    bit mid-log and a stale checkpoint are quarantined and counted,
+    nothing past them installed (``damaged_recovery``); (d) a
+    checkpoint every 16 steps over the run prunes segments and keeps
+    the directory under ``WAL_DIR_BOUND``; (e) ``checkpoint_prefix``
+    (``prefix_checkpoint``); (f) launches equal the forwards, replays
+    included, in every run, and no overlapped dispatch syncs with the
+    log on. Reported: ms a step with the journal off, ``"group"``,
+    ``"commit"`` and ``"off"`` in turns (``WAL_TURN_ROUNDS`` of them),
+    the supervisor's host ms after a step, the log's host ms, bytes and
+    frames a step, fsync ms; each recovery's scan, build, install and
+    replay ms against resident tokens and replayed records; checkpoint
+    ms, bytes and stall with and without the prefix. Token agreement
+    with the uninterrupted run is reported, not gated (bf16 near ties;
+    it is gated on the CPU in f32)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.serving import wal as wal_mod
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    highs = burst_requests(4, cfg.vocab_size, seed + 7)
+    runs, out = [], {}
+
+    def go(name, base=None, **kw):
+        rec = wal_run(torch, kernels, serving, obs, E, params, cfg,
+                      kw.pop("reqs", reqs), kw.pop("highs", highs), name,
+                      **kw)
+        if base is not None:
+            rec.update(token_agreement(rec["tokens"], base["tokens"]))
+        print("wal " + show({k: v for k, v in rec.items()
+                             if not k.startswith("_") and k not in (
+                                 "calls", "tamper_calls")}))
+        runs.append(rec)
+        return rec
+
+    # (a) deaths at each site, against the same KV's uninterrupted run
+    for kv, sites in ((None, WAL_DEATH_SITES),
+                      ("int8", ("decode_step", "wal_append"))):
+        base = go(f"uninterrupted-{kv or 'bf16'}", kv=kv, count_calls=True)
+        for site in sites:
+            tamper = site == "wal_append"
+            n = (base["tamper_calls"] if tamper else base["calls"]).get(
+                site, 0)
+            if n < 1:
+                fail(f"wal: site {site} was not called in {base['run']}")
+            shots = 3 if site == "swap_in" else 1
+            rec = go(f"death-{site}-{kv or 'bf16'}", base, kv=kv, site=site,
+                     nth=max(1, n // 2), shots=shots, tamper=tamper)
+            release(rec)
+        base.pop("calls")
+        base.pop("tamper_calls")
+        release(base)
+    # (b) the planted fault: the check must reject a recovery whose
+    # journal lost a committed token
+    try:
+        wal_run(torch, kernels, serving, obs, E, params, cfg, reqs[:8],
+                None, "planted-drop", site="decode_step", nth=40,
+                plant_drop=True)
+    except SystemExit as e:
+        if "journal restored" not in str(e):
+            raise
+        print(f"wal planted-drop: rejected, as it must be ({e})")
+    else:
+        fail("wal: a recovery whose journal dropped a committed token "
+             "passed the check")
+    gc.collect()
+    # (c) a run abandoned after 40 steps on small segments: its clean
+    # recovery against one from a damaged copy
+    wd = wal_run(torch, kernels, serving, obs, E, params, cfg, reqs[:8],
+                 None, "abandoned", stop_at=40,
+                 sup_kw={"wal_kw": {"group_interval_s": 0.0,
+                                    "segment_bytes": WAL_SEGMENT_SMALL}})
+    clean = {rid: list(s.get("tokens") or ()) for rid, s in
+             wal_mod.recover_state(wd, repair=False)["sessions"].items()}
+    out["damaged"] = damaged_recovery(torch, serving, E, params, cfg, wd,
+                                      clean)
+    print("wal damaged " + json.dumps(out["damaged"]))
+    shutil.rmtree(wd, ignore_errors=True)
+    # (d) a checkpoint every 16 steps keeps the directory bounded
+    pr = go("checkpoint-every-16", watch_dir=True,
+            sup_kw={"checkpoint_every": WAL_CKPT_EVERY,
+                    "wal_kw": {"segment_bytes": WAL_SEGMENT_BYTES}})
+    st = pr["wal"]
+    if not (st["segments_pruned_total"] >= 1
+            and pr["max_dir_bytes"] <= WAL_DIR_BOUND):
+        fail(f"wal (d): pruned {st['segments_pruned_total']} segments, the "
+             f"directory peaked at {pr['max_dir_bytes']} bytes (bound "
+             f"{WAL_DIR_BOUND})")
+    release(pr)
+    # (e) the trie's pages in a checkpoint, across a cold restart
+    out["prefix"] = prefix_checkpoint(torch, serving, obs, E, params, cfg,
+                                      reqs[:8])
+    print("wal prefix " + json.dumps(out["prefix"]))
+    # (f) the log on an overlapped run: no dispatch syncs
+    ov = go("overlap-nosync", reqs=reqs[:8], highs=None, overlap=True,
+            sync_check=True, sup_kw={"wal_fsync": "group"})
+    calls = ov["dispatch_calls_without_sync"]
+    if not (calls["decode_dispatch"] and calls["prefill_dispatch"]):
+        fail(f"wal (f): a dispatch kind did not run under the sync check "
+             f"({calls})")
+    release(ov)
+    # the journal's cost: off, group, commit, fsync off, in turns
+    turns = {m: [] for m in WAL_TURNS}
+    for _ in range(WAL_TURN_ROUNDS):
+        for mode in WAL_TURNS:
+            kw = WAL_TURN_KW[mode]
+            rec = go(f"turn-{mode}", wal=kw is not None, sup_kw=kw)
+            turns[mode].append({k: rec.get(k) for k in (
+                "step_ms_mean", "step_ms_median", "post_step_ms_per_step",
+                "wal_host_ms_per_step",
+                "wal_bytes_per_step", "wal_frames_per_step",
+                "fsync_ms_median", "fsync_ms_max")})
+            release(rec)
+    out["turns"] = {m: dict(runs=t, step_ms=[r["step_ms_mean"] for r in t],
+                            spread_ms=(max(r["step_ms_mean"] for r in t)
+                                       - min(r["step_ms_mean"] for r in t)),
+                            post_step_ms=[r["post_step_ms_per_step"]
+                                          for r in t])
+                    for m, t in turns.items()}
+    print("wal turns " + json.dumps({m: (t["step_ms"], t["spread_ms"],
+                                         t["post_step_ms"])
+                                     for m, t in out["turns"].items()}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs:
+        for k in ("calls", "tamper_calls", "tokens"):
+            r.pop(k, None)
+    out["runs"] = runs
+    return out
+
+
 # --------------------------------------------------------------- phase 3c
 def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
                new: int, fn: str = "generate", b7: bool = True,
@@ -4490,10 +5203,10 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h", "3i"),
+    ap.add_argument("--only", choices=("3h", "3i", "3j"),
                     help="build, then run this phase alone (3h at "
-                         "--layers, 3i at a quarter of them) and write its "
-                         "record; no kernel line")
+                         "--layers, 3i and 3j at a quarter of them) and "
+                         "write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -4596,8 +5309,9 @@ def main(argv=None) -> int:
                                                           args.layers // 4)
         cfg = LlamaConfig.llama2_7b(num_layers=depth)
         reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
-        key, run = (("host_tier", run_host_tier) if args.only == "3h"
-                    else ("adapters", run_adapters))
+        key, run = {"3h": ("host_tier", run_host_tier),
+                    "3i": ("adapters", run_adapters),
+                    "3j": ("wal", run_wal)}[args.only]
         record[key] = run(torch, kernels, cfg, args.seed, reqs)
         lap(args.only)
         for r in record[key]["runs"]:
@@ -4818,8 +5532,8 @@ def main(argv=None) -> int:
     lap("2")
 
     # ---- phase 3: the engine, at the engine's width and a quarter of
-    # its depth (phases 3g and 3h run all 32 layers; the script's time
-    # limit holds phases 3, 3e and 3f at 8, 3c and 3d at 16)
+    # its depth (the script's time limit holds phases 3, 3e, 3f, 3i and
+    # 3j at 8 layers, 3g, 3h, 3c and 3d at 16)
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
     half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
     quarter = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 4))
@@ -4903,14 +5617,20 @@ def main(argv=None) -> int:
     record["adapters"] = adapters
     lap("3i")
 
+    # ---- phase 3j: the write-ahead log under the supervisor, process
+    # deaths and cold restarts, at a quarter of the depth
+    wal = run_wal(torch, kernels, quarter, args.seed, reqs)
+    record["wal"] = wal
+    lap("3j")
+
     # ---- phase 3g: supervised serving with faults, drain and restore
-    supervised = run_supervised(torch, kernels, cfg, args.seed, reqs)
+    supervised = run_supervised(torch, kernels, half, args.seed, reqs)
     record["supervised"] = supervised
     lap("3g")
 
     # ---- phase 3h: the host KV tier (swap, demote / promote, standing
-    # store, handoff, defrag) at the engine's full width and depth
-    hosttier = run_host_tier(torch, kernels, cfg, args.seed, reqs)
+    # store, handoff, defrag) at the engine's width and half its depth
+    hosttier = run_host_tier(torch, kernels, half, args.seed, reqs)
     record["host_tier"] = hosttier
     lap("3h")
 
@@ -4952,7 +5672,8 @@ def main(argv=None) -> int:
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
-                + adapters["runs"] + supervised["runs"] + hosttier["runs"]
+                + adapters["runs"] + wal["runs"] + supervised["runs"]
+                + hosttier["runs"]
                 + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():

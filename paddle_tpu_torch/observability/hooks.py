@@ -24,8 +24,8 @@ where the fetch that follows waits for the same work anyway, so no
 dispatch waits on the card with the hooks on. The host tier's page
 moves (``serving_fused_latency("pool_move", ...)``) may wait too: they
 run at admission, at a handoff or at a defrag, never in a dispatch.
-The tp, dp, MoE, pipeline, write-ahead-log, router, RPC and fabric
-hooks come with the modules that call them (ROADMAP.md, queue A).
+The tp, dp, MoE, pipeline, router, RPC and fabric hooks come with the
+modules that call them (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -519,6 +519,101 @@ def serving_drain_restore(t0_ns: int, nbytes: int, sessions: int,
     _m.counter("serving_drain_restored_trie_pages_total",
                "prefix-trie pages restored from drain checkpoints"
                ).inc(trie_pages)
+
+
+# ---------------- durable journal (write-ahead log) ----------------
+
+def serving_wal_append(t0_ns: int, nbytes: int):
+    """One CRC-framed record appended to the on-disk write-ahead
+    journal: append counter + bytes counter + latency histogram (the
+    per-record half of the fsync ladder's cost)."""
+    if not enabled:
+        return
+    _m.counter("serving_wal_appends_total",
+               "records appended to the durable request journal").inc()
+    _m.counter("serving_wal_bytes_total",
+               "bytes appended to the durable request journal"
+               ).inc(nbytes)
+    _m.histogram("serving_wal_append_ms",
+                 "wall milliseconds per WAL record append",
+                 buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5,
+                          5, 10, 25)).observe(
+        (time.perf_counter_ns() - t0_ns) / 1e6)
+
+
+def serving_wal_fsync(t0_ns: int):
+    """One WAL fsync (per-commit policy: every append; group policy:
+    amortized over the group-commit window): counter + latency
+    histogram (the larger half of the durability cost)."""
+    if not enabled:
+        return
+    _m.counter("serving_wal_fsyncs_total",
+               "fsyncs run by the durable request journal").inc()
+    _m.histogram("serving_wal_fsync_ms",
+                 "wall milliseconds per WAL fsync",
+                 buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50,
+                          100)).observe(
+        (time.perf_counter_ns() - t0_ns) / 1e6)
+
+
+def serving_wal_checkpoint(t0_ns: int, nbytes: int, sessions: int,
+                           segments_pruned: int):
+    """One incremental WAL checkpoint (snapshot written atomically,
+    covered log segments pruned — admissions never stopped): latency
+    histogram + size gauge + sessions/pruned-segment counters."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.wal_checkpoint", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_wal_checkpoint_ms",
+                 "wall milliseconds per incremental WAL checkpoint",
+                 buckets=(1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                          1000)).observe((now - t0_ns) / 1e6)
+    _m.gauge("serving_wal_checkpoint_bytes",
+             "size of the last incremental WAL checkpoint").set(nbytes)
+    _m.counter("serving_wal_checkpoints_total",
+               "incremental WAL checkpoints written").inc()
+    _m.counter("serving_wal_checkpoint_sessions_total",
+               "live sessions snapshotted by WAL checkpoints"
+               ).inc(sessions)
+    _m.counter("serving_wal_segments_pruned_total",
+               "log segments compacted away by WAL checkpoints"
+               ).inc(segments_pruned)
+
+
+def serving_wal_recovery(t0_ns: int, sessions: int, records: int,
+                         torn_frames: int, quarantined: int):
+    """One cold-restart recovery from the durable journal
+    (:meth:`~paddle_tpu_torch.serving.EngineSupervisor.recover_from_disk`):
+    recovery latency histogram, the recovery-replay gauge (sessions a
+    dead process's journal brought back) and the media-fault counters
+    — a torn tail truncated or a corrupt segment/checkpoint
+    quarantined is an absorbed fault, and absorbed faults must be
+    countable."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.wal_recovery", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.histogram("serving_wal_recovery_ms",
+                 "wall milliseconds per cold-restart WAL recovery",
+                 buckets=(1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
+                          2500, 5000)).observe((now - t0_ns) / 1e6)
+    _m.gauge("serving_wal_recovered_sessions",
+             "live sessions replayed by the last cold-restart "
+             "recovery").set(sessions)
+    _m.counter("serving_wal_replayed_records_total",
+               "WAL records folded by cold-restart recoveries"
+               ).inc(records)
+    _m.counter("serving_wal_torn_frames_total",
+               "torn WAL tails truncated at the last valid frame"
+               ).inc(torn_frames)
+    _m.counter("serving_wal_quarantined_total",
+               "corrupt WAL segments/checkpoints quarantined during "
+               "recovery").inc(quarantined)
 
 
 # ---------------- sampled and model-draft speculation ----------------

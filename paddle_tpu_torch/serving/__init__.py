@@ -2,7 +2,9 @@
 host side of speculative decoding, grammar constraints (token DFAs),
 the SLO-aware scheduler with its policy, supervised fault recovery
 (fault injection, the request journal, ``EngineSupervisor``,
-drain/restore), the host KV tier (``HostPageStore``,
+drain/restore), the durable journal (``WriteAheadLog``: segmented
+CRC-framed log, incremental checkpoints, ``recover_state`` for a cold
+restart), the host KV tier (``HostPageStore``,
 ``TieredKVCache``: swap-out / swap-in, prefix demote / promote, the
 standing prefix store) and the multi-tenant LoRA adapter pool
 (``AdapterPool``, ``AdapterRegistry``)."""
@@ -26,6 +28,7 @@ from .resilience import (CLUSTER_SITES, DEGRADED_MODES,  # noqa: F401
                          run_with_deadline, tamper_point, uninstall,
                          verify_checksums)
 from .scheduler import ServingScheduler  # noqa: F401
+from .wal import WriteAheadLog, recover_state  # noqa: F401
 from .speculative import (NgramProposer, Speculator, TreeDraft,  # noqa: F401
                           build_comb_tree, longest_accepted_path,
                           longest_accepted_prefix, rejection_sample_tokens,

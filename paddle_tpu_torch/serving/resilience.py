@@ -69,10 +69,15 @@ The old engine's host tables are cleared too (:meth:`_fence`), so a
 thread that wakes up commits nothing. An injected ``stall`` raises
 when it wakes and never launches at all.
 
-Not ported yet (ROADMAP.md, queue A): the durable write-ahead log
-(``wal_dir``, ``wal_fsync``, ``wal_kw``, ``checkpoint_every``,
-``checkpoint_prefix``, :meth:`EngineSupervisor.checkpoint_now`,
-:meth:`EngineSupervisor.recover_from_disk`; step 6.2).
+- **the durable journal** — ``wal_dir`` attaches an on-disk
+  :class:`~.wal.WriteAheadLog` under the journal: admissions, committed
+  tokens and ownership transitions become crash-durable, periodic
+  incremental checkpoints (``checkpoint_every``, with the trie's pages
+  under ``checkpoint_prefix``) compact the log without stopping
+  admissions, and :meth:`EngineSupervisor.recover_from_disk` rebuilds a
+  cold-started process from the directory alone. Appends, fsyncs and
+  checkpoints run on the host after a step's commit, never inside a
+  dispatch; a ``steps`` delta holds only tokens the commit has fetched.
 
 An adapter pool the factory shares across rebuilds (the usual shape: it
 closes over one pool) rides through a recovery with its pins reset
@@ -87,6 +92,7 @@ adopt_host_tier`): the journal marks sessions whose KV sits there
 """
 from __future__ import annotations
 
+import base64
 import contextlib
 import json
 import os
@@ -104,9 +110,11 @@ from .policy import FinishReason, Priority
 
 #: the named injection sites threaded through the serving hot path; the
 #: site lint (tests/test_torch_resilience.py) holds every name here to
-#: exactly one ``fault_point("<site>")`` call in the port, except the
-#: sites whose module is not ported yet (wal_* / checkpoint_write: the
-#: write-ahead log). "adapter_load" and "adapter_promote" fire in the
+#: exactly one ``fault_point("<site>")`` call in the port (three for
+#: the dispatch / commit / transfer seams). "wal_append" fires in the
+#: write-ahead log before a frame is written, "wal_fsync" before an
+#: fsync, "checkpoint_write" before a checkpoint file is produced.
+#: "adapter_load" and "adapter_promote" fire in the
 #: adapter pool before a load or a promotion installs anything.
 #: "swap_out" fires in the host tier before a swap-out's gather,
 #: "swap_in" before a swap-in's allocation (a bounded retry absorbs a
@@ -136,8 +144,8 @@ CLUSTER_SITES = ("handoff_export", "handoff_import", "autoscale_tick",
 SITES = ENGINE_SITES + CLUSTER_SITES
 
 #: engine sites whose modules are not ported yet (they have no
-#: ``fault_point`` call in the port)
-WAITING_SITES = ("wal_append", "wal_fsync", "checkpoint_write")
+#: ``fault_point`` call in the port): none is left
+WAITING_SITES = ()
 
 #: the pressure-ordered degraded-mode ladder (index == level): each
 #: recovery escalates one rung, sustained healthy steps climb back down
@@ -421,11 +429,16 @@ class JournalEntry:
     ``swapped``: the request's KV lives in the host tier (a swap-out
     payload exists for its rid), so it recovers by swap-in, not replay.
     ``adapter_id``: its LoRA variant, pinned again at re-admission.
+    The ``wal_*`` cursors say what of the entry already reached the
+    on-disk log: :meth:`RequestJournal.sync` appends only the deltas,
+    and a failed append leaves a cursor behind for the next sync.
     """
     __slots__ = ("req", "rid", "prompt", "max_new_tokens",
                  "eos_token_id", "priority", "deadline_at",
                  "submitted_at", "tokens", "admitted", "preemptions",
-                 "swapped", "adapter_id", "constrained")
+                 "swapped", "adapter_id", "constrained",
+                 "wal_submitted", "wal_tokens", "wal_prem",
+                 "wal_swapped", "wal_admitted")
 
     def __init__(self, req):
         self.req = req
@@ -442,6 +455,11 @@ class JournalEntry:
         self.swapped = False
         self.adapter_id = int(getattr(req, "adapter_id", 0))
         self.constrained = getattr(req, "constraint", None) is not None
+        self.wal_submitted = False
+        self.wal_tokens = 0
+        self.wal_prem = self.preemptions
+        self.wal_swapped = False
+        self.wal_admitted = False
 
     def as_record(self, now: Optional[float] = None,
                   grammars: Optional[Dict] = None) -> Dict:
@@ -483,38 +501,102 @@ class RequestJournal:
     live request is reset to its journaled state, which is exactly the
     host state as of the last committed step (a failed step committed
     nothing — device results only reach ``req.tokens`` after the
-    transfer that would have raised). The reference's durable mirror
-    of this journal on disk (``wal=``) waits for ROADMAP.md step 6.2."""
+    transfer that would have raised).
 
-    def __init__(self):
+    ``wal`` attaches a :class:`~.wal.WriteAheadLog`: admission params
+    append at submit time (on disk before anything can execute),
+    committed-token deltas, preempt / swap transitions and constraint
+    state at each :meth:`sync`, and finish / handoff-forget tombstones
+    retire sessions from the log. The in-memory journal stays the
+    in-process recovery source; the log is what a cold restart replays
+    (:meth:`EngineSupervisor.recover_from_disk`)."""
+
+    def __init__(self, wal=None):
         self._entries: Dict[int, JournalEntry] = {}
         self.finished_total = 0
+        self.wal = wal
+        # finish tombstones waiting for the next due delta pass
+        self._pending_fin: List[tuple] = []
+        # grammar tables already appended (by hash): the dense table
+        # goes to disk once and session records carry the hash. Cleared
+        # at every checkpoint, which carries its own grammar dict and
+        # may prune the earlier records
+        self._wal_grammars: set = set()
+
+    def _wal_submit(self, e: JournalEntry,
+                    now: Optional[float] = None) -> None:
+        grammars: Dict[str, Dict] = {}
+        rec = e.as_record(now, grammars=grammars)
+        rec["admitted"] = e.admitted
+        for h, dfa_rec in grammars.items():
+            if h not in self._wal_grammars:
+                self.wal.append("grammar", {"hash": h, "dfa": dfa_rec})
+        # flush=True: the write-ahead ACK, OS-durable before the caller
+        # gets its handle back
+        self.wal.append("submit", rec, flush=True)
+        # marked only after both appends landed (a retry re-appends a
+        # grammar harmlessly: last wins at replay)
+        self._wal_grammars.update(grammars)
+        e.wal_submitted = True
+        e.wal_tokens = len(e.tokens)
+        e.wal_prem = e.preemptions
+        e.wal_swapped = e.swapped
+        e.wal_admitted = e.admitted
 
     def record_submit(self, req, now: Optional[float] = None
                       ) -> JournalEntry:
         e = JournalEntry(req)
+        if self.wal is not None:
+            # write-ahead: a failed append leaves no half-accepted
+            # request (the caller sees the error before any execution)
+            self._wal_submit(e, now)
         self._entries[req.rid] = e
         return e
 
-    def adopt(self, req, rec: Dict, now: Optional[float] = None
-              ) -> JournalEntry:
-        """Re-journal a request rebuilt from a drain checkpoint."""
+    def adopt(self, req, rec: Dict, durable: bool = False,
+              now: Optional[float] = None) -> JournalEntry:
+        """Re-journal a request rebuilt from a drain checkpoint or a
+        cold-restart recovery. ``durable=True`` (recovery) marks the
+        entry as already on THIS journal's disk, so only future deltas
+        append; otherwise a log appends a fresh submit record, whose
+        deadline ``now`` (the adopting supervisor's clock) keeps."""
         e = JournalEntry(req)
         e.admitted = bool(rec.get("admitted"))
+        if self.wal is not None:
+            if durable:
+                e.wal_submitted = True
+                e.wal_tokens = len(e.tokens)
+                e.wal_prem = e.preemptions
+                e.wal_swapped = e.swapped
+                e.wal_admitted = e.admitted
+            else:
+                self._wal_submit(e, now)
         self._entries[req.rid] = e
         return e
 
     def forget(self, rid: int) -> None:
         """Drop a live entry WITHOUT counting it finished (a request
-        handed to another owner)."""
-        self._entries.pop(rid, None)
+        handed to another owner). With a log the tombstone is durable
+        too, so a cold restart of this directory never brings the
+        handed-off session back."""
+        e = self._entries.pop(rid, None)
+        if e is not None and self.wal is not None and e.wal_submitted:
+            try:
+                self.wal.append("forget", {"rid": rid})
+            except Exception:
+                pass    # ownership moved in memory; best-effort stone
 
-    def sync(self, swapped_check=None) -> None:
+    def sync(self, swapped_check=None, wal: bool = True,
+             force: bool = False) -> None:
         """Copy committed host state from the live request handles;
         finished requests leave the journal (their results live on the
         caller's handle — nothing to recover). ``swapped_check(rid) ->
-        bool`` marks entries whose KV is host-resident (a host tier's
-        hook; the port has none yet)."""
+        bool`` marks entries whose KV is host-resident. The in-memory
+        pass always completes FIRST; the log's delta pass (``wal``)
+        runs after it when the log says a delta is due (``force``: the
+        drain / idle path), as one batched frame, so an append fault
+        never leaves the in-process recovery source stale."""
+        finished: List[tuple] = []
         for rid in list(self._entries):
             e = self._entries[rid]
             req = e.req
@@ -528,7 +610,65 @@ class RequestJournal:
                 e.swapped = bool(swapped_check(rid))
             if req.done:
                 self.finished_total += 1
+                finished.append((e, req.finish_reason))
                 del self._entries[rid]
+        if self.wal is None:
+            return
+        # a finished entry's tombstone queues unconditionally (the
+        # recovery path's wal=False sync too), or its submit record
+        # would stand without one and a cold restart would revive it
+        for e, reason in finished:
+            if e.wal_submitted:
+                self._pending_fin.append((e.rid, reason))
+        if not wal or not (force or self.wal.delta_due()):
+            return
+        self.wal.mark_delta()
+        deltas: List[Dict] = []
+        synced: List[JournalEntry] = []
+        for e in list(self._entries.values()) \
+                + [f[0] for f in finished]:
+            if not e.wal_submitted:
+                # a submit-time append failed earlier: heal with the
+                # full record
+                self._wal_submit(e)
+                continue
+            delta = {}
+            if len(e.tokens) > e.wal_tokens:
+                delta["toks"] = [int(t) for t in
+                                 e.tokens[e.wal_tokens:]]
+            if e.preemptions != e.wal_prem:
+                delta["preemptions"] = e.preemptions
+            if e.swapped != e.wal_swapped:
+                delta["swapped"] = e.swapped
+            if e.admitted != e.wal_admitted:
+                delta["admitted"] = e.admitted
+            if not delta:
+                continue
+            cs = getattr(e.req, "constraint", None)
+            if cs is not None:
+                delta["cstate"] = cs.state_record()
+            delta["rid"] = e.rid
+            deltas.append(delta)
+            synced.append(e)
+        fins, self._pending_fin = self._pending_fin, []
+        deltas += [{"rid": rid, "fin": reason} for rid, reason in fins]
+        if deltas:
+            try:
+                if len(deltas) == 1 and "fin" not in deltas[0]:
+                    self.wal.append("step", deltas[0])
+                else:
+                    self.wal.append("steps", {"entries": deltas})
+            except BaseException:
+                # nothing committed (frame-boundary rollback): the live
+                # deltas re-derive from the cursors, the tombstones
+                # queue again
+                self._pending_fin = fins + self._pending_fin
+                raise
+            for e in synced:
+                e.wal_tokens = len(e.tokens)
+                e.wal_prem = e.preemptions
+                e.wal_swapped = e.swapped
+                e.wal_admitted = e.admitted
 
     def live_entries(self) -> List[JournalEntry]:
         return [self._entries[r] for r in sorted(self._entries)]
@@ -714,10 +854,19 @@ def _session_from_record(sup: "EngineSupervisor", rec: Dict,
     return req
 
 
-def _wal_not_ported(what: str):
-    raise NotImplementedError(
-        f"EngineSupervisor: {what} needs the durable write-ahead log, "
-        f"which is not ported yet — see ROADMAP.md, queue A step 6.2")
+def _prefix_payload(ckpt: Optional[Dict], arrays: Dict) -> Optional[Dict]:
+    """The ``prefix`` entry of a drain or WAL checkpoint's meta for a
+    :meth:`~.paged_cache.PagedKVCache.checkpoint_prefix` result (None
+    for none), its pages' bytes added to ``arrays`` as raw uint8 (the
+    JAX package's layout: ``prefix_<pool array>``)."""
+    if ckpt is None:
+        return None
+    for n, a in ckpt["arrays"].items():
+        arrays[f"prefix_{n}"] = np.frombuffer(
+            np.ascontiguousarray(a).tobytes(), np.uint8)
+    return {"page_ids": ckpt["page_ids"], "records": ckpt["records"],
+            "shapes": {n: list(a.shape) for n, a in ckpt["arrays"].items()},
+            "dtypes": {n: str(a.dtype) for n, a in ckpt["arrays"].items()}}
 
 
 class EngineSupervisor:
@@ -753,9 +902,13 @@ class EngineSupervisor:
     ``rejected_overload`` finish reason. The rung is published as the
     ``serving_degraded_mode`` gauge and in :meth:`load_stats`.
 
-    ``wal_dir``, ``wal_fsync``, ``wal_kw``, ``checkpoint_every`` and
-    ``checkpoint_prefix`` raise: the write-ahead log is not ported yet
-    (ROADMAP.md, queue A step 6.2).
+    Durable journal: ``wal_dir`` attaches a :class:`~.wal.WriteAheadLog`
+    (``wal_fsync``: ``"group"``, ``"commit"`` or ``"off"``; ``wal_kw``:
+    its other knobs) and journals the engine's geometry in a ``meta``
+    record; ``checkpoint_every`` writes an incremental checkpoint every
+    that many successful steps, with the prefix trie's pages when
+    ``checkpoint_prefix``. :meth:`recover_from_disk` rebuilds a
+    supervisor from the directory after the process died.
     """
 
     def __init__(self, engine_factory: Callable, *,
@@ -773,12 +926,6 @@ class EngineSupervisor:
                  checkpoint_every: Optional[int] = None,
                  checkpoint_prefix: bool = False,
                  flight_ticks: int = 256):
-        if wal_dir is not None:
-            _wal_not_ported("wal_dir")
-        if wal_fsync != "group" or wal_kw:
-            _wal_not_ported("wal_fsync / wal_kw")
-        if checkpoint_every is not None or checkpoint_prefix:
-            _wal_not_ported("checkpoint_every / checkpoint_prefix")
         self._factory = engine_factory
         self.token_budget = token_budget
         self.watchdog_s = watchdog_s
@@ -791,7 +938,13 @@ class EngineSupervisor:
         self._sleep = sleep
         self._sched_kw = dict(scheduler_kw or {})
         self.wal = None
-        self.journal = RequestJournal()
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_prefix = bool(checkpoint_prefix)
+        if wal_dir is not None:
+            from .wal import WriteAheadLog
+            self.wal = WriteAheadLog(wal_dir, fsync=wal_fsync,
+                                     **(wal_kw or {}))
+        self.journal = RequestJournal(wal=self.wal)
         self.degraded_level = 0
         self.recoveries = 0
         self.injected_faults = 0
@@ -824,6 +977,12 @@ class EngineSupervisor:
         self.last_flight_dump: Optional[str] = None
         self._build()
         self._snapshot_key()
+        if self.wal is not None:
+            # the geometry record: cold recovery validates the
+            # replacement engine against it
+            self.wal.append("meta", dict(self._geometry(),
+                                         next_rid=self._next_rid))
+            self.wal.commit(force=True)
 
     # ---- health ----
     @property
@@ -915,6 +1074,16 @@ class EngineSupervisor:
     def _snapshot_key(self):
         self._key_data = self.engine.generator.get_state().numpy().copy()
 
+    def _geometry(self) -> Dict:
+        """The engine identity a WAL ``meta`` record and checkpoint
+        carry, in the JAX package's keys and values."""
+        cache = self.engine.cache
+        return {"page_size": cache.page_size, "max_len": cache.max_len,
+                "max_batch": cache.max_batch,
+                "kv_dtype": cache.kv_dtype_name,
+                "constraints": bool(self.engine.constraints),
+                "draft": _draft_identity(self.engine)}
+
     # ---- degraded ladder ----
     def _apply_degraded(self):
         """Impose the current rung on the live engine (called on every
@@ -994,7 +1163,14 @@ class EngineSupervisor:
         self._next_rid = max(self._next_rid, self.engine._next_rid)
         if deadline_s is not None:
             req.deadline_at = self.clock() + float(deadline_s)
-        self.journal.record_submit(req, now=self.clock())
+        # write-ahead BEFORE the queue: a failed durable append rejects
+        # the submission here, with the caller watching
+        try:
+            self.journal.record_submit(req, now=self.clock())
+        except BaseException as exc:
+            # a submit-path death never reaches step()'s dump
+            self._flight_dump_safe(type(exc).__name__, err=str(exc))
+            raise
         self.scheduler.requeue(req)
         return req
 
@@ -1007,6 +1183,12 @@ class EngineSupervisor:
         self._next_rid = max(self._next_rid, self.engine._next_rid)
         e = self.journal.record_submit(req, now=self.clock())
         e.admitted = True
+        if self.wal is not None and e.wal_submitted \
+                and not e.wal_admitted:
+            # this supervisor owns the recovery from here: the admitted
+            # flag is durable beside the submit record
+            self.wal.append("step", {"rid": e.rid, "admitted": True})
+            e.wal_admitted = True
         return req
 
     # ---- stepping ----
@@ -1043,6 +1225,12 @@ class EngineSupervisor:
                 alive = self._guarded(self.scheduler.step)
                 self._on_success()
                 self._record_flight_tick()
+                if not alive and self.wal is not None:
+                    # going idle: the buffered deltas and an fsync now,
+                    # so a quiescent supervisor is durably consistent
+                    # and a crash never revives finished work
+                    self._sync_journal(force=True)
+                    self.wal.commit(force=True)
             except EngineDead:
                 raise
             except Exception as e:  # noqa: BLE001 — classify + recover
@@ -1056,15 +1244,36 @@ class EngineSupervisor:
         while self.step():
             pass
 
-    def _sync_journal(self):
+    def _sync_journal(self, wal: bool = True, force: bool = False):
         self.journal.sync(swapped_check=getattr(
-            self.engine.cache, "has_swapped", None))
+            self.engine.cache, "has_swapped", None), wal=wal,
+            force=force)
 
     def _on_success(self):
+        """After a step's commit: the journal sync (the log's delta
+        frame), the generator snapshot, the group-commit boundary and
+        the periodic checkpoint. Host work (a prefix checkpoint also
+        fetches the trie's pages): the tokens it writes were fetched by
+        the commit, and a forward the overlapped pipeline left in flight
+        is not read."""
         self.steps_total += 1
         self._consec_failures = 0
         self._sync_journal()
         self._snapshot_key()
+        if self.wal is not None:
+            if self.engine.temperature != 0.0:
+                # sampled decode: the generator state is recovery state
+                # (a greedy replay never reads it)
+                from .wal import GEN_STATE
+                self.wal.append(GEN_STATE, {
+                    "data": base64.b64encode(
+                        self._key_data.tobytes()).decode(),
+                    "dtype": str(self._key_data.dtype),
+                    "shape": list(self._key_data.shape)})
+            self.wal.commit()       # the group-commit boundary
+            if (self.checkpoint_every
+                    and self.steps_total % self.checkpoint_every == 0):
+                self.checkpoint_now()
         self._deescalate_maybe()
         self._release_abandoned()
         _obs.serving_journal(self.journal.size, self.journal.token_count)
@@ -1102,7 +1311,7 @@ class EngineSupervisor:
             failures=self._consec_failures,
             host_frac=(sched.last_host_frac if sched is not None
                        else None),
-            wal_lsn=None,
+            wal_lsn=(self.wal.lsn if self.wal is not None else None),
             fault=fault)
         _obs.serving_flight_tick()
 
@@ -1112,12 +1321,13 @@ class EngineSupervisor:
         """Write the flight-recorder black box (on demand, and the crash
         paths' exit hatch): the tick ring + request-trace tails as a
         CRC-framed ``flight-<ts>.json`` in ``out_dir`` (default: the
-        system temp dir). Returns the path; None when the recorder is
-        disabled."""
+        WAL directory, else the system temp dir). Returns the path;
+        None when the recorder is disabled."""
         if self.flight is None:
             return None
         if out_dir is None:
-            out_dir = tempfile.gettempdir()
+            out_dir = (self.wal.path if self.wal is not None
+                       else tempfile.gettempdir())
         extra = {"health": self.health,
                  "degraded_level": self.degraded_level,
                  "consec_failures": self._consec_failures,
@@ -1138,10 +1348,34 @@ class EngineSupervisor:
         except Exception:
             pass
 
-    def checkpoint_now(self):
-        """An incremental checkpoint next to the write-ahead log: not
-        ported yet (ROADMAP.md, queue A step 6.2)."""
-        _wal_not_ported("checkpoint_now")
+    def checkpoint_now(self) -> Optional[str]:
+        """One incremental checkpoint: the live journal and the
+        generator state (and, with ``checkpoint_prefix``, the prefix
+        trie's pages, fetched from the card inline) in an atomic
+        ``ckpt-<lsn>.npz`` next to the log, then the segments it covers
+        pruned. Admissions never stop; cold recovery is checkpoint +
+        log-suffix replay. Returns the file's path (None without a
+        log)."""
+        if self.wal is None:
+            return None
+        grammars: Dict[str, Dict] = {}
+        now = self.clock()
+        meta = dict(self._geometry(),
+                    sessions=[e.as_record(now, grammars=grammars)
+                              for e in self.journal.live_entries()],
+                    grammars=grammars, next_rid=self._next_rid)
+        from .wal import GEN_STATE
+        arrays: Dict[str, np.ndarray] = {
+            GEN_STATE: self._key_data if self._key_data is not None
+            else np.zeros((0,), np.uint8)}
+        meta["prefix"] = _prefix_payload(
+            self.engine.cache.checkpoint_prefix()
+            if self.checkpoint_prefix else None, arrays)
+        path = self.wal.checkpoint(meta, arrays)
+        # the checkpoint carries its own grammars and pruning may drop
+        # the earlier grammar records: later submits append theirs
+        self.journal._wal_grammars.clear()
+        return path
 
     def _on_failure(self, err: Exception):
         stalled = isinstance(err, StepStalled)
@@ -1203,7 +1437,10 @@ class EngineSupervisor:
         thread ends (module docstring)."""
         t0 = _obs.generate_begin()
         if sync:
-            self._sync_journal()
+            # in memory only: a recovery that a log fault triggered must
+            # not re-enter the faulting append; the cursors catch up at
+            # the next successful step's sync
+            self._sync_journal(wal=False)
         live = self.journal.live_entries()
         replay = sum(e.prompt.size + max(0, len(e.tokens) - 1)
                      for e in live if e.admitted and not e.swapped)
@@ -1245,7 +1482,7 @@ class EngineSupervisor:
         # an overlapped step may be dispatched but uncommitted: commit
         # it so sessions checkpoint with every token the card produced
         self.engine.commit_inflight()
-        self._sync_journal()
+        self._sync_journal(force=True)
         self._snapshot_key()
         now = self.clock()
         cache = self.engine.cache
@@ -1261,29 +1498,30 @@ class EngineSupervisor:
             "max_batch": cache.max_batch,
             "kv_dtype": cache.kv_dtype_name,
             "draft": _draft_identity(self.engine),
-            "prefix": None,
         }
         arrays: Dict[str, np.ndarray] = {
             "key_data": self._key_data if self._key_data is not None
             else np.zeros((0,), np.uint8)}
-        if ckpt is not None:
-            meta["prefix"] = {
-                "page_ids": ckpt["page_ids"],
-                "records": ckpt["records"],
-                "shapes": {n: list(a.shape)
-                           for n, a in ckpt["arrays"].items()},
-                "dtypes": {n: str(a.dtype)
-                           for n, a in ckpt["arrays"].items()},
-            }
-            for n, a in ckpt["arrays"].items():
-                arrays[f"prefix_{n}"] = np.frombuffer(
-                    np.ascontiguousarray(a).tobytes(), np.uint8)
+        meta["prefix"] = _prefix_payload(ckpt, arrays)
         with open(path, "wb") as f:
             np.savez(f, meta=np.frombuffer(
                 json.dumps(meta).encode(), np.uint8), **arrays)
         # freeze ONLY once the checkpoint is safely on disk: a failed
         # write leaves the supervisor serving
         self._draining = True
+        if self.wal is not None:
+            # the drain file owns these sessions now: tombstone them in
+            # the log (and fsync), so a cold recovery of the directory
+            # never revives what restore() revives elsewhere
+            try:
+                for e in self.journal.live_entries():
+                    if e.wal_submitted:
+                        self.wal.append("finish", {"rid": e.rid,
+                                                   "reason": "drained"})
+                self.wal.commit(force=True)
+                self.wal.close()
+            except Exception:
+                pass        # the drain file is authoritative regardless
         nbytes = os.path.getsize(path)
         n_pages = len(meta["prefix"]["page_ids"]) if meta["prefix"] \
             else 0
@@ -1350,9 +1588,103 @@ class EngineSupervisor:
     @classmethod
     def recover_from_disk(cls, engine_factory: Callable, wal_dir: str,
                           **kw) -> "EngineSupervisor":
-        """Cold-restart recovery from a write-ahead-log directory: not
-        ported yet (ROADMAP.md, queue A step 6.2)."""
-        _wal_not_ported("recover_from_disk")
+        """Rebuild a supervisor from its journal directory after the
+        whole process died (``kill -9``, OOM kill, reboot: no drain, no
+        in-memory journal): scan the log (:func:`~.wal.recover_state`:
+        torn tail truncated, corrupt media quarantined, newest valid
+        checkpoint + suffix), build a fresh engine, and requeue every
+        live session through the replay path. The recovered supervisor
+        appends to the SAME directory, in a fresh segment, so repeated
+        crashes recover repeatedly. Restored handles are in
+        ``.restored`` (rid -> request)."""
+        from .wal import recover_state
+        t0 = _obs.generate_begin()
+        state = recover_state(wal_dir, repair=True)
+        kw = dict(kw)
+        wk = dict(kw.get("wal_kw") or {})
+        # the scan just ran: the fresh log takes its lsn
+        wk.setdefault("last_lsn", state["report"]["last_lsn"])
+        kw["wal_kw"] = wk
+        sup = cls(engine_factory, wal_dir=wal_dir, **kw)
+        try:
+            sup._install_recovered(state, t0)
+        except Exception:
+            # a refused recovery (geometry, kv tier or draft mismatch)
+            # leaves the journal as it found it: construction appended
+            # this factory's meta record, so the dead incarnation's goes
+            # in again after it, for a retry with the right factory
+            geo = state.get("geometry")
+            if geo is not None and sup.wal is not None:
+                sup.wal.append("meta", dict(
+                    geo, next_rid=int(state.get("next_rid", 0))))
+                sup.wal.commit(force=True)
+            raise
+        # the dead incarnation's black box, if it wrote one
+        from ..observability import flight as _flight
+        dumps = _flight.find_dumps(wal_dir)
+        if dumps:
+            sup.last_flight_dump = dumps[-1]
+        return sup
+
+    def _install_recovered(self, state: Dict, t0: int = 0) -> None:
+        """Apply a :func:`~.wal.recover_state` fold: validate the
+        geometry, set the generator state, restore the prefix trie
+        BEFORE the sessions (their replays and later admissions hit
+        it), then requeue every live session as a durable journal
+        entry (only future deltas append)."""
+        geo = state.get("geometry")
+        if geo is not None:
+            mine = self._geometry()
+            for knob in ("page_size", "max_len", "max_batch"):
+                if geo.get(knob) is not None and geo[knob] != mine[knob]:
+                    raise ValueError(
+                        f"recover_from_disk: journaled {knob}="
+                        f"{geo[knob]} does not match the fresh "
+                        f"engine's {mine[knob]} — the factory must "
+                        f"rebuild the dead engine's geometry")
+            if geo.get("kv_dtype") != mine["kv_dtype"]:
+                raise ValueError(
+                    f"recover_from_disk: journaled kv_dtype="
+                    f"{geo.get('kv_dtype')} != engine kv_dtype="
+                    f"{mine['kv_dtype']}")
+            if geo.get("draft") != mine["draft"]:
+                raise ValueError(
+                    f"recover_from_disk: journaled draft identity="
+                    f"{geo.get('draft')} != engine {mine['draft']} — "
+                    f"the factory must rebuild the same draft_layers/"
+                    f"spec_tree (the draft pool itself rebuilds cold)")
+        gen = state.get("gen_state")
+        if gen is not None and gen.size:
+            self._key_data = np.asarray(gen, np.uint8).copy()
+            self.engine.generator.set_state(
+                torch.from_numpy(self._key_data.copy()))
+        if state.get("prefix") is not None:
+            self.engine.cache.restore_prefix(state["prefix"])
+        self._next_rid = max(self._next_rid,
+                             int(state.get("next_rid", 0)))
+        self.engine._next_rid = max(self.engine._next_rid,
+                                    self._next_rid)
+        report = state.get("report", {})
+        self.restored = {}
+        for rid in sorted(state.get("sessions", {})):
+            trs = _obs.serving_trace_now()
+            rec = state["sessions"][rid]
+            req = _session_from_record(self, rec,
+                                       grammars=state.get("grammars"))
+            self.journal.adopt(req, rec, durable=True)
+            # requeue attaches the trace; the replay span lands after
+            self.scheduler.requeue(req)
+            if trs:
+                _obs.serving_trace_span(
+                    req, "wal_replay", trs,
+                    replica=self.replica_id, seq=len(req.tokens))
+            self.restored[req.rid] = req
+        _obs.serving_wal_recovery(
+            t0, len(self.restored),
+            int(report.get("replayed_records", 0)),
+            int(report.get("torn_tail_truncated", 0)),
+            int(report.get("corrupt_quarantined", 0))
+            + int(report.get("ckpt_quarantined", 0)))
 
     # ---- introspection ----
     def load_stats(self) -> Dict:
@@ -1369,6 +1701,10 @@ class EngineSupervisor:
                  "degraded_mode": "dead"})
         s["health"] = self.health
         s["draining"] = self._draining
+        if self.wal is not None:
+            # how far the on-disk journal trails: a router can bound
+            # crash exposure as it reads backlog
+            s["wal"] = self.wal.stats()
         return s
 
     def stats(self) -> Dict:

@@ -15,7 +15,10 @@ the engine, the scheduler and the allocator).
   the host tier for ``swap_out`` and ``swap_in`` (whose bounded retry
   absorbs two shots, so the third one recovers), a one-slot adapter
   pool shared by every engine of the run, its requests on adapters 1,
-  2, 1 and 3, for ``adapter_load`` and ``adapter_promote``.
+  2, 1 and 3, for ``adapter_load`` and ``adapter_promote``, a
+  supervisor with a write-ahead log for ``wal_append``, ``wal_fsync``
+  and ``checkpoint_write`` (``tests/test_torch_wal.py`` kills the
+  process at every site instead).
   Also ``corrupt`` at ``transfer``, a watchdog stall and several faults
   in one run;
 - one supervised fault run, the degraded ladder and the circuit
@@ -24,9 +27,9 @@ the engine, the scheduler and the allocator).
 - drain and restore round-trip (KV f32 and int8) with prefix hits and
   token-identical finishes; ``PrefixCache.to_records`` equals the
   reference's for the same inserts;
-- the site lint: every site of ``ENGINE_SITES`` has exactly one
-  ``fault_point("<site>")`` call in ``paddle_tpu_torch/``, except the
-  ones whose modules wait for later steps.
+- the site lint: every site of ``ENGINE_SITES`` has its
+  ``fault_point("<site>")`` calls in ``paddle_tpu_torch/`` where the
+  JAX package has its own, and no site waits for a module any more.
 
 The tiny f32 Llama and engine geometry are ``test_torch_scheduler``'s.
 """
@@ -139,12 +142,16 @@ SITE_KW = {"verify_step": dict(spec_k=2, repeat_last=True),
            "transfer": dict(overlap=True),
            "swap_out": dict(host_tier=True), "swap_in": dict(host_tier=True),
            "adapter_load": dict(adapters=True),
-           "adapter_promote": dict(adapters=True)}
+           "adapter_promote": dict(adapters=True),
+           "wal_append": dict(wal=True), "wal_fsync": dict(wal=True),
+           "checkpoint_write": dict(wal=True)}
 #: (nth call, shots) per site where the default (3rd call, one shot)
 #: does not reach a recovery: the one swap-out, swap-in and adapter
-#: promotion of the run, and swap_in's bounded retry absorbs two shots
+#: promotion of the run, swap_in's bounded retry absorbs two shots, and
+#: the first three appends are the submits (a fault there rejects the
+#: submission, before any step), so the fifth is the second step's
 SITE_SHOTS = {"swap_out": (1, 1), "swap_in": (1, 3),
-              "adapter_promote": (1, 1)}
+              "adapter_promote": (1, 1), "wal_append": (5, 1)}
 
 
 def _base(kw):
@@ -356,14 +363,21 @@ def test_degraded_ladder_and_circuit_breaker_match_jax():
 
 @pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
 @pytest.mark.parametrize("site", PORT_SITES)
-def test_recovery_at_each_site_is_token_identical(metrics, site, kv):
+def test_recovery_at_each_site_is_token_identical(metrics, site, kv,
+                                                  tmp_path):
     kw = dict(SITE_KW.get(site, {}), kv_cache_dtype=kv)
+    # the log's sites: the same engine under a supervisor with a log
+    # (one append and one fsync a step, a checkpoint every two steps),
+    # held to the uninterrupted run without one
+    sup_kw = (dict(wal_dir=str(tmp_path), checkpoint_every=2,
+                   wal_kw={"group_interval_s": 0.0})
+              if kw.pop("wal", False) else {})
     want = _base(kw)
     inj = tserving.FaultInjector()
     nth, shots = SITE_SHOTS.get(site, (3, 1))
     for _ in range(shots):
         inj.arm(site, "raise", nth=nth)
-    sup, reqs, inj, _ = _serve("port", kw, inj)
+    sup, reqs, inj, _ = _serve("port", kw, inj, **sup_kw)
     assert inj.fired[site] == shots, inj.stats()
     assert sup.recoveries == 1 and sup.injected_faults == 1
     assert _counter(metrics, "serving_fault_injected_total",
@@ -517,39 +531,23 @@ def _fault_calls(paths):
 
 def test_site_lint():
     """Every engine site has its fault points in the port exactly where
-    the JAX engine, scheduler and allocator have theirs: one each, but
-    ``dispatch``, ``commit`` and ``transfer`` once per forward kind
-    (decode, linear verify, tree verify), as in the reference. The
-    sites whose modules are not ported yet have none."""
+    the JAX engine, scheduler, allocator and write-ahead log have
+    theirs: one each, but ``dispatch``, ``commit`` and ``transfer``
+    once per forward kind (decode, linear verify, tree verify), as in
+    the reference. No site waits for a module any more."""
     calls = _fault_calls((ROOT / "paddle_tpu_torch").rglob("*.py"))
     ref = _fault_calls(ROOT / "paddle_tpu" / rel for rel in (
         "inference/predictor.py", "serving/paged_cache.py",
         "serving/scheduler.py", "serving/host_tier.py",
-        "serving/adapters.py"))
+        "serving/adapters.py", "serving/wal.py"))
     for site in tres.ENGINE_SITES:
-        if site in tres.WAITING_SITES:
-            assert site not in calls, site
-            continue
         assert sorted(calls[site]) == sorted(ref[site]), site
         assert len(calls[site]) == (
             3 if site in ("dispatch", "commit", "transfer") else 1), site
+    for site in ("wal_append", "wal_fsync", "checkpoint_write"):
+        assert calls[site] == ["wal.py"], site
     assert set(calls) <= set(tres.SITES)
-    assert set(tres.WAITING_SITES) == {
-        "wal_append", "wal_fsync", "checkpoint_write"}
-
-
-@pytest.mark.parametrize("kw", [dict(wal_dir="w"), dict(wal_kw={"a": 1}),
-                                dict(checkpoint_every=2),
-                                dict(checkpoint_prefix=True)],
-                         ids=["wal_dir", "wal_kw", "every", "prefix"])
-def test_write_ahead_log_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="6.2"):
-        tserving.EngineSupervisor(_factory("port"), **kw)
-    sup = tserving.EngineSupervisor(_factory("port"))
-    with pytest.raises(NotImplementedError, match="6.2"):
-        sup.checkpoint_now()
-    with pytest.raises(NotImplementedError, match="6.2"):
-        tserving.EngineSupervisor.recover_from_disk(_factory("port"), "d")
+    assert tres.WAITING_SITES == ()
 
 
 def test_chip_smoke_recovery_check_rejects_a_dropped_token():
