@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path (plain, speculative,
 under the SLO scheduler, grammar-constrained, multi-tenant LoRA,
-supervised, with a write-ahead log and cold-restart recovery, on the
-host KV tier), dense decoding, Paddle fused-op
-decoder and training step on one NVIDIA card.
+supervised, with a write-ahead log and cold-restart recovery, in a
+serving cluster of supervised replicas, on the host KV tier), dense
+decoding, Paddle fused-op decoder and training step on one NVIDIA
+card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -11,6 +12,7 @@ decoder and training step on one NVIDIA card.
     python3 chip_smoke.py --only 3h            # build, then phase 3h alone
     python3 chip_smoke.py --only 3i            # build, then phase 3i alone
     python3 chip_smoke.py --only 3j            # build, then phase 3j alone
+    python3 chip_smoke.py --only 3k            # build, then phase 3k alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -99,7 +101,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes the rule's choice fails unless it is 10% faster than one
    split (``check_paged_hm``).
 3. The engine at Llama-2-7B width and a quarter of its depth (8
-   layers; the script's time limit holds phases 3g and 3h at 16), random
+   layers; the script's time limit holds every phase but 3d, at 16,
+   there), random
    weights from a seeded generator: ``max_batch=8, page_size=16,
    max_len=2048, prefill_chunk=256`` serving the request set in four
    tiers, KV {bf16, int8} x fused {off, on}. Per tier the launch
@@ -128,8 +131,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Last, ``torch.profiler`` traces a few draft-tree steps and splits
    them into proposal and verify on the host clock.
 3e. The SLO scheduler (``ServingScheduler``) over the engine at the
-   same width and a quarter of the depth (8 layers; the script's time
-   limit holds phases 3g and 3h at 16), fresh weights from phase 3's seed,
+   same width and a quarter of the depth (8 layers), fresh weights from
+   phase 3's seed,
    budget 384:
    phase 3's 16 requests as alternating NORMAL and LOW, then after 8
    steps four HIGH requests of 512 prompt tokens and 32 new, each
@@ -237,8 +240,57 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tokens and replayed records; checkpoint ms, bytes and the stall in
    its step, with and without the trie's pages; token agreement with
    the uninterrupted run (``wal ...`` lines, ``run_wal``).
+3k. The serving cluster (``ServingCluster``: supervised replicas of
+   phase 3j's engine, fused, the host tier on, behind the
+   ``ClusterRouter``) at the same width and a quarter of the depth (8
+   layers), one params dict from phase 3's seed shared by every
+   replica, phase 3e's 16 requests over four tenants, each prompt on
+   its tenant's own 192-token system prompt (12 pages), budget 384.
+   Gates: (a) routed over 2 replicas and over one (KV bf16 and int8),
+   each tenant's first request first: every request finishes once with
+   its count, no rid lost or doubled and none running on two replicas
+   at once (``check_cluster_handles``), every replica's allocator
+   balanced, and on 2 replicas each tenant's later requests on its
+   bound replica, each sharing 192 prefix tokens or more there; (b) 3
+   replicas, the first a prefill replica, host-staged and
+   ``direct_handoff=True``, the hooks on: the first handoff's
+   decode-side pages byte-equal the exported payload (staged) or the
+   prefill replica's pages (direct) (``check_pages_bytes``), the
+   hooks' import counter equals ``handoffs_total`` and the export
+   counter the exports (each counted once), staged a tampered second
+   export is caught by the CRC with its request still on the prefill
+   replica and an armed third import is retried; (c) 3 replicas,
+   ``circuit_threshold=2``: once every request holds a token, the
+   busiest replica swaps a session out and its next step fails until
+   its circuit opens; the cluster fails over, the swapped session
+   swaps in on a survivor, the rest replay; ten steps later a tenant's
+   bound replica is retired mid-decode, and the tenant's next prompt
+   shares 192 tokens on the replacement's restored trie; (d)
+   ``synth_trace`` (four tenants on 12-page system prompts, tails of
+   32-256 tokens, 16-64 new, 6 virtual s at 6 requests/s with one
+   burst) through ``run_trace`` under a ``FakeClock``: one prefill
+   replica, an autoscaled decode tier (1 to 3), an
+   ``AdmissionController``, a ``TenantQuota`` on one tenant,
+   ``overlap=True``, every dispatch under the sync debug mode and any
+   failed replica step fatal: nothing lost or doubled, at least one
+   scale-up, one scale-down and one ``rejected_ratelimit``; (e) 2
+   replicas with ``wal_dir`` on local disk: a failover (the failed-over
+   replica's directory then recovers only sessions it owns), then a
+   process death (``crashy``), the cluster object dropped and
+   ``ServingCluster.recover_from_disk``: every request finishes once,
+   the tokens on disk a prefix of the final ones; (f) in every run the
+   launches equal the forwards of every engine built (B10 a decode, B11
+   a prefill chunk, replays included). Reported: ms a cluster step, the
+   router's and the handoffs' host ms a step, tokens/s, a profiled
+   window's card busy and idle share (bf16, 2 replicas and one),
+   token agreement with the one-replica run, handoff ms, pages and
+   bytes (staged and direct), failover ms and replayed tokens, retire
+   ms and drain bytes, the ``SLOReport``, the restart's scan, build and
+   install ms against resident tokens (``cluster ...`` lines,
+   ``run_cluster``).
 3g. Supervised serving (``EngineSupervisor`` over the engine) at
-   Llama-2-7B's width and half its depth (16 layers), fresh weights from
+   Llama-2-7B's width and a quarter of its depth (8 layers), fresh
+   weights from
    phase 3's seed, phase 3e's 16 requests and HIGH burst, budget 384:
    an uninterrupted run; one run per engine site the port has with a
    ``raise`` fault at the middle of that site's calls in the
@@ -246,7 +298,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prefill_chunk, transfer, sched_tick; dispatch and commit
    overlapped; verify_step under n-gram ``spec_k=4``; draft_propose
    and tree_verify on phase 3's damped draft-tree engine,
-   ``draft_layers = 16, spec_tree=(2, 4)``, each engine after its own
+   ``draft_layers = L / 2, spec_tree=(2, 4)``, each engine after its own
    uninterrupted run); ``corrupt`` at transfer; a stall past a 5 s
    watchdog at decode_step; a drain to a file at the middle of the run
    and a restore, then a new request on the shared system prompt. Per
@@ -269,7 +321,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``run_supervised``). The drain's restore reports the host ms of its
    page scatter by part (read, pin, copy).
 3h. The host KV tier (``host_tier=True``) at Llama-2-7B's width and
-   half its depth (16 layers; ``--only 3h``: all 32), fresh weights from
+   a quarter of its depth (8 layers; ``--only 3h``: all 32), fresh
+   weights from
    phase 3's seed. Resume
    turns: eight requests decoding, the one nearest 600 tokens preempted
    and resumed by replay, swap, swap, replay, KV bf16 and int8, each
@@ -294,8 +347,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fragmentation 0, tokens equal to the same script without it)
    (``host_tier ...`` lines, ``run_host_tier``).
 3c. Dense decoding (``generate``, ``beam_search``,
-   ``precompute_prompt_cache``) at the same width and half the depth
-   (16 layers, as phases 3g and 3h), fresh
+   ``precompute_prompt_cache``) at the same width and a quarter of the
+   depth (8 layers), fresh
    seeded weights: the JAX bench's decode tier (B = 8, prompt 128, 64
    new, greedy) for weights {bf16, int8, int4} x KV {bf16, int8}; a
    long tier (prompt 1920, 128 new), with its own profile; beam search (B = 2, 4 beams, 32
@@ -309,7 +362,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    int8-weight decode steps into B7, matmuls, dequantization and the
    rest (``run_dense``).
 3d. The Paddle fused-op decoder (``paddle_decoder``): a Llama-2-7B
-   decoder at half its depth (16 layers, as phase 3c) written against
+   decoder at half its depth (16 layers) written against
    ``paddle_tpu_torch.incubate.nn.functional`` (``fused_rms_norm``,
    ``fused_rotary_position_embedding``, ``block_multihead_attention``,
    ``swiglu``) around ``torch.matmul`` projections, fresh seeded
@@ -4524,6 +4577,894 @@ def run_wal(torch, kernels, cfg, seed: int, reqs):
     return out
 
 
+# --------------------------------------------------------------- phase 3k
+CLUSTER_SYSTEM = 192    # each tenant's system prompt: 12 full pages of 16
+CLUSTER_TENANTS = 4
+CLUSTER_PROFILE_AT = 40         # the cluster step a profiled window starts
+CLUSTER_PROFILE_STEPS = 8
+#: gate (d)'s trace: 40-60 requests over 6 virtual seconds, one burst
+CLUSTER_TRACE = dict(vocab=32000, page_size=16, prefix_pages=12,
+                     tenants=CLUSTER_TENANTS, tail_tokens=(32, 256),
+                     new_tokens=(16, 64), duration_s=6.0, base_rps=6.0)
+CLUSTER_STEP_DT = 0.05          # virtual seconds a cluster step
+#: tenant0's rate limit in gate (d): tokens (prompt + new) a 2 s window
+CLUSTER_QUOTA = (2500, 2.0)
+#: the admission controller's service-rate estimate (tokens a virtual s)
+CLUSTER_ADMIT_TPS = 40000.0
+
+
+def tenant_requests(reqs, vocab: int, seed: int):
+    """Phase 3e's requests spread over ``CLUSTER_TENANTS`` tenants:
+    request i belongs to tenant i % 4 and its prompt is that tenant's
+    ``CLUSTER_SYSTEM``-token system prompt followed by the request's own
+    prompt past its first 192 tokens (its first 32 when it is shorter).
+    Returns (tenant, prompt, new) triples and the system prompts."""
+    import numpy as np
+    rs = np.random.RandomState(seed + 19)
+    systems = [rs.randint(3, vocab, (CLUSTER_SYSTEM,)).astype(np.int32)
+               for _ in range(CLUSTER_TENANTS)]
+    out = []
+    for i, (p, m) in enumerate(reqs):
+        t = i % CLUSTER_TENANTS
+        tail = p[CLUSTER_SYSTEM:] if p.size >= CLUSTER_SYSTEM + 32 else p[:32]
+        out.append((f"tenant{t}", np.concatenate([systems[t], tail]), m))
+    return out, systems
+
+
+def check_cluster_handles(name, rids, handles, declined=()):
+    """Phase 3k's finish gate: the final handles hold each submitted rid
+    exactly once (none lost, none doubled), and every one is done with
+    its full count of tokens (or an eos); a request that finished with
+    one of the ``declined`` reasons owes none and holds none."""
+    got = sorted(h.rid for h in handles)
+    if got != sorted(rids):
+        fail(f"cluster {name}: the handles hold rids {got} for the "
+             f"{len(rids)} submitted {sorted(rids)} — one was lost or "
+             f"doubled")
+    for h in handles:
+        if h.finish_reason in declined:
+            if h.tokens or not h.done:
+                fail(f"cluster {name}: request {h.rid} was declined "
+                     f"({h.finish_reason}) but holds {len(h.tokens)} "
+                     f"tokens")
+        elif not h.done or (len(h.tokens) != h.max_new_tokens
+                            and h.finish_reason != "eos"):
+            fail(f"cluster {name}: request {h.rid} finished "
+                 f"{h.finish_reason} with {len(h.tokens)}/"
+                 f"{h.max_new_tokens} tokens")
+
+
+def check_pages_bytes(name, got, want, what="the exported payload"):
+    """Byte equality of two raw page payloads (name -> ``uint8`` array,
+    the ``export_request`` form)."""
+    import numpy as np
+    if set(got) != set(want) or not all(
+            np.array_equal(np.asarray(got[n]).reshape(-1).view(np.uint8),
+                           np.asarray(want[n]).reshape(-1).view(np.uint8))
+            for n in got):
+        fail(f"cluster {name}: the first handoff's decode-side pages are "
+             f"not byte-equal to {what}")
+
+
+def watch_first_handoff(cluster):
+    """Wrap ``cluster._handoff_one`` so that the first handoff that lands
+    records the decode side's pages (``export_request`` of the new
+    slot), and, to hold them against, the exported payload (host-staged)
+    or the prefill side's pages read just before the handoff (direct).
+    The reads sync with the card; later handoffs pass through."""
+    seen = {}
+    inner = cluster._handoff_one
+
+    def handoff(sup, req, loads):
+        if "decode" in seen:
+            return inner(sup, req, loads)
+        eng = sup.engine
+        source = eng.cache.export_request(req.slot)["arrays"]
+        export, box = eng.export_prefilled, {}
+
+        def exporting(r, with_kv=True):
+            box["payload"] = export(r, with_kv=with_kv)
+            return box["payload"]
+        eng.export_prefilled = exporting
+        n = cluster.handoffs_total
+        try:
+            return inner(sup, req, loads)
+        finally:
+            del eng.export_prefilled
+            if cluster.handoffs_total > n:
+                own = cluster.replicas[cluster._owner[req.rid]]
+                kv = box["payload"].get("kv")
+                seen.update(
+                    rid=req.rid, direct=kv is None,
+                    decode=own.engine.cache.export_request(req.slot)[
+                        "arrays"],
+                    payload=source if kv is None else kv["arrays"])
+    cluster._handoff_one = handoff
+    return seen
+
+
+def cluster_factory(torch, E, params, cfg, kv=None, overlap=False,
+                    sync_check=False):
+    """Phase 3k's replica engines (``wal_engine``: phase 3e's geometry,
+    fused, the host tier on), all on one params dict. The box keeps every
+    engine the factory built (the launch check counts dead and replaced
+    replicas' forwards too), each build's ms, the ``instrument_engine``
+    tallies with ``sync_check``, and the prefix tokens each rid's
+    prefill admission shared from the trie (``hits``)."""
+    box = dict(engines=[], builds=[], tallies=[], hits={})
+
+    def factory():
+        t = time.perf_counter()
+        eng = wal_engine(E, params, cfg, kv_cache_dtype=kv, overlap=overlap)
+        torch.cuda.synchronize()
+        box["builds"].append((time.perf_counter() - t) * 1e3)
+        box["engines"].append(eng)
+        admit = eng.admit_request
+
+        def admit_request(req):
+            ok = admit(req)
+            if ok and req.slot in eng._pending:
+                box["hits"][req.rid] = int(eng._pending[req.slot][2])
+            return ok
+        eng.admit_request = admit_request
+        if sync_check:
+            box["tallies"].append(instrument_engine(torch, eng, True))
+        return eng
+    box["factory"] = factory
+    return box
+
+
+def cluster_launches(kernels, cfg, name, engines, counts):
+    """Gate (f): the run's launches equal the forwards of every engine
+    it built — B10 a decode, B11 a prefill chunk, per layer."""
+    fw = dict.fromkeys(("prefill", "decode", "verify", "tree",
+                        "draft_catchup", "draft_decode"), 0)
+    for eng in engines:
+        for k, v in eng.forwards.items():
+            fw[k] += v
+    L = cfg.num_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update(B10=L * fw["decode"], B11=L * (fw["prefill"] + fw["verify"]))
+    if counts != want:
+        fail(f"cluster {name}: launches {counts} != {want} (forwards {fw})")
+    return fw
+
+
+def time_cluster(cluster):
+    """Host seconds of the cluster's own work, wrapped per method: the
+    router (dispatch, gauges, pruning, the work check), the handoff
+    harvest and the autoscaler's tick; the replicas' steps are the
+    rest of a cluster step."""
+    t = {"router_s": 0.0, "handoff_s": 0.0, "autoscale_s": 0.0}
+    for name, key in (("_dispatch", "router_s"), ("_publish", "router_s"),
+                      ("_prune_finished", "router_s"),
+                      ("_has_work", "router_s"),
+                      ("_harvest_handoffs", "handoff_s"),
+                      ("_autoscale_tick", "autoscale_s")):
+        def wrapped(*a, _fn=getattr(cluster, name), _k=key, **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                t[_k] += time.perf_counter() - t0
+        setattr(cluster, name, wrapped)
+    return t
+
+
+def serviceable(cluster):
+    return [s for s in cluster.replicas
+            if s.health != "dead" and not s._draining]
+
+
+def cluster_drive(torch, cluster, name, on_step=None, prof_at=None,
+                  max_steps=5000):
+    """Step ``cluster`` until it has no work: ``on_step(i)`` runs before
+    step i; every step's host ms is kept (those of a profiled window
+    apart); after each step no rid may run on two replicas at once, and
+    each rid's replica history (the distinct owners in order) grows.
+    ``prof_at``: a ``torch.profiler`` window of ``CLUSTER_PROFILE_STEPS``
+    steps from that step, split by ``device_breakdown``."""
+    from torch.profiler import ProfilerActivity, profile
+    hist, step_ms, out = {}, [], {}
+    prof, steps = None, 0
+    while True:
+        if on_step is not None:
+            on_step(steps)
+        if prof_at is not None and steps == prof_at:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+            tp = time.perf_counter()
+        t = time.perf_counter()
+        more = cluster.step()
+        if prof is None:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        steps += 1
+        if prof is not None and (steps == prof_at + CLUSTER_PROFILE_STEPS
+                                 or not more):
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - tp) * 1e3 / (steps - prof_at)
+            prof.__exit__(None, None, None)
+            out["profile"] = device_breakdown(torch, prof, steps - prof_at,
+                                              wall)
+            prof = None
+        running = [r.rid for s in serviceable(cluster)
+                   for r in s.engine.running_requests()]
+        if len(running) != len(set(running)):
+            fail(f"cluster {name}: a rid runs on two replicas at once "
+                 f"({sorted(running)})")
+        for rid, idx in cluster._owner.items():
+            h = hist.setdefault(rid, [])
+            if not h or h[-1] != idx:
+                h.append(idx)
+        if not more:
+            break
+        if steps > max_steps:
+            fail(f"cluster {name}: no end after {steps} steps")
+    torch.cuda.synchronize()
+    out.update(steps=steps, step_ms=step_ms, hist=hist)
+    return out
+
+
+def staged_submit(cluster, treqs, handles, tenant_of):
+    """An ``on_step`` that submits each tenant's first request at once
+    and the rest once every first one holds a token (its prompt's pages
+    are then in its replica's trie, so the rest can hit them).
+    ``tenant_of`` maps each submitted rid to its tenant."""
+    firsts = {}
+    for i, (t, p, m) in enumerate(treqs):
+        firsts.setdefault(t, i)
+    state = {"rest": False}
+
+    def submit(i):
+        t, p, m = treqs[i]
+        h = cluster.submit(p, max_new_tokens=m, tenant=t)
+        handles.append(h)
+        tenant_of[h.rid] = t
+
+    for i in sorted(firsts.values()):
+        submit(i)
+
+    def on_step(_):
+        if state["rest"] or not all(h.tokens for h in handles):
+            return
+        state["rest"] = True
+        for i in range(len(treqs)):
+            if i not in firsts.values():
+                submit(i)
+    return on_step
+
+
+def cluster_record(name, kv, cluster, box, drive, timers, handles, counts,
+                   kernels, cfg, wall):
+    """The shared gates and numbers of a phase 3k run: finish, launches
+    (gate f), balanced allocators on every serviceable replica."""
+    fw = cluster_launches(kernels, cfg, name, box["engines"], counts)
+    for s in serviceable(cluster):
+        balanced(s.engine, f"cluster {name} (replica {s.replica_id})")
+    steps = drive["steps"]
+    gen = sum(len(h.tokens) for h in handles)
+    ms = drive["step_ms"]
+    rec = dict(run=name, kv=kv or "bf16", replicas=len(cluster.replicas),
+               requests=len(handles), generated_tokens=gen, steps=steps,
+               wall_s=wall, tokens_per_s=gen / wall,
+               step_ms_mean=sum(ms) / max(1, len(ms)),
+               step_ms_median=sorted(ms)[len(ms) // 2] if ms else None,
+               router_ms_per_step=timers["router_s"] * 1e3 / steps,
+               handoff_host_ms_per_step=timers["handoff_s"] * 1e3 / steps,
+               autoscale_ms_per_step=timers["autoscale_s"] * 1e3 / steps,
+               engines_built=len(box["builds"]),
+               build_ms_max=max(box["builds"]), forwards=fw,
+               launches=counts, handoffs=cluster.handoffs_total,
+               router=cluster.router.stats())
+    rec["router"].pop("tenant_accounts")
+    if "profile" in drive:
+        rec["profile"] = drive["profile"]
+    rec["tokens"] = [list(map(int, h.tokens)) for h in handles]
+    return rec
+
+
+def cluster_routed(torch, kernels, serving, obs, E, params, cfg, treqs, kv,
+                   replicas):
+    """Gate (a): ``treqs`` through a ``replicas``-replica cluster (1 is
+    the one-engine baseline), each tenant's first request first. Gates:
+    finish, launches, balance; with 2, every tenant's later requests on
+    its bound replica, each sharing at least ``CLUSTER_SYSTEM`` prefix
+    tokens there."""
+    box = cluster_factory(torch, E, params, cfg, kv)
+    name = f"routed-{replicas}-{kv or 'bf16'}"
+    cl = serving.ServingCluster(
+        box["factory"], replicas=replicas, token_budget=SCHED_BUDGET,
+        supervisor_kw=dict(sleep=lambda s: None, backoff_s=0.0))
+    timers = time_cluster(cl)
+    handles, tenant_of = [], {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    drive = cluster_drive(torch, cl, name,
+                          staged_submit(cl, treqs, handles, tenant_of),
+                          prof_at=CLUSTER_PROFILE_AT if kv is None else None)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check_cluster_handles(name, [h.rid for h in handles], handles)
+    rec = cluster_record(name, kv, cl, box, drive, timers, handles, counts,
+                         kernels, cfg, wall)
+    if replicas > 1:
+        if len(cl.router.dispatch_by_replica) < 2:
+            fail(f"cluster {name}: every request went to one replica "
+                 f"({cl.router.dispatch_by_replica})")
+        later = {}
+        for h in sorted(handles, key=lambda h: h.rid):
+            later.setdefault(tenant_of[h.rid], []).append(h)
+        for t, hs in later.items():
+            bound = cl.router._affinity.get(
+                cl.router.affinity_key(hs[0].prompt[0]))
+            for h in hs[1:]:
+                if (drive["hist"].get(h.rid) != [bound]
+                        or box["hits"].get(h.rid, 0) < CLUSTER_SYSTEM):
+                    fail(f"cluster {name}: {t}'s request {h.rid} ran on "
+                         f"{drive['hist'].get(h.rid)} (bound {bound}) and "
+                         f"hit {box['hits'].get(h.rid, 0)} prefix tokens, "
+                         f"not {CLUSTER_SYSTEM} or more there")
+        rec["prefix_hit_tokens_later"] = sorted(
+            box["hits"].get(h.rid, 0) for hs in later.values()
+            for h in hs[1:])
+    rec["_order"] = [h.rid for h in handles]
+    del cl, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cluster_disaggregated(torch, kernels, serving, obs, E, params, cfg,
+                          treqs, direct):
+    """Gate (b): ``treqs`` through 3 replicas, the first a prefill
+    replica, host-staged or ``direct_handoff``, with the hooks on. The
+    first handoff's decode-side pages byte-equal the exported payload
+    (staged) or the prefill side's pages (direct); the import counter
+    equals ``handoffs_total`` and the export counter the exports (each
+    handoff counted once); staged, a tampered second export is caught
+    by the CRC (``handoff_corruptions_total == 1``) with the request
+    still running on its prefill replica, and an armed fault at the
+    third import is retried. Every handoff is timed between card
+    synchronizations, with its pages and bytes."""
+    box = cluster_factory(torch, E, params, cfg)
+    name = f"disaggregated-{'direct' if direct else 'staged'}"
+    cl = serving.ServingCluster(
+        box["factory"], replicas=3, prefill_replicas=1,
+        token_budget=SCHED_BUDGET, direct_handoff=direct,
+        retry_sleep=lambda s: None,
+        supervisor_kw=dict(sleep=lambda s: None, backoff_s=0.0))
+    timers = time_cluster(cl)
+    seen = watch_first_handoff(cl)
+    inner = cl._handoff_one
+    handoffs, tally = [], {"exports": 0, "corrupt_rid": None}
+
+    def handoff(sup, req, loads):
+        eng = sup.engine
+        pages = eng.cache.pages_for(int(eng.cache.lengths[req.slot]))
+        n, c = cl.handoffs_total, cl.handoff_corruptions_total
+        first = "decode" not in seen
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(sup, req, loads)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        tally["exports"] += 1
+        if cl.handoff_corruptions_total > c:
+            tally["corrupt_rid"] = req.rid
+            if not (cl._owner.get(req.rid) == 0 and not req.done
+                    and eng._slots[req.slot] is req):
+                fail(f"cluster {name}: after the corrupt handoff request "
+                     f"{req.rid} is not running on its prefill replica")
+        elif cl.handoffs_total > n and not first:
+            handoffs.append(dict(ms=ms, pages=pages,
+                                 bytes=eng.cache.page_payload_bytes(pages)))
+    cl._handoff_one = handoff
+    inj = serving.FaultInjector()
+    if not direct:
+        inj.arm_tamper("handoff_export", nth=2)
+        inj.arm("handoff_import", "raise", nth=3)
+    obs.REGISTRY.clear()
+    obs.enable()
+    handles, tenant_of = [], {}
+    try:
+        with inj:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            drive = cluster_drive(torch, cl, name,
+                                  staged_submit(cl, treqs, handles,
+                                                tenant_of))
+            wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        exports = _metric(obs, "serving_handoff_exports_total")
+        imports = _metric(obs, "serving_handoff_imports_total")
+    finally:
+        obs.disable()
+        obs.REGISTRY.clear()
+    check_cluster_handles(name, [h.rid for h in handles], handles)
+    rec = cluster_record(name, None, cl, box, drive, timers, handles, counts,
+                         kernels, cfg, wall)
+    if "decode" not in seen or seen["direct"] != direct:
+        fail(f"cluster {name}: no handoff landed")
+    check_pages_bytes(name, seen["decode"], seen["payload"],
+                      "the prefill replica's pages" if direct
+                      else "the exported payload")
+    if not (imports == cl.handoffs_total >= 8
+            and exports == tally["exports"]):
+        fail(f"cluster {name}: the hooks counted {exports} exports and "
+             f"{imports} imports for {tally['exports']} exports and "
+             f"{cl.handoffs_total} handoffs")
+    if not direct and not (cl.handoff_corruptions_total == 1
+                           and tally["corrupt_rid"] is not None
+                           and cl.handoff_retries_total >= 1):
+        fail(f"cluster {name}: tamper and import fault: corruptions "
+             f"{cl.handoff_corruptions_total}, retries "
+             f"{cl.handoff_retries_total} ({inj.stats()})")
+    rec.update(direct=direct, handoff_corruptions=cl.handoff_corruptions_total,
+               handoff_retries=cl.handoff_retries_total,
+               exports_counted=exports, imports_counted=imports,
+               first_handoff_pages_bytes=int(sum(
+                   a.size for a in seen["payload"].values())),
+               handoff_ms=[h["ms"] for h in handoffs],
+               handoff_pages=[h["pages"] for h in handoffs],
+               handoff_bytes=[h["bytes"] for h in handoffs],
+               _order=[h.rid for h in handles])
+    del cl, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kill_next_step(inj, sup):
+    """Arm ``sup.circuit_threshold`` shots at ``sched_tick`` just before
+    ``sup``'s next step: its first try and each retry after a recovery
+    fail, and its circuit opens inside that step."""
+    step = sup.step
+
+    def failing_step():
+        sup.step = step
+        for _ in range(sup.circuit_threshold):
+            inj.arm("sched_tick", "raise", nth=1)
+        return step()
+    sup.step = failing_step
+
+
+def cluster_failover(torch, kernels, serving, obs, E, params, cfg, treqs,
+                     systems):
+    """Gate (c): ``treqs`` through 3 replicas (``circuit_threshold=2``,
+    the host tier shared). Once every request holds a token, the replica
+    with the most sessions swaps one decode-phase session out (a
+    preemption), then its next step fails until its circuit opens: the
+    cluster fails over (``failovers_total >= 1``), the swapped session
+    swaps in on a survivor with no replay, the rest replay. Ten steps
+    later the bound replica of the tenant with the most running
+    sessions is retired mid-decode (drain, requeue, trie restored into
+    its replacement); when the cluster is idle, a new request of that
+    tenant must share ``CLUSTER_SYSTEM`` or more prefix tokens on the
+    replacement. Failover ms, the rehomed sessions' replayed tokens and
+    retire ms are reported."""
+    import numpy as np
+    box = cluster_factory(torch, E, params, cfg)
+    name = "failover-retire"
+    cl = serving.ServingCluster(
+        box["factory"], replicas=3, token_budget=SCHED_BUDGET,
+        supervisor_kw=dict(sleep=lambda s: None, backoff_s=0.0,
+                           circuit_threshold=2, recover_after=4))
+    timers = time_cluster(cl)
+    inj = serving.FaultInjector()
+    out, state = {}, {"phase": 0}
+    handles, tenant_of = [], {}
+    submit = staged_submit(cl, treqs, handles, tenant_of)
+    failover = cl._failover
+
+    def timed_failover(idx):
+        dead = cl.replicas[idx]
+        entries = dead.journal.live_entries()
+        swap0 = sum(e.cache.swap_ins_total for e in box["engines"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        failover(idx)
+        torch.cuda.synchronize()
+        out.update(
+            failover_ms=(time.perf_counter() - t) * 1e3, victim=idx,
+            rehomed=len(entries), swap_ins_before=swap0,
+            replayed_tokens=int(sum(
+                e.req.prompt.size + max(0, len(e.tokens) - 1)
+                for e in entries if e.admitted and e.req is not None
+                and not getattr(e.req, "swapped", False))))
+        state["phase"] = 2
+        state["at"] = state["step"]
+    cl._failover = timed_failover
+
+    def on_step(i):
+        state["step"] = i
+        submit(i)
+        if state["phase"] == 0 and len(handles) == len(treqs) and all(
+                h.tokens for h in handles if not h.done):
+            loads = {j: len(s.engine.running_requests())
+                     for j, s in enumerate(cl.replicas)}
+            v = max(loads, key=lambda j: (loads[j], -j))
+            sup = cl.replicas[v]
+            live = [r for r in sup.engine.running_requests()
+                    if r.tokens and not r.done
+                    and sup.engine.swap_candidate(r)]
+            if not live:
+                return
+            r = live[0]
+            sup.engine.preempt_request(r)
+            sup.scheduler.requeue(r, front=True)
+            if not r.swapped:
+                fail(f"cluster {name}: the preempted session {r.rid} did "
+                     f"not swap out")
+            out["swapped_rid"] = r.rid
+            kill_next_step(inj, sup)
+            state["phase"] = 1
+        elif state["phase"] == 2 and i >= state["at"] + 10:
+            # the tenant with the most running sessions on its bound
+            # replica (a failover drops the dead replica's bindings)
+            best = None
+            for t in sorted(set(tenant_of.values())):
+                idx = cl.router._affinity.get(cl.router.affinity_key(
+                    systems[int(t[6:])]))
+                if idx is None:
+                    continue
+                n = sum(1 for r in cl.replicas[idx].engine.running_requests()
+                        if tenant_of.get(r.rid) == t)
+                if n and (best is None or n > best[0]):
+                    best = (n, t, idx)
+            if best is None:
+                return
+            n, t, idx = best
+            live = len(cl.replicas[idx].engine.running_requests())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = cl.retire_replica(idx)
+            torch.cuda.synchronize()
+            out.update(retire_ms=(time.perf_counter() - t0) * 1e3,
+                       retired=idx, retired_tenant=t,
+                       retire_sessions=live, drain=summary)
+            state["phase"] = 3
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with inj:
+        drive = cluster_drive(torch, cl, name, on_step)
+    wall = time.perf_counter() - t0
+    if state["phase"] != 3 or cl.failovers_total < 1:
+        fail(f"cluster {name}: the failover and the retirement did not "
+             f"both happen (phase {state['phase']}, failovers "
+             f"{cl.failovers_total})")
+    swap_ins = sum(e.cache.swap_ins_total for e in box["engines"])
+    fallbacks = sum(e.cache.swap_replay_fallbacks for e in box["engines"])
+    if not (swap_ins > out["swap_ins_before"] and fallbacks == 0):
+        fail(f"cluster {name}: the swapped session did not swap in on a "
+             f"survivor (swap-ins {out['swap_ins_before']} -> {swap_ins}, "
+             f"replay fallbacks {fallbacks})")
+    # the retired tenant's next prompt, on the replacement's restored trie
+    t = out["retired_tenant"]
+    rs = np.random.RandomState(91)
+    p = np.concatenate([systems[int(t[6:])],
+                        rs.randint(3, cfg.vocab_size, (64,)).astype(np.int32)])
+    h = cl.submit(p, max_new_tokens=16, tenant=t)
+    handles.append(h)
+    tail = cluster_drive(torch, cl, name + " (after)")
+    counts = kernels.launch_counts()
+    if (tail["hist"].get(h.rid) != [out["retired"]]
+            or box["hits"].get(h.rid, 0) < CLUSTER_SYSTEM):
+        fail(f"cluster {name}: the retired replica's tenant's next prompt "
+             f"ran on {tail['hist'].get(h.rid)} (retired "
+             f"{out['retired']}) with {box['hits'].get(h.rid, 0)} prefix "
+             f"tokens hit, not {CLUSTER_SYSTEM} or more")
+    check_cluster_handles(name, [x.rid for x in handles], handles)
+    rec = cluster_record(name, None, cl, box, drive, timers, handles, counts,
+                         kernels, cfg, wall)
+    rec.update(failovers=cl.failovers_total,
+               retirements=cl.retirements_total, swap_ins=swap_ins,
+               next_prompt_hit_tokens=box["hits"][h.rid], **out)
+    rec["drain"] = {k: v for k, v in out["drain"].items() if k != "path"}
+    del cl, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fatal_failures(cluster, name):
+    """Make any failed step of any replica, those the cluster builds
+    later included, end the run: a run with no fault armed must not
+    pass through a recovery (a sync inside a checked dispatch raises)."""
+    def fatal(err):
+        fail(f"cluster {name}: a replica's step failed: "
+             f"{type(err).__name__}: {err}")
+    for s in cluster.replicas:
+        s._on_failure = fatal
+    new = cluster._new_supervisor
+
+    def new_supervisor(idx):
+        s = new(idx)
+        s._on_failure = fatal
+        return s
+    cluster._new_supervisor = new_supervisor
+
+
+def cluster_traffic(torch, kernels, serving, obs, E, params, cfg, seed):
+    """Gate (d): ``synth_trace`` (``CLUSTER_TRACE``: four tenants on
+    12-page system prompts, one burst) through ``run_trace`` under a
+    ``FakeClock`` (``CLUSTER_STEP_DT`` a step), on a cluster of one
+    prefill replica and an autoscaled decode tier (1 to 3, the
+    thresholds of the reference's traffic tests), an
+    ``AdmissionController``, a ``TenantQuota`` on tenant0 and
+    ``overlap=True``, every dispatch under the sync debug mode. Gates:
+    nothing lost or doubled, at least one scale-up and one scale-down,
+    at least one ``rejected_ratelimit``, no replica step failed."""
+    box = cluster_factory(torch, E, params, cfg, overlap=True,
+                          sync_check=True)
+    name = "traffic"
+    trace = serving.synth_trace(seed, **dict(CLUSTER_TRACE,
+                                             vocab=cfg.vocab_size))
+    clock = serving.FakeClock()
+    auto = serving.ClusterAutoscaler(
+        min_replicas=1, max_replicas=3, up_backlog_per_replica=3.0,
+        down_backlog_per_replica=0.5, up_after=1, down_after=4,
+        cooldown_ticks=3)
+    cl = serving.ServingCluster(
+        box["factory"], replicas=2, prefill_replicas=1, clock=clock,
+        token_budget=SCHED_BUDGET, autoscaler=auto,
+        admission=serving.AdmissionController(tokens_per_s=CLUSTER_ADMIT_TPS),
+        quotas={"tenant0": serving.TenantQuota(*CLUSTER_QUOTA)},
+        overlap=True, retry_sleep=lambda s: None,
+        supervisor_kw=dict(sleep=lambda s: None, backoff_s=0.0))
+    fatal_failures(cl, name)
+    timers = time_cluster(cl)
+    step, step_ms = cl.step, []
+
+    def checked_step():
+        t = time.perf_counter()
+        more = step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        running = [r.rid for s in serviceable(cl)
+                   for r in s.engine.running_requests()]
+        if len(running) != len(set(running)):
+            fail(f"cluster {name}: a rid runs on two replicas at once")
+        return more
+    cl.step = checked_step
+    handles = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = serving.run_trace(cl, trace, clock, step_dt=CLUSTER_STEP_DT,
+                               on_submit=lambda tr, req: handles.append(req))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    declined = serving.traffic.REJECTED_REASONS + ("deadline_exceeded",)
+    if len(handles) != len(trace):
+        fail(f"cluster {name}: {len(handles)} handles for {len(trace)} "
+             f"arrivals")
+    check_cluster_handles(name, sorted({h.rid for h in handles}), handles,
+                          declined)
+    rep = report.as_dict()
+    calls = {}
+    for t in box["tallies"]:
+        for k, v in t["calls"].items():
+            calls[k] = calls.get(k, 0) + v
+    if not (report.lost == 0 and report.autoscale_up >= 1
+            and report.autoscale_down >= 1
+            and report.rejected.get("rejected_ratelimit", 0) >= 1
+            and calls.get("decode_dispatch")
+            and calls.get("prefill_dispatch")):
+        fail(f"cluster {name}: lost {report.lost}, scaled up "
+             f"{report.autoscale_up} / down {report.autoscale_down}, "
+             f"rejected {report.rejected}, dispatches under the sync check "
+             f"{calls}")
+    drive = dict(steps=report.steps, step_ms=step_ms, hist={})
+    rec = cluster_record(name, None, cl, box, drive, timers, handles, counts,
+                         kernels, cfg, wall)
+    rec.update(trace_requests=len(trace), slo_report=rep,
+               dispatch_calls_without_sync=calls,
+               handoff_corruptions=cl.handoff_corruptions_total,
+               autoscaler=auto.stats())
+    del cl, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cluster_restart(torch, kernels, serving, obs, E, params, cfg, treqs):
+    """Gate (e): ``treqs`` through 2 replicas with ``wal_dir`` on local
+    disk (a checkpoint every 16 steps). Once every request holds a
+    token, replica 1's next step fails until its circuit opens: after the
+    failover its directory may hold only sessions replica 1 owns now
+    (the dead incarnation's were tombstoned as they rehomed). Five
+    steps later every replica dies at its next failed step instead of
+    recovering (``crashy``) and a ``decode_step`` fault kills the
+    process; the cluster object is dropped and ``ServingCluster.
+    recover_from_disk`` rebuilds it from the directory. Gates: every
+    request finishes once, and the tokens on disk at the death are a
+    prefix of the final tokens (``check_recovery``). Reported: the
+    restart's ms by part (scan, engine builds, install) against the
+    resident tokens, and the run after it."""
+    from paddle_tpu_torch.serving import wal as wal_mod
+    box = cluster_factory(torch, E, params, cfg)
+    name = "cold-restart"
+    wd = tempfile.mkdtemp(prefix="cluster3k-")
+    kw = dict(token_budget=SCHED_BUDGET, supervisor_kw=dict(
+        sleep=lambda s: None, backoff_s=0.0, circuit_threshold=2,
+        wal_kw={"group_interval_s": 0.0}, checkpoint_every=16))
+    try:
+        cl = serving.ServingCluster(box["factory"], replicas=2, wal_dir=wd,
+                                    **kw)
+        inj = serving.FaultInjector()
+        handles = [cl.submit(p, max_new_tokens=m, tenant=t)
+                   for t, p, m in treqs]
+        out, state = {}, {"phase": 0, "step": 0}
+        failover = cl._failover
+
+        def timed_failover(idx):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            failover(idx)
+            torch.cuda.synchronize()
+            out["failover_ms"] = (time.perf_counter() - t) * 1e3
+            state.update(phase=2, at=state["step"])
+        cl._failover = timed_failover
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with inj:
+            while True:
+                i = state["step"]
+                if state["phase"] == 0 and all(h.tokens for h in handles
+                                               if not h.done):
+                    kill_next_step(inj, cl.replicas[1])
+                    state["phase"] = 1
+                elif state["phase"] == 2 and i == state["at"] + 1:
+                    sub = cl._replica_wal_dir(1)
+                    got = set(wal_mod.recover_state(sub, repair=False)[
+                        "sessions"])
+                    owned = {r for r, j in cl._owner.items() if j == 1}
+                    if not got <= owned:
+                        fail(f"cluster {name}: after the failover replica "
+                             f"1's directory recovers sessions "
+                             f"{sorted(got - owned)} that it does not own")
+                    out["failed_over_dir_sessions"] = len(got)
+                elif state["phase"] == 2 and i == state["at"] + 5:
+                    for s in cl.replicas:
+                        crashy(s)
+                    inj.arm("decode_step", "raise", nth=1)
+                    state["phase"] = 3
+                before = {h.rid: list(h.tokens) for h in handles}
+                died = False
+                try:
+                    more = cl.step()
+                except ProcessDied:
+                    died = True
+                if died:
+                    break
+                state["step"] += 1
+                if not more:
+                    fail(f"cluster {name}: the run ended before the death "
+                         f"(phase {state['phase']})")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        if cl.failovers_total < 1:
+            fail(f"cluster {name}: no failover before the death")
+        del cl
+        gc.collect()
+        scans, real_scan = [], wal_mod.recover_state
+
+        def timed_scan(path, repair=True):
+            t = time.perf_counter()
+            st = real_scan(path, repair=repair)
+            scans.append((time.perf_counter() - t) * 1e3)
+            return st
+        n_builds = len(box["builds"])
+        wal_mod.recover_state = timed_scan
+        t1 = time.perf_counter()
+        try:
+            rec_cl = serving.ServingCluster.recover_from_disk(
+                box["factory"], wd, **kw)
+        finally:
+            wal_mod.recover_state = real_scan
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t1) * 1e3
+        restored = rec_cl.recovered
+        journal = {rid: list(r.tokens) for rid, r in restored.items()}
+        resident = int(sum(r.prompt.size + len(r.tokens)
+                           for r in restored.values()))
+        handles = [restored.get(h.rid, h) for h in handles]
+        timers = time_cluster(rec_cl)
+        t2 = time.perf_counter()
+        drive = cluster_drive(torch, rec_cl, name)
+        after = time.perf_counter() - t2
+        counts = kernels.launch_counts()
+        final = {h.rid: list(h.tokens) for h in handles}
+        check_recovery(f"cluster {name}", before, journal, final)
+        check_cluster_handles(name, sorted(before), handles)
+        build_ms = sum(box["builds"][n_builds:])
+        rec = cluster_record(name, None, rec_cl, box, drive, timers, handles,
+                             counts, kernels, cfg, t_run + after)
+        rec.update(restart_ms=total, scan_ms=sum(scans), build_ms=build_ms,
+                   install_ms=total - sum(scans) - build_ms,
+                   restored_sessions=len(restored), resident_tokens=resident,
+                   run_after_restart_s=after, **out)
+        del rec_cl, box
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+
+
+def run_cluster(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3k: the serving cluster (``ServingCluster``: supervised
+    replicas of phase 3e's engine, fused, the host tier on, at ``cfg``'s
+    width and depth on one params dict from phase 3's seed; phase 3e's
+    16 requests over four tenants, each on its own 192-token system
+    prompt). (a) routed over 2 replicas against one (KV bf16 and int8);
+    (b) disaggregated, host-staged and direct (``cluster_disaggregated``);
+    (c) failover and retirement (``cluster_failover``); (d) trace-driven
+    traffic with the autoscaler, admission and a quota
+    (``cluster_traffic``); (e) a process death and
+    ``recover_from_disk`` (``cluster_restart``); (f) in every run the
+    launches equal the forwards of every engine built. Token agreement
+    of the routed runs with the one-engine run is reported, not gated
+    (bf16 near ties; identity is the CPU tests' gate, in f32)."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models.llama import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    treqs, systems = tenant_requests(reqs, cfg.vocab_size, seed)
+    runs, phase_s = [], {}
+    # warm the card (cuBLAS handles, the allocator's first blocks) before
+    # the one-replica run that the routed ones are compared with
+    warm = wal_engine(E, params, cfg)
+    warm.generate([p for _, p, _ in treqs[:2]], max_new_tokens=4)
+    del warm
+    lap = [time.perf_counter()]
+
+    def keep(part, *recs):
+        for rec in recs:
+            print("cluster " + show({k: v for k, v in rec.items()
+                                     if not k.startswith("_")}))
+            runs.append(rec)
+        now = time.perf_counter()
+        phase_s[part] = now - lap[0]
+        lap[0] = now
+
+    for kv in (None, "int8"):
+        one = cluster_routed(torch, kernels, serving, obs, E, params, cfg,
+                             treqs, kv, 1)
+        two = cluster_routed(torch, kernels, serving, obs, E, params, cfg,
+                             treqs, kv, 2)
+        if one["_order"] != two["_order"]:
+            fail("cluster: the routed runs submitted in different orders")
+        two.update(token_agreement(two["tokens"], one["tokens"]))
+        keep(f"a-{kv or 'bf16'}", one, two)
+    for direct in (False, True):
+        keep("b-direct" if direct else "b-staged", cluster_disaggregated(
+            torch, kernels, serving, obs, E, params, cfg, treqs, direct))
+    keep("c", cluster_failover(torch, kernels, serving, obs, E, params, cfg,
+                               treqs, systems))
+    keep("d", cluster_traffic(torch, kernels, serving, obs, E, params, cfg,
+                              seed))
+    keep("e", cluster_restart(torch, kernels, serving, obs, E, params, cfg,
+                              treqs))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs:
+        r.pop("tokens", None)
+        r.pop("_order", None)
+    print("cluster parts " + json.dumps(phase_s))
+    return {"runs": runs, "part_s": phase_s}
+
+
 # --------------------------------------------------------------- phase 3c
 def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
                new: int, fn: str = "generate", b7: bool = True,
@@ -5203,10 +6144,10 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h", "3i", "3j"),
+    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k"),
                     help="build, then run this phase alone (3h at "
-                         "--layers, 3i and 3j at a quarter of them) and "
-                         "write its record; no kernel line")
+                         "--layers, 3i, 3j and 3k at a quarter of them) "
+                         "and write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -5311,7 +6252,8 @@ def main(argv=None) -> int:
         reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
         key, run = {"3h": ("host_tier", run_host_tier),
                     "3i": ("adapters", run_adapters),
-                    "3j": ("wal", run_wal)}[args.only]
+                    "3j": ("wal", run_wal),
+                    "3k": ("cluster", run_cluster)}[args.only]
         record[key] = run(torch, kernels, cfg, args.seed, reqs)
         lap(args.only)
         for r in record[key]["runs"]:
@@ -5532,8 +6474,8 @@ def main(argv=None) -> int:
     lap("2")
 
     # ---- phase 3: the engine, at the engine's width and a quarter of
-    # its depth (the script's time limit holds phases 3, 3e, 3f, 3i and
-    # 3j at 8 layers, 3g, 3h, 3c and 3d at 16)
+    # its depth (the script's time limit holds every phase but 3d, at
+    # 16, at 8 layers)
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
     half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
     quarter = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 4))
@@ -5623,19 +6565,26 @@ def main(argv=None) -> int:
     record["wal"] = wal
     lap("3j")
 
+    # ---- phase 3k: the serving cluster (routing, handoff, failover,
+    # retirement, traffic, a cold restart) at a quarter of the depth
+    cluster = run_cluster(torch, kernels, quarter, args.seed, reqs)
+    record["cluster"] = cluster
+    lap("3k")
+
     # ---- phase 3g: supervised serving with faults, drain and restore
-    supervised = run_supervised(torch, kernels, half, args.seed, reqs)
+    supervised = run_supervised(torch, kernels, quarter, args.seed, reqs)
     record["supervised"] = supervised
     lap("3g")
 
     # ---- phase 3h: the host KV tier (swap, demote / promote, standing
-    # store, handoff, defrag) at the engine's width and half its depth
-    hosttier = run_host_tier(torch, kernels, half, args.seed, reqs)
+    # store, handoff, defrag) at the engine's width and a quarter of its
+    # depth
+    hosttier = run_host_tier(torch, kernels, quarter, args.seed, reqs)
     record["host_tier"] = hosttier
     lap("3h")
 
     # ---- phase 3c: dense generate / beam_search at the same size
-    dense = run_dense(torch, np, kernels, tl, gen, half, args.seed)
+    dense = run_dense(torch, np, kernels, tl, gen, quarter, args.seed)
     record["dense"] = dense
     lap("3c")
 
@@ -5672,7 +6621,8 @@ def main(argv=None) -> int:
     launches.update({k: train["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
-                + adapters["runs"] + wal["runs"] + supervised["runs"]
+                + adapters["runs"] + wal["runs"] + cluster["runs"]
+                + supervised["runs"]
                 + hosttier["runs"]
                 + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]

@@ -1024,9 +1024,9 @@ class ContinuousBatchingEngine:
         bytes (:meth:`~..serving.paged_cache.PagedKVCache.
         export_request`). A pure read: the request keeps running here
         until :meth:`finish_handoff`, so a failed import loses nothing.
-        The port has no serving cluster yet, so the engine itself
-        closes the ``serving_handoff_export`` hook the JAX package's
-        cluster closes around this call."""
+        The engine closes no handoff hook: the serving cluster closes
+        ``serving_handoff_export`` / ``serving_handoff_import`` around
+        this call and :meth:`import_prefilled`, once per handoff."""
         slot = req.slot
         if slot is None or self._slots[slot] is not req:
             raise ValueError(
@@ -1035,17 +1035,11 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"export_prefilled: request {req.rid} is still "
                 f"mid-prefill — hand off only decode-ready slots")
-        t0 = _obs.generate_begin()
         out = {"rid": req.rid, "slot": slot,
                "length": int(self.cache.lengths[slot]),
                "last": int(self._last[slot])}
-        pages = self.cache.pages_for(out["length"])
         if with_kv:
             out["kv"] = self.cache.export_request(slot)
-            nbytes = sum(a.nbytes for a in out["kv"]["arrays"].values())
-        else:
-            nbytes = self.cache.page_payload_bytes(pages)
-        _obs.serving_handoff_export(t0, nbytes, pages)
         return out
 
     def import_prefilled(self, req: GenerationRequest, payload: Dict,
@@ -1068,7 +1062,6 @@ class ContinuousBatchingEngine:
         if not free:
             return False
         slot = free[0]
-        t0 = _obs.generate_begin()
         with self._adapter_pinned(req):
             if src_engine is not None:
                 self.cache.import_request_direct(
@@ -1082,7 +1075,6 @@ class ContinuousBatchingEngine:
         self._last[slot] = np.int32(payload["last"])
         self._install_slot(slot, req)
         self.cache.register_prefix(slot, req.prompt[0])
-        _obs.serving_handoff_import(t0)
         return True
 
     def finish_handoff(self, req: GenerationRequest, slot: int):

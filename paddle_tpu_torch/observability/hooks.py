@@ -24,8 +24,8 @@ where the fetch that follows waits for the same work anyway, so no
 dispatch waits on the card with the hooks on. The host tier's page
 moves (``serving_fused_latency("pool_move", ...)``) may wait too: they
 run at admission, at a handoff or at a defrag, never in a dispatch.
-The tp, dp, MoE, pipeline, router, RPC and fabric hooks come with the
-modules that call them (ROADMAP.md, queue A).
+The tp, dp, MoE, pipeline, RPC and fabric hooks come with the modules
+that call them (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -946,14 +946,184 @@ def serving_handoff_import(t0_ns: int):
                "prefill→decode KV handoffs imported").inc()
 
 
+
+# ---------------- the serving cluster's router ----------------
+
+def serving_router_dispatch(replica: int, affinity_hit: bool):
+    """One router dispatch decision: per-replica dispatch counter plus
+    the affinity hit/miss split — the live prefix-affinity hit rate
+    (hits mean the tenant's system prompt lands on a replica whose trie
+    already holds it; misses fall back to least-loaded placement)."""
+    if not enabled:
+        return
+    _m.counter("serving_router_dispatch_total",
+               "requests dispatched to engine replicas by the cluster "
+               "router", ("replica",)).labels(str(replica)).inc()
+    _m.counter("serving_router_affinity_total",
+               "prefix-affinity routing outcomes",
+               ("outcome",)).labels(
+        "hit" if affinity_hit else "miss").inc()
+
+
+def serving_router_retry(n: int = 1):
+    """A request a degraded replica shed (``rejected_overload``) was
+    re-dispatched to the healthiest replica before surfacing the
+    rejection to the caller — the router-level retry of shed work."""
+    if not enabled:
+        return
+    _m.counter("serving_router_retries_total",
+               "shed requests re-dispatched to a healthier replica"
+               ).inc(n)
+
+
+def serving_router_ratelimited(tenant: str):
+    """A submission exceeded its tenant's token quota and finished
+    ``rejected_ratelimit`` without touching any replica."""
+    if not enabled:
+        return
+    _m.counter("serving_router_ratelimited_total",
+               "submissions rejected by per-tenant rate limits",
+               ("tenant",)).labels(tenant).inc()
+
+
+def serving_router_failover(sessions: int):
+    """A replica left service (circuit open, or a rolling-upgrade
+    drain) and the router rehomed its live sessions onto surviving
+    replicas — counted per event, with the rehomed-session total
+    alongside (zero lost requests is the gate)."""
+    if not enabled:
+        return
+    _m.counter("serving_router_failovers_total",
+               "replica exits (death or retirement) the router "
+               "rehomed sessions from").inc()
+    _m.counter("serving_router_rehomed_sessions_total",
+               "live sessions re-dispatched off dead or retiring "
+               "replicas").inc(sessions)
+
+
+def serving_router_replica(replica: int, queued: int, occupancy: float,
+                           degraded_level: int):
+    """One replica's published load signals, refreshed each cluster
+    step: queue depth, paged-pool occupancy and the degraded-mode rung
+    — the registry-side mirror of ``ServingScheduler.load_stats()``
+    (the router reads the structured API; dashboards read these)."""
+    if not enabled:
+        return
+    _m.gauge("serving_replica_queue_depth",
+             "queued requests per engine replica",
+             ("replica",)).labels(str(replica)).set(queued)
+    _m.gauge("serving_replica_pool_occupancy",
+             "paged-pool occupancy per engine replica",
+             ("replica",)).labels(str(replica)).set(occupancy)
+    _m.gauge("serving_replica_degraded_mode",
+             "degraded-mode ladder rung per engine replica",
+             ("replica",)).labels(str(replica)).set(degraded_level)
+
+
+def serving_router_retry_exhausted():
+    """A shed request exhausted its per-request retry budget (or its
+    tenant's retry-rate cap) and the rejection surfaced to the caller —
+    counted SEPARATELY from first-try rejection so overload dashboards
+    can tell 'the cluster is full' from 'one replica is degraded and
+    retries are amplifying'."""
+    if not enabled:
+        return
+    _m.counter("serving_router_retry_exhausted_total",
+               "shed requests whose retry budget or tenant retry-rate "
+               "cap ran out before a replica accepted them").inc()
+
+
+# ---------------- overload and SLO ----------------
+
+def serving_slo_rejected(tenant: str):
+    """The admission controller rejected a submission at the cluster
+    door because its deadline was infeasible against current backlog
+    (``rejected_infeasible``) — shed BEFORE any replica pays queueing
+    or prefill for a request that could never meet its SLO."""
+    if not enabled:
+        return
+    _m.counter("serving_slo_rejected_infeasible_total",
+               "submissions rejected at admission as deadline-"
+               "infeasible", ("tenant",)).labels(tenant).inc()
+
+
+def serving_slo_ttft(ttft_s: float, met: bool, priority: int):
+    """One request's time-to-first-token under the trace-driven
+    harness (virtual-clock seconds from arrival to first committed
+    token), with its deadline outcome — the p99 TTFT and
+    deadline-met-fraction sources of the goodput-under-SLO tier."""
+    if not enabled:
+        return
+    _m.histogram("serving_slo_ttft_ms",
+                 "milliseconds from arrival to first token under the "
+                 "traffic harness", ("priority",),
+                 buckets=(1, 5, 10, 25, 50, 100, 250, 500, 1000, 2500,
+                          5000, 10000)).labels(
+        str(int(priority))).observe(ttft_s * 1e3)
+    _m.counter("serving_slo_deadline_total",
+               "requests by deadline outcome under the traffic harness",
+               ("outcome",)).labels("met" if met else "missed").inc()
+
+
+def serving_slo_tokens(n: int, met: bool):
+    """Tokens produced by a finished request, split by whether the
+    request met its SLO: the ``met`` stream is GOODPUT, the rest is
+    work the cluster did for requests that missed anyway — the split
+    the admission controller exists to improve."""
+    if not enabled:
+        return
+    _m.counter("serving_slo_tokens_total",
+               "tokens produced under the traffic harness, by SLO "
+               "outcome", ("outcome",)).labels(
+        "goodput" if met else "badput").inc(n)
+
+
+def serving_slo_report(goodput_tps: float, met_frac: float,
+                       p99_ttft_ms):
+    """End-of-trace summary gauges: goodput (tokens/s of SLO-met
+    requests over the run's wall time), deadline-met fraction, and
+    p99 TTFT — the three headline numbers of a traffic run."""
+    if not enabled:
+        return
+    _m.gauge("serving_slo_goodput_tokens_per_sec",
+             "goodput of the last traffic-harness run (tokens of "
+             "deadline-met requests per wall second)").set(goodput_tps)
+    _m.gauge("serving_slo_deadline_met_fraction",
+             "deadline-met fraction of the last traffic-harness run"
+             ).set(met_frac)
+    if p99_ttft_ms is not None:
+        _m.gauge("serving_slo_p99_ttft_ms",
+                 "p99 time-to-first-token of the last traffic-harness "
+                 "run").set(p99_ttft_ms)
+
+
+def serving_autoscale(direction: str, replicas: int,
+                      backlog_per_replica: float):
+    """One autoscaler decision that actually scaled (``direction`` in
+    ``up``/``down``): event counter + the serviceable-replica-count
+    and backlog gauges — the closed loop's observable trajectory
+    (the traffic soak asserts both directions fired)."""
+    if not enabled:
+        return
+    _m.counter("serving_autoscale_events_total",
+               "autoscaler scale events", ("direction",)).labels(
+        direction).inc()
+    _m.gauge("serving_autoscale_replicas",
+             "serviceable replicas after the last autoscaler decision"
+             ).set(replicas)
+    _m.gauge("serving_autoscale_backlog_per_replica",
+             "backlog per serviceable replica at the last autoscaler "
+             "decision").set(backlog_per_replica)
+
+
 # ---------------- payload integrity ----------------
 
 def serving_integrity(site: str, action: str):
-    """One payload-integrity event at a byte-moving site (``swap_in``,
-    ``prefix_promote``, ``disk_store``): ``detected`` — a checksum
-    caught a corrupt or torn payload before install; ``quarantined`` —
-    the entry was removed so it is never served again; ``replayed`` —
-    the request recovered through the replay path."""
+    """One payload-integrity event at a byte-moving site (``handoff``,
+    ``swap_in``, ``prefix_promote``, ``disk_store``): ``detected`` — a
+    checksum caught a corrupt or torn payload before install;
+    ``quarantined`` — the entry was removed so it is never served again;
+    ``replayed`` — the request recovered through the replay path."""
     if not enabled:
         return
     _m.counter("serving_integrity_events_total",
@@ -962,9 +1132,9 @@ def serving_integrity(site: str, action: str):
 
 
 def serving_integrity_retry(site: str):
-    """One bounded-backoff retry of a byte-moving operation (``swap_in``)
-    after a transient fault; a failed attempt frees what it allocated
-    before re-raising, so the retry is idempotent."""
+    """One bounded-backoff retry of a byte-moving operation (``swap_in``,
+    ``handoff_import``) after a transient fault; a failed attempt frees
+    what it allocated before re-raising, so the retry is idempotent."""
     if not enabled:
         return
     _m.counter("serving_integrity_retries_total",

@@ -6,8 +6,12 @@ drain/restore), the durable journal (``WriteAheadLog``: segmented
 CRC-framed log, incremental checkpoints, ``recover_state`` for a cold
 restart), the host KV tier (``HostPageStore``,
 ``TieredKVCache``: swap-out / swap-in, prefix demote / promote, the
-standing prefix store) and the multi-tenant LoRA adapter pool
-(``AdapterPool``, ``AdapterRegistry``)."""
+standing prefix store), the multi-tenant LoRA adapter pool
+(``AdapterPool``, ``AdapterRegistry``) and the serving cluster
+(``ServingCluster``: supervised replicas behind the ``ClusterRouter``,
+the prefill→decode handoff, failover, retirement, ``AdmissionController``
+and ``ClusterAutoscaler``; the trace-driven harness ``synth_trace`` /
+``run_trace`` under a ``FakeClock``)."""
 from .adapters import (FACTOR_NAMES, AdapterPool,  # noqa: F401
                        AdapterPoolExhausted, AdapterRegistry, init_lora,
                        merge_lora)
@@ -34,3 +38,8 @@ from .speculative import (NgramProposer, Speculator, TreeDraft,  # noqa: F401
                           longest_accepted_prefix, rejection_sample_tokens,
                           tree_ancestor_matrix, tree_depths,
                           tree_rejection_sample)
+from .router import (AdmissionController, ClusterRouter,  # noqa: F401
+                     TenantQuota)
+from .cluster import ClusterAutoscaler, ServingCluster  # noqa: F401
+from .traffic import (FakeClock, SLOReport, TraceRequest,  # noqa: F401
+                      run_trace, synth_trace)

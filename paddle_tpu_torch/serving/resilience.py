@@ -135,9 +135,14 @@ ENGINE_SITES = ("alloc", "free", "decode_step", "prefill_chunk",
                 "wal_append", "wal_fsync", "checkpoint_write",
                 "draft_propose", "tree_verify")
 
-#: cluster-plane sites (the prefill-to-decode handoff, the autoscaler's
-#: tick, the multi-process RPC and KV fabric): named here so an
-#: injector accepts the reference's site list; none is ported yet
+#: cluster-plane sites. Live, one ``fault_point`` each in
+#: ``serving/cluster.py``: "handoff_export" (before a prefill replica's
+#: export, which commits nothing), "handoff_import" (before each
+#: decode-side import attempt, under the bounded retry) and
+#: "autoscale_tick" (a fault skips one scaling decision). The
+#: multi-process RPC and KV-fabric sites ("rpc_send", "rpc_recv",
+#: "fabric_put", "fabric_get") are named so that an injector accepts
+#: the reference's site list; their modules are not ported yet
 CLUSTER_SITES = ("handoff_export", "handoff_import", "autoscale_tick",
                  "rpc_send", "rpc_recv", "fabric_put", "fabric_get")
 

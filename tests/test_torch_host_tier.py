@@ -18,8 +18,9 @@ and the supervisor).
   ``TestSwapResume`` without the tp2 test, ``TestPrefixTier`` (the
   restarted engine on a standing store in ``tmp_path``, torn,
   bit-flipped and stale files) and ``TestResilience``'s four. Left
-  out: the tp2 swap test and ``TestCluster`` (tp-sharded pools and the
-  serving cluster are ROADMAP.md steps 7 and 6, not ported) and
+  out: the tp2 swap test (tp-sharded pools are ROADMAP.md step 7, not
+  ported), ``TestCluster`` (it runs on the port's serving cluster in
+  ``test_torch_cluster.py``, ``TestHostTierCluster``) and
   ``TestLowering`` (a TPU lowering gate);
 - the port's own: swapped-in, imported and defragmented pages
   byte-equal to their source (f32, bf16 and int8 pools), a handoff

@@ -534,18 +534,25 @@ def test_site_lint():
     the JAX engine, scheduler, allocator and write-ahead log have
     theirs: one each, but ``dispatch``, ``commit`` and ``transfer``
     once per forward kind (decode, linear verify, tree verify), as in
-    the reference. No site waits for a module any more."""
+    the reference. No site waits for a module any more. The three live
+    cluster sites have one each in ``serving/cluster.py``, as in the
+    JAX package's cluster; the RPC and fabric sites have none yet."""
     calls = _fault_calls((ROOT / "paddle_tpu_torch").rglob("*.py"))
     ref = _fault_calls(ROOT / "paddle_tpu" / rel for rel in (
         "inference/predictor.py", "serving/paged_cache.py",
         "serving/scheduler.py", "serving/host_tier.py",
-        "serving/adapters.py", "serving/wal.py"))
+        "serving/adapters.py", "serving/wal.py", "serving/cluster.py"))
     for site in tres.ENGINE_SITES:
         assert sorted(calls[site]) == sorted(ref[site]), site
         assert len(calls[site]) == (
             3 if site in ("dispatch", "commit", "transfer") else 1), site
     for site in ("wal_append", "wal_fsync", "checkpoint_write"):
         assert calls[site] == ["wal.py"], site
+    for site in ("handoff_export", "handoff_import", "autoscale_tick"):
+        assert calls[site] == ref[site] == ["cluster.py"], site
+    for site in set(tres.CLUSTER_SITES) - {
+            "handoff_export", "handoff_import", "autoscale_tick"}:
+        assert site not in calls, site
     assert set(calls) <= set(tres.SITES)
     assert tres.WAITING_SITES == ()
 
