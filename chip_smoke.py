@@ -13,6 +13,7 @@ card.
     python3 chip_smoke.py --only 3i            # build, then phase 3i alone
     python3 chip_smoke.py --only 3j            # build, then phase 3j alone
     python3 chip_smoke.py --only 3k            # build, then phase 3k alone
+    python3 chip_smoke.py --only 3l            # build, then phase 3l alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -101,8 +102,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shapes the rule's choice fails unless it is 10% faster than one
    split (``check_paged_hm``).
 3. The engine at Llama-2-7B width and a quarter of its depth (8
-   layers; the script's time limit holds every phase but 3d, at 16,
-   there), random
+   layers; the script's time limit holds every phase there), random
    weights from a seeded generator: ``max_batch=8, page_size=16,
    max_len=2048, prefill_chunk=256`` serving the request set in four
    tiers, KV {bf16, int8} x fused {off, on}. Per tier the launch
@@ -288,6 +288,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ms and drain bytes, the ``SLOReport``, the restart's scan, build and
    install ms against resident tokens (``cluster ...`` lines,
    ``run_cluster``).
+3l. The serving cluster across processes (``MultiProcessCluster``):
+   one prefill and one decode worker process (``python -m
+   paddle_tpu_torch.serving.node``), each a supervised engine of phase
+   3k's (``node.llama_engine``: fused, the host tier on, a write-ahead
+   log each, the weights drawn from phase 3's seed on the card in each
+   process) behind socket RPC, at the same width and depth, on 3k's 16
+   tenant requests, against the in-process ``ServingCluster`` of the
+   same shape in this process (``run_multiproc``, ``multiproc ...``
+   lines). Gates: (a) every request once (``check_cluster_handles``),
+   on the replicas the in-process run used, its tokens by
+   ``check_multiproc_tokens`` (equal to the in-process run's, or, where
+   they are not, following them at least as far as a second in-process
+   run does, which must disagree too), the first wire handoff's pages
+   byte-equal on the decode worker (read back over the wire), each
+   worker's launches equal to its engines' forwards (B10 a decode, B11
+   a prefill chunk; the counters live in the workers and are read and
+   zeroed over RPC); (b) the decode worker ``SIGKILL``ed once it owns
+   decoded tokens: a failover, nothing lost or doubled, the
+   replacement's hello holding sessions of the dead worker recovered
+   from its WAL directory, each with its durable tokens kept, the
+   requests done before the kill equal to the in-process run's,
+   allocators balanced; (c) a fabric process (``FabricProcess``, no
+   card visible, ``cuda_initialized`` false), a 1-worker cluster
+   writing a 12-page system prompt through to it, a second cluster's
+   fresh worker promoting it (tier, client and server hits), its
+   tokens equal to the cold request's or, where bf16 splits those, to
+   the first worker's trie-hit request's (which must then differ from
+   the cold one); (d) wire chaos on (a)'s workers: a tampered handoff
+   export refused by the decode side's CRC, its request left running on
+   the prefill worker with nothing installed, armed ``rpc_send`` and
+   ``rpc_recv`` shots retried, the dropped reply replayed from the
+   dedupe cache, every handler run exactly once. Reported: tokens/s
+   and ``vs_in_process``, RPC ms a step (``bench.py``'s
+   ``rpc_ms_per_step``, and its wire share: less the workers' dispatch
+   time), ``handoff_wire_ms`` (export + adopt) and handoff bytes, step
+   ms median and mean, the restart's spawn-to-hello ms with the
+   worker's weights and WAL recovery ms, fabric promote ms and bytes.
 3g. Supervised serving (``EngineSupervisor`` over the engine) at
    Llama-2-7B's width and a quarter of its depth (8 layers), fresh
    weights from
@@ -362,7 +399,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    int8-weight decode steps into B7, matmuls, dequantization and the
    rest (``run_dense``).
 3d. The Paddle fused-op decoder (``paddle_decoder``): a Llama-2-7B
-   decoder at half its depth (16 layers) written against
+   decoder at a quarter of its depth (8 layers, 16 before phase 3l took
+   its time) written against
    ``paddle_tpu_torch.incubate.nn.functional`` (``fused_rms_norm``,
    ``fused_rotary_position_embedding``, ``block_multihead_attention``,
    ``swiglu``) around ``torch.matmul`` projections, fresh seeded
@@ -5465,6 +5503,673 @@ def run_cluster(torch, kernels, cfg, seed: int, reqs):
     return {"runs": runs, "part_s": phase_s}
 
 
+# --------------------------------------------------------------- phase 3l
+MP_SKW = dict(backoff_s=0.0)    # the supervisors' kwargs (JSON: a spec's)
+MP_WARM_NEW = 4                 # new tokens of the warm-up pass's requests
+MP_RTT_CALLS = 200              # load_stats round trips to an idle worker
+
+
+def multiproc_factory_kw(cfg, seed: int) -> dict:
+    """Phase 3l's engines (``node.llama_engine``): ``wal_engine``'s
+    geometry (phase 3e's, fused, the host tier on) at ``cfg``'s width and
+    depth, the weights drawn from ``seed`` on the card in every process
+    that builds them (bit-identical to ``run_cluster``'s params dict)."""
+    return dict(config="llama2_7b", num_layers=cfg.num_layers, seed=seed,
+                max_batch=8, page_size=16, max_len=2048, prefill_chunk=256,
+                fused=True, host_tier=True)
+
+
+def mp_drive(cluster, name, on_step=None, after_step=None,
+             max_steps=3000):
+    """Step ``cluster`` (a ``ServingCluster`` or a ``MultiProcessCluster``)
+    until it has no work: ``on_step(i)`` before step i, ``after_step(i)``
+    after it; every step's host ms and each rid's replica history (the
+    distinct owners in order)."""
+    hist, step_ms, steps = {}, [], 0
+    while True:
+        if on_step is not None:
+            on_step(steps)
+        t = time.perf_counter()
+        more = cluster.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        steps += 1
+        for rid, idx in cluster._owner.items():
+            h = hist.setdefault(rid, [])
+            if not h or h[-1] != idx:
+                h.append(idx)
+        if after_step is not None:
+            after_step(steps)
+        if not more:
+            break
+        if steps > max_steps:
+            fail(f"multiproc {name}: no end after {steps} steps")
+    return dict(steps=steps, step_ms=step_ms, hist=hist)
+
+
+def mp_pass(cluster, treqs, name, after_step=None, handles=None):
+    """``treqs`` through ``cluster``, each tenant's first request first
+    (``staged_submit``); every rid must finish once with its tokens.
+    Returns the handles (in submission order; ``handles``, a list that
+    fills as requests are submitted, when given), the drive and its wall
+    seconds."""
+    handles = [] if handles is None else handles
+    tenant_of = {}
+    t0 = time.perf_counter()
+    drive = mp_drive(cluster, name,
+                     staged_submit(cluster, treqs, handles, tenant_of),
+                     after_step)
+    wall = time.perf_counter() - t0
+    check_cluster_handles(name, [h.rid for h in handles], handles)
+    return handles, drive, wall
+
+
+def rpc_meter(cluster):
+    """Wrap every worker stub's ``call`` (and those of the workers a
+    failover spawns later) with a wall clock: ``bench.py``'s multiproc
+    rider's accounting (all controller-side RPC wall; each handoff's
+    export + adopt), the calls by method and each export's blob bytes."""
+    acc = dict(rpc_ns=0, handoff_ns=0, exports=0, calls={}, ns={},
+               export_bytes=[])
+
+    def instrument(node):
+        inner = node.call
+
+        def call(method, data=None, blobs=None, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                out = inner(method, data, blobs, **kw)
+            finally:
+                dt = time.perf_counter_ns() - t0
+                acc["rpc_ns"] += dt
+                acc["calls"][method] = acc["calls"].get(method, 0) + 1
+                acc["ns"][method] = acc["ns"].get(method, 0) + dt
+                if method in ("export_prefilled", "adopt_prefilled"):
+                    acc["handoff_ns"] += dt
+                    acc["exports"] += method == "export_prefilled"
+            if method == "export_prefilled":
+                acc["export_bytes"].append(
+                    int(sum(a.nbytes for a in out[1].values())))
+            return out
+        node.call = call
+        return node
+    for n in cluster.nodes:
+        instrument(n)
+    spawn = cluster._spawn_node
+    cluster._spawn_node = lambda idx, recover=False: instrument(
+        spawn(idx, recover))
+    return acc
+
+
+def watch_first_wire_handoff(cluster):
+    """Wrap ``cluster._handoff_one`` (a ``MultiProcessCluster``'s) so that
+    the first handoff that lands records the exported payload's blobs as
+    they left the prefill worker and, read back over the wire from the
+    decode worker right after the adopt, that worker's pages of the
+    request (``export_prefilled`` is a pure read); later handoffs pass
+    through."""
+    seen = {}
+    inner = cluster._handoff_one
+
+    def handoff(i, req, loads):
+        if "decode" in seen:
+            return inner(i, req, loads)
+        node = cluster.nodes[i]
+        call, box = node.call, {}
+
+        def exporting(method, data=None, blobs=None, **kw):
+            out = call(method, data, blobs, **kw)
+            if method == "export_prefilled":
+                box["sent"] = {n: a.copy() for n, a in out[1].items()}
+            return out
+        node.call = exporting
+        n = cluster.handoffs_total
+        try:
+            return inner(i, req, loads)
+        finally:
+            node.call = call
+            if cluster.handoffs_total > n:
+                own = cluster.nodes[cluster._owner[req.rid]]
+                _, blobs = own.client.call("export_prefilled",
+                                           {"rid": req.rid})
+                seen.update(rid=req.rid, sent=box["sent"], decode=blobs)
+    cluster._handoff_one = handoff
+    return seen
+
+
+def mp_launch_check(name, cfg, counts, fw):
+    """The launches of a run equal its counted forwards: B10 a decode, B11
+    a prefill chunk or a verify, per layer; no other kernel."""
+    from paddle_tpu_torch.ops import kernels
+    L = cfg.num_layers
+    want = dict.fromkeys(kernels.WRAPPERS, 0)
+    want.update(B10=L * fw.get("decode", 0),
+                B11=L * (fw.get("prefill", 0) + fw.get("verify", 0)))
+    if counts != want:
+        fail(f"multiproc {name}: launches {counts} != {want} (forwards "
+             f"{fw})")
+
+
+def add_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def worker_counts(cluster, name, cfg):
+    """Each worker's launches against the forwards of every engine it
+    built (``ping``); returns the launches summed over the workers."""
+    total = {}
+    for i, node in enumerate(cluster.nodes):
+        ping, _ = node.client.call("ping")
+        mp_launch_check(f"{name} (worker {i})", cfg, ping["launches"],
+                        ping["forwards"])
+        total = add_counts(total, ping["launches"])
+    return total
+
+
+def check_multiproc_tokens(name, got, want, again=None):
+    """Phase 3l's token rule: the multi-process run's tokens (``got``, in
+    submission order) equal the in-process run's (``want``). Where they
+    do not, ``again`` (a second in-process run of the same requests)
+    must disagree with ``want`` as well, and ``got`` must follow
+    ``want`` at least as far as ``again`` does: bf16 near-ties may split
+    between runs, but the process boundary adds no disagreement of its
+    own."""
+    agree = token_agreement(got, want)
+    if got == want:
+        return agree
+    if again is None:
+        fail(f"multiproc {name}: tokens differ from the in-process run's "
+             f"({agree}) and no second in-process run to hold them to")
+    base = token_agreement(again, want)
+    agree["in_process_pair"] = base
+    if again == want or (agree["tokens_equal_share"]
+                         < base["tokens_equal_share"]):
+        fail(f"multiproc {name}: tokens follow the in-process run's less "
+             f"({agree}) than a second in-process run does ({base})")
+    return agree
+
+
+def check_balanced_workers(cluster, name):
+    """Every worker's allocator drained: its trie's pages dropped, every
+    page back and every reference dropped once."""
+    for i, node in enumerate(cluster.nodes):
+        st, _ = node.client.call("tier_stats", {"drop_prefix": True})
+        a = st["allocator"]
+        if a["num_used"] or a["allocs_total"] != a["frees_total"]:
+            fail(f"multiproc {name}: worker {i}'s allocator is not "
+                 f"balanced ({a})")
+
+
+def mp_record(name, handles, drive, wall, **kw):
+    ms = drive["step_ms"]
+    gen = sum(len(h.tokens) for h in handles)
+    rec = dict(run=name, kv="bf16", requests=len(handles),
+               generated_tokens=gen, steps=drive["steps"], wall_s=wall,
+               tokens_per_sec=gen / wall,
+               step_ms_median=sorted(ms)[len(ms) // 2],
+               step_ms_mean=sum(ms) / len(ms))
+    rec.update(kw)
+    rec["tokens"] = [list(map(int, h.tokens)) for h in handles]
+    rec["_hist"] = drive["hist"]
+    return rec
+
+
+def export_with_a_free_slot(cluster, handoff_ms):
+    """Give an in-process cluster ``MultiProcessCluster``'s export rule:
+    a harvest exports a request only while a decode replica has a free
+    slot (this step's loads, less the slots the harvest filled). The
+    in-process cluster otherwise gathers every ready request's pages to
+    the host each step and has the import refuse them, which would
+    charge the yardstick for work the multi-process cluster skips; a
+    refused export changes no state, so tokens and placement stay
+    as they were. Each handoff that lands appends its host ms to
+    ``handoff_ms``."""
+    harvest, one = cluster._harvest_handoffs, cluster._handoff_one
+    free = {}
+
+    def harvesting():
+        free.clear()
+        return harvest()
+
+    def handoff(sup, req, loads):
+        if not free:
+            free.update({d: int(s["free_slots"]) for d, s in loads.items()})
+        if not any(n > 0 for n in free.values()):
+            return
+        n = cluster.handoffs_total
+        t = time.perf_counter()
+        one(sup, req, loads)
+        if cluster.handoffs_total > n:
+            handoff_ms.append((time.perf_counter() - t) * 1e3)
+            free[cluster._owner[req.rid]] -= 1
+    cluster._harvest_handoffs = harvesting
+    cluster._handoff_one = handoff
+    return cluster
+
+
+def inprocess_cluster(serving, build, wd, tag, handoff_ms):
+    """The in-process yardstick: ``ServingCluster`` of the same shape (1
+    prefill + 1 decode, budget, write-ahead logs, a host store each)
+    under the same export rule (``export_with_a_free_slot``)."""
+    return export_with_a_free_slot(serving.ServingCluster(
+        build, replicas=2, prefill_replicas=1, token_budget=SCHED_BUDGET,
+        share_host_tier=False, wal_dir=os.path.join(wd, tag),
+        supervisor_kw=dict(MP_SKW)), handoff_ms)
+
+
+def inprocess_passes(torch, kernels, serving, build, cfg, wd, tag, warm,
+                     passes):
+    """A warm-up pass, then each of ``passes`` (request lists) timed, on a
+    fresh in-process cluster; the launches of each timed pass are held
+    to its forwards. Returns the records."""
+    handoff_ms = []
+    cl = inprocess_cluster(serving, build, wd, tag, handoff_ms)
+    mp_pass(cl, warm, f"{tag} warm-up")
+    recs = []
+    for k, treqs in enumerate(passes):
+        del handoff_ms[:]
+        fw0 = [dict(s.engine.forwards) for s in cl.replicas]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        handles, drive, wall = mp_pass(cl, treqs, f"{tag} pass {k}")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        fw = {}
+        for s, f0 in zip(cl.replicas, fw0):
+            fw = add_counts(fw, {n: v - f0.get(n, 0)
+                                 for n, v in s.engine.forwards.items()})
+        mp_launch_check(f"{tag} pass {k}", cfg, counts, fw)
+        recs.append(mp_record(f"{tag}-{k}", handles, drive, wall,
+                              launches=counts, handoffs=cl.handoffs_total,
+                              handoff_ms_mean=sum(handoff_ms)
+                              / max(1, len(handoff_ms))))
+    for s in cl.replicas:
+        balanced(s.engine, f"multiproc {tag}")
+    del cl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def worker_rpc(cluster):
+    """Each worker's RPC server counters (``ping``)."""
+    return [node.client.call("ping")[0]["rpc"] for node in cluster.nodes]
+
+
+def timed_build(fn):
+    """``fn()`` and the host ms it took."""
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def run_multiproc(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3l: the serving cluster across processes
+    (``MultiProcessCluster``: one prefill and one decode worker process,
+    each a supervised engine of phase 3k's (``multiproc_factory_kw``:
+    fused, the host tier on, weights drawn from phase 3's seed on the
+    card in each process) behind socket RPC, with a write-ahead log
+    each), on 3k's 16 tenant requests, against the in-process
+    ``ServingCluster`` of the same shape in this process. (a) identity
+    and the price of the process boundary: every request once, on the
+    replicas the in-process run used, tokens by ``check_multiproc_tokens``,
+    the first wire handoff's pages byte-equal on the decode side, the
+    workers' launches equal to their forwards; tokens/s against the
+    in-process run's, RPC ms a step (all controller-side RPC wall, and
+    its wire share: less the workers' dispatch time), handoff ms over
+    the wire (export + adopt) and bytes. (b) ``kill -9`` of the decode
+    worker once it owns decoded tokens: a failover, nothing lost or
+    doubled, the replacement's recovered sessions from the dead
+    worker's WAL directory with their durable tokens kept, the requests
+    done before the kill equal to the in-process run's, allocators
+    balanced; the restart's ms split into the process's start to its
+    hello (of which the engine factory's weights and the supervisor's
+    WAL recovery are timed in the worker). (c) a fabric warm start: a
+    fabric process (no card visible to it), one cluster's worker writes
+    a request's 12-page system prompt through to it, a second cluster's
+    fresh worker promotes it; tokens equal to the cold request's, or,
+    where bf16 splits them, to a request that hit the same pages in the
+    first worker's own trie (which the cold one must then disagree with
+    too). (d) wire chaos on (a)'s cluster: a tampered handoff export
+    refused by the decode side's CRC, nothing installed and the request
+    still running on its prefill worker, armed ``rpc_send`` /
+    ``rpc_recv`` shots retried into the dedupe cache, every handler run
+    once."""
+    import shutil
+    import signal
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.serving.node import llama_engine
+    wd = os.path.join(REPO, "chip_smoke_tmp", "multiproc")
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    treqs, _ = tenant_requests(reqs, cfg.vocab_size, seed)
+    warm = [(t, p, MP_WARM_NEW) for t, p, _ in treqs[:2]]
+    kw = multiproc_factory_kw(cfg, seed)
+    runs, parts = [], {}
+    lap = [time.perf_counter()]
+
+    def keep(part, *recs):
+        for rec in recs:
+            print("multiproc " + show({k: v for k, v in rec.items()
+                                       if k not in ("tokens", "_hist")}))
+            runs.append(rec)
+        now = time.perf_counter()
+        parts[part] = now - lap[0]
+        lap[0] = now
+
+    build = llama_engine(**kw)
+    inproc = inprocess_passes(torch, kernels, serving, build, cfg, wd,
+                              "inproc", warm, [treqs, treqs])
+    keep("inproc", *inproc)
+    from concurrent.futures import ThreadPoolExecutor
+    mc = fp = c1 = c2 = None
+    starts = []
+    pool = ThreadPoolExecutor(3)
+    try:
+        t0 = time.perf_counter()
+        mc = serving.MultiProcessCluster(
+            replicas=2, prefill_replicas=1, workdir=os.path.join(wd, "mp"),
+            factory_kw=kw, supervisor_kw=dict(MP_SKW,
+                                              token_budget=SCHED_BUDGET),
+            spawn_timeout_s=600.0)
+        spawn = dict(cluster_s=time.perf_counter() - t0,
+                     spawn_ms=[n.spawn_ms for n in mc.nodes],
+                     weights_ms=[n.hello["weights_ms"] for n in mc.nodes],
+                     build_ms=[n.hello["build_ms"] for n in mc.nodes])
+        print("multiproc spawn " + json.dumps(spawn))
+        acc = rpc_meter(mc)
+        seen = watch_first_wire_handoff(mc)
+        mp_pass(mc, warm, "mp warm-up")
+        if "decode" not in seen:
+            fail("multiproc: no handoff in the warm-up pass")
+        check_pages_bytes("multiproc", seen["decode"], seen["sent"],
+                          "the payload that left the prefill worker")
+        # (a) identity and the price of the process boundary
+        for node in mc.nodes:
+            node.client.call("reset_launches")
+        rpc0 = worker_rpc(mc)
+        sc0 = mc.nodes[1].client.call("tier_stats")[0]["scatter_host_s"]
+        a0 = dict(acc, calls=dict(acc["calls"]), ns=dict(acc["ns"]),
+                  export_bytes=list(acc["export_bytes"]))
+        handles, drive, wall = mp_pass(mc, treqs, "mp (a)")
+        rpc1 = worker_rpc(mc)
+        sc1 = mc.nodes[1].client.call("tier_stats")[0]["scatter_host_s"]
+        rtt = []
+        for _ in range(MP_RTT_CALLS):
+            t = time.perf_counter()
+            mc.nodes[1].client.call("load_stats")
+            rtt.append((time.perf_counter() - t) * 1e3)
+        rtt.sort()
+        counts = worker_counts(mc, "mp (a)", cfg)
+        got = [list(map(int, h.tokens)) for h in handles]
+        agree = token_agreement(got, inproc[0]["tokens"])
+        again = None
+        if got != inproc[0]["tokens"]:
+            again = inprocess_passes(torch, kernels, serving, build, cfg,
+                                     wd, "inproc-again", warm,
+                                     [treqs])[0]["tokens"]
+        agree = check_multiproc_tokens("(a)", got, inproc[0]["tokens"],
+                                       again)
+        if drive["hist"] != inproc[0]["_hist"]:
+            fail(f"multiproc (a): replica histories "
+                 f"{drive['hist']} != the in-process run's "
+                 f"{inproc[0]['_hist']}")
+        steps = drive["steps"]
+        rpc_ms = (acc["rpc_ns"] - a0["rpc_ns"]) / 1e6
+        served = sum(r1["served_ms"].get(m, 0) - r0["served_ms"].get(m, 0)
+                     for r0, r1 in zip(rpc0, rpc1)
+                     for m in r1["served_ms"])
+        exports = acc["exports"] - a0["exports"]
+        xbytes = acc["export_bytes"][len(a0["export_bytes"]):]
+        rec_a = mp_record(
+            "mp-a", handles, drive, wall, launches=counts,
+            handoffs=mc.handoffs_total, spawn=spawn,
+            vs_in_process=(sum(len(h.tokens) for h in handles) / wall)
+            / inproc[0]["tokens_per_sec"],
+            rpc_ms_per_step=rpc_ms / steps,
+            rpc_wire_ms_per_step=(rpc_ms - served) / steps,
+            handoff_wire_ms=(acc["handoff_ns"] - a0["handoff_ns"]) / 1e6
+            / max(1, exports),
+            handoff_bytes_median=sorted(xbytes)[len(xbytes) // 2]
+            if xbytes else None, handoff_bytes_total=sum(xbytes),
+            rpc_calls={m: n - a0["calls"].get(m, 0)
+                       for m, n in acc["calls"].items()},
+            rpc_ms_by_method={m: (n - a0["ns"].get(m, 0)) / 1e6
+                              for m, n in acc["ns"].items()},
+            served_ms_by_method={
+                m: sum(r1["served_ms"].get(m, 0) - r0["served_ms"].get(m, 0)
+                       for r0, r1 in zip(rpc0, rpc1))
+                for m in set().union(*(r["served_ms"] for r in rpc1))},
+            decode_install_host_ms={k: (sc1[k] - sc0[k]) * 1e3
+                                    for k in sc1},
+            idle_rtt_ms=dict(median=rtt[len(rtt) // 2],
+                             p90=rtt[int(len(rtt) * 0.9)], min=rtt[0]),
+            first_handoff_pages_equal=True, **agree)
+        keep("a", rec_a)
+
+        # (b) kill -9 of the decode worker once it owns decoded tokens
+        for node in mc.nodes:
+            node.client.call("reset_launches")
+        state = {"killed": False}
+        t_fail = []
+        failover = mc._failover
+
+        def timed_failover(idx):
+            t = time.perf_counter()
+            failover(idx)
+            t_fail.append((time.perf_counter() - t) * 1e3)
+        mc._failover = timed_failover
+        hs = []
+
+        def after_step(_):
+            if state["killed"]:
+                return
+            owned = [h for h in hs if not h.done
+                     and mc._owner.get(h.rid) == 1 and len(h.tokens) >= 2]
+            if owned:
+                state.update(
+                    killed=True, owned=[h.rid for h in owned],
+                    before={h.rid: list(h.tokens) for h in hs},
+                    done_before=[h.rid for h in hs if h.done])
+                os.kill(mc.nodes[1].proc.pid, signal.SIGKILL)
+
+        try:
+            handles, drive, wall = mp_pass(mc, treqs, "mp (b)", after_step,
+                                           hs)
+        finally:
+            mc._failover = failover
+        if not state["killed"] or mc.failovers_total < 1:
+            fail(f"multiproc (b): killed {state['killed']}, failovers "
+                 f"{mc.failovers_total}")
+        node = mc.nodes[1]
+        recovered = {int(r["rid"]): r["tokens"]
+                     for r in node.hello["recovered"]}
+        if not set(recovered) & set(state["owned"]):
+            fail(f"multiproc (b): the replacement recovered "
+                 f"{sorted(recovered)}, none of the {state['owned']} the "
+                 f"dead worker owned")
+        by_rid = {h.rid: h for h in handles}
+        for rid, toks in recovered.items():
+            if rid in by_rid and list(by_rid[rid].tokens[:len(toks)]) \
+                    != list(toks):
+                fail(f"multiproc (b): request {rid} lost tokens its WAL "
+                     f"made durable")
+        want = inproc[1]["tokens"]
+        for k, h in enumerate(handles):
+            # (a) identical: every step before the kill was too
+            if (again is None and h.rid in state["done_before"]
+                    and list(h.tokens) != want[k]):
+                fail(f"multiproc (b): request {h.rid} finished before the "
+                     f"kill with tokens other than the in-process run's")
+        kept = [sum(1 for a, b in zip(state["before"][r],
+                                      by_rid[r].tokens) if a == b)
+                / max(1, len(state["before"][r])) for r in state["owned"]]
+        check_balanced_workers(mc, "(b)")
+        counts = worker_counts(mc, "mp (b)", cfg)
+        keep("b", mp_record(
+            "mp-b-kill9", handles, drive, wall, launches=counts,
+            failovers=mc.failovers_total, failover_ms=t_fail,
+            restart=dict(spawn_to_hello_ms=node.spawn_ms,
+                         weights_ms=node.hello["weights_ms"],
+                         recover_ms=node.hello["build_ms"]),
+            owned_at_kill=len(state["owned"]),
+            recovered=len(recovered),
+            recovered_tokens=sum(len(t) for t in recovered.values()),
+            delivered_tokens_kept_share=sum(kept) / max(1, len(kept)),
+            **token_agreement([list(map(int, h.tokens)) for h in handles],
+                              want)))
+
+        # (c)'s fabric and workers start while (d) runs, which times
+        # nothing
+        fab = pool.submit(timed_build, lambda: serving.FabricProcess(
+            os.path.join(wd, "fabric"), page_size=16))
+
+        def fabric_cluster(tag):
+            endpoint = fab.result()[0].endpoint
+            return timed_build(lambda: serving.MultiProcessCluster(
+                replicas=1, workdir=os.path.join(wd, tag),
+                fabric=endpoint, factory_kw=kw,
+                metrics=tag == "c2", supervisor_kw=dict(
+                    MP_SKW, token_budget=SCHED_BUDGET),
+                spawn_timeout_s=600.0))
+        starts = [fab] + [pool.submit(fabric_cluster, tag)
+                          for tag in ("c1", "c2")]
+
+        # (d) wire chaos on the same workers
+        for node in mc.nodes:
+            node.client.call("reset_launches")
+        rpc0 = worker_rpc(mc)
+        c0 = dict(acc["calls"])
+        retries0 = sum(n.client.retries_total for n in mc.nodes)
+        corrupt0 = mc.handoff_corruptions_total
+        tampered = []
+        handoff_one = mc._handoff_one
+
+        def watch_tamper(i, req, loads):
+            n = mc.handoff_corruptions_total
+            out = handoff_one(i, req, loads)
+            if mc.handoff_corruptions_total > n:
+                ready, _ = mc.nodes[1].client.call("handoff_ready")
+                tampered.append(dict(rid=req.rid, done=req.done,
+                                     owner=mc._owner.get(req.rid),
+                                     on_decode=req.rid in ready["rids"]))
+            return out
+        mc._handoff_one = watch_tamper
+        inj = serving.FaultInjector(seed=seed)
+        try:
+            with inj:
+                inj.arm_tamper("handoff_export", nth=1)
+                inj.arm("rpc_send", "raise", nth=7)
+                inj.arm("rpc_recv", "raise", nth=19)
+                handles, drive, wall = mp_pass(mc, treqs, "mp (d)")
+        finally:
+            mc._handoff_one = handoff_one
+        rpc1 = worker_rpc(mc)
+        calls = {m: n - c0.get(m, 0) for m, n in acc["calls"].items()}
+        fired = {s: n for s, n in inj.fired.items() if n}
+        deduped = sum(r1["deduped_replies"] - r0["deduped_replies"]
+                      for r0, r1 in zip(rpc0, rpc1))
+        # less the ping that read rpc0; the tamper watch's reads are
+        # not metered
+        executed = [r1["frames_served"] - r0["frames_served"] - 1
+                    for r0, r1 in zip(rpc0, rpc1)]
+        if (mc.handoff_corruptions_total - corrupt0 < 1 or not tampered
+                or any(t["owner"] != 0 or t["done"] or t["on_decode"]
+                       for t in tampered)):
+            fail(f"multiproc (d): the tampered handoff was not refused "
+                 f"with its request left running on the prefill worker "
+                 f"({tampered})")
+        if (fired.get("rpc_send", 0) < 1 or fired.get("rpc_recv", 0) < 1
+                or deduped < fired["rpc_recv"]
+                or sum(executed) != sum(calls.values()) + len(tampered)):
+            fail(f"multiproc (d): fired {fired}, dedupe replays {deduped}, "
+                 f"handlers run {executed} for {sum(calls.values())} calls")
+        check_balanced_workers(mc, "(d)")
+        counts = worker_counts(mc, "mp (d)", cfg)
+        keep("d", mp_record(
+            "mp-d-chaos", handles, drive, wall, launches=counts,
+            faults=fired, retries=sum(n.client.retries_total
+                                      for n in mc.nodes) - retries0,
+            dedupe_replays=deduped, handlers_run=executed,
+            tampered=tampered))
+        mc.close()
+        mc = None
+
+        # (c) the fabric warm start
+        (fp, fabric_ms), (c1, c1_ms), (c2, c2_ms) = (
+            f.result() for f in starts)
+        ping, _ = fp.client().call("ping")
+        if ping["cuda_initialized"]:
+            fail("multiproc (c): the fabric process initialized CUDA")
+        prompt = treqs[0][1]
+        new = 32
+        cold = c1.submit(prompt, max_new_tokens=new)
+        c1.run(max_steps=3000)
+        local = c1.submit(prompt, max_new_tokens=new)
+        c1.run(max_steps=3000)
+        ts1 = c1.tier_stats(0)
+        counts = worker_counts(c1, "c1", cfg)
+        c1.close()
+        c1 = None
+        h = c2.submit(prompt, max_new_tokens=new)
+        c2.run(max_steps=3000)
+        ts2 = c2.tier_stats(0)
+        metrics, _ = c2.nodes[0].client.call("metrics")
+        counts = add_counts(counts, worker_counts(c2, "c2", cfg))
+        c2.close()
+        c2 = None
+        fstats, _ = fp.client().call("stats")
+        fp.close()
+        fp = None
+        warm_t, cold_t, local_t = (list(map(int, x.tokens))
+                                   for x in (h, cold, local))
+        if not (ts1["fabric_client"]["puts_total"] > 0
+                and ts2["tier"]["prefix_promote_hits_total"] > 0
+                and ts2["fabric_client"]["hits_total"] > 0
+                and fstats["hits_total"] > 0
+                and ts2["fabric_client"]["quarantined_total"] == 0):
+            fail(f"multiproc (c): no warm start ({ts1}, {ts2}, {fstats})")
+        if warm_t != cold_t and not (warm_t == local_t
+                                     and local_t != cold_t):
+            fail(f"multiproc (c): the warm tokens follow neither the cold "
+                 f"request's ({token_agreement([warm_t], [cold_t])}) nor "
+                 f"the trie-hit request's "
+                 f"({token_agreement([warm_t], [local_t])})")
+        hist = metrics.get("serving_fabric_promote_ms", {}).get(
+            "values", {}).get("", {})
+        keep("c", dict(
+            run="mp-c-fabric", kv="bf16", launches=counts,
+            fabric_spawn_ms=fabric_ms,
+            worker_spawn_ms=[c1_ms, c2_ms],
+            puts=ts1["fabric_client"]["puts_total"],
+            promoted_pages=ts2["tier"]["prefix_promote_hits_total"],
+            client_hits=ts2["fabric_client"]["hits_total"],
+            server_hits=fstats["hits_total"],
+            promote_ms_mean=(hist["sum"] / hist["count"]) if hist.get(
+                "count") else None, promote_lookups=hist.get("count"),
+            promote_bytes=metrics.get(
+                "serving_fabric_promote_bytes_total", {}).get(
+                "values", {}).get(""),
+            warm_equals_cold=warm_t == cold_t,
+            warm_equals_trie_hit=warm_t == local_t))
+    finally:
+        for c in (mc, c1, c2, fp):
+            if c is not None:
+                c.close()
+        pool.shutdown(wait=True)
+        for f in reversed(starts):      # closing twice is harmless
+            if f.exception() is None:
+                f.result()[0].close()
+    del build
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(wd, ignore_errors=True)
+    for r in runs:
+        r.pop("tokens", None)
+        r.pop("_hist", None)
+    print("multiproc parts " + json.dumps(parts))
+    return {"runs": runs, "part_s": parts}
+
+
 # --------------------------------------------------------------- phase 3c
 def dense_tier(torch, kernels, gen, params, cfg, name: str, prompt,
                new: int, fn: str = "generate", b7: bool = True,
@@ -6144,10 +6849,10 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k"),
+    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k", "3l"),
                     help="build, then run this phase alone (3h at "
-                         "--layers, 3i, 3j and 3k at a quarter of them) "
-                         "and write its record; no kernel line")
+                         "--layers, 3i, 3j, 3k and 3l at a quarter of "
+                         "them) and write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -6253,7 +6958,8 @@ def main(argv=None) -> int:
         key, run = {"3h": ("host_tier", run_host_tier),
                     "3i": ("adapters", run_adapters),
                     "3j": ("wal", run_wal),
-                    "3k": ("cluster", run_cluster)}[args.only]
+                    "3k": ("cluster", run_cluster),
+                    "3l": ("multiproc", run_multiproc)}[args.only]
         record[key] = run(torch, kernels, cfg, args.seed, reqs)
         lap(args.only)
         for r in record[key]["runs"]:
@@ -6474,10 +7180,8 @@ def main(argv=None) -> int:
     lap("2")
 
     # ---- phase 3: the engine, at the engine's width and a quarter of
-    # its depth (the script's time limit holds every phase but 3d, at
-    # 16, at 8 layers)
+    # its depth (the script's time limit holds every phase at 8 layers)
     cfg = LlamaConfig.llama2_7b(num_layers=args.layers)
-    half = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 2))
     quarter = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 4))
     t0 = time.perf_counter()
     params = init_params(quarter, torch.Generator(
@@ -6571,6 +7275,13 @@ def main(argv=None) -> int:
     record["cluster"] = cluster
     lap("3k")
 
+    # ---- phase 3l: the cluster across worker processes (socket RPC, a
+    # kill -9 failover, the KV fabric, wire chaos) at a quarter of the
+    # depth
+    multiproc = run_multiproc(torch, kernels, quarter, args.seed, reqs)
+    record["multiproc"] = multiproc
+    lap("3l")
+
     # ---- phase 3g: supervised serving with faults, drain and restore
     supervised = run_supervised(torch, kernels, quarter, args.seed, reqs)
     record["supervised"] = supervised
@@ -6589,7 +7300,7 @@ def main(argv=None) -> int:
     lap("3c")
 
     # ---- phase 3d: the Paddle fused-op decoder at the same size
-    decoder = run_paddle_decoder(torch, np, kernels, IF, tl, gen, half,
+    decoder = run_paddle_decoder(torch, np, kernels, IF, tl, gen, quarter,
                                  args.seed)
     record["paddle_decoder"] = decoder
     lap("3d")
@@ -6622,7 +7333,7 @@ def main(argv=None) -> int:
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
                 + adapters["runs"] + wal["runs"] + cluster["runs"]
-                + supervised["runs"]
+                + multiproc["runs"] + supervised["runs"]
                 + hosttier["runs"]
                 + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]

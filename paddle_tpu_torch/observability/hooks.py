@@ -24,8 +24,8 @@ where the fetch that follows waits for the same work anyway, so no
 dispatch waits on the card with the hooks on. The host tier's page
 moves (``serving_fused_latency("pool_move", ...)``) may wait too: they
 run at admission, at a handoff or at a defrag, never in a dispatch.
-The tp, dp, MoE, pipeline, RPC and fabric hooks come with the modules
-that call them (ROADMAP.md, queue A).
+The tp, dp, MoE and pipeline hooks come with the modules that call
+them (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -1337,3 +1337,140 @@ def serving_flight_dump(reason: str, nbytes: int):
                ("reason",)).labels(reason).inc()
     _m.gauge("serving_flight_dump_bytes",
              "size of the last flight-recorder dump").set(nbytes)
+
+
+# ---------------- multi-process RPC + KV fabric ----------------
+
+_RPC_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250,
+                   1000)
+_FABRIC_MS_BUCKETS = (0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250,
+                      1000)
+
+
+def serving_rpc_call(method: str, t0_ns: int, bytes_out: int,
+                     bytes_in: int):
+    """Close one client-side RPC exchange opened at ``t0_ns`` (a
+    :func:`generate_begin` anchor): per-method call counter, frame
+    bytes in both directions, latency histogram."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record(f"Serving.rpc[{method}]", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.counter("serving_rpc_calls_total",
+               "RPC calls completed, by method",
+               ("method",)).labels(method).inc()
+    nbytes = _m.counter("serving_rpc_bytes_total",
+                        "RPC frame bytes on the wire, by method and "
+                        "direction", ("method", "direction"))
+    nbytes.labels(method, "out").inc(bytes_out)
+    nbytes.labels(method, "in").inc(bytes_in)
+    _m.histogram("serving_rpc_latency_ms",
+                 "wall milliseconds per RPC exchange", ("method",),
+                 buckets=_RPC_MS_BUCKETS).labels(method).observe(
+        (now - t0_ns) / 1e6)
+
+
+def serving_rpc_served(method: str, t0_ns: int):
+    """Close one server-side dispatch (handler execution + reply
+    encode): the remote half of :func:`serving_rpc_call`."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record(f"Serving.rpc_served[{method}]", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.counter("serving_rpc_served_total",
+               "RPC calls dispatched server-side, by method",
+               ("method",)).labels(method).inc()
+    _m.histogram("serving_rpc_served_ms",
+                 "wall milliseconds per server-side RPC dispatch",
+                 ("method",), buckets=_RPC_MS_BUCKETS).labels(
+        method).observe((now - t0_ns) / 1e6)
+
+
+def serving_rpc_retry(method: str):
+    """One bounded-backoff retry of an RPC after a transport failure
+    (torn or corrupt frame, reset, injected fault). A retried call
+    replays from the server's dedupe cache, so this counts wire
+    flakiness, not duplicated work."""
+    if not enabled:
+        return
+    _m.counter("serving_rpc_retries_total",
+               "RPC attempts retried after a transport failure",
+               ("method",)).labels(method).inc()
+
+
+def serving_rpc_timeout(method: str):
+    """One RPC attempt abandoned at its deadline: counted apart from
+    other transport failures because the server may still have executed
+    the call (the dedupe cache makes the retry safe)."""
+    if not enabled:
+        return
+    _m.counter("serving_rpc_timeouts_total",
+               "RPC attempts that hit their per-call deadline",
+               ("method",)).labels(method).inc()
+
+
+def serving_rpc_corrupt(kind: str):
+    """One inbound RPC frame rejected before decode: ``torn`` (EOF
+    mid-frame) or ``crc`` (bit flip, bad magic, bad length). Nothing
+    was installed; the connection drops and the peer retries."""
+    if not enabled:
+        return
+    _m.counter("serving_rpc_corrupt_frames_total",
+               "RPC frames rejected by framing/CRC validation",
+               ("kind",)).labels(kind).inc()
+
+
+def serving_fabric_demote(t0_ns: int, nbytes: int):
+    """Close one demote to the shared KV fabric (a replica shipped a
+    prefix, adapter or swap payload to the fabric server) opened at
+    ``t0_ns``: count, payload bytes, latency."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.fabric_demote", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.counter("serving_fabric_demotes_total",
+               "payloads demoted to the shared KV fabric").inc()
+    _m.counter("serving_fabric_demote_bytes_total",
+               "payload bytes demoted to the shared KV fabric"
+               ).inc(nbytes)
+    _m.histogram("serving_fabric_demote_ms",
+                 "wall milliseconds per fabric demote",
+                 buckets=_FABRIC_MS_BUCKETS).observe((now - t0_ns) / 1e6)
+
+
+def serving_fabric_promote(t0_ns: int, nbytes: int, hit: bool):
+    """Close one promote lookup in the shared KV fabric opened at
+    ``t0_ns``: hit / miss counters and, on a hit, the payload bytes
+    that replaced a cold prefill."""
+    if not t0_ns:
+        return
+    now = time.perf_counter_ns()
+    _record("Serving.fabric_promote", t0_ns, now, "UserDefined")
+    if not enabled:
+        return
+    _m.counter("serving_fabric_promotes_total",
+               "fabric promote lookups, by outcome",
+               ("outcome",)).labels("hit" if hit else "miss").inc()
+    if hit:
+        _m.counter("serving_fabric_promote_bytes_total",
+                   "payload bytes promoted from the shared KV fabric"
+                   ).inc(nbytes)
+    _m.histogram("serving_fabric_promote_ms",
+                 "wall milliseconds per fabric promote lookup",
+                 buckets=_FABRIC_MS_BUCKETS).observe((now - t0_ns) / 1e6)
+
+
+def serving_fabric_quarantine(site: str):
+    """A fabric payload failed its CRC check before install and was
+    quarantined server-side; the caller falls back to replay."""
+    if not enabled:
+        return
+    _m.counter("serving_fabric_quarantined_total",
+               "fabric payloads quarantined on checksum mismatch",
+               ("site",)).labels(site).inc()

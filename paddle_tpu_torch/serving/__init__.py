@@ -11,7 +11,10 @@ standing prefix store), the multi-tenant LoRA adapter pool
 (``ServingCluster``: supervised replicas behind the ``ClusterRouter``,
 the prefill→decode handoff, failover, retirement, ``AdmissionController``
 and ``ClusterAutoscaler``; the trace-driven harness ``synth_trace`` /
-``run_trace`` under a ``FakeClock``)."""
+``run_trace`` under a ``FakeClock``), and the same cluster across
+processes (``MultiProcessCluster``: replica worker processes behind
+socket RPC, ``kill -9`` as failover onto the WAL directory, and the
+shared KV fabric process)."""
 from .adapters import (FACTOR_NAMES, AdapterPool,  # noqa: F401
                        AdapterPoolExhausted, AdapterRegistry, init_lora,
                        merge_lora)
@@ -43,3 +46,10 @@ from .router import (AdmissionController, ClusterRouter,  # noqa: F401
 from .cluster import ClusterAutoscaler, ServingCluster  # noqa: F401
 from .traffic import (FakeClock, SLOReport, TraceRequest,  # noqa: F401
                       run_trace, synth_trace)
+from .rpc import (ReplicaUnreachable, RpcClient, RpcClosed,  # noqa: F401
+                  RpcCorruptFrame, RpcError, RpcRemoteError, RpcServer,
+                  RpcTimeout, RpcTornFrame)
+from .fabric import FabricClient, FabricServer  # noqa: F401
+from .node import ReplicaNode, llama_engine  # noqa: F401
+from .multiproc import (FabricProcess, MultiProcessCluster,  # noqa: F401
+                        ReplicaProcess)

@@ -140,9 +140,11 @@ ENGINE_SITES = ("alloc", "free", "decode_step", "prefill_chunk",
 #: export, which commits nothing), "handoff_import" (before each
 #: decode-side import attempt, under the bounded retry) and
 #: "autoscale_tick" (a fault skips one scaling decision). The
-#: multi-process RPC and KV-fabric sites ("rpc_send", "rpc_recv",
-#: "fabric_put", "fabric_get") are named so that an injector accepts
-#: the reference's site list; their modules are not ported yet
+#: multi-process plane's fire BEFORE any commit: "rpc_send" before a
+#: frame hits the socket and "rpc_recv" before a reply is decoded
+#: (``serving/rpc.py``), "fabric_put" before a payload ships to the
+#: fabric server and "fabric_get" before a fetched payload is verified
+#: or installed (``serving/fabric.py``)
 CLUSTER_SITES = ("handoff_export", "handoff_import", "autoscale_tick",
                  "rpc_send", "rpc_recv", "fabric_put", "fabric_get")
 

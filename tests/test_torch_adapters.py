@@ -35,7 +35,8 @@ on both sides.
   balance.
 
 JAX engines of one program signature share their compiled programs
-(``_PROTO``); an overlapped JAX engine steps with a copying
+(``test_torch_scheduler._share_programs``); an overlapped JAX engine
+steps with a copying
 ``jnp.asarray`` (``test_torch_scheduler``'s ``_Run``).
 """
 import numpy as np
@@ -57,7 +58,6 @@ torch.set_num_threads(1)
 MODS = {"jax": jserving, "port": tserving}
 RANK = 4
 _REGS = {}
-_PROTO = {}
 
 
 def _model(side):
@@ -86,13 +86,7 @@ def _engine(side, slots=3, store=None, pool=None, **kw):
                     store=store)
     eng = Engine(params, cfg, adapters=pool, **kw, **extra)
     if side == "jax":
-        key = tuple(sorted((k, str(v)) for k, v in kw.items()))
-        proto = _PROTO.setdefault(key, eng)
-        if proto is not eng:
-            eng._chunk_fns = proto._chunk_fns
-            eng._spec_fns = proto._spec_fns
-            if proto._decode_fn is not None:
-                eng._decode_fn = proto._decode_fn
+        ts._share_programs(eng)
     return eng
 
 

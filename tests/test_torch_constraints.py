@@ -167,9 +167,6 @@ def test_records_with_a_shared_grammar_table():
 
 # ---------------------------------------------------------------- engines
 
-_PROTO = {}
-
-
 def _engine(side, **kw):
     """One side's engine on ``test_torch_scheduler``'s tiny Llama; JAX
     engines of one program signature share their compiled programs."""
@@ -177,13 +174,7 @@ def _engine(side, **kw):
     kw = dict(ts.ENGINE_KW, **kw)
     eng = Engine(params, cfg, **kw, **extra)
     if side == "jax":
-        key = (kw.get("kv_cache_dtype"), kw.get("fused"),
-               kw.get("temperature"), eng.constraints)
-        proto = _PROTO.setdefault(key, eng)
-        if proto is not eng:
-            eng._chunk_fns = proto._chunk_fns
-            if proto._decode_fn is not None:
-                eng._decode_fn = proto._decode_fn
+        ts._share_programs(eng)
     return eng
 
 

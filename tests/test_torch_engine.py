@@ -31,6 +31,8 @@ from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models import params_from_jax
 
+import test_torch_scheduler as ts
+
 torch.set_num_threads(1)
 ENGINE_KW = dict(max_batch=2, page_size=8, max_len=32, num_pages=7,
                  prefill_chunk=8)
@@ -82,6 +84,14 @@ def _serve(engine, workloads):
     return out
 
 
+def _jax_engine(*a, **kw):
+    """A JAX engine that shares its compiled programs
+    (``test_torch_scheduler._share_programs``)."""
+    eng = JaxEngine(*a, **kw)
+    ts._share_programs(eng)
+    return eng
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = jl.LlamaConfig.tiny(num_layers=2, max_seq_len=64)
@@ -89,8 +99,8 @@ def setup():
     tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     tcfg = tl.LlamaConfig.tiny(num_layers=2, max_seq_len=64)
     work = _workloads(jcfg.vocab_size)
-    ref = {(kv, fused): _serve(JaxEngine(jp, jcfg, kv_cache_dtype=kv,
-                                         fused=fused, **ENGINE_KW), work)
+    ref = {(kv, fused): _serve(_jax_engine(jp, jcfg, kv_cache_dtype=kv,
+                                           fused=fused, **ENGINE_KW), work)
            for kv in (None, "int8") for fused in (False, True)}
     return tcfg, tp, work, ref
 

@@ -39,6 +39,15 @@ from paddle_tpu_torch.ops.kernels import fused as fk
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEW = 8
+_JAX = {}
+
+
+def _jax_once(key, fn):
+    """A JAX result that parametrised cases share, computed once a
+    module."""
+    if key not in _JAX:
+        _JAX[key] = fn()
+    return _JAX[key]
 
 
 @pytest.fixture(scope="module")
@@ -136,10 +145,12 @@ def test_decode_step_logits_match_jax(model, prompt, kv, jax_kernel):
     kernel in interpret mode or its composition."""
     jcfg, jp, tcfg, tp = model
     S, max_len = prompt.shape[1], 16
-    jc = jgen.init_cache(jcfg, 3, max_len, kv_dtype=kv)
     tc = tgen.init_cache(tcfg, 3, max_len, kv_dtype=kv, device="cpu")
-    _, jc = jgen._forward_cached(jp, jnp.asarray(prompt), jc, 0, jcfg,
-                                 max_len)
+    # the prefill does not see ``jax_kernel``: once a KV dtype
+    jc = _jax_once(("prefill", kv), lambda: jgen._forward_cached(
+        jp, jnp.asarray(prompt), jgen.init_cache(jcfg, 3, max_len,
+                                                 kv_dtype=kv),
+        0, jcfg, max_len)[1])
     tgen._forward_cached(tp, torch.from_numpy(prompt), tc, 0, tcfg, max_len)
     tok = np.asarray([[5], [77], [200]], np.int32)
     jlog, jc = jgen._forward_cached(jp, jnp.asarray(tok), jc, S, jcfg,

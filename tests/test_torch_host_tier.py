@@ -155,8 +155,12 @@ def _supervised(side, nonblocking=False):
     Engine, _, P, params, cfg, extra = ts._models()[side]
 
     def factory():
-        return Engine(params, cfg, **ts.ENGINE_KW, **extra, host_tier=True,
-                      overlap=nonblocking)
+        kw = dict(ts.ENGINE_KW, **extra, host_tier=True,
+                  overlap=nonblocking)
+        eng = Engine(params, cfg, **kw)
+        if side == "jax":
+            ts._share_programs(eng)
+        return eng
     sup = mod.EngineSupervisor(factory, token_budget=20,
                                sleep=lambda s: None)
     a, b, c = ts._prompts((5, 11, 3), seed=3)

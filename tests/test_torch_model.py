@@ -23,6 +23,15 @@ from paddle_tpu_torch.models import params_from_jax
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
+_JAX = {}
+
+
+def _jax_once(key, fn):
+    """A JAX result that cases share (``fused`` is the port's flag alone),
+    computed once a module."""
+    if key not in _JAX:
+        _JAX[key] = fn()
+    return _JAX[key]
 
 
 def _leaves(tree, prefix=""):
@@ -125,9 +134,10 @@ def test_prefill_chunks_then_decode_match_jax(model, kv, fused):
         chunk = np.zeros((1, 8), np.int32)
         chunk[0, :take] = tokens[done:done + take]
         ctx_cap = -(-done // page) * page
-        jl_, jpool = jgen.paged_prefill_chunk(
-            jp, jnp.asarray(chunk), jpool, jnp.asarray(table), jcfg,
-            ctx_cap=ctx_cap, ctx_len=done, chunk_len=take)
+        jl_, jpool = _jax_once(
+            ("chunk", kv, done), lambda: jgen.paged_prefill_chunk(
+                jp, jnp.asarray(chunk), jpool, jnp.asarray(table), jcfg,
+                ctx_cap=ctx_cap, ctx_len=done, chunk_len=take))
         tl_, tpool = tgen.paged_prefill_chunk(
             tp, torch.from_numpy(chunk), tpool, torch.from_numpy(table),
             tcfg, ctx_cap=ctx_cap, ctx_len=done, chunk_len=take,
@@ -140,9 +150,10 @@ def test_prefill_chunks_then_decode_match_jax(model, kv, fused):
     last = np.asarray([tokens[done], 0], np.int32)
     for step in range(2):
         lengths = np.asarray([done + step, 0], np.int32)
-        jlog, jpool = jgen.paged_decode_forward(
-            jp, jnp.asarray(last), jpool, jnp.asarray(tables),
-            jnp.asarray(lengths), jcfg, active=jnp.asarray(active))
+        jlog, jpool = _jax_once(
+            ("decode", kv, step), lambda: jgen.paged_decode_forward(
+                jp, jnp.asarray(last), jpool, jnp.asarray(tables),
+                jnp.asarray(lengths), jcfg, active=jnp.asarray(active)))
         tlog, tpool = tgen.paged_decode_forward(
             tp, torch.from_numpy(last), tpool, torch.from_numpy(tables),
             torch.from_numpy(lengths), tcfg,

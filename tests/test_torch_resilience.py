@@ -534,14 +534,18 @@ def test_site_lint():
     the JAX engine, scheduler, allocator and write-ahead log have
     theirs: one each, but ``dispatch``, ``commit`` and ``transfer``
     once per forward kind (decode, linear verify, tree verify), as in
-    the reference. No site waits for a module any more. The three live
-    cluster sites have one each in ``serving/cluster.py``, as in the
-    JAX package's cluster; the RPC and fabric sites have none yet."""
+    the reference. No site waits for a module any more. Every cluster
+    site has its fault points in the modules the JAX package has them
+    in: the handoff and autoscale sites one each in
+    ``serving/cluster.py`` and ``serving/multiproc.py``, the RPC sites
+    in ``serving/rpc.py`` and the fabric sites in
+    ``serving/fabric.py``."""
     calls = _fault_calls((ROOT / "paddle_tpu_torch").rglob("*.py"))
     ref = _fault_calls(ROOT / "paddle_tpu" / rel for rel in (
         "inference/predictor.py", "serving/paged_cache.py",
         "serving/scheduler.py", "serving/host_tier.py",
-        "serving/adapters.py", "serving/wal.py", "serving/cluster.py"))
+        "serving/adapters.py", "serving/wal.py", "serving/cluster.py",
+        "serving/multiproc.py", "serving/rpc.py", "serving/fabric.py"))
     for site in tres.ENGINE_SITES:
         assert sorted(calls[site]) == sorted(ref[site]), site
         assert len(calls[site]) == (
@@ -549,10 +553,12 @@ def test_site_lint():
     for site in ("wal_append", "wal_fsync", "checkpoint_write"):
         assert calls[site] == ["wal.py"], site
     for site in ("handoff_export", "handoff_import", "autoscale_tick"):
-        assert calls[site] == ref[site] == ["cluster.py"], site
-    for site in set(tres.CLUSTER_SITES) - {
-            "handoff_export", "handoff_import", "autoscale_tick"}:
-        assert site not in calls, site
+        assert sorted(calls[site]) == sorted(ref[site]) == [
+            "cluster.py", "multiproc.py"], site
+    for site, mod in (("rpc_send", "rpc.py"), ("rpc_recv", "rpc.py"),
+                      ("fabric_put", "fabric.py"),
+                      ("fabric_get", "fabric.py")):
+        assert calls[site] == ref[site] == [mod], site
     assert set(calls) <= set(tres.SITES)
     assert tres.WAITING_SITES == ()
 

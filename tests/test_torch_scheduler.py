@@ -97,6 +97,38 @@ def _copying_jnp(on):
         yield
 
 
+#: the first JAX engine of each program signature, and of each draft
+#: model's
+_PROGRAMS = {}
+
+
+def _share_programs(eng):
+    """A JAX engine runs the compiled programs of the first engine with
+    its program signature: the values its programs close over (config,
+    ``fused``, temperature, ``use_kernel``, constraints, an adapter pool
+    or none, no mesh; for the draft model's programs its config too).
+    Everything else reaches them as arguments, whose shapes, dtypes and
+    structure the jitted functions key on, so each program is traced
+    and compiled once a process, not once an engine."""
+    if eng.mesh is not None:
+        return
+    key = (repr(eng.cfg), eng.fused, eng.temperature, eng.use_kernel,
+           eng.constraints, eng.adapters is not None)
+    for sig, dicts, fns in (
+            (key, ("_chunk_fns", "_spec_fns", "_tree_fns",
+                   "_tree_commit_fns"), ("_decode_fn",)),
+            (key + (repr(eng.draft_cfg),), ("_draft_fns",),
+             ("_draft_dec_fn",))):
+        proto = _PROGRAMS.setdefault(sig, eng)
+        if proto is eng:
+            continue
+        for name in dicts:
+            setattr(eng, name, getattr(proto, name))
+        for name in fns:
+            if getattr(proto, name) is not None:
+                setattr(eng, name, getattr(proto, name))
+
+
 class _Run:
     """One side's engine and scheduler, with the per-step plan log. An
     overlapped JAX run steps under :func:`_copying_jnp`."""
@@ -106,6 +138,8 @@ class _Run:
         Engine, Sched, self.P, params, cfg, extra = _models()[side]
         kw = dict(ENGINE_KW, **engine_kw, **extra)
         self.eng = Engine(params, cfg, **kw)
+        if side == "jax":
+            _share_programs(self.eng)
         skw = {} if clock is None else {"clock": clock}
         self.sched = Sched(self.eng, token_budget=budget, overlap=overlap,
                            **skw)

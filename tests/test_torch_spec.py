@@ -50,9 +50,20 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import serving_fused as tsf
 from paddle_tpu_torch.serving import speculative as tspec
 
+import test_torch_scheduler as ts
+
 torch.set_num_threads(1)
 ENG = dict(max_batch=3, page_size=8, max_len=32)
 TOL = dict(rtol=1e-5, atol=1e-5)
+_JAX = {}
+
+
+def _jax_once(key, fn):
+    """A JAX result that cases share (``fused`` is the port's flag alone),
+    computed once a module."""
+    if key not in _JAX:
+        _JAX[key] = fn()
+    return _JAX[key]
 SPEC_KEYS = ("spec_drafted_total", "spec_accepted_total",
              "spec_verify_steps")
 
@@ -338,16 +349,17 @@ def _tree_inputs(B, T):
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
 def test_paged_verify_forward_matches_jax(model, kv, fused):
     """Linear: T = 4 drafts for every row, then the tree verify of a
-    5-node comb and its commit of one root path per row."""
+    5-node comb and its commit of one root path per row. The JAX side
+    does not see ``fused`` and runs once a KV dtype."""
     jcfg, jp, tcfg, tp = model
     jpool, tpool, tables, lengths, active = _pool_case(jcfg, tcfg, kv, 4)
     ctx_cap = 16
     rs = np.random.RandomState(9)
     chunk = rs.randint(3, jcfg.vocab_size, (3, 4)).astype(np.int32)
-    jlog, jpool2 = jgen.paged_verify_forward(
+    jlog, jpool2 = _jax_once(("linear", kv), lambda: jgen.paged_verify_forward(
         jp, jnp.asarray(chunk), dict(jpool), jnp.asarray(tables),
         jnp.asarray(lengths), jcfg, ctx_cap=ctx_cap,
-        active=jnp.asarray(active))
+        active=jnp.asarray(active)))
     kernels.reset_launch_counts()
     tlog, tpool2 = tgen.paged_verify_forward(
         tp, _t(chunk), {n: v.clone() for n, v in tpool.items()},
@@ -359,11 +371,11 @@ def test_paged_verify_forward_matches_jax(model, kv, fused):
     # tree mode: no placement, the per-node rows come back
     T = 5
     tokens, depths, anc = _tree_inputs(3, T)
-    jlog, jrows = jgen.paged_verify_forward(
+    jlog, jrows = _jax_once(("tree", kv), lambda: jgen.paged_verify_forward(
         jp, jnp.asarray(tokens), dict(jpool), jnp.asarray(tables),
         jnp.asarray(lengths), jcfg, ctx_cap=ctx_cap,
         active=jnp.asarray(active), tree_depth=jnp.asarray(depths),
-        tree_mask=jnp.asarray(anc))
+        tree_mask=jnp.asarray(anc)))
     before = {n: v.clone() for n, v in tpool.items()}
     tlog, trows = tgen.paged_verify_forward(
         tp, _t(tokens), tpool, _t(tables), _t(lengths), tcfg,
@@ -378,9 +390,9 @@ def test_paged_verify_forward_matches_jax(model, kv, fused):
     # row 0, the chain 0 -> 1 -> 2 for row 1, nothing for row 2
     path = np.asarray([[0, 3, 0, 0, 0], [0, 1, 2, 0, 0], [0] * 5], np.int32)
     plen = np.asarray([2, 3, 0], np.int32)
-    jpool3 = jgen.paged_tree_commit(
+    jpool3 = _jax_once(("commit", kv), lambda: jgen.paged_tree_commit(
         dict(jpool), jrows, jnp.asarray(tables), jnp.asarray(lengths),
-        jnp.asarray(path), jnp.asarray(plen))
+        jnp.asarray(path), jnp.asarray(plen)))
     tpool3 = tgen.paged_tree_commit(
         tpool, trows, _t(tables), _t(lengths), _t(path), _t(plen))
     _check_kv(jpool3, tpool3)
@@ -496,6 +508,7 @@ def engines():
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(jpred, "jnp", _CopyingJnp())
                 eng = JaxEngine(jp, jcfg, **ENG, **kw)
+                ts._share_programs(eng)
                 out = eng.generate(prompts.get(case, _prompts(v, [5, 9, 7],
                                                               7)),
                                    max_new_tokens=10)
