@@ -14,6 +14,7 @@ card.
     python3 chip_smoke.py --only 3j            # build, then phase 3j alone
     python3 chip_smoke.py --only 3k            # build, then phase 3k alone
     python3 chip_smoke.py --only 3l            # build, then phase 3l alone
+    python3 chip_smoke.py --only 3m            # build, then phase 3m alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -212,8 +213,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    demote and promote ms and bytes, from RAM and from a standing store
    on local disk (``adapters ...`` lines, ``run_adapters``).
 3j. The write-ahead log (``EngineSupervisor(wal_dir=...)``) on phase
-   3e's engine with ``host_tier=True`` at the same width and a quarter
-   of the depth (8 layers), fresh weights from phase 3's seed, phase
+   3e's engine with ``host_tier=True`` at the same width and an eighth
+   of the depth (4 layers since phase 3m took its time; ``--only 3j``:
+   8), fresh weights from phase 3's seed, phase
    3e's 16 requests and HIGH burst, fused, budget 384, the log in a
    temporary directory on local disk. Gates: (a) the process dies (the
    supervisor dropped without a drain) at decode_step, prefill_chunk,
@@ -242,9 +244,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the uninterrupted run (``wal ...`` lines, ``run_wal``).
 3k. The serving cluster (``ServingCluster``: supervised replicas of
    phase 3j's engine, fused, the host tier on, behind the
-   ``ClusterRouter``) at the same width and a quarter of the depth (8
-   layers), one params dict from phase 3's seed shared by every
-   replica, phase 3e's 16 requests over four tenants, each prompt on
+   ``ClusterRouter``) at the same width and an eighth of the depth (4
+   layers, since phase 3m took their time; ``--only 3k``: 8), one
+   params dict from phase 3's seed shared by every replica, phase 3e's
+   16 requests over four tenants, each prompt on
    its tenant's own 192-token system prompt (12 pages), budget 384.
    Gates: (a) routed over 2 replicas and over one (KV bf16 and int8),
    each tenant's first request first: every request finishes once with
@@ -326,7 +329,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ms median and mean, the restart's spawn-to-hello ms with the
    worker's weights and WAL recovery ms, fabric promote ms and bytes.
 3g. Supervised serving (``EngineSupervisor`` over the engine) at
-   Llama-2-7B's width and a quarter of its depth (8 layers), fresh
+   Llama-2-7B's width and an eighth of its depth (4 layers, since phase
+   3m took their time), fresh
    weights from
    phase 3's seed, phase 3e's 16 requests and HIGH burst, budget 384:
    an uninterrupted run; one run per engine site the port has with a
@@ -414,6 +418,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of greedy tokens that forward picks; then a ``torch.profiler`` split
    of a few decode steps into B6, B8, B4a/B5a, matmuls and the rest
    (``run_paddle_decoder``).
+3m. Mixture-of-Experts Llama (``run_moe``) at the repo's full MoE
+   width (``tools/aot_validate.py``: hidden 2048, 16 heads of 128, 16
+   experts of 5632, top-2, capacity factor 1.25; 8 of its 24 layers,
+   fresh seeded weights, the router in f32). (a) The engine on phase
+   3's 16 requests (``max_batch=8, page_size=16, max_len=2048,
+   prefill_chunk=256``), fused, KV bf16 and int8: launches equal the
+   counted forwards (B10 a decode, B11 a prefill chunk, per layer); the
+   first decode step of 8 rows through B11 + B10 against a kernel-free
+   forward under the route rule (``moe_route_check``: logits within
+   0.5 only on rows whose experts agree at every layer, floors on the
+   agreeing share of routes and of rows; a planted router that takes
+   the k lowest logits must fail it); items per expert; a
+   ``torch.profiler`` split of prefill chunks and decode steps; the
+   serving MoE FFN's own card ms at a decode step and a prefill chunk
+   against its bound (``moe_ffn_profile``). (b) ``quantize_weights(
+   bits=8)``: no ``moe_*_scale`` leaf, the router and expert stacks the
+   given tensors, and the engine serving (a)'s requests on it. (c) Dense
+   ``generate`` (B = 8, prompt 128, 64 new, bf16 KV): B7 once per layer
+   and decode step. (d) Training at 4 layers, batch 1 x 4096,
+   ``seq_chunk=512``, "xla" then "auto", 3 timed steps each (per layer
+   and step B1 twice, B2 and B3 once; under "auto" B4a four times and
+   B4b twice, and once more each for the final norm; no B5), ms a step,
+   tokens/s, peak memory; under "auto" the whole-slice check of 2 layers
+   at 512 tokens, bf16 on the card against f32 on the CPU replaying the
+   card's routes (attention, norm, router and expert gradients, the loss
+   and the grad norm), where the CPU side with a lowest-k router must
+   fail (``moe ...`` lines).
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -427,7 +458,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    optimizer's part alone (``update_ms``); then, for each mode, the
    whole-slice check (``whole_slice``) of a 2-layer model in bf16 on the
    card against f32 on the CPU.
-4. The ``{"kernels": [...]}`` line, the card line again, and last
+4. The ``{"kernels": [...]}`` line (each kernel's launches summed over
+   the main-path runs of phases 3-3m), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits with 1 and prints no result when no CUDA card is visible. A JSON
@@ -496,6 +528,29 @@ ATTN_LEAVES = ("wq", "wk", "wv")
 # B4 fault (eps ten times too large) and one in B5 (dsilu = sigmoid)
 # must fail it
 FUSED_LEAVES = ("attn_norm", "mlp_norm", "wg", "wu")
+# phase 3m (MoE): an MoE model's whole slice also holds the router's and
+# the experts' gradients, the CPU side taking the card's routing
+# decisions (``RouteTape``: left to route itself, 1% of its routes moved
+# every gradient 23-35% on an H100). On the card's routes an H100
+# read 1.5-1.9% for these leaves (the attention's 1.3-2.3%, the
+# loss 4.9e-5, the grad norm 2.0e-3), the CPU side with a planted router
+# that takes the k lowest logits 123-140%: the limit is the attention's
+MOE_LEAVES = ("moe_gate", "moe_wg", "moe_wu", "moe_wd")
+MOE_LEAF_RTOL = 4e-2
+# phase 3m's serving logits check (``moe_route_check``): the first decode
+# step of 8 rows through B11 + B10 against a kernel-free forward. Logits
+# are held only on rows whose routes agree at every layer; the share of
+# (row, layer) routes that agree and the number of such rows have
+# floors. An H100 read 0.9375 of the routes and 5 of 8 rows in
+# agreement, those rows' logits within 0.203 (a row whose own routes
+# agree still attends to prompt tokens that other routes moved; the
+# rows with a moved route of their own read up to 0.957, logits of
+# scale ~4); the planted router that takes the k lowest logits reads 0
+# routes and 0 rows
+MOE_ROUTE_MIN = 0.75
+MOE_ROWS_MIN = 1
+MOE_LOGITS_ATOL = 0.5
+MOE_SLICE_SEQ = 512            # the MoE whole slice's tokens (B = 1)
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -6699,14 +6754,21 @@ def update_ms(torch, tt, state) -> float:
         weight_decay=0.1, grad_clip=1.0), reps=3, warmup=1)
 
 
-def slice_leaves(fused_kernels: str):
-    return ATTN_LEAVES + (FUSED_LEAVES if fused_kernels != "xla" else ())
+def slice_leaves(cfg):
+    """The leaves whose gradients the whole-slice check holds: the
+    attention's, under "auto" the fused ops' (an MoE model has no dense
+    ``wg``/``wu``: its norms), and an MoE model's router and experts."""
+    if cfg.moe is None:
+        return ATTN_LEAVES + (FUSED_LEAVES if cfg.fused_kernels != "xla"
+                              else ())
+    return (ATTN_LEAVES + (FUSED_LEAVES[:2] if cfg.fused_kernels != "xla"
+                           else ()) + MOE_LEAVES)
 
 
 def leaf_grads(torch, tl, params, tokens, cfg):
     """``loss_fn`` and its gradients of the checked leaves, as f32 on the
     CPU (each a (layers, ...) stack)."""
-    ws = [params["layers"][n] for n in slice_leaves(cfg.fused_kernels)]
+    ws = [params["layers"][n] for n in slice_leaves(cfg)]
     for w in ws:
         w.requires_grad_(True)
     try:
@@ -6732,7 +6794,8 @@ def slice_errors(torch, card, ref, leaves):
 def slice_failures(errs) -> list:
     """The entries of ``errs`` over their SLICE_* limits (NaN is over)."""
     lim = {"loss": SLICE_LOSS_RTOL, "grad_norm": SLICE_GNORM_RTOL,
-           **dict.fromkeys(ATTN_LEAVES + FUSED_LEAVES, SLICE_LEAF_RTOL)}
+           **dict.fromkeys(ATTN_LEAVES + FUSED_LEAVES, SLICE_LEAF_RTOL),
+           **dict.fromkeys(MOE_LEAVES, MOE_LEAF_RTOL)}
     return [k for k, e in errs.items()
             if not max(e if isinstance(e, list) else [e]) <= lim[k]]
 
@@ -6766,17 +6829,30 @@ def slice_faults(torch, tl, fa, fk, fused_kernels: str):
              dsilu_sigmoid)]
 
 
-def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
-    """A 2-layer model at full width, B = 1, S = 1024: bf16 with the
-    kernels on the card, and from the same parameters in f32 on the CPU
-    with the plain versions. Compares ``loss_fn``'s gradients of the
-    checked leaves (``slice_leaves``), then one ``make_train_step``
+def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str,
+                cfg=None, seq: int = 1024, faults=None, routes=None):
+    """A 2-layer model at full width, B = 1, S = ``seq`` (1024): bf16
+    with the kernels on the card, and from the same parameters in f32 on
+    the CPU with the plain versions. Compares ``loss_fn``'s gradients of
+    the checked leaves (``slice_leaves``), then one ``make_train_step``
     step's loss and grad norm. Controls: the CPU side with each planted
-    fault of ``slice_faults`` must fail the same limits."""
+    fault of ``faults`` (default ``slice_faults``) must fail the same
+    limits. ``cfg``: the model (default the bench training model's 2
+    layers). ``routes``: an MoE model's ``RouteTape``, which records the
+    card's routing decisions in its ``loss_fn`` and makes the CPU side's
+    ``loss_fn`` and step take them (a fault that replaces the router
+    replaces the tape too)."""
+    import contextlib
     import dataclasses
-    cfg = train_config(tl.LlamaConfig, 2, fused_kernels)
+    record = replay = contextlib.nullcontext
+    if routes is not None:
+        record, replay = routes.recording, routes.replaying
+    if cfg is None:
+        cfg = train_config(tl.LlamaConfig, 2, fused_kernels)
+    if faults is None:
+        faults = slice_faults(torch, tl, fa, fk, fused_kernels)
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, 1024)), dtype=torch.int32)
+        0, cfg.vocab_size, (1, seq)), dtype=torch.int32)
     card = tt.init_train_state(cfg, torch.Generator(
         device="cuda").manual_seed(seed + 1), device="cuda")
 
@@ -6784,22 +6860,27 @@ def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
         return {k: f32_cpu(v) if isinstance(v, dict) else v.float().cpu()
                 for k, v in tree.items()}
 
-    cpu = tt.TrainState(0, *(f32_cpu(t) for t in (
-        card.params, card.master, card.m, card.v)))
+    # a fresh state's master is its params in f32 and its moments zero:
+    # one tree crosses to the host, the rest is made there
+    params = f32_cpu(card.params)
+    cpu = tt.TrainState(0, params, tt._map(torch.clone, params),
+                        tt._map(torch.zeros_like, params),
+                        tt._map(torch.zeros_like, params))
     # "auto" is fused only on the card: the CPU reference of the fused
     # mode asks for the fused ops' plain versions with "pallas"
     cpu_cfg = dataclasses.replace(
         cfg, dtype=torch.float32,
         fused_kernels="xla" if fused_kernels == "xla" else "pallas")
-    leaves = slice_leaves(fused_kernels)
+    leaves = slice_leaves(cfg)
     t0 = time.perf_counter()
-    on_card = leaf_grads(torch, tl, card.params, tokens.cuda(), cfg)
-    on_cpu = leaf_grads(torch, tl, cpu.params, tokens, cpu_cfg)
+    with record():
+        on_card = leaf_grads(torch, tl, card.params, tokens.cuda(), cfg)
+    with replay():
+        on_cpu = leaf_grads(torch, tl, cpu.params, tokens, cpu_cfg)
     cpu_s = time.perf_counter() - t0
     errs = slice_errors(torch, on_card, on_cpu, leaves)
     controls = {}
-    for name, module, attr, fault in slice_faults(torch, tl, fa, fk,
-                                                  fused_kernels):
+    for name, module, attr, fault in faults:
         kept = getattr(module, attr)
         setattr(module, attr, fault)
         try:
@@ -6812,7 +6893,8 @@ def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
                  f"{name} ({controls[name]})")
     # the step's loss is loss_fn's above; its grad norm covers every leaf
     _, mc = tt.make_train_step(cfg, seq_chunk=512)(card, tokens.cuda())
-    _, mh = tt.make_train_step(cpu_cfg, seq_chunk=512)(cpu, tokens)
+    with replay():
+        _, mh = tt.make_train_step(cpu_cfg, seq_chunk=512)(cpu, tokens)
     rec = {k: {"card_bf16": mc[k].item(), "cpu_f32": mh[k].item()}
            for k in ("loss", "grad_norm")}
     a, b = rec["grad_norm"]["card_bf16"], rec["grad_norm"]["cpu_f32"]
@@ -6822,6 +6904,8 @@ def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str):
         fail(f"whole slice: {bad} over their limits: {errs}")
     rec.update(fused_kernels=fused_kernels, rel_err=errs, controls=controls,
                cpu_grads_s=cpu_s)
+    if routes is not None:
+        rec["cpu_routes_agree_with_card"] = routes.agreement()
     return rec
 
 
@@ -6840,6 +6924,439 @@ def profile_train(torch, step, state, tokens, step_ms: float):
     return rec
 
 
+# --------------------------------------------------------------- phase 3m
+def moe_config(LlamaConfig, MoEConfig, layers: int, **kw):
+    """The repo's full-width MoE model (``tools/aot_validate.py``'s):
+    hidden 2048, 5632 per expert, 16 heads of 128, vocabulary 32,000,
+    16 experts, top-2, capacity factor 1.25, bf16; ``layers`` of its
+    24."""
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_layers=layers,
+                       num_heads=16, num_kv_heads=16, max_seq_len=4096,
+                       moe=MoEConfig(num_experts=16, top_k=2,
+                                     capacity_factor=1.25), **kw)
+
+
+class RouteRecorder:
+    """Stands in for ``generate._moe_ffn`` while entered: each call, when
+    ``on``, keeps the top-k experts of every row ((N, k), in slot order,
+    by the serving router's rule) in ``calls`` and adds the routed items
+    per expert to ``load`` (on the card, no host read), then runs the
+    real function."""
+
+    def __init__(self, torch, gen):
+        self.torch, self.gen, self.inner = torch, gen, gen._moe_ffn
+        self.on, self.calls, self.load = False, [], None
+
+    def __call__(self, x, lp, cfg):
+        if self.on:
+            torch = self.torch
+            logits = (x.reshape(-1, x.shape[-1]).float()
+                      @ lp["moe_gate"].float())
+            idx = torch.sort(logits, dim=-1, descending=True,
+                             stable=True).indices[:, :cfg.moe.top_k]
+            self.calls.append(idx)
+            n = torch.bincount(idx.reshape(-1), minlength=logits.shape[-1])
+            self.load = n if self.load is None else self.load + n
+        return self.inner(x, lp, cfg)
+
+    def __enter__(self):
+        self.gen._moe_ffn = self
+        return self
+
+    def __exit__(self, *exc):
+        self.gen._moe_ffn = self.inner
+
+
+def route_rule(np, dec, dec_routes, refs, ref_routes):
+    """The route rule of phase 3m: per row and layer whether the decode
+    step's experts (in slot order) equal the reference's; logits held
+    only on rows whose routes agree at every layer."""
+    L = len(dec_routes)
+    agree = np.array([[bool((dec_routes[l][r] == ref_routes[r][l]).all())
+                       for l in range(L)] for r in range(len(refs))])
+    ok = agree.all(axis=1)
+    errs = [(dec[r].float() - refs[r].float()).abs().max().item()
+            for r in range(len(refs))]
+    same = [int(dec[r].argmax()) == int(refs[r].argmax())
+            for r in range(len(refs))]
+    held = [e for e, k in zip(errs, ok) if k]
+    rec = dict(route_agreement=float(agree.mean()),
+               rows_routes_agree=int(ok.sum()),
+               logits_max_abs_err=max(held) if held else float("nan"),
+               logits_max_abs_err_all_rows=max(errs),
+               logits_max_abs=max(r.float().abs().max().item()
+                                  for r in refs),
+               argmax_equal_rows=int(sum(s for s, k in zip(same, ok) if k)))
+    rec["passes"] = bool(rec["route_agreement"] >= MOE_ROUTE_MIN
+                         and rec["rows_routes_agree"] >= MOE_ROWS_MIN
+                         and rec["logits_max_abs_err"] <= MOE_LOGITS_ATOL)
+    return rec
+
+
+def moe_route_check(torch, np, gen, Engine, params, cfg, reqs):
+    """The first decode step of 8 rows through the engine's kernels
+    (each prompt prefilled in the engine's 256-token chunks through B11,
+    then one step through B10, the greedy first token as its input)
+    against a kernel-free forward of prompt + first token
+    (``paged_prefill_insert``: the plain chunk composition), under the
+    route rule (``route_rule``). Then the same step with a planted router
+    that takes the k lowest logits, which must fail the rule. Also
+    returns the routed items per expert over those prefills and the
+    step, summed over the layers."""
+    eng = Engine(params, cfg, max_batch=8, page_size=16, max_len=2048,
+                 prefill_chunk=256, fused=True)
+    cache, page = eng.cache, eng.cache.page_size
+    rows = reqs[:eng.max_batch]
+    with RouteRecorder(torch, gen) as rec:
+        rec.on = True
+        first = []
+        for slot, (p, _) in enumerate(rows):
+            cache.admit(slot, p.size + 1)
+            first.append(int(chunked_prefill(torch, gen, eng, slot, p,
+                                             True)[0].argmax()))
+        last = torch.tensor(first, dtype=torch.int32).cuda()
+        lengths = torch.tensor([p.size for p, _ in rows],
+                               dtype=torch.int32).cuda()
+        tables = torch.from_numpy(cache.block_tables.copy()).cuda()
+
+        def step():
+            rec.calls = []
+            out, _ = gen.paged_decode_forward(params, last, cache.pool,
+                                              tables, lengths, cfg,
+                                              fused=True)
+            return out, rec.calls
+
+        dec, dec_routes = step()
+        load = rec.load.clone()
+        gen._moe_ffn = lambda x, lp, c: rec(
+            x, dict(lp, moe_gate=-lp["moe_gate"]), c)
+        try:
+            bad, bad_routes = step()
+        finally:
+            gen._moe_ffn = rec
+        refs, ref_routes = [], []
+        for (p, _), t in zip(rows, first):
+            seq = np.concatenate([p, [t]]).astype(np.int32)
+            npg = cache.pages_for(seq.size)
+            pool = gen.init_paged_cache(cfg, npg + 1, page,
+                                        device=last.device)
+            rec.calls = []
+            lg, _ = gen.paged_prefill_insert(
+                params, torch.from_numpy(seq[None]).cuda(), pool,
+                torch.arange(1, npg + 1, dtype=torch.int32,
+                             device=last.device), cfg)
+            refs.append(lg[0])
+            ref_routes.append([c[-1] for c in rec.calls])
+            del pool
+    for slot in range(len(rows)):
+        cache.release(slot)
+    good = route_rule(np, dec, dec_routes, refs, ref_routes)
+    fault = route_rule(np, bad, bad_routes, refs, ref_routes)
+    if not good["passes"]:
+        fail(f"moe engine: the first decode step through B11 + B10 against "
+             f"the kernel-free forward fails the route rule {good}")
+    if fault["passes"]:
+        fail(f"moe engine: the route rule passes a router that takes the "
+             f"k lowest logits {fault}")
+    load = load.cpu().tolist()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(good, fault=fault, items_per_expert=load,
+                load_max_over_mean=max(load) / (sum(load) / len(load)))
+
+
+def moe_ffn_profile(torch, gen, tl, params, cfg):
+    """The serving MoE FFN's card time, alone, at the engine's decode
+    step (8 rows) and prefill chunk (256 tokens): ``torch.profiler`` over
+    L calls of layer 0's experts on seeded normal inputs (the RMSNorm's
+    output scale), the card's kernel time per call and per step (x L),
+    the host's wall per call (its one host read of the run lengths
+    waits for the card), the experts the rows reach and the card's
+    bound for that work (those experts' weights read once, the items'
+    three products)."""
+    from torch.profiler import ProfilerActivity, profile
+    lp = tl.layer_params(params, 0)
+    gen_ = torch.Generator(device="cuda").manual_seed(5)
+    H, I, k = cfg.hidden_size, cfg.intermediate_size, cfg.moe.top_k
+    L = cfg.num_layers
+    out = {}
+    for name, (B, T) in (("decode_step", (8, 1)),
+                         ("prefill_chunk", (1, 256))):
+        x = torch.randn((B, T, H), generator=gen_, device="cuda").to(
+            cfg.dtype)
+        for _ in range(2):
+            gen._moe_ffn(x, lp, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(L):
+                gen._moe_ffn(x, lp, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / L
+        br = device_breakdown(torch, prof, L, wall)
+        logits = x.reshape(-1, H).float() @ lp["moe_gate"].float()
+        hit = int(torch.topk(logits, k, dim=-1).indices.unique().numel())
+        items = B * T * k
+        bms, by = bound_ms(hit * 3 * H * I * 2 + 2 * B * T * H * 2,
+                           items * 6 * H * I)
+        busy = br.get("device_busy_ms_per_call")
+        out[name] = dict(rows=B * T, items=items, experts_hit=hit,
+                         card_ms_per_layer=busy,
+                         card_ms_per_forward=(busy * L if busy is not None
+                                              else None),
+                         host_ms_per_layer=wall, bound_ms_per_layer=bms,
+                         bound_by=by, top_kernels=br.get("top_kernels"))
+    return out
+
+
+def moe_training(torch, np, kernels, tl, tt, cfg, seed: int, steps: int):
+    """``make_train_step`` on the MoE model (``cfg``), batch 1 x 4096,
+    ``seq_chunk=512``, one state carried through "xla" and then "auto":
+    per mode one warm-up step and ``steps`` timed, the launch counters
+    zeroed just before the timed steps and read just after (per layer
+    and step B1 twice, B2 and B3 once; under "auto" also B4a four times
+    and B4b twice, once more each for the final norm; no B5: the
+    experts' SwiGLU has no fused form, as in the JAX ``moe_ffn``). The
+    losses must be finite and fall."""
+    import dataclasses
+    seq, batch = 4096, 1
+    t0 = time.perf_counter()
+    state = tt.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, seq)), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {}
+    L = cfg.num_layers
+    for mode in ("xla", "auto"):
+        step = tt.make_train_step(dataclasses.replace(
+            cfg, fused_kernels=mode), seq_chunk=512)
+        state, m = step(state, tokens)
+        metrics = [m]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        step_ms = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ts = time.perf_counter()
+            state, m = step(state, tokens)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            metrics.append(m)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        fused = ({"B4a": (4 * L + 1) * steps, "B4b": (2 * L + 1) * steps}
+                 if mode != "xla" else {})
+        want = {**dict.fromkeys(kernels.WRAPPERS, 0), "B1": 2 * L * steps,
+                "B2": L * steps, "B3": L * steps, **fused}
+        if counts != want:
+            fail(f"moe training {mode}: launches {counts} != {want}")
+        losses = [x["loss"].item() for x in metrics]
+        gnorms = [x["grad_norm"].item() for x in metrics]
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"moe training {mode}: non-finite loss or grad norm "
+                 f"{losses} {gnorms}")
+        if not losses[-1] < losses[0]:
+            fail(f"moe training {mode}: the loss did not fall: {losses}")
+        out[mode] = dict(fused_kernels=mode, kv="bf16", layers=L,
+                         batch=batch, seq=seq, seq_chunk=512,
+                         params=cfg.num_params(), step_ms=step_ms,
+                         step_ms_mean=sum(step_ms) / steps,
+                         tokens_per_s=steps * batch * seq / wall,
+                         peak_mem_gb=torch.cuda.max_memory_allocated()
+                         / 2**30, losses=losses, grad_norms=gnorms,
+                         launches=counts)
+        print(f"moe train {mode} " + json.dumps(out[mode]))
+        del step
+    out["init_s"] = init_s
+    del state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class RouteTape:
+    """The MoE whole slice's routing. bf16 on the card and f32 on the CPU
+    route a near-tied token to different experts (phase 3m's serving
+    check reads ~6% of routes apart), and under capacity drops one moved
+    token shifts which later tokens an expert drops: an H100 run read
+    every gradient 23-35% apart that way. So the CPU side takes the
+    card's decisions: ``recording`` keeps each ``moe.route`` call's
+    experts, slots and keeps in call order (the forward's layers, then
+    the backward's recomputes); ``replaying`` makes ``moe.route`` return
+    them, call for call (cycling, as the step repeats ``loss_fn``'s
+    calls), with the combine weights and the load-balance loss
+    recomputed from the side's own f32 probabilities, and counts how many
+    of its own choices agree."""
+
+    def __init__(self, torch, tm):
+        self.torch, self.tm, self.route = torch, tm, tm.route
+        self.tape, self.i, self.same, self.total = [], 0, 0, 0
+
+    def agreement(self) -> float:
+        return self.same / max(1, self.total)
+
+    def _record(self, x, w, cfg):
+        r = self.route(x, w, cfg)
+        self.tape.append(tuple(t.cpu() for t in (r.expert, r.slot, r.keep)))
+        return r
+
+    def _replay(self, x, w, cfg):
+        torch = self.torch
+        own = self.route(x, w, cfg)
+        expert, slot, keep = (t.to(x.device) for t in
+                              self.tape[self.i % len(self.tape)])
+        self.i += 1
+        self.same += int((own.expert == expert).sum())
+        self.total += expert.numel()
+        probs = torch.softmax(own.logits, dim=-1)
+        sel = probs.gather(1, expert) * keep
+        total = sel.sum(1)
+        denom = torch.where(total == 0.0, torch.ones_like(total), total)
+        E = cfg.num_experts
+        ce = torch.nn.functional.one_hot(expert[:, 0], E).float().mean(0)
+        aux = cfg.aux_loss_weight * E * torch.sum(probs.mean(0) * ce)
+        return own._replace(expert=expert, slot=slot, keep=keep,
+                            weight=sel / denom[:, None],
+                            losses=dict(own.losses, aux_loss=aux))
+
+    def _swap(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            self.tm.route = fn
+            try:
+                yield
+            finally:
+                self.tm.route = self.route
+        return cm()
+
+    def recording(self):
+        self.tape = []
+        return self._swap(self._record)
+
+    def replaying(self):
+        return self._swap(self._replay)
+
+
+def router_faults(tm):
+    """The whole slice's planted MoE fault on the CPU side: a training
+    router that takes the k lowest logits (the real router on the
+    negated gate), in place of the card's replayed routes."""
+    route = tm.route
+    return [("router takes the k lowest logits", tm, "route",
+             lambda x, w, c: route(x, -w, c))]
+
+
+def run_moe(torch, kernels, cfg, seed: int, reqs):
+    """Phase 3m: Mixture-of-Experts Llama on the card at the repo's
+    full MoE width (``moe_config``) and ``cfg``'s depth, fresh seeded
+    weights (``init_params``: router f32, experts bf16). (a) The engine
+    on the 16 requests, bf16 and int8 KV, fused (B10 + B11): every
+    request finishes with its count, launches equal the counted
+    forwards, pools drain (``run_tier``); the route-rule logits check and
+    its planted fault (``moe_route_check``); a ``torch.profiler`` split
+    of prefill chunks and decode steps (``profile_tier``) and the MoE
+    FFN's own card time (``moe_ffn_profile``). (b) Weight-only int8
+    (``quantize_weights(bits=8)``): no ``moe_*_scale`` leaf, the router
+    and expert stacks the very tensors given, attention and head int8;
+    the engine serves (a)'s requests on that tree (bf16 KV, fused).
+    (c) Dense ``generate``, B = 8, prompt 128, 64 new, bf16 KV: B7 once
+    per layer and decode step (``dense_tier``). (d) Training at half the
+    depth, batch 1 x 4096, "xla" and "auto" (``moe_training``), and the
+    whole-slice check of 2 layers under "auto" (the router and experts
+    are the same function in both modes; "auto" adds B4 and the norms'
+    leaves) in bf16 on the card against f32 on the CPU at 512 tokens,
+    the CPU side on the card's routes (``RouteTape``), with the planted
+    lowest-k router (``whole_slice``)."""
+    import numpy as np
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine as E
+    from paddle_tpu_torch.models import generate as gen
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.models import moe as tm
+    from paddle_tpu_torch.models import train as tt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused as fk
+    mcfg = moe_config(tl.LlamaConfig, tm.MoEConfig, cfg.num_layers)
+    t0 = time.perf_counter()
+    params = tl.init_params(mcfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"moe params: {mcfg.num_layers} layers, "
+          f"{mcfg.num_params() / 1e9:.3f} B, {init_s:.1f} s to init")
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    runs = []
+    for kv in (None, "int8"):
+        rec = run_tier(torch, kernels, gen, E, params, mcfg, reqs,
+                       f"moe-{'int8' if kv else 'bf16'}-fused", kv, True)
+        print("moe tier " + show(rec))
+        runs.append(rec)
+    route = moe_route_check(torch, np, gen, E, params, mcfg, reqs)
+    print("moe route check " + json.dumps(route))
+    prof = profile_tier(torch, E, params, mcfg, reqs)
+    print("moe profile " + json.dumps(prof))
+    ffn = moe_ffn_profile(torch, gen, tl, params, mcfg)
+    print("moe ffn " + json.dumps(ffn))
+    part("a")
+    # (b) weight-only int8: the expert stacks stay as they are
+    qp = gen.quantize_weights(params, mcfg, bits=8)
+    ql = qp["layers"]
+    scales = [n for n in ql if n.startswith("moe_") and n.endswith("_scale")]
+    kept = all(ql[n] is params["layers"][n] for n in MOE_LEAVES)
+    if (scales or not kept or ql["wq"].dtype != torch.int8
+            or qp["lm_head"].dtype != torch.int8):
+        fail(f"moe int8 weights: expert scales {scales}, stacks kept "
+             f"{kept}, wq {ql['wq'].dtype}, lm_head {qp['lm_head'].dtype}")
+    rec = run_tier(torch, kernels, gen, E, qp, mcfg, reqs,
+                   "moe-w8-bf16-fused", None, True)
+    rec.update(token_agreement(rec["tokens"], runs[0]["tokens"]))
+    print("moe tier " + show(rec))
+    runs.append(rec)
+    del qp, ql
+    part("b")
+    # (c) dense decoding
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        3, mcfg.vocab_size, (8, 128)), dtype=torch.int32, device="cuda")
+    gen.generate(params, prompt, mcfg, max_new_tokens=2)          # warm
+    rec = dense_tier(torch, kernels, gen, params, mcfg, "moe-generate",
+                     prompt, 64)
+    print("moe dense " + json.dumps(rec))
+    runs.append(rec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("c")
+    # (d) training, then the whole slice per mode
+    train = moe_training(torch, np, kernels, tl, tt, moe_config(
+        tl.LlamaConfig, tm.MoEConfig, max(1, cfg.num_layers // 2)),
+        seed, steps=3)
+    part("d_train")
+    scfg = moe_config(tl.LlamaConfig, tm.MoEConfig, 2, fused_kernels="auto")
+    train["auto"]["slice_check"] = whole_slice(
+        torch, np, tl, tt, fa, fk, seed, "auto", cfg=scfg,
+        seq=MOE_SLICE_SEQ, faults=router_faults(tm),
+        routes=RouteTape(torch, tm))
+    print("moe train auto slice " + json.dumps(train["auto"]["slice_check"]))
+    part("d_slice")
+    print("moe parts_s " + json.dumps(part_s))
+    return dict(layers=mcfg.num_layers, params=mcfg.num_params(),
+                init_s=init_s, parts_s=part_s, runs=runs, route_check=route,
+                profile=prof, moe_ffn=ffn, train=train)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -6849,10 +7366,10 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k", "3l"),
+    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k", "3l", "3m"),
                     help="build, then run this phase alone (3h at "
-                         "--layers, 3i, 3j, 3k and 3l at a quarter of "
-                         "them) and write its record; no kernel line")
+                         "--layers, 3i, 3j, 3k, 3l and 3m at a quarter "
+                         "of them) and write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -6959,7 +7476,8 @@ def main(argv=None) -> int:
                     "3i": ("adapters", run_adapters),
                     "3j": ("wal", run_wal),
                     "3k": ("cluster", run_cluster),
-                    "3l": ("multiproc", run_multiproc)}[args.only]
+                    "3l": ("multiproc", run_multiproc),
+                    "3m": ("moe", run_moe)}[args.only]
         record[key] = run(torch, kernels, cfg, args.seed, reqs)
         lap(args.only)
         for r in record[key]["runs"]:
@@ -7264,26 +7782,29 @@ def main(argv=None) -> int:
     lap("3i")
 
     # ---- phase 3j: the write-ahead log under the supervisor, process
-    # deaths and cold restarts, at a quarter of the depth
-    wal = run_wal(torch, kernels, quarter, args.seed, reqs)
+    # deaths and cold restarts, at an eighth of the depth (4 layers since
+    # phase 3m took its time, as 3k, 3l and 3g; --only: a quarter)
+    eighth = LlamaConfig.llama2_7b(num_layers=max(1, args.layers // 8))
+    wal = run_wal(torch, kernels, eighth, args.seed, reqs)
     record["wal"] = wal
     lap("3j")
 
     # ---- phase 3k: the serving cluster (routing, handoff, failover,
-    # retirement, traffic, a cold restart) at a quarter of the depth
-    cluster = run_cluster(torch, kernels, quarter, args.seed, reqs)
+    # retirement, traffic, a cold restart) at an eighth of the depth
+    cluster = run_cluster(torch, kernels, eighth, args.seed, reqs)
     record["cluster"] = cluster
     lap("3k")
 
     # ---- phase 3l: the cluster across worker processes (socket RPC, a
-    # kill -9 failover, the KV fabric, wire chaos) at a quarter of the
+    # kill -9 failover, the KV fabric, wire chaos) at an eighth of the
     # depth
-    multiproc = run_multiproc(torch, kernels, quarter, args.seed, reqs)
+    multiproc = run_multiproc(torch, kernels, eighth, args.seed, reqs)
     record["multiproc"] = multiproc
     lap("3l")
 
-    # ---- phase 3g: supervised serving with faults, drain and restore
-    supervised = run_supervised(torch, kernels, quarter, args.seed, reqs)
+    # ---- phase 3g: supervised serving with faults, drain and restore,
+    # at an eighth of the depth
+    supervised = run_supervised(torch, kernels, eighth, args.seed, reqs)
     record["supervised"] = supervised
     lap("3g")
 
@@ -7304,6 +7825,13 @@ def main(argv=None) -> int:
                                  args.seed)
     record["paddle_decoder"] = decoder
     lap("3d")
+
+    # ---- phase 3m: Mixture-of-Experts Llama (engine, int8 weights, dense
+    # decoding, training) at the repo's MoE width and a quarter of the
+    # depth
+    moe = run_moe(torch, kernels, quarter, args.seed, reqs)
+    record["moe"] = moe
+    lap("3m")
 
     # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
     train = {}
@@ -7328,13 +7856,16 @@ def main(argv=None) -> int:
     lap("3b")
 
     # ---- phase 4: the kernel line
-    launches = {k: train["xla"]["launches"][k] for k in ("B1", "B2", "B3")}
+    launches = {k: train["xla"]["launches"][k]
+                + moe["train"]["xla"]["launches"][k]
+                for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
+                     + moe["train"]["auto"]["launches"][k]
                      for k in ("B4a", "B4b", "B5a", "B5b")})
     for rec in (tiers + sched["runs"] + constrained["runs"]
                 + adapters["runs"] + wal["runs"] + cluster["runs"]
                 + multiproc["runs"] + supervised["runs"]
-                + hosttier["runs"]
+                + hosttier["runs"] + moe["runs"]
                 + dense["tiers"] + decoder["tiers"]):
         kvn = rec["kv"]
         for k, n in rec["launches"].items():

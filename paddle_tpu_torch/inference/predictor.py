@@ -308,6 +308,8 @@ class ContinuousBatchingEngine:
                  host_tier_kw: Optional[Dict] = None,
                  device: DeviceLike = None):
         if mesh is not None:
+            if cfg.moe is not None:
+                _not_ported("expert-parallel MoE serving over a mesh", "7")
             _not_ported("mesh (tp / tp x dp serving)", "1.9")
         self.device = resolve_device(device)
         self.cfg = cfg

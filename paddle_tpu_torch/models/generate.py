@@ -25,9 +25,13 @@ The paged forwards take the adapter pool's multi-LoRA term
 (``adapters=`` / ``adapter_slots=``, :func:`_lora_delta`): the q and o
 projections of every row add ``(x @ A_i) @ B_i * alpha/r`` of its slot's
 factors; slot 0's are exact zeros, and ``adapters=None`` leaves the term
-out. Options of the JAX signatures that the port leaves out (tensor and
-data parallelism, MoE, the trace-time observability hooks) are not
-taken; ROADMAP.md lists them in porting order.
+out.
+
+An MoE config (``cfg.moe``) swaps every layer's MLP for the serving
+expert FFN :func:`_moe_ffn` in all of these forwards. Options of the
+JAX signatures that the port leaves out (tensor, data and expert
+parallelism, the trace-time observability hooks) are not taken;
+ROADMAP.md lists them in porting order.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..observability import hooks as _obs
 from ..ops.kernels import fused as _fz
@@ -126,7 +131,8 @@ def quantize_weights(params, cfg: LlamaConfig, bits: int = 8,
     ``wd``), and ``lm_head`` when the embeddings are untied, becomes
     quantized values beside a ``name + "_scale"`` f32 leaf, which
     :func:`~.llama._w` dequantizes at every use; the embedding and the
-    norms stay as they are.
+    norms stay as they are, and so do an MoE tree's router and expert
+    stacks (``moe_*``), in place of the dense ``wg``/``wu``/``wd``.
 
     ``bits=8``: per-output-channel symmetric int8, ``w ~= q *
     scale[None, :]``, scale ``(L, out)``. ``bits=4``: per-group
@@ -167,7 +173,8 @@ def quantize_weights(params, cfg: LlamaConfig, bits: int = 8,
     out = dict(params)
     layers = dict(params["layers"])
     for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
-        layers[name], layers[name + "_scale"] = stack(layers[name])
+        if name in layers:          # MoE trees: moe_* stacks stay as given
+            layers[name], layers[name + "_scale"] = stack(layers[name])
     out["layers"] = layers
     if not cfg.tie_embeddings and "lm_head" in params:
         out["lm_head"], out["lm_head_scale"] = q(params["lm_head"])
@@ -247,6 +254,63 @@ def _adapter_prep(adapters, adapter_slots, cfg: LlamaConfig):
     return lambda l: tuple(r[l] for r in rows) + (asc,)
 
 
+def _moe_ffn(x, lp, cfg: LlamaConfig):
+    """Serving MoE FFN on one device, the JAX ``_moe_ffn`` with no mesh:
+    x (B, T, H) already normalised; ``lp`` carries the layer's f32
+    router ``moe_gate`` (H, E) and expert stacks ``moe_wg`` / ``moe_wu``
+    (E, H, i) and ``moe_wd`` (E, i, H).
+
+    Routing is capacity-DROPLESS, unlike the training router: the top
+    ``top_k`` of the f32 router logits (a descending stable sort, so a
+    tie keeps the lower expert first, as ``lax.top_k``), softmax over the
+    k selected logits, and the combine ``y = sum_j w_j * out_j`` over the
+    k slots in slot order in f32, cast once to the model dtype.
+
+    The JAX package applies each routed item's expert by gathering that
+    expert's matrices per item (``(n, H, i)`` a projection: 11.8 GB at a
+    256-token chunk of a 2048 x 5632, 16-expert model). The port computes
+    the same function grouped by expert and gathers no matrix: the items
+    are ordered by expert (one stable argsort, one gather of token rows),
+    each expert with items runs its SwiGLU over its contiguous run of
+    rows (three products, SiLU in f32), and one scatter puts the outputs
+    back in item order. The run lengths are read on the host, once a
+    layer: that read waits for the card, so an MoE forward is not
+    fence-free as a dense one is."""
+    B, T, H = x.shape
+    k = cfg.moe.top_k
+    dt = x.dtype
+    gate = lp["moe_gate"].float()                        # (H, E)
+    wg, wu, wd = lp["moe_wg"], lp["moe_wu"], lp["moe_wd"]
+    N = B * T
+    xf = x.reshape(N, H)
+    logits = xf.float() @ gate                           # (N, E)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    w = torch.softmax(vals[:, :k], dim=-1)               # (N, k) f32
+    items_e = idx[:, :k].reshape(-1)                     # (N * k,)
+    order = torch.argsort(items_e, stable=True)
+    counts = torch.bincount(items_e, minlength=gate.shape[-1]).tolist()
+    xs = xf[order // k]                                  # rows by expert
+    outs, off = [], 0
+    for e, c in enumerate(counts):
+        if c:
+            xe = xs[off:off + c]
+            g = F.silu((xe @ wg[e]).float()).to(dt)
+            outs.append((g * (xe @ wu[e])) @ wd[e])
+            off += c
+    items_out = torch.empty_like(xs).index_copy_(0, order, torch.cat(outs))
+    y = torch.sum(items_out.reshape(N, k, H).float() * w[:, :, None], dim=1)
+    return y.to(dt).reshape(B, T, H)
+
+
+def _ffn(x, lp, cfg: LlamaConfig):
+    """The layer after the attention residual: the dense SwiGLU MLP
+    (:func:`~.llama._mlp`, weights through ``_w``) or, for an MoE config,
+    the RMSNorm and :func:`_moe_ffn`, each with its residual."""
+    if cfg.moe is None:
+        return _mlp(x, lp, cfg)
+    return x + _moe_ffn(rms_norm(x, lp["mlp_norm"], cfg.rms_eps), lp, cfg)
+
+
 def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
                  cfg: LlamaConfig, rpos=None, kstart=None, fused=False,
                  tree_mask=None, lengths=None, ad=None):
@@ -287,7 +351,7 @@ def _block_infer(x, lp, cache: Dict, l: int, pos: int, cos, sin,
     ow = o @ _w(lp, "wo", x.dtype)
     if ad is not None:
         ow = ow + _lora_delta(o, ad[2], ad[3], ad[4])
-    return _mlp(x + ow, lp, cfg)
+    return _ffn(x + ow, lp, cfg)
 
 
 def _forward_cached(params, tokens, cache: Dict, pos: int,
@@ -582,6 +646,68 @@ def beam_search(params, prompt, cfg: LlamaConfig, *, num_beams: int = 4,
     best = torch.argmax(final, dim=1)                           # (B,)
     seq = gen[torch.arange(B, device=dev), best]
     return torch.cat([prompt, seq], dim=1)
+
+
+def paged_prefill_insert(params, prompt: torch.Tensor, paged: Dict,
+                         block_table: torch.Tensor, cfg: LlamaConfig,
+                         prompt_len=None):
+    """Prefill ONE request and scatter its KV into the paged pools, the
+    JAX ``paged_prefill_insert``; the pools are written in place and
+    returned.
+
+    prompt:      (1, S) int, LEFT-padded to S when ``prompt_len`` is
+                 given (the true prompt length, an int or a one-element
+                 tensor)
+    paged:       :func:`init_paged_cache` pools (int8 tier included)
+    block_table: (ppseq,) int page ids for this request, in logical
+                 order
+    returns (last-token logits (1, V), ``paged``).
+
+    The prefill runs the dense path (:func:`_forward_cached`) over a
+    temporary cache of the prompt's width S, then scatters those S rows
+    into the request's pages, page slot ``s`` holding logical token
+    ``s``: a left-padded prompt's rows shift down by its pad (rope
+    positions and the ``kstart`` mask make its prefill row-identical to
+    the unpadded one), and the rows past its length repeat the last row
+    (finite, overwritten by decode before any mask exposes them). Page
+    slots past the prompt keep what a previous tenant left there."""
+    B, S = prompt.shape
+    if B != 1:
+        raise ValueError(
+            f"paged_prefill_insert: one request at a time (got batch "
+            f"{B}); continuous batching admits requests individually")
+    page = paged["k"].shape[2]
+    ext = block_table.shape[0] * page
+    if S > ext:
+        raise ValueError(
+            f"prompt of {S} tokens exceeds the block table's "
+            f"{ext}-token extent")
+    dev = paged["k"].device
+    prompt = torch.as_tensor(prompt).to(dev)
+    quant = "ks" in paged
+    dense = init_cache(cfg, 1, S, kv_dtype="int8" if quant else None,
+                       device=dev)
+    src = None
+    if prompt_len is None:
+        logits = _forward_cached(params, prompt, dense, 0, cfg, S)
+    else:
+        pad = S - torch.as_tensor(prompt_len).to(
+            device=dev, dtype=torch.long).reshape(())
+        kstart = torch.clamp(pad, 0, S - 1)[None]                # (1,)
+        rpos = torch.clamp(torch.arange(S, device=dev)[None, :]
+                           - kstart[:, None], min=0)
+        logits = _forward_cached(params, prompt, dense, 0, cfg, S,
+                                 rpos=rpos, kstart=kstart.to(torch.int32))
+        src = torch.clamp(pad + torch.arange(S, device=dev), 0, S - 1)
+    pos = torch.arange(S, device=dev)
+    block_table = block_table.to(device=dev, dtype=torch.long)
+    dst = block_table[pos // page] * page + pos % page
+    for name in paged:
+        rows = dense[name][:, 0]
+        if src is not None:
+            rows = rows[:, src]
+        _scatter_rows(paged[name], dst, rows)
+    return logits, paged
 
 
 def paged_prefill_chunk(params, tokens: torch.Tensor, paged: Dict,
@@ -906,7 +1032,7 @@ def paged_decode_forward(params, tokens: torch.Tensor, paged: Dict,
         ow = o @ _w(lp, "wo", x.dtype)
         if al is not None:
             ow = ow + _lora_delta(o, al[2], al[3], al[4])
-        x = _mlp(x + ow, lp, cfg)
+        x = _ffn(x + ow, lp, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     logits = (x[:, -1] @ _lm_head(params, cfg, x.dtype)).float()
     return logits, paged

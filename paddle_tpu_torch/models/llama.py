@@ -9,15 +9,18 @@ next-token ``loss_fn`` with ``seq_chunk``. Parameters are a plain dict
 of tensors, as the JAX package keeps a pytree; random numbers come from
 a ``torch.Generator`` and so differ from ``jax.random``'s for the same
 seed (``convert.params_from_jax`` carries JAX's own values across).
-Meshes (``mesh_axes``, ``param_specs``), context parallelism and MoE are
-not ported: see ROADMAP.md, queue A.
+``moe=`` an :class:`~.moe.MoEConfig` replaces every layer's SwiGLU MLP
+by routed experts (``models/moe.py``), whose load-balance and z losses
+the trunk sums over the layers and ``loss_fn`` adds. Meshes
+(``mesh_axes``, ``param_specs``, expert parallelism) and context
+parallelism are not ported: see ROADMAP.md, queue A.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DeviceLike, resolve_device
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import fused as _fk
+from .moe import MoEConfig, moe_ffn
 
 #: "nothing" recomputes the whole layer in backward (least memory);
 #: "attn" keeps the attention output (backward still recomputes the
@@ -60,16 +64,17 @@ class LlamaConfig:
     # a TPU" read as "on CUDA tensors". The serving forwards ignore it,
     # as the JAX package's do.
     fused_kernels: str = "xla"
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None     # experts replace the dense MLP
 
     def __post_init__(self):
         if self.fused_kernels not in FUSED_KERNELS:
             raise ValueError(f"fused_kernels={self.fused_kernels!r}: one "
                              f"of {FUSED_KERNELS}")
-        if self.moe is not None:
+        if self.moe is not None and not isinstance(self.moe, MoEConfig):
             raise NotImplementedError(
-                "moe: mixture-of-experts layers are not ported yet — see "
-                "ROADMAP.md, queue A step 8 (MoE EP training)")
+                f"moe={self.moe!r}: the port takes a models.moe.MoEConfig "
+                f"on one device; other MoE forms are not ported — see "
+                f"ROADMAP.md, queue A step 8 (MoE EP training)")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy={self.remat_policy!r}: one of "
                              f"{REMAT_POLICIES}")
@@ -101,8 +106,12 @@ class LlamaConfig:
         h, i, v, L = (self.hidden_size, self.intermediate_size,
                       self.vocab_size, self.num_layers)
         hd, nh, nkv = self.hd, self.num_heads, self.num_kv_heads
+        if self.moe is None:
+            mlp = 3 * h * i
+        else:
+            mlp = self.moe.num_experts * 3 * h * i + h * self.moe.num_experts
         per_layer = (h * nh * hd + 2 * h * nkv * hd + nh * hd * h  # attn
-                     + 3 * h * i + 2 * h)                  # mlp, 2 rmsnorm
+                     + mlp + 2 * h)                        # mlp, 2 rmsnorm
         emb = v * h * (1 if self.tie_embeddings else 2)
         return L * per_layer + emb + h
 
@@ -125,21 +134,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     ``N(0, 0.02^2)``, norms ones, each drawn in float32 and cast to
     ``cfg.dtype``. Stacked leaves are drawn one layer at a time, so the
     float32 draw never holds a whole stack at once. ``generator`` must
-    live on ``device``."""
+    live on ``device``. An MoE config takes the JAX package's expert
+    leaves in place of ``wg``/``wu``/``wd``: ``moe_gate`` (L, h, E),
+    kept in float32, and the expert stacks ``moe_wg`` / ``moe_wu`` (L,
+    E, h, i) and ``moe_wd`` (L, E, i, h)."""
     dev = resolve_device(device)
     h, i, v, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
                   cfg.num_layers)
     hd, nh, nkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
 
-    def norm(shape, fan_in=None):
+    def norm(shape, fan_in=None, dtype=cfg.dtype):
         s = 0.02 if fan_in is None else 1.0 / math.sqrt(fan_in)
         return (torch.randn(shape, generator=generator, device=dev,
-                            dtype=torch.float32) * s).to(cfg.dtype)
+                            dtype=torch.float32) * s).to(dtype)
 
-    def stacked(shape, fan_in):
-        out = torch.empty((L,) + shape, dtype=cfg.dtype, device=dev)
+    def stacked(shape, fan_in, dtype=cfg.dtype):
+        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
         for l in range(L):
-            out[l] = norm(shape, fan_in)
+            out[l] = norm(shape, fan_in, dtype)
         return out
 
     layers = {
@@ -149,10 +161,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "wo": stacked((nh * hd, h), nh * hd),
         "attn_norm": torch.ones((L, h), dtype=cfg.dtype, device=dev),
         "mlp_norm": torch.ones((L, h), dtype=cfg.dtype, device=dev),
-        "wg": stacked((h, i), h),
-        "wu": stacked((h, i), h),
-        "wd": stacked((i, h), i),
     }
+    if cfg.moe is None:
+        layers.update({
+            "wg": stacked((h, i), h),
+            "wu": stacked((h, i), h),
+            "wd": stacked((i, h), i),
+        })
+    else:
+        E = cfg.moe.num_experts
+        layers.update({
+            "moe_gate": stacked((h, E), h, torch.float32),
+            "moe_wg": stacked((E, h, i), h),
+            "moe_wu": stacked((E, h, i), h),
+            "moe_wd": stacked((E, i, h), i),
+        })
     params = {
         "embed": norm((v, h)),
         "final_norm": torch.ones((h,), dtype=cfg.dtype, device=dev),
@@ -295,12 +318,24 @@ def _attn_out(x, lp, cos, sin, cfg: LlamaConfig):
 
 
 def _post_attention(x, o, lp, cfg: LlamaConfig):
-    """The layer after attention: o-projection, residual, MLP."""
-    return _mlp(x + o @ lp["wo"], lp, cfg, fused=_pallas_fused(cfg, x))
+    """The layer after attention: o-projection, residual, MLP. Returns
+    (x, aux): aux is the MoE layer's load-balance plus z loss, None for
+    a dense layer. The experts take the fused RMSNorm where the config
+    asks for it, and no fused SwiGLU: the JAX ``moe_ffn`` has none."""
+    fused = _pallas_fused(cfg, x)
+    x = x + o @ lp["wo"]
+    if cfg.moe is None:
+        return _mlp(x, lp, cfg, fused=fused), None
+    h2 = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, fused=fused)
+    ff, losses = moe_ffn(h2, {"w_gate": lp["moe_gate"], "wg": lp["moe_wg"],
+                              "wu": lp["moe_wu"], "wd": lp["moe_wd"]},
+                         cfg.moe)
+    return x + ff, losses["aux_loss"] + losses["z_loss"]
 
 
 def _block(x, lp, cos, sin, cfg: LlamaConfig):
-    """One decoder layer on one device. lp = the layer's params."""
+    """One decoder layer on one device. lp = the layer's params. Returns
+    (x, aux), as :func:`_post_attention`."""
     return _post_attention(x, _attn_out(x, lp, cos, sin, cfg), lp, cfg)
 
 
@@ -338,19 +373,24 @@ def _layer(x, lp, cos, sin, cfg: LlamaConfig):
 
 
 def _trunk(params, tokens, cfg: LlamaConfig):
-    """-> final-norm hidden states (B, S, H). The JAX package's
+    """-> (final-norm hidden states (B, S, H), the layers' summed MoE aux
+    loss, a f32 scalar, or None for a dense model). The JAX package's
     ``lax.scan`` over the stacked layer axis is a loop over the layers'
     slices; ``unbind`` takes them all at once so that backward stacks
-    the layers' gradients in one op."""
+    the layers' gradients in one op. Each layer's aux comes out of its
+    checkpointed block with its output."""
     x = params["embed"][tokens.long()].to(cfg.dtype)
     cos, sin = rope_tables(tokens.shape[1], cfg.hd, cfg.rope_theta,
                            device=x.device)
     stacks = {name: w.unbind(0) for name, w in params["layers"].items()}
+    aux = None
     for l in range(cfg.num_layers):
         lp = {name: ws[l] for name, ws in stacks.items()}
-        x = _layer(x, lp, cos, sin, cfg)
+        x, a = _layer(x, lp, cos, sin, cfg)
+        if a is not None:
+            aux = a if aux is None else aux + a
     return rms_norm(x, params["final_norm"], cfg.rms_eps,
-                    fused=_pallas_fused(cfg, x))
+                    fused=_pallas_fused(cfg, x)), aux
 
 
 def _lm_head(params, cfg: LlamaConfig, dtype) -> torch.Tensor:
@@ -365,7 +405,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             return_hidden: bool = False) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, V) float32 (or the final-norm
     hidden states (B, S, H) when ``return_hidden``)."""
-    x = _trunk(params, tokens, cfg)
+    x, _ = _trunk(params, tokens, cfg)
     if return_hidden:
         return x
     return (x @ _lm_head(params, cfg, x.dtype)).float()
@@ -388,8 +428,9 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     masked out of the loss (labels roll by one). ``seq_chunk`` computes
     the (B, chunk, V) f32 logits one chunk at a time and recomputes each
     chunk's logits in backward, so the (B, S, V) logits are never held
-    whole; it must divide S."""
-    h = _trunk(params, tokens, cfg)
+    whole; it must divide S. An MoE model adds its layers' summed
+    load-balance and z losses (:func:`_trunk`)."""
+    h, aux = _trunk(params, tokens, cfg)
     head = _lm_head(params, cfg, h.dtype)
     B, S, _ = h.shape
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
@@ -401,10 +442,12 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             f"seq_chunk={seq_chunk} must divide seq_len={S}; a silent dense "
             f"fallback would materialize the full f32 logits")
     if seq_chunk is None:
-        return _chunk_ce_sum(h, head, labels, mask) / denom
-    total = 0.0
-    for c in range(0, S, seq_chunk):
-        sl = slice(c, c + seq_chunk)
-        total = total + _remat(_chunk_ce_sum, h[:, sl], head, labels[:, sl],
-                               mask[:, sl])
-    return total / denom
+        loss = _chunk_ce_sum(h, head, labels, mask) / denom
+    else:
+        total = 0.0
+        for c in range(0, S, seq_chunk):
+            sl = slice(c, c + seq_chunk)
+            total = total + _remat(_chunk_ce_sum, h[:, sl], head,
+                                   labels[:, sl], mask[:, sl])
+        loss = total / denom
+    return loss if aux is None else loss + aux

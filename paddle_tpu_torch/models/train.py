@@ -3,8 +3,11 @@
 Counterpart of ``paddle_tpu/models/train.py`` with ``mesh=None``: the
 state (model-dtype params, f32 master weights and Adam moments), AdamW on
 the master weights, global-norm gradient clipping and the cast back to
-the model dtype. The mesh path (dp x fsdp x tp, ZeRO-sharded optimizer
-state) is not ported: see ROADMAP.md, queue A step 8.
+the model dtype. An MoE config trains on the same step: its f32 router
+leaves (``moe_gate``) sit among the model-dtype leaves, and the loss
+carries the experts' load-balance and z losses. The mesh path (dp x
+fsdp x tp, ZeRO-sharded optimizer state, expert-parallel MoE) is not
+ported: see ROADMAP.md, queue A step 8.
 """
 from __future__ import annotations
 
@@ -91,9 +94,11 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, lr: float = 3e-4,
     returns it (the JAX step donates its state); the metrics stay on the
     device, so a step never waits for the card."""
     if mesh is not None:
+        what = ("expert-parallel MoE training is" if cfg.moe is not None
+                else "meshes (dp x fsdp x tp) are")
         raise NotImplementedError(
-            "make_train_step: meshes (dp x fsdp x tp) are not ported yet — "
-            "see ROADMAP.md, queue A step 8; pass mesh=None")
+            f"make_train_step: {what} not ported yet — see ROADMAP.md, "
+            f"queue A step 8; pass mesh=None")
 
     def step(state: TrainState, tokens: torch.Tensor):
         params = _leaves(state.params)

@@ -63,15 +63,20 @@ class _Clock:
 @pytest.fixture
 def sinks():
     """Metrics and request tracing on for both packages, registries
-    cleared; everything off and cleared again afterwards."""
+    cleared; everything off and cleared again afterwards. ``enable``
+    replaces a package's ``TRACER`` and ``disable`` only clears the
+    flag, so the tracers found here are put back: a later test in the
+    same process that reads ``tracing.TRACER`` sees no span of these."""
+    saved = {side: tr.TRACER for side, (_, tr) in OBS.items()}
     for obs, tr in OBS.values():
         obs.REGISTRY.clear()
         obs.enable()
         tr.enable(clock_ns=_Clock())
     yield
-    for obs, tr in OBS.values():
+    for side, (obs, tr) in OBS.items():
         obs.disable()
         tr.disable()
+        tr.TRACER = saved[side]
         obs.REGISTRY.clear()
 
 

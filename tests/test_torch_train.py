@@ -33,6 +33,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.models import llama as tl
 from paddle_tpu_torch.models import train as tt
 from paddle_tpu_torch.models import params_from_jax, train_state_from_jax
+from paddle_tpu_torch.models.moe import MoEConfig
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -164,12 +165,18 @@ def test_causality_and_num_params():
 def test_options_the_port_does_not_take_raise():
     with pytest.raises(ValueError, match="fused_kernels"):
         tl.LlamaConfig.tiny(fused_kernels="triton")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a moe that is not the port's MoEConfig (the JAX package's among
+    # them), and MoE training over a mesh, still raise with their step
+    with pytest.raises(NotImplementedError, match="ROADMAP.*step 8"):
         tl.LlamaConfig.tiny(moe=object())
     with pytest.raises(ValueError, match="remat_policy"):
         tl.LlamaConfig.tiny(remat_policy="everything")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*step 8"):
         tt.make_train_step(tl.LlamaConfig.tiny(), mesh=object())
+    moe_cfg = tl.LlamaConfig.tiny(moe=MoEConfig(num_experts=4, top_k=2))
+    with pytest.raises(NotImplementedError,
+                       match="expert-parallel MoE.*ROADMAP.*step 8"):
+        tt.make_train_step(moe_cfg, mesh=object())
     _, tcfg, _, tp, toks = _both("tiny")
     with pytest.raises(ValueError, match="divide"):
         tl.loss_fn(tp, torch.from_numpy(toks), tcfg, seq_chunk=5)
