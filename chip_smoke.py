@@ -3,8 +3,8 @@
 under the SLO scheduler, grammar-constrained, multi-tenant LoRA,
 supervised, with a write-ahead log and cold-restart recovery, in a
 serving cluster of supervised replicas, on the host KV tier), dense
-decoding, Paddle fused-op decoder and training step on one NVIDIA
-card.
+decoding, Paddle fused-op decoder, Paddle attention functionals and
+training step (Llama, MoE Llama, GPT-2, ERNIE) on one NVIDIA card.
 
     python3 chip_smoke.py                      # full run
     python3 chip_smoke.py --layers 2 --requests 4 --train-layers 2 \
@@ -15,6 +15,7 @@ card.
     python3 chip_smoke.py --only 3k            # build, then phase 3k alone
     python3 chip_smoke.py --only 3l            # build, then phase 3l alone
     python3 chip_smoke.py --only 3m            # build, then phase 3m alone
+    python3 chip_smoke.py --only 3n            # build, then phase 3n alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -445,6 +446,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    card's routes (attention, norm, router and expert gradients, the loss
    and the grad norm), where the CPU side with a lowest-k router must
    fail (``moe ...`` lines).
+3n. GPT-2 and ERNIE through the shared training step
+   (``make_train_step(cfg, model=...)``) and the Paddle attention
+   functionals (``run_models``). (a) GPT-2 124M
+   (``GPTConfig.gpt2_124m()``: all 12 layers, bf16, remat, head dim 64),
+   B = 8, S = 1024, ``seq_chunk=512``, fresh seeded weights: 2 warm-up
+   and 5 timed steps with the launch counters zeroed just before the
+   timed steps (per layer and step B1 twice, B2 and B3 once, nothing
+   else), losses finite and falling; ms a step, tokens/s, MFU
+   (``flops_per_token(S)`` x tokens/s / 989 TFLOP/s), peak memory, a
+   ``torch.profiler`` split of one step (B1-B3, cuBLAS, the rest, the
+   idle share); the whole slice of 2 layers at 1,024 tokens, bf16 on
+   the card against f32 on the CPU from the same parameters (loss, grad
+   norm, each layer's ``wqkv``, ``bqkv`` and ``wo`` gradient, the Llama
+   slice's limits), where the CPU side with ``causal=False`` planted in
+   the block's attention must fail (``gpt_slice``); and B1-B3 at this
+   shape (H = 12, D = 64, causal) against their plain versions with the
+   planted dropped-key-tile fault, timed beside SDPA and the bound
+   (``check_flash``). (b) ERNIE-base (``ErnieConfig()``: 768 wide, 12
+   layers, vocabulary 30,522), B = 16, S = 512: 5 timed steps in f32
+   (the config's dtype) and 5 in bf16, no kernel launched (its attention
+   is einsums, as in the JAX package), losses falling, the same
+   metrics, and the attention's card ms (forward and backward a layer)
+   as a share of a step; its MLM mask on the card bit-equal to the
+   CPU's for 3 batches, one from another ``mlm_seed`` differing, and a
+   2-layer f32 loss within ERNIE_LOSS_RTOL of the CPU's
+   (``ernie_checks``). (c) ``nn.functional.flash_attention`` on Paddle
+   ``Tensor``s, B = 2, S = 1024, H = 12, D in {64, 128}, causal and
+   not, bf16: forward and ``.backward()`` with B1 once a forward and B2
+   and B3 once a backward; each output row by row against
+   ``backend="xla"`` in f32 (which, like the dropout path, launches
+   nothing), each input gradient row by row against the kernels' plain
+   backward passes on the op's own lse and delta and as a whole within
+   FUNC_GRAD_RTOL of the xla path's; a dropout-0.1 forward on the card
+   against the CPU under one ``seed`` (the same keep-mask: rows within
+   the row rule), another seed failing the rule
+   (``functional_attention``).
 3b. Training: ``make_train_step`` on the JAX bench's training model
    (20 layers, hidden 1536, seq 4096, batch 4, ``seq_chunk=512``), once
    with ``fused_kernels="xla"`` and once with "auto" (RMSNorm and SwiGLU
@@ -459,7 +496,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole-slice check (``whole_slice``) of a 2-layer model in bf16 on the
    card against f32 on the CPU.
 4. The ``{"kernels": [...]}`` line (each kernel's launches summed over
-   the main-path runs of phases 3-3m), the card line again, and last
+   the main-path runs of phases 3-3n), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits with 1 and prints no result when no CUDA card is visible. A JSON
@@ -6682,18 +6719,16 @@ def train_config(LlamaConfig, layers: int, fused_kernels: str):
                        fused_kernels=fused_kernels)
 
 
-def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
-    """2 warm-up and ``args.train_steps`` timed steps on one batch; the
-    launch counters are zeroed just before the timed steps and read just
-    after."""
-    cfg = train_config(tl.LlamaConfig, args.train_layers, fused_kernels)
-    seq, batch = 4096, 4               # bench.py's _SWEEP_BASE_BATCH
+def model_training(torch, kernels, tt, model, cfg, tokens, seed: int,
+                   steps: int, seq_chunk=None):
+    """``steps`` timed steps of the shared step (``make_train_step(cfg,
+    model=model)``) on one batch after 2 warm-up steps, the launch
+    counters zeroed just before the timed steps and read just after;
+    losses finite and falling. Returns (record, step, state)."""
     t0 = time.perf_counter()
     state = tt.init_train_state(cfg, torch.Generator(
-        device="cuda").manual_seed(args.seed), device="cuda")
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, seq)), dtype=torch.int32, device="cuda")
-    step = tt.make_train_step(cfg, seq_chunk=512)
+        device="cuda").manual_seed(seed), device="cuda", model=model)
+    step = tt.make_train_step(cfg, seq_chunk=seq_chunk, model=model)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     metrics = []
@@ -6705,7 +6740,7 @@ def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
     kernels.reset_launch_counts()
     step_ms = []
     t0 = time.perf_counter()
-    for _ in range(args.train_steps):
+    for _ in range(steps):
         ts = time.perf_counter()
         state, m = step(state, tokens)
         torch.cuda.synchronize()
@@ -6716,10 +6751,34 @@ def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [m["loss"].item() for m in metrics]
     gnorms = [m["grad_norm"].item() for m in metrics]
+    name = f"{model.__name__.rsplit('.', 1)[-1]}-{str(cfg.dtype)[6:]}"
     if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"training: non-finite loss or grad norm {losses} {gnorms}")
+        fail(f"{name}: non-finite loss or grad norm {losses} {gnorms}")
     if not losses[-1] < losses[0]:
-        fail(f"training: the loss did not fall: {losses}")
+        fail(f"{name}: the loss did not fall: {losses}")
+    B, S = tokens.shape
+    tps = steps * B * S / wall
+    rec = dict(name=name, layers=cfg.num_layers, batch=B, seq=S,
+               seq_chunk=seq_chunk, params=cfg.num_params(), init_s=init_s,
+               step_ms=step_ms, step_ms_mean=sum(step_ms) / steps,
+               tokens_per_s=tps,
+               mfu=tps * cfg.flops_per_token(S) / BF16_FLOPS_PER_S,
+               peak_mem_gb=peak, losses=losses, grad_norms=gnorms,
+               launches=counts)
+    return rec, step, state
+
+
+def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
+    """2 warm-up and ``args.train_steps`` timed steps on one batch
+    (``model_training``); the launch counters are zeroed just before the
+    timed steps and read just after."""
+    cfg = train_config(tl.LlamaConfig, args.train_layers, fused_kernels)
+    seq, batch = 4096, 4               # bench.py's _SWEEP_BASE_BATCH
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)), dtype=torch.int32, device="cuda")
+    rec, step, state = model_training(torch, kernels, tt, tl, cfg, tokens,
+                                      args.seed, args.train_steps,
+                                      seq_chunk=512)
     L, n = cfg.num_layers, args.train_steps
     # per layer: B1 twice (backward recomputes the checkpointed layer),
     # B2 and B3 once; under "auto" B4a four times (two norms, again in
@@ -6729,17 +6788,10 @@ def run_training(torch, np, kernels, tl, tt, args, fused_kernels: str):
              "B5a": 2 * L * n, "B5b": L * n} if fused_kernels != "xla" else {}
     want = {**dict.fromkeys(kernels.WRAPPERS, 0),
             "B1": 2 * L * n, "B2": L * n, "B3": L * n, **fused}
-    if counts != want:
-        fail(f"training {fused_kernels}: launches {counts} != {want}")
-    tps = n * batch * seq / wall
-    rec = dict(fused_kernels=fused_kernels, layers=L, batch=batch, seq=seq,
-               seq_chunk=512,
-               params=cfg.num_params(), init_s=init_s,
-               tokens_per_s=tps, step_ms=step_ms,
-               step_ms_mean=sum(step_ms) / n,
-               mfu=tps * cfg.flops_per_token(seq) / BF16_FLOPS_PER_S,
-               peak_mem_gb=peak, losses=losses, grad_norms=gnorms,
-               launches=counts)
+    if rec["launches"] != want:
+        fail(f"training {fused_kernels}: launches {rec['launches']} != "
+             f"{want}")
+    rec["fused_kernels"] = fused_kernels
     return rec, step, state, tokens
 
 
@@ -6794,7 +6846,8 @@ def slice_errors(torch, card, ref, leaves):
 def slice_failures(errs) -> list:
     """The entries of ``errs`` over their SLICE_* limits (NaN is over)."""
     lim = {"loss": SLICE_LOSS_RTOL, "grad_norm": SLICE_GNORM_RTOL,
-           **dict.fromkeys(ATTN_LEAVES + FUSED_LEAVES, SLICE_LEAF_RTOL),
+           **dict.fromkeys(ATTN_LEAVES + FUSED_LEAVES + GPT_LEAVES,
+                           SLICE_LEAF_RTOL),
            **dict.fromkeys(MOE_LEAVES, MOE_LEAF_RTOL)}
     return [k for k, e in errs.items()
             if not max(e if isinstance(e, list) else [e]) <= lim[k]]
@@ -6829,6 +6882,12 @@ def slice_faults(torch, tl, fa, fk, fused_kernels: str):
              dsilu_sigmoid)]
 
 
+def f32_cpu(tree):
+    """A nested dict of tensors as float32 copies on the host."""
+    return {k: f32_cpu(v) if isinstance(v, dict) else v.float().cpu()
+            for k, v in tree.items()}
+
+
 def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str,
                 cfg=None, seq: int = 1024, faults=None, routes=None):
     """A 2-layer model at full width, B = 1, S = ``seq`` (1024): bf16
@@ -6855,11 +6914,6 @@ def whole_slice(torch, np, tl, tt, fa, fk, seed: int, fused_kernels: str,
         0, cfg.vocab_size, (1, seq)), dtype=torch.int32)
     card = tt.init_train_state(cfg, torch.Generator(
         device="cuda").manual_seed(seed + 1), device="cuda")
-
-    def f32_cpu(tree):
-        return {k: f32_cpu(v) if isinstance(v, dict) else v.float().cpu()
-                for k, v in tree.items()}
-
     # a fresh state's master is its params in f32 and its moments zero:
     # one tree crosses to the host, the rest is made there
     params = f32_cpu(card.params)
@@ -7357,6 +7411,345 @@ def run_moe(torch, kernels, cfg, seed: int, reqs):
                 profile=prof, moe_ffn=ffn, train=train)
 
 
+# --------------------------------------------------------------- phase 3n
+#: phase 3n's GPT-2 whole slice: a 2-layer GPT-2 124M in bf16 on the card
+#: against f32 on the CPU, B = 1, S = 1024, held to the Llama slice's
+#: limits (SLICE_*) on the leaves the flash kernels feed: ``wqkv`` and
+#: ``bqkv`` (through B2 and B3) and ``wo`` (through B1's output). A
+#: planted ``causal=False`` in the CPU side's attention must fail them.
+GPT_LEAVES = ("wqkv", "bqkv", "wo")
+GPT_SLICE_SEQ = 1024
+#: ERNIE on the card in f32 (TF32 off) against the CPU in f32 from the
+#: same parameters: the loss of 2 layers, the same math summed in other
+#: orders (~1e-6 relative)
+ERNIE_LOSS_RTOL = 1e-4
+#: phase 3n (c): the functional's bf16 input gradients (B2, B3) against
+#: the plain path's f32 gradients as whole tensors, Frobenius norm of the
+#: difference over the plain one's: the kernels round p, ds and O to
+#: bf16 (2^-9 relative) on the way, and an H100 read 0.23-0.25% for
+#: dQ, dK and dV at D = 64 and 128, causal and not (their worst rows
+#: against it 9-11x the row rule, on rows that cancel by chance; against
+#: the kernels' plain passes 0.20-0.23x)
+FUNC_GRAD_RTOL = 1e-2
+
+
+def named_leaves(tree, prefix=""):
+    """(name, tensor) of a nested dict, in ``train._leaves``' order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += (named_leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else [(f"{prefix}{k}", v)])
+    return out
+
+
+def loss_and_grads(torch, model, params, tokens, cfg, seq_chunk=None):
+    """``model.loss_fn`` and the f32 gradients of every leaf (on the
+    CPU), by leaf name."""
+    named = named_leaves(params)
+    for _, w in named:
+        w.requires_grad_(True)
+    try:
+        loss = model.loss_fn(params, tokens, cfg, seq_chunk=seq_chunk)
+        grads = torch.autograd.grad(loss, [w for _, w in named],
+                                    allow_unused=True, materialize_grads=True)
+    finally:
+        for _, w in named:
+            w.requires_grad_(False)
+    return loss.item(), {n: g.float().cpu() for (n, _), g in zip(named, grads)}
+
+
+def gpt_slice(torch, np, tg, seed: int):
+    """GPT-2 124M's width at 2 layers, B = 1, S = GPT_SLICE_SEQ: bf16
+    through B1-B3 on the card against f32 on the CPU from the same
+    parameters (the CPU's einsum attention): the loss, the global
+    gradient norm, and each layer's gradient of the GPT_LEAVES; then
+    the same with ``causal=False`` planted in the CPU side's attention,
+    which must fail."""
+    import dataclasses
+    cfg = tg.GPTConfig.gpt2_124m(num_layers=2)
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tg.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed + 1), device="cuda")
+    host = f32_cpu(params)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, GPT_SLICE_SEQ)), dtype=torch.int32)
+    t0 = time.perf_counter()
+    card = loss_and_grads(torch, tg, params, tokens.cuda(), cfg, 512)
+    ref = loss_and_grads(torch, tg, host, tokens, cpu_cfg, 512)
+
+    def errors(other):
+        errs = slice_errors(torch, (card[0], [card[1][f"layers/{n}"]
+                                              for n in GPT_LEAVES]),
+                            (other[0], [other[1][f"layers/{n}"]
+                                        for n in GPT_LEAVES]), GPT_LEAVES)
+        a, b = (math.sqrt(sum(g.double().square().sum().item()
+                              for g in x[1].values())) for x in (card, other))
+        errs["grad_norm"] = abs(a - b) / b
+        return errs
+
+    errs = errors(ref)
+    kept = tg._attention
+    tg._attention = lambda q, k, v, causal=True: kept(q, k, v, causal=False)
+    try:
+        faulty = loss_and_grads(torch, tg, host, tokens, cpu_cfg, 512)
+    finally:
+        tg._attention = kept
+    control = errors(faulty)
+    if not slice_failures(control):
+        fail(f"gpt slice: the check passes the CPU side with causal=False "
+             f"({control})")
+    bad = slice_failures(errs)
+    if bad:
+        fail(f"gpt slice: {bad} over their limits: {errs}")
+    return dict(layers=2, seq=GPT_SLICE_SEQ, loss={"card_bf16": card[0],
+                                                   "cpu_f32": ref[0]},
+                rel_err=errs, control_causal_false=control,
+                cpu_s=time.perf_counter() - t0)
+
+
+def ernie_attention_ms(torch, cfg, B: int, S: int) -> float:
+    """Card ms of ERNIE's attention (``ernie._block``'s scores einsum,
+    pad-free softmax, cast and product with v) forward and backward at
+    one layer's shape in ``cfg.dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nh, hd = cfg.num_heads, cfg.hd
+    q, k, v, do = (torch.randn((B, S, nh, hd), generator=g, device="cuda")
+                   .to(cfg.dtype) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(
+            hd)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+        return torch.autograd.grad(o, (q, k, v), do)
+
+    return time_ms(torch, fwd_bwd, reps=5, warmup=2)
+
+
+def ernie_checks(torch, np, te, seed: int):
+    """ERNIE's MLM mask on the card bit-equal to the CPU's for 3 batches
+    of B = 16, S = 512 (one from another ``mlm_seed`` must differ), and
+    a 2-layer f32 loss on the card within ERNIE_LOSS_RTOL of the CPU's
+    from the same parameters (4 rows of 512)."""
+    cfg = te.ErnieConfig()
+    rng = np.random.default_rng(seed + 3)
+    shares = []
+    for b in range(3):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size - 1, (16, 512)),
+                              dtype=torch.int32)
+        card = te._mlm_mask(tok.cuda(), cfg).cpu()
+        host = te._mlm_mask(tok, cfg)
+        if not torch.equal(card, host):
+            fail(f"ernie mask batch {b}: the card's mask differs from the "
+                 f"CPU's at {(card != host).sum().item()} positions")
+        shares.append(card.float().mean().item())
+        other = te._mlm_mask(tok.cuda(), te.ErnieConfig(mlm_seed=7)).cpu()
+        if torch.equal(other, host):
+            fail(f"ernie mask batch {b}: a mask from mlm_seed 7 equals "
+                 f"seed 0's")
+    cfg2 = te.ErnieConfig(num_layers=2)
+    params = te.init_params(cfg2, torch.Generator(device="cuda").manual_seed(
+        seed + 2), device="cuda")
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size - 1, (4, 512)),
+                          dtype=torch.int32)
+    with torch.no_grad():
+        on_card = te.loss_fn(params, tok.cuda(), cfg2).item()
+        on_cpu = te.loss_fn(f32_cpu(params), tok, cfg2).item()
+    err = abs(on_card - on_cpu) / abs(on_cpu)
+    if not err <= ERNIE_LOSS_RTOL:
+        fail(f"ernie 2-layer loss: card {on_card} against the CPU's "
+             f"{on_cpu}: {err:.3g} > {ERNIE_LOSS_RTOL}")
+    return dict(mask_batches=3, masked_share=shares,
+                loss_2_layers={"card_f32": on_card, "cpu_f32": on_cpu,
+                               "rel_err": err})
+
+
+def functional_attention(torch, kernels, ptt, TF, fa, seed: int):
+    """``nn.functional.flash_attention`` on Paddle ``Tensor``s on the
+    card, B = 2, S = 1024, H = 12, D in {64, 128}, causal and not, bf16:
+    forward, then ``.backward()``, with the launch counters zeroed before
+    and read after (B1 once a forward, B2 and B3 once a backward, nothing
+    else). Each output is held row by row against the plain path
+    (``backend="xla"``, which launches nothing) in f32 on the same
+    inputs; each input gradient row by row against the kernels' plain
+    backward passes in f32 on the op's own lse and delta (as
+    ``check_flash`` holds them: an independent f32 backward differs from
+    the kernels' bf16 rounding of p, ds and O by more than 2% on rows
+    that cancel by chance), and as a whole within FUNC_GRAD_RTOL of the
+    plain path's f32 gradients. Then a dropout-0.1 forward (the plain
+    path) on f32 inputs under ``seed(s)`` on the card against the same
+    on the CPU (the same keep-mask: rows within the row rule), where
+    another seed on the card must fail the rule."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    B, S, H = 2, 1024, 12
+    cases, got = [], []
+    kernels.reset_launch_counts()
+    for D in (64, 128):
+        for causal in (False, True):
+            q, k, v, do = (torch.randn((B, S, H, D), generator=g,
+                                       device="cuda").bfloat16()
+                           for _ in range(4))
+            ts = [ptt.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+            out, _ = TF.flash_attention(*ts, causal=causal)
+            out.backward(ptt.to_tensor(do))
+            got.append((D, causal, (q, k, v, do), out._value.detach(),
+                        [t.grad._value for t in ts]))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n = len(got)
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0), "B1": n, "B2": n, "B3": n}
+    if counts != want:
+        fail(f"nn.functional.flash_attention: launches {counts} != {want}")
+    for D, causal, (q, k, v, do), out, grads in got:
+        kernels.reset_launch_counts()
+        ts = [ptt.to_tensor(t.float(), stop_gradient=False)
+              for t in (q, k, v)]
+        ref, _ = TF.flash_attention(*ts, causal=causal, backend="xla")
+        ref.backward(ptt.to_tensor(do.float()))
+        torch.cuda.synchronize()
+        if any(kernels.launch_counts().values()):
+            fail(f"backend='xla' launched kernels: "
+                 f"{kernels.launch_counts()}")
+        what = f"F.flash_attention D{D} causal={causal}"
+        rec = {"D": D, "causal": causal, "O": check_close(
+            torch, out, ref._value.detach(), f"O {what}")[1]}
+        scale = D ** -0.5
+        _, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        pk, pv = fa.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal,
+                                        scale)
+        pq = fa.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal, scale)
+        for nm, a, b, x in (("dQ", grads[0], pq, ts[0]),
+                            ("dK", grads[1], pk, ts[1]),
+                            ("dV", grads[2], pv, ts[2])):
+            rec[nm] = check_close(torch, a, b, f"{nm} {what}")[1]
+            xg = x.grad._value
+            rel = ((a.float() - xg).norm() / xg.norm()).item()
+            rec[nm + "_vs_plain_path"] = {
+                "rel_err": rel, "row_ratio": row_ratio(torch, a, xg)}
+            if not rel <= FUNC_GRAD_RTOL:
+                fail(f"{nm} {what}: {rel:.3g} of the plain path's f32 "
+                     f"gradient apart (> {FUNC_GRAD_RTOL})")
+        cases.append(rec)
+    kernels.reset_launch_counts()
+    # the dropout path (f32, the plain path on both sides)
+    q, k, v = (torch.randn((B, S, H, 64), generator=g, device="cuda")
+               for _ in range(3))
+
+    def dropped(ts, s):
+        ptt.seed(s)
+        out, _ = TF.flash_attention(*(ptt.to_tensor(t) for t in ts),
+                                    dropout=0.1, causal=True)
+        return out._value.float()
+
+    card = dropped((q, k, v), seed)
+    host = dropped([t.cpu() for t in (q, k, v)], seed).cuda()
+    same = row_ratio(torch, card, host)
+    other = row_ratio(torch, dropped((q, k, v), seed + 1), host)
+    torch.cuda.synchronize()
+    if any(kernels.launch_counts().values()):
+        fail(f"the plain path launched kernels: {kernels.launch_counts()}")
+    if not same <= 1.0:
+        fail(f"dropout 0.1: the card's rows at {same:.3g} of their limit "
+             f"against the CPU's under one seed")
+    if not other > 1.0:
+        fail(f"dropout 0.1: another seed's rows pass the check ({other:.3g})")
+    return dict(launches=counts, cases=cases,
+                dropout={"same_seed_row_ratio": same,
+                         "other_seed_row_ratio": other})
+
+
+def run_models(torch, kernels, seed: int):
+    """Phase 3n: GPT-2 and ERNIE through the shared training step, and
+    the attention functionals, on the card. (a) GPT-2 124M
+    (``GPTConfig.gpt2_124m()``: 12 layers, bf16, remat), B = 8, S = 1024,
+    ``seq_chunk=512``: 5 timed steps (per layer and step B1 twice, B2
+    and B3 once; nothing else), a ``torch.profiler`` split of one step,
+    the 2-layer whole slice (``gpt_slice``), and B1-B3 at this shape
+    against their plain versions, timed (``check_flash``). (b) ERNIE-base
+    (``ErnieConfig()``: 768 wide, 12 layers, vocabulary 30,522), B = 16,
+    S = 512: 5 timed steps in f32 and 5 in bf16 (no kernel: its
+    attention is einsums, as in the JAX package), the attention's share
+    of a step (``ernie_attention_ms``), the mask and loss checks
+    (``ernie_checks``). (c) ``nn.functional.flash_attention`` on Paddle
+    ``Tensor``s (``functional_attention``)."""
+    import numpy as np
+    import torch.nn.functional as F
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import ernie as te
+    from paddle_tpu_torch.models import gpt as tg
+    from paddle_tpu_torch.models import train as tt
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    part_s, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    steps, runs = 5, []
+    gcfg = tg.GPTConfig.gpt2_124m()
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, gcfg.vocab_size, (8, 1024)), dtype=torch.int32, device="cuda")
+    gpt, step, state = model_training(torch, kernels, tt, tg, gcfg, tokens,
+                                      seed, steps, seq_chunk=512)
+    L = gcfg.num_layers
+    want = {**dict.fromkeys(kernels.WRAPPERS, 0), "B1": 2 * L * steps,
+            "B2": L * steps, "B3": L * steps}
+    if gpt["launches"] != want:
+        fail(f"gpt-2 training: launches {gpt['launches']} != {want}")
+    gpt["profile"] = profile_train(torch, step, state, tokens,
+                                   gpt["step_ms_mean"])
+    print("models gpt " + json.dumps(gpt))
+    runs.append(gpt)
+    del step, state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("a_train")
+    gpt["slice_check"] = gpt_slice(torch, np, tg, seed)
+    print("models gpt slice " + json.dumps(gpt["slice_check"]))
+    gpt["flash"] = check_flash(torch, F, fa, 8, 1024, 1024, 12, 12, 64, True,
+                               seed=61, timed=True)
+    print("models gpt flash " + json.dumps(gpt["flash"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("a_checks")
+    ernie = {}
+    tokens = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, te.ErnieConfig().vocab_size - 1, (16, 512)), dtype=torch.int32,
+        device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        ecfg = te.ErnieConfig(dtype=dtype)
+        rec, step, state = model_training(torch, kernels, tt, te, ecfg,
+                                          tokens, seed, steps)
+        if any(rec["launches"].values()):
+            fail(f"{rec['name']}: launches {rec['launches']}, none expected")
+        attn = ernie_attention_ms(torch, ecfg, 16, 512)
+        rec.update(attention_ms_a_layer=attn,
+                   attention_share=ecfg.num_layers * attn
+                   / rec["step_ms_mean"])
+        print("models ernie " + json.dumps(rec))
+        runs.append(rec)
+        ernie[rec["name"]] = rec
+        del step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    part("b_train")
+    ernie["checks"] = ernie_checks(torch, np, te, seed)
+    print("models ernie checks " + json.dumps(ernie["checks"]))
+    part("b_checks")
+    functional = functional_attention(torch, kernels, ptt, TF, fa, seed)
+    print("models functional " + json.dumps(functional))
+    part("c")
+    print("models parts_s " + json.dumps(part_s))
+    return dict(parts_s=part_s, runs=runs, gpt=gpt, ernie=ernie,
+                functional=functional)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -7366,10 +7759,12 @@ def main(argv=None) -> int:
                     help="training model depth (the JAX bench's has 20)")
     ap.add_argument("--train-steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k", "3l", "3m"),
+    ap.add_argument("--only", choices=("3h", "3i", "3j", "3k", "3l", "3m",
+                                       "3n"),
                     help="build, then run this phase alone (3h at "
                          "--layers, 3i, 3j, 3k, 3l and 3m at a quarter "
-                         "of them) and write its record; no kernel line")
+                         "of them, 3n at its models' own depths) and "
+                         "write its record; no kernel line")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -7477,7 +7872,10 @@ def main(argv=None) -> int:
                     "3j": ("wal", run_wal),
                     "3k": ("cluster", run_cluster),
                     "3l": ("multiproc", run_multiproc),
-                    "3m": ("moe", run_moe)}[args.only]
+                    "3m": ("moe", run_moe),
+                    "3n": ("models", lambda torch, kernels, cfg, seed,
+                           reqs: run_models(torch, kernels, seed))
+                    }[args.only]
         record[key] = run(torch, kernels, cfg, args.seed, reqs)
         lap(args.only)
         for r in record[key]["runs"]:
@@ -7833,6 +8231,12 @@ def main(argv=None) -> int:
     record["moe"] = moe
     lap("3m")
 
+    # ---- phase 3n: GPT-2 and ERNIE through the shared training step,
+    # and the attention functionals
+    models = run_models(torch, kernels, args.seed)
+    record["models"] = models
+    lap("3n")
+
     # ---- phase 3b: training, "xla" then "auto" (fused RMSNorm, SwiGLU)
     train = {}
     for mode in ("xla", "auto"):
@@ -7858,6 +8262,8 @@ def main(argv=None) -> int:
     # ---- phase 4: the kernel line
     launches = {k: train["xla"]["launches"][k]
                 + moe["train"]["xla"]["launches"][k]
+                + models["gpt"]["launches"][k]
+                + models["functional"]["launches"][k]
                 for k in ("B1", "B2", "B3")}
     launches.update({k: train["auto"]["launches"][k]
                      + moe["train"]["auto"]["launches"][k]

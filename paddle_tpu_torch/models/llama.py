@@ -421,17 +421,16 @@ def _chunk_ce_sum(h, head, labels, mask):
     return (_ce((h @ head).float(), labels) * mask).sum()
 
 
-def loss_fn(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-            seq_chunk: Optional[int] = None) -> torch.Tensor:
-    """Next-token cross-entropy (mean over B*(S-1)), as the JAX package's:
-    the forward runs on the full sequence and the last position is
-    masked out of the loss (labels roll by one). ``seq_chunk`` computes
-    the (B, chunk, V) f32 logits one chunk at a time and recomputes each
-    chunk's logits in backward, so the (B, S, V) logits are never held
-    whole; it must divide S. An MoE model adds its layers' summed
-    load-balance and z losses (:func:`_trunk`)."""
-    h, aux = _trunk(params, tokens, cfg)
-    head = _lm_head(params, cfg, h.dtype)
+def next_token_loss(h: torch.Tensor, head: torch.Tensor,
+                    tokens: torch.Tensor,
+                    seq_chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy of hidden states ``h`` (B, S, H) through
+    ``head`` (H, V), mean over B*(S-1): labels roll by one and the last
+    position is masked out. ``seq_chunk`` computes the (B, chunk, V) f32
+    logits one chunk at a time and recomputes each chunk's logits in
+    backward, so the (B, S, V) logits are never held whole; it must
+    divide S. Shared by the Llama and GPT losses, whose JAX bodies are
+    the same."""
     B, S, _ = h.shape
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1).long()
     mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
@@ -442,12 +441,22 @@ def loss_fn(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             f"seq_chunk={seq_chunk} must divide seq_len={S}; a silent dense "
             f"fallback would materialize the full f32 logits")
     if seq_chunk is None:
-        loss = _chunk_ce_sum(h, head, labels, mask) / denom
-    else:
-        total = 0.0
-        for c in range(0, S, seq_chunk):
-            sl = slice(c, c + seq_chunk)
-            total = total + _remat(_chunk_ce_sum, h[:, sl], head,
-                                   labels[:, sl], mask[:, sl])
-        loss = total / denom
+        return _chunk_ce_sum(h, head, labels, mask) / denom
+    total = 0.0
+    for c in range(0, S, seq_chunk):
+        sl = slice(c, c + seq_chunk)
+        total = total + _remat(_chunk_ce_sum, h[:, sl], head,
+                               labels[:, sl], mask[:, sl])
+    return total / denom
+
+
+def loss_fn(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            seq_chunk: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over B*(S-1)), as the JAX package's:
+    the forward runs on the full sequence and the last position is
+    masked out of the loss (:func:`next_token_loss`). An MoE model adds
+    its layers' summed load-balance and z losses (:func:`_trunk`)."""
+    h, aux = _trunk(params, tokens, cfg)
+    loss = next_token_loss(h, _lm_head(params, cfg, h.dtype), tokens,
+                           seq_chunk)
     return loss if aux is None else loss + aux

@@ -1,13 +1,16 @@
-"""Single-device training step for the flagship LM.
+"""Single-device training step, shared by the model families.
 
 Counterpart of ``paddle_tpu/models/train.py`` with ``mesh=None``: the
 state (model-dtype params, f32 master weights and Adam moments), AdamW on
 the master weights, global-norm gradient clipping and the cast back to
-the model dtype. An MoE config trains on the same step: its f32 router
-leaves (``moe_gate``) sit among the model-dtype leaves, and the loss
-carries the experts' load-balance and z losses. The mesh path (dp x
-fsdp x tp, ZeRO-sharded optimizer state, expert-parallel MoE) is not
-ported: see ROADMAP.md, queue A step 8.
+the model dtype. ``model=`` names the model module whose
+``init_params`` and ``loss_fn`` the state and step use (``llama`` by
+default; ``gpt`` and ``ernie`` as in the JAX package). An MoE config
+trains on the same step: its f32 router leaves (``moe_gate``) sit among
+the model-dtype leaves, and the loss carries the experts' load-balance
+and z losses; ERNIE's f32 ``mlm_bias`` sits there the same way. The mesh
+path (dp x fsdp x tp, ZeRO-sharded optimizer state, expert-parallel
+MoE) is not ported for any model: see ROADMAP.md, queue A step 8.
 """
 from __future__ import annotations
 
@@ -43,11 +46,13 @@ def _map(fn: Callable, tree: Dict) -> Dict:
             for name, v in tree.items()}
 
 
-def init_train_state(cfg: llama.LlamaConfig, generator: torch.Generator,
-                     device: DeviceLike = None) -> TrainState:
-    """Random params (``llama.init_params``) with f32 master copies (own
-    storage, also when the model dtype is f32) and zero moments."""
-    params = llama.init_params(cfg, generator, resolve_device(device))
+def init_train_state(cfg, generator: torch.Generator,
+                     device: DeviceLike = None, model=None) -> TrainState:
+    """Random params (``model.init_params``, default ``llama``) with f32
+    master copies (own storage, also when the model dtype is f32) and
+    zero moments."""
+    params = (model or llama).init_params(cfg, generator,
+                                          resolve_device(device))
     master = _map(lambda p: p.float().clone(), params)
     return TrainState(0, params, master,
                       _map(torch.zeros_like, master),
@@ -84,30 +89,36 @@ def clip_and_update(state: TrainState, params: List[torch.Tensor],
     return gnorm
 
 
-def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, lr: float = 3e-4,
+def make_train_step(cfg, mesh=None, *, lr: float = 3e-4,
                     b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                     weight_decay: float = 0.1, grad_clip: float = 1.0,
-                    seq_chunk: Optional[int] = None):
+                    seq_chunk: Optional[int] = None, model=None):
     """Returns ``step(state, tokens) -> (state, {"loss", "grad_norm"})``:
-    gradients of ``llama.loss_fn`` cast to f32, then
+    gradients of ``model.loss_fn`` (default ``llama``) cast to f32, then
     :func:`clip_and_update`. The step updates ``state`` in place and
     returns it (the JAX step donates its state); the metrics stay on the
     device, so a step never waits for the card."""
     if mesh is not None:
-        what = ("expert-parallel MoE training is" if cfg.moe is not None
+        what = ("expert-parallel MoE training is"
+                if getattr(cfg, "moe", None) is not None
                 else "meshes (dp x fsdp x tp) are")
         raise NotImplementedError(
             f"make_train_step: {what} not ported yet — see ROADMAP.md, "
             f"queue A step 8; pass mesh=None")
+
+    mdl = model or llama
 
     def step(state: TrainState, tokens: torch.Tensor):
         params = _leaves(state.params)
         for p in params:
             p.requires_grad_(True)
         try:
-            loss = llama.loss_fn(state.params, tokens, cfg,
-                                 seq_chunk=seq_chunk)
-            grads = torch.autograd.grad(loss, params)
+            loss = mdl.loss_fn(state.params, tokens, cfg,
+                               seq_chunk=seq_chunk)
+            # a leaf the loss does not reach (ERNIE's pooler and NSP
+            # head under the MLM loss) gets zeros, as under jax.grad
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
         finally:
             for p in params:
                 p.requires_grad_(False)

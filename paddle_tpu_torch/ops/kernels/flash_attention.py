@@ -236,9 +236,12 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = False, scale=None):
     """(B, S, H, D) flash attention with a flash backward (B1-B3).
 
-    q: (B, Sq, H, D); k, v: (B, Sk, HK, D) with H a multiple of HK. GQA
-    repeats the kv heads first, as the JAX op does, so autograd sums dK
-    and dV over each group. ``scale`` defaults to ``1/sqrt(D)``."""
+    q: (B, Sq, H, D); k, v: (B, Sk, HK, D) with H a multiple of HK, in
+    any strides (views such as a split qkv projection are made
+    contiguous first; the kernels read contiguous rows). GQA repeats the
+    kv heads first, as the JAX op does, so autograd sums dK and dV over
+    each group. ``scale`` defaults to ``1/sqrt(D)``."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     B, Sq, H, D = q.shape
     hk = k.shape[2]
     if hk != H:

@@ -1549,3 +1549,75 @@ def test_adapter_pool_on_the_card(cuda, kv):
     assert calls["prefill_dispatch"] and calls["decode_dispatch"]
     assert not any(eng.adapters._pins.values())
     assert reqs[3].tokens == plain[3][-6:]      # the base row
+
+
+# ---- GPT-2, ERNIE and the attention functionals (phase 3n's path)
+def _gpt_tiny_bf16():
+    from paddle_tpu_torch.models import gpt as tg
+    return tg, tg.GPTConfig.tiny(hidden_size=128, num_heads=2,
+                                 intermediate_size=256, max_seq_len=256,
+                                 dtype=torch.bfloat16, remat=True)
+
+
+def test_gpt_bf16_on_the_card_against_f32_on_the_cpu(cuda):
+    """A 2-layer GPT at head dim 64, S = 256: the bf16 loss and ``wqkv``
+    gradient through B1-B3 (B1 twice a layer under remat, B2 and B3
+    once) against f32 on the CPU from the same parameters."""
+    import dataclasses
+    tg, cfg = _gpt_tiny_bf16()
+    params = tg.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    host = chip_smoke.f32_cpu(params)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)), dtype=torch.int32)
+    kernels.reset_launch_counts()
+    card = chip_smoke.loss_and_grads(torch, tg, params, tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert kernels.launch_counts() == dict(NONE, B1=2 * L, B2=L, B3=L)
+    ref = chip_smoke.loss_and_grads(
+        torch, tg, host, tokens, dataclasses.replace(cfg, dtype=torch.float32))
+    assert abs(card[0] - ref[0]) <= 2e-3 * abs(ref[0])
+    for n in ("layers/wqkv", "layers/wo"):
+        a, b = card[1][n], ref[1][n]
+        assert ((a - b).norm() / b.norm()).item() <= chip_smoke.SLICE_LEAF_RTOL
+
+
+def test_ernie_mask_on_the_card_equals_the_cpu(cuda):
+    from paddle_tpu_torch.models import ernie as te
+    cfg = te.ErnieConfig.tiny()
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 128)),
+                              dtype=torch.int32)
+        assert torch.equal(te._mlm_mask(tok.to(cuda), cfg).cpu(),
+                           te._mlm_mask(tok, cfg))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_functional_flash_attention_on_the_card(cuda, D, causal):
+    """``nn.functional.flash_attention`` on CUDA ``Tensor``s launches B1
+    once, and B2 and B3 once under ``.backward()``; its output and input
+    gradients hold the row rule against ``backend="xla"`` in f32, which
+    launches nothing."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nn import functional as TF
+    g = torch.Generator(device=cuda).manual_seed(D + causal)
+    q, k, v, do = (torch.randn((1, 256, 2, D), generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    kernels.reset_launch_counts()
+    ts = [ptt.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+    out, _ = TF.flash_attention(*ts, causal=causal)
+    out.backward(ptt.to_tensor(do))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == dict(NONE, B1=1, B2=1, B3=1)
+    kernels.reset_launch_counts()
+    rs = [ptt.to_tensor(t.float(), stop_gradient=False) for t in (q, k, v)]
+    ref, _ = TF.flash_attention(*rs, causal=causal, backend="xla")
+    ref.backward(ptt.to_tensor(do.float()))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == NONE
+    _close(out._value, ref._value.detach(), torch.bfloat16)
+    for t, r in zip(ts, rs):
+        _close(t.grad._value, r.grad._value, torch.bfloat16)
